@@ -7,8 +7,10 @@ Ops dispatch by the device of their tensors: CPU tensors run the plain
 PyTorch versions, CUDA tensors the kernels.
 
 Ported so far: paged TinyGPT serving (``serve.ServingEngine`` over
-``models.TinyGPT``).  Importing this package imports no JAX, builds
-nothing and does not initialise CUDA.
+``models.TinyGPT``), and training the reference MNIST models
+(``train.Trainer`` over ``models.mnist_cnn`` and friends, with ``nn``,
+``losses``, ``optim`` and ``data``).  Importing this package imports no
+JAX, builds nothing and does not initialise CUDA.
 """
 
 __version__ = "0.1.0"

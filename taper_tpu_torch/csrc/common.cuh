@@ -47,6 +47,16 @@ __device__ __forceinline__ float warp_max(float x) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Fused epilogues of the GEMM and convolution kernels; codes shared with
+// ACTIVATIONS in taper_tpu_torch/ops/gemm.py.
+enum Act : int { kNone = 0, kRelu = 1, kSigmoid = 2 };
+
+__device__ __forceinline__ float epilogue(float acc, int act) {
+  if (act == kRelu) return fmaxf(acc, 0.0f);
+  if (act == kSigmoid) return 1.0f / (1.0f + __expf(-acc));
+  return acc;
+}
+
 }  // namespace taper
 
 extern "C" const char* taper_error_string(int code);

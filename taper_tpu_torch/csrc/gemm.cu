@@ -1,16 +1,27 @@
-// Fused linear layer: y[M,N] = act(x[M,K] . w[N,K]^T + b[N]), f32 out.
+// GEMM in the three contraction modes of the TPU kernel, f32 out:
+//   nt  y[M,N] = act(a[M,K] . b[N,K]^T + bias[N])   (linear forward)
+//   nn  y[M,N] = a[M,K] . b[K,N]                    (linear backward dX)
+//   tn  y[M,N] = a[K,M]^T . b[K,N]                  (linear backward dW)
 //
 // Replaces the TPU kernel taper_tpu/ops/pallas/gemm.py::_linear_kernel
-// (launched by _gemm_jit in mode "nt"): f32 accumulation, bias added in
-// f32 after the last K step, then the none/relu/sigmoid epilogue.
+// (launched by _gemm_jit in modes "nt", "nn" and "tn"): f32 accumulation,
+// bias added in f32 after the last K step, then the none/relu/sigmoid
+// epilogue.  As in _MODES (gemm.py:76-80), every operand is read in its
+// natural layout: no transpose is materialised.  Bias and epilogue apply
+// in mode nt only.
 //
 // What bounds it on the H100:
 //   * prefill (M = 512 rows of one padded prompt): tensor-core bound;
 //   * decode (M = 16 slots): memory bound, every weight byte is read once
-//     per step and reused 16 times only.
+//     per step and reused 16 times only;
+//   * the f32 training shapes (M = 256 rows of a batch, K and N of 10 to
+//     784): tiny, so launch and latency bound, not FLOP bound.
 // What the simple design does about that:
-//   * bf16 operands go through the tensor cores with WMMA 16x16x16 tiles
-//     out of shared memory; f32 operands take a plain FMA tile kernel.
+//   * bf16 operands (mode nt only) go through the tensor cores with WMMA
+//     16x16x16 tiles out of shared memory; f32 operands, in all three
+//     modes, take one plain FMA tile kernel whose tile loads follow each
+//     operand's layout (consecutive threads walk the contiguous axis) and
+//     whose inner loop is the same for every mode;
 //   * the bf16 tiles stream through a multi-stage cp.async pipeline, so the
 //     loads of the next K steps are in flight while the current one is
 //     multiplied;
@@ -19,7 +30,8 @@
 //   * ragged M/N/K edges are masked in the kernel (cp.async zero-fill);
 //     nothing is padded in device memory (the TPU version pads to its
 //     block grid).
-// wgmma, TMA and split-K for the skinny decode shapes are later work.
+// wgmma, TMA, split-K for the skinny decode shapes, and bf16 or TF32
+// tensor-core variants of modes nn/tn are later work.
 #include <mma.h>
 
 #include "common.cuh"
@@ -27,14 +39,6 @@
 using namespace nvcuda;
 
 namespace taper {
-
-enum Act : int { kNone = 0, kRelu = 1, kSigmoid = 2 };
-
-__device__ __forceinline__ float epilogue(float acc, int act) {
-  if (act == kRelu) return fmaxf(acc, 0.0f);
-  if (act == kSigmoid) return 1.0f / (1.0f + __expf(-acc));
-  return acc;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core tile kernel
@@ -180,39 +184,54 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA tile kernel (64x64 tile, 256 threads, 4x4 outputs each)
+// f32 FMA tile kernel (64x64 tile, 256 threads, 4x4 outputs each), all modes
 // ---------------------------------------------------------------------------
 
+// A_MK: a is [M, K] (modes nt, nn), else [K, M] (tn).
+// B_NK: b is [N, K] (mode nt), else [K, N] (nn, tn).
+template <bool A_MK, bool B_NK>
 __global__ void __launch_bounds__(256)
-    linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ y,
-                      int M, int N, int K, int act) {
+    gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ bias, float* __restrict__ y,
+                    int M, int N, int K, int act) {
   constexpr int BM = 64, BN = 64, BK = 16;
-  __shared__ float As[BK][BM + 1];  // transposed: As[k][m]
+  __shared__ float As[BK][BM + 1];  // As[k][m]
   __shared__ float Bs[BK][BN + 1];  // Bs[k][n]
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4] = {};
 
   for (int k0 = 0; k0 < K; k0 += BK) {
+    // BM * BK == BN * BK: one pass loads one element of each tile.
     for (int e = threadIdx.x; e < BM * BK; e += 256) {
-      int r = e / BK, kk = e % BK;  // consecutive threads walk along K
-      int gm = m0 + r, gn = n0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.0f;
-      Bs[kk][r] = (gn < N && gk < K) ? w[(size_t)gn * K + gk] : 0.0f;
+      // Consecutive threads walk each operand's contiguous axis.
+      if (A_MK) {
+        int r = e / BK, kk = e % BK, gm = m0 + r, gk = k0 + kk;
+        As[kk][r] = (gm < M && gk < K) ? a[(size_t)gm * K + gk] : 0.0f;
+      } else {
+        int r = e % BM, kk = e / BM, gm = m0 + r, gk = k0 + kk;
+        As[kk][r] = (gm < M && gk < K) ? a[(size_t)gk * M + gm] : 0.0f;
+      }
+      if (B_NK) {
+        int c = e / BK, kk = e % BK, gn = n0 + c, gk = k0 + kk;
+        Bs[kk][c] = (gn < N && gk < K) ? b[(size_t)gn * K + gk] : 0.0f;
+      } else {
+        int c = e % BN, kk = e / BN, gn = n0 + c, gk = k0 + kk;
+        Bs[kk][c] = (gn < N && gk < K) ? b[(size_t)gk * N + gn] : 0.0f;
+      }
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
+      float av[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -257,9 +276,31 @@ extern "C" int taper_linear(const void* x, const void* w, const void* bias,
     }
   } else if (dtype == kFloat32) {
     dim3 grid((N + 63) / 64, (M + 63) / 64);
-    linear_f32_kernel<<<grid, 256, 0, s>>>(
+    gemm_f32_kernel<true, true><<<grid, 256, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(bias), static_cast<float*>(y), M, N, K, act);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Modes nn (1) and tn (2) of the contraction, f32 operands, no bias or
+// epilogue; mode codes shared with MODES in taper_tpu_torch/ops/gemm.py.
+extern "C" int taper_gemm(const void* a, const void* b, void* y, int M,
+                          int N, int K, int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  auto ap = static_cast<const float*>(a);
+  auto bp = static_cast<const float*>(b);
+  auto yp = static_cast<float*>(y);
+  dim3 grid((N + 63) / 64, (M + 63) / 64);
+  if (mode == 1) {
+    gemm_f32_kernel<true, false><<<grid, 256, 0, s>>>(ap, bp, nullptr, yp, M,
+                                                      N, K, kNone);
+  } else if (mode == 2) {
+    gemm_f32_kernel<false, false><<<grid, 256, 0, s>>>(ap, bp, nullptr, yp,
+                                                       M, N, K, kNone);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -2,9 +2,10 @@
 
 Pallas compiles a kernel on its first call; the port does the same for the
 whole kernel library.  The first call that needs a kernel compiles every
-``csrc/*.cu`` with ``nvcc`` into one shared library with a plain C
-interface, under ``build/taper_tpu_torch/`` at the root of the checkout,
-and loads it with ``ctypes``.  The library's name carries a hash of the
+``csrc/*.cu`` with ``nvcc``, one process per source, all started together,
+links the objects into one shared library with a plain C interface, under
+``build/taper_tpu_torch/`` at the root of the checkout, and loads it with
+``ctypes``.  The library's name carries a hash of the
 sources and the flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is.  Nothing here runs at import time.
 
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "taper_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # register/spill report, kept next to the library
               "-Xptxas", "-v")
 
@@ -39,6 +40,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, bias, y, M, N, K, dtype, act, stream
     "taper_linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, y, M, N, K, mode, stream
+    "taper_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, bias, y, N, C, H, W, O, kh, kw, ph, pw, act, stream
+    "taper_conv_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    # x, g, part, dw, N, C, H, W, O, kh, kw, ph, pw, splits, stream
+    "taper_conv_dw": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    # x, y, planes, H, W, kh, kw, mode, stream
+    "taper_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, H, Hkv, S, D, scale, causal, dtype, stream
     "taper_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k_pool, v_pool, tables, lengths, o, B, kvh, G, D, bs, mb, scale,
@@ -77,16 +86,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o",
+                          str(obj)] for src, obj in zip(sources, objs))]
+    report, failed = [], []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        report.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    tmp = out.with_name(f"{tag}.so.tmp")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(report))
+        os.replace(tmp, out)   # atomic: a concurrent builder sees all or none
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)       # atomic: a concurrent builder sees all or none
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

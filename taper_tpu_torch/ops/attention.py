@@ -8,9 +8,11 @@
 ``h // (H // Hkv)``).  Softmax statistics are f32 at any input dtype; the
 output has ``q``'s dtype.
 
-CPU tensors run :func:`attention_reference`; CUDA tensors run the kernel
-of ``csrc/flash_fwd.cu`` at every shape it takes (f32 or bf16, D of 64 or
-128, any S).  The JAX package's S >= 1024 crossover to its kernel was
+CPU tensors run :func:`attention_reference`, which autograd
+differentiates; CUDA tensors run the kernel of ``csrc/flash_fwd.cu`` at
+every shape it takes (f32 or bf16, D of 64 or 128, any S).  The flash
+backward kernels come with M2: until then a CUDA input that requires grad
+under grad mode raises rather than return a detached result.  The JAX package's S >= 1024 crossover to its kernel was
 measured on a TPU and is not inherited.  Sliding windows, segment ids,
 q/k offsets and the logsumexp output are not ported yet.
 """
@@ -69,6 +71,7 @@ def attention(q, k, v, *, causal=False, scale=None):
                          f"got {d}")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError("attention: q, k and v must share one dtype")
+    backend.refuse_grad("attention", q, k, v)
     backend.check_kernel_args("attention", q, k, v, dtypes=_build.DTYPES)
     o = torch.empty_like(q)
     code = _build.library().taper_flash_fwd(

@@ -22,7 +22,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-KERNELS = ("linear", "flash_fwd", "paged_decode")
+# Launch counters, one per kernel wrapper: "linear" is K1 in mode nt,
+# "gemm_nn"/"gemm_tn" the backward modes; "conv_fwd" counts K3a launches
+# (forward and input gradient), "conv_dw" K3b, "pool" K4.
+KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "paged_decode",
+           "conv_fwd", "conv_dw", "pool")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -50,6 +54,18 @@ def on_cuda(*tensors) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward kernel would be recorded
+    for autograd: a detached result would make the loss's gradient
+    silently wrong.  The plain versions on the CPU stay differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet (it comes with "
+            f"M2, the TinyGPT training step); run it under torch.no_grad() "
+            f"or on tensors that do not require grad")
 
 
 def check_kernel_args(name: str, *tensors, dtypes=None) -> None:

@@ -16,7 +16,8 @@ the JAX engine donates the pool buffers to its jitted programs
 
 CPU tensors run :func:`paged_decode_reference` (``_xla_paged``'s
 gather-then-attend); CUDA tensors run the kernel of
-``csrc/paged_decode.cu``.  f32 and bf16 pools are ported; int8 pools with
+``csrc/paged_decode.cu``, and raise where an input requires grad under
+grad mode (decode has no backward; a detached result would be silent).  f32 and bf16 pools are ported; int8 pools with
 per-position scales are not yet.
 """
 
@@ -116,6 +117,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *, scale):
                          "dtype (int8 pools are not ported yet)")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("paged attention: tables and lengths must be int32")
+    backend.refuse_grad("paged attention", q, k_pool, v_pool)
     backend.check_kernel_args("paged attention", q, k_pool, v_pool,
                               dtypes=_build.DTYPES)
     backend.check_kernel_args("paged attention", tables, lengths)
