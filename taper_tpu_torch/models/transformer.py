@@ -6,7 +6,12 @@ blocks, final norm, tied or untied LM head.  ``compute_dtype`` runs the
 trunk in that dtype; parameters, normalisation statistics, the softmax
 and the logits stay f32.
 
-Not ported yet: training (``loss``, remat, dropout, MoE, windows) and
+``loss`` trains it: the naive branch of the JAX package's ``TinyGPT.loss``
+(full logits, then the masked next-token loss), through the port's
+kernels and autograd.
+
+Not ported yet: remat, dropout, MoE, windows and the fused
+vocab-chunked loss (their arguments raise ``NotImplementedError``), and
 the contiguous-cache generation paths (``generate``, ``decode_step``,
 ``decode_chunk``, beam search, speculative decoding).
 """
@@ -19,9 +24,16 @@ from typing import Optional
 import torch
 from torch import nn
 
+from taper_tpu_torch.data.seq import masked_token_loss
 from taper_tpu_torch.nn.transformer import (
     Embedding, LayerNorm, RMSNorm, TransformerBlock)
 from taper_tpu_torch.ops.paged_attention import paged_write_prefill
+from taper_tpu_torch.utils import not_ported
+
+# TinyGPT.loss takes the naive branch (full [B, S, vocab] logits) up to
+# this many logits, as JAX does (models/transformer.py:291-292); beyond
+# it JAX streams the fused vocab-chunked loss, which is not ported
+NAIVE_LOSS_MAX = 2 ** 28
 
 
 def _filter_logits(logits, temperature, top_k=None, top_p=None):
@@ -60,10 +72,19 @@ class TinyGPT(nn.Module):
     def __init__(self, vocab_size: int, dim: int = 128, depth: int = 2,
                  num_heads: int = 2, max_seq: int = 256,
                  mlp_ratio: int = 4, tied_head: bool = True,
-                 rope: bool = False, num_kv_heads: Optional[int] = None,
+                 dropout: float = 0.0, rope: bool = False,
+                 num_kv_heads: Optional[int] = None,
+                 n_experts: int = 0, top_k: int = 2,
+                 capacity_factor: Optional[float] = None,
+                 window: Optional[int] = None,
                  compute_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False,
                  norm: str = "layer", mlp_act: str = "gelu"):
         super().__init__()
+        not_ported("TinyGPT", dropout=dropout != 0.0,
+                   n_experts=n_experts != 0, top_k=top_k != 2,
+                   capacity_factor=capacity_factor is not None,
+                   window=window is not None, remat=remat)
         self.vocab_size = vocab_size
         self.dim = dim
         self.depth = depth
@@ -142,6 +163,25 @@ class TinyGPT(nn.Module):
     def forward(self, tokens):
         """Logits ``[B, S, vocab]`` (JAX's ``TinyGPT.apply``)."""
         return self._logits(self.hidden(tokens))
+
+    def loss(self, tokens, targets, mask, z_loss: float = 0.0, chunk=None):
+        """Masked next-token loss and accuracy, ``(loss, acc)`` as 0-d
+        tensors (JAX ``models/transformer.py:259-309``).  ``targets``
+        ``[B, S]``, ``mask`` ``[S]`` or ``[B, S]``; ``z_loss`` adds
+        ``z_loss * mean(logsumexp^2)`` over the masked positions.  JAX takes
+        the naive branch (full logits) where ``B * S * vocab <=
+        2^28`` or ``chunk == 0``, and the fused vocab-chunked loss beyond
+        or for an explicit ``chunk``; the port has the naive branch only,
+        and the fused one raises until ``fused_linear_cross_entropy`` is
+        ported."""
+        b, s = tokens.shape
+        if not (chunk == 0 or (chunk is None and
+                               b * s * self.vocab_size <= NAIVE_LOSS_MAX)):
+            raise NotImplementedError(
+                "TinyGPT.loss: the fused vocab-chunked loss "
+                "(fused_linear_cross_entropy) is not ported to "
+                "taper_tpu_torch yet (ROADMAP.md, Queue 1)")
+        return masked_token_loss(self(tokens), targets, mask, z_loss=z_loss)
 
     def prefill(self, prompt):
         """Whole prompt ``[B, P]`` in one forward (flash attention).

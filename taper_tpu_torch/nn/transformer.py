@@ -1,5 +1,5 @@
 """Transformer building blocks: port of ``taper_tpu/nn/transformer.py``,
-the part paged serving runs.
+the part that paged serving and training run.
 
 Modules are ``torch.nn.Module``s whose parameter names mirror the JAX
 parameter tree (``wq``, ``bq``, ..., ``g``, ``b``), so one tree moves
@@ -10,8 +10,8 @@ cast once, ahead of serving).  Normalisation statistics and the softmax
 stay f32.
 
 Not ported yet: dropout, sliding windows, segment ids and per-token
-positions, the ``[B, S, H*D]`` attention layout, MoE, LoRA and quantized
-weights, and the contiguous-cache decode helpers.
+positions, MoE, LoRA and quantized weights, and the contiguous-cache
+decode helpers; their constructor arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from torch import nn
 from taper_tpu_torch import ops
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_write)
+from taper_tpu_torch.utils import not_ported
 
 
 class LayerNorm(nn.Module):
@@ -116,16 +117,35 @@ def apply_rope(x, cos, sin, offset=0):
     return torch.cat([x1 * c - x2 * si, x2 * c + x1 * si], dim=-1)
 
 
+def apply_rope_bshd(x, cos, sin, n_heads, offset=0):
+    """Rotate ``x [B, S, H*D]`` by position: the projection-layout twin of
+    :func:`apply_rope` (the ``[B, S, H, D]`` view is a reshape, not a
+    copy).  ``offset``: an int shifts the table."""
+    b, s, e = x.shape
+    half = e // n_heads // 2
+    x4 = x.reshape(b, s, n_heads, 2 * half)
+    c = cos[offset:offset + s][None, :, None].to(x.dtype)
+    si = sin[offset:offset + s][None, :, None].to(x.dtype)
+    x1, x2 = x4[..., :half], x4[..., half:]
+    out = torch.cat([x1 * c - x2 * si, x2 * c + x1 * si], dim=-1)
+    return out.reshape(b, s, e)
+
+
 class MultiHeadAttention(nn.Module):
-    """Multi-head self-attention over ``ops.attention`` (the flash kernel
-    on CUDA tensors).  Input ``[B, S, E]``; GQA when ``num_kv_heads`` is
-    smaller than ``num_heads``."""
+    """Multi-head self-attention over the flash kernels (on CUDA tensors).
+    Input ``[B, S, E]``; GQA when ``num_kv_heads`` is smaller than
+    ``num_heads``.  ``forward`` keeps a head dim that is a multiple of 128
+    in the projections' ``[B, S, H*D]`` layout end to end
+    (``ops.attention_bshd``, as JAX's ``nn/transformer.py:205-225``), and
+    transposes to ``[B, H, S, D]`` otherwise."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
                  init_std: float = 0.02,
                  out_init_std: Optional[float] = None, rope: bool = False,
-                 max_seq: int = 4096, num_kv_heads: Optional[int] = None):
+                 max_seq: int = 4096, num_kv_heads: Optional[int] = None,
+                 window: Optional[int] = None):
         super().__init__()
+        not_ported("MultiHeadAttention", window=window is not None)
         self.num_kv_heads = num_heads if num_kv_heads is None \
             else num_kv_heads
         if dim % num_heads or num_heads % self.num_kv_heads:
@@ -189,8 +209,23 @@ class MultiHeadAttention(nn.Module):
         return _proj(o2, self.wo, self.bo).reshape(b, s, h * d)
 
     def forward(self, x):
-        q, k, v = self._qkv_heads(x)
-        return self._out(ops.attention(q, k, v, causal=self.causal))
+        if self.head_dim % 128:
+            q, k, v = self._qkv_heads(x)
+            return self._out(ops.attention(q, k, v, causal=self.causal))
+        # the transpose-free path: [B, S, H*D] from the projections to the
+        # output projection
+        b, s, e = x.shape
+        x2 = x.reshape(b * s, e)
+        q = _proj(x2, self.wq, self.bq).reshape(b, s, e)
+        k = _proj(x2, self.wk, self.bk).reshape(b, s, self.kv_dim)
+        v = _proj(x2, self.wv, self.bv).reshape(b, s, self.kv_dim)
+        if self.rope:
+            q = apply_rope_bshd(q, self.rope_cos, self.rope_sin,
+                                self.num_heads)
+            k = apply_rope_bshd(k, self.rope_cos, self.rope_sin,
+                                self.num_kv_heads)
+        o = ops.attention_bshd(q, k, v, self.num_heads, causal=self.causal)
+        return _proj(o.reshape(b * s, e), self.wo, self.bo).reshape(b, s, e)
 
     def prefill(self, x):
         """Prompt prefill (``mha_apply_prefill``): one flash attention
@@ -279,11 +314,19 @@ class TransformerBlock(nn.Module):
     """Pre-LN block: ``x + MHA(LN(x))`` then ``x + FFN(LN(x))``."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
-                 mlp_ratio: int = 4, init_std: float = 0.02,
+                 mlp_ratio: int = 4, dropout: float = 0.0,
+                 init_std: float = 0.02,
                  out_init_std: Optional[float] = None, rope: bool = False,
                  max_seq: int = 4096, num_kv_heads: Optional[int] = None,
+                 n_experts: int = 0, top_k: int = 2,
+                 window: Optional[int] = None,
+                 capacity_factor: Optional[float] = None,
                  norm: str = "layer", mlp_act: str = "gelu"):
         super().__init__()
+        not_ported("TransformerBlock", dropout=dropout != 0.0,
+                   n_experts=n_experts != 0, top_k=top_k != 2,
+                   window=window is not None,
+                   capacity_factor=capacity_factor is not None)
         if norm not in ("layer", "rms") or mlp_act not in ("gelu", "swiglu"):
             raise ValueError(f"norm {norm!r} (layer|rms) or mlp_act "
                              f"{mlp_act!r} (gelu|swiglu) unknown")

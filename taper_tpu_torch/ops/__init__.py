@@ -4,14 +4,13 @@ hand-written CUDA kernel on CUDA tensors and its plain PyTorch version on
 CPU tensors (``ops/backend.py``), and is differentiable on both.
 
 Not ported yet: the elementwise ops (K2, the next slice), quantized
-weights, ``attention_bshd``, and the sliding-window and segment arguments
-of ``attention``.
+weights, and the sliding-window and segment arguments of ``attention``.
 """
 
 from __future__ import annotations
 
 from taper_tpu_torch.ops import gemm as _gemm
-from taper_tpu_torch.ops.attention import attention
+from taper_tpu_torch.ops.attention import attention, attention_bshd
 from taper_tpu_torch.ops.conv import conv2d, conv2d_relu
 from taper_tpu_torch.ops.gemm import matmul
 from taper_tpu_torch.ops.pool import avg_pool2d, max_pool2d
@@ -24,4 +23,4 @@ def linear(x, w, b=None, *, activation=None):
 
 
 __all__ = ["linear", "matmul", "conv2d", "conv2d_relu", "max_pool2d",
-           "avg_pool2d", "attention"]
+           "avg_pool2d", "attention", "attention_bshd"]

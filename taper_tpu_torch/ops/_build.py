@@ -40,16 +40,25 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, bias, y, M, N, K, dtype, act, stream
     "taper_linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a, b, y, M, N, K, mode, stream
-    "taper_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, y, M, N, K, mode, dtype, stream
+    "taper_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, bias, y, N, C, H, W, O, kh, kw, ph, pw, act, stream
     "taper_conv_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # x, g, part, dw, N, C, H, W, O, kh, kw, ph, pw, splits, stream
     "taper_conv_dw": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # x, y, planes, H, W, kh, kw, mode, stream
     "taper_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, B, H, Hkv, S, D, scale, causal, dtype, stream
-    "taper_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, lse, B, H, Hkv, S, D, scale, causal, layout, dtype, stream
+    "taper_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, lse, kn, pred, bound_count, B, H, Hkv, S, D, scale,
+    # layout, stream
+    "taper_flash_fwd_bound": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, o, do, lse, dq, delta, B, H, Hkv, S, D, scale, causal,
+    # layout, dtype, stream
+    "taper_flash_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # q, k, v, do, lse, delta, dk, dv, B, H, Hkv, S, D, scale, causal,
+    # layout, dtype, stream
+    "taper_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
     # q, k_pool, v_pool, tables, lengths, o, B, kvh, G, D, bs, mb, scale,
     # dtype, stream
     "taper_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

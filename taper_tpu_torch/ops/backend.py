@@ -23,11 +23,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # Launch counters, one per kernel wrapper: "linear" is K1 in mode nt,
-# "gemm_nn"/"gemm_tn" the backward modes; "conv_fwd" counts K3a launches
-# (forward and input gradient), "conv_dw" K3b, "pool" K4.
-KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "paged_decode",
-           "conv_fwd", "conv_dw", "pool")
+# "gemm_nn"/"gemm_tn" the backward modes; "flash_fwd" counts the exact
+# flash forward K5 (f32 or non-causal inputs), "flash_fwd_bound" the
+# bound-max forward K8 (bf16 causal inputs, whichever arm its device
+# predicate takes), "flash_dq"/"flash_dkv" the backward K6/K7;
+# "paged_decode" K16; "conv_fwd" counts K3a launches (forward and input
+# gradient), "conv_dw" K3b, "pool" K4.
+KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
+           "flash_dq", "flash_dkv", "paged_decode", "conv_fwd", "conv_dw",
+           "pool")
 _launches = dict.fromkeys(KERNELS, 0)
+# K8 launches that took the bound arm, counted by the kernel itself on the
+# device (the arm is decided there), one int32 counter per device
+_bound_arm = {}
 
 
 def count_launch(name: str) -> None:
@@ -42,6 +50,23 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    for counter in _bound_arm.values():
+        counter.zero_()
+
+
+def bound_arm_counter(device) -> torch.Tensor:
+    """The device counter that K8 launches on ``device`` add to when they
+    take the bound arm."""
+    device = torch.device(device)
+    if device not in _bound_arm:
+        _bound_arm[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _bound_arm[device]
+
+
+def bound_arm_count() -> int:
+    """K8 launches that took the bound arm since the last
+    :func:`reset_launch_counts`: one read from each device (a host sync)."""
+    return sum(int(c.item()) for c in _bound_arm.values())
 
 
 def on_cuda(*tensors) -> bool:
@@ -63,9 +88,9 @@ def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (it comes with "
-            f"M2, the TinyGPT training step); run it under torch.no_grad() "
-            f"or on tensors that do not require grad")
+            f"{name}: the CUDA kernel has no backward (the JAX package has "
+            f"none either); run it under torch.no_grad() or on tensors "
+            f"that do not require grad")
 
 
 def check_kernel_args(name: str, *tensors, dtypes=None) -> None:

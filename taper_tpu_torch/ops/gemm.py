@@ -22,9 +22,8 @@ whose backward follows the JAX VJPs: the cotangent is masked by ``y > 0``
 ``dX = g . W`` in mode nn and ``dW = g^T . X`` in mode tn.
 
 CPU tensors run the plain versions (:func:`linear_reference`,
-:func:`gemm_reference`); CUDA tensors run the kernels of ``csrc/gemm.cu``:
-mode nt in f32 or bf16, modes nn and tn in f32 (their bf16 variants come
-with M2 and raise until then).
+:func:`gemm_reference`); CUDA tensors run the kernels of ``csrc/gemm.cu``,
+every mode in f32 or bf16.
 """
 
 from __future__ import annotations
@@ -134,14 +133,13 @@ def gemm(a, b, mode: str):
         return _nt(a, b, None, "none")
     if not backend.on_cuda(a, b):
         return gemm_reference(a, b, mode)
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError(f"gemm {mode}: the kernel takes f32 operands; the "
-                         f"bf16 variant of modes nn/tn comes with M2")
-    backend.check_kernel_args(f"gemm {mode}", a, b)
+    if a.dtype != b.dtype:
+        raise ValueError(f"gemm {mode}: operands must share one dtype")
+    backend.check_kernel_args(f"gemm {mode}", a, b, dtypes=_build.DTYPES)
     y = torch.empty((m, n), dtype=torch.float32, device=a.device)
     code = _build.library().taper_gemm(
         a.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, MODES[mode],
-        _build.stream(a))
+        _build.DTYPES[a.dtype], _build.stream(a))
     _build.check(code, f"gemm {mode}")
     backend.count_launch(f"gemm_{mode}")
     return y
@@ -155,7 +153,8 @@ class _Linear(torch.autograd.Function):
         y = _nt(x, w, b, activation)
         ctx.activation = activation
         ctx.bias_dtype = None if b is None else b.dtype
-        ctx.save_for_backward(x, w, y)
+        # the output is kept only where the epilogue's gradient reads it
+        ctx.save_for_backward(x, w, None if activation == "none" else y)
         return y
 
     @staticmethod

@@ -60,11 +60,13 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update of every bound parameter from its ``.grad``."""
-        if any(p.grad is None for p in self.params):
-            raise RuntimeError("optimizer step with a parameter that has no "
-                               "gradient")
-        self._update([p.grad for p in self.params])
+        """One update of every bound parameter from its ``.grad``.  A
+        parameter that the loss did not reach (``.grad`` is None, as for
+        TinyGPT's position table under RoPE) takes a zero gradient, as the
+        leaf of JAX's ``value_and_grad`` does: weight decay still moves
+        it."""
+        self._update([torch.zeros_like(p) if p.grad is None else p.grad
+                      for p in self.params])
 
     def _update(self, grads) -> None:
         raise NotImplementedError

@@ -30,6 +30,7 @@ import torch
 
 from taper_tpu_torch import losses as L
 from taper_tpu_torch import optim as opt_mod
+from taper_tpu_torch.utils import not_ported
 
 
 @dataclass
@@ -57,21 +58,14 @@ class Metrics:
               f"{self.epoch_times[-1]:.2f}s")
 
 
-def _not_ported(**args) -> None:
-    for name, value in args.items():
-        if value:
-            raise NotImplementedError(
-                f"Trainer: {name} is not ported to taper_tpu_torch yet "
-                f"(ROADMAP.md, Queue 1)")
-
-
 class Trainer:
     """Owns a model and its optimizer on one device.
 
     The constructor draws the model's parameters from a generator seeded
     with ``seed`` (as the JAX Trainer calls ``model.init`` with its seed's
-    key), moves the model to ``device`` (CUDA when available, else the
-    CPU) and binds the optimizer to its parameters.
+    key), moves the model to ``device`` (the card by default; without one
+    the constructor raises unless ``device="cpu"`` asks for the CPU) and
+    binds the optimizer to its parameters.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -81,10 +75,16 @@ class Trainer:
                  device=None, mesh=None,
                  tensor_parallel: bool = False, zero1: bool = False,
                  augment: Optional[Callable] = None):
-        _not_ported(mesh=mesh is not None, tensor_parallel=tensor_parallel,
-                    zero1=zero1, augment=augment is not None)
+        not_ported("Trainer", mesh=mesh is not None,
+                   tensor_parallel=tensor_parallel, zero1=zero1,
+                   augment=augment is not None)
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Trainer: no CUDA device; the Trainer runs on the card "
+                    "unless asked otherwise, so pass device=\"cpu\" to "
+                    "train on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         self.model = model
         self.optimizer = optimizer
@@ -154,7 +154,7 @@ class Trainer:
         of the validation split, the scheduler step (fed the validation
         loss) and the early stop once validation accuracy exceeds
         ``early_stop_acc``."""
-        _not_ported(checkpoint_path=checkpoint_path, resume=resume)
+        not_ported("Trainer", checkpoint_path=checkpoint_path, resume=resume)
         ti, tl = self._to_device(train_images, train_labels)
         vi, vl = self._to_device(val_images, val_labels)
         n, nv = len(tl), len(vl)

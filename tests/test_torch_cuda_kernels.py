@@ -22,20 +22,37 @@ Tolerances, by the operands' dtype:
   * bf16 attention: 2e-2; the kernel rounds the running-max-relative
     softmax weights to bf16 where the plain version rounds the normalised
     ones, and the bf16 output itself keeps 8 bits.
+  * logsumexp: 1e-4 (f32 on both sides from the same scores; 1e-3 for bf16
+    inputs, whose bound arm sums weights shifted far below 1).
+  * flash backward: 1e-4 in f32.  bf16, against the plain backward in f32
+    on the same bf16 inputs (the kernels round the weights and ds to bf16
+    before their products, as JAX does, and round their outputs): each
+    (batch, head, 64-row tile) within 1e-2 relative L2 of its own norm,
+    plus 1e-5 per entry (RMS) for a tile whose gradient is ~0.  The
+    gradients are heavy-tailed along S, so a bound on the whole tensor
+    would not see a late tile gone wrong; a planted fault shows it does.
 """
+
+import importlib
+import shutil
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from taper_tpu_torch import losses
 from taper_tpu_torch.models import mnist_cnn
-from taper_tpu_torch.ops import backend
+from taper_tpu_torch.ops import _build, backend
 from taper_tpu_torch.ops import conv_direct as CD
 from taper_tpu_torch.ops import gemm as G
 from taper_tpu_torch.ops import paged_attention as PA
 from taper_tpu_torch.ops import pool as PL
 from taper_tpu_torch.ops.attention import attention, attention_reference
 from taper_tpu_torch.ops.conv import conv2d
+
+# the module itself: ops/__init__.py re-exports its function "attention"
+# under the same name
+A = importlib.import_module("taper_tpu_torch.ops.attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +104,10 @@ def test_flash_kernel_matches_plain(dev, b, h, hkv, s, d, causal, dtype):
     backend.reset_launch_counts()
     o = attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert backend.launch_counts()["flash_fwd"] == 1
+    # bf16 causal inputs take the bound-max kernel K8, as in JAX
+    bound = dtype == torch.bfloat16 and causal
+    assert backend.launch_counts()[
+        "flash_fwd_bound" if bound else "flash_fwd"] == 1
     assert o.dtype == dtype
     _close(o, attention_reference(q, k, v, causal=causal), dtype, 2e-2)
 
@@ -184,10 +204,238 @@ def test_gemm_mode_kernel_matches_plain(dev, mode, m, n, k):
     _close(y, G.gemm_reference(a, b, mode), torch.float32, None)
 
 
-def test_gemm_backward_modes_refuse_bf16(dev):
-    a = torch.zeros(4, 8, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="M2"):
-        G.gemm(a, torch.zeros(8, 3, device=dev, dtype=torch.bfloat16), "nn")
+@pytest.mark.parametrize("mode", ["nn", "tn"])
+@pytest.mark.parametrize("m,n,k", [
+    (16384, 1024, 1024), (16384, 1024, 4096), (1024, 4096, 16384),
+    (300, 200, 136), (5, 19, 37), (33, 70, 130)])
+def test_gemm_mode_kernel_matches_plain_bf16(dev, mode, m, n, k):
+    """Modes nn/tn on bf16 operands (the transformer's backward): f32
+    out, against the plain f32 product of the same bf16 values."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = _randn(gen, *((m, k) if mode == "nn" else (k, m)),
+               dtype=torch.bfloat16).to(dev)
+    b = _randn(gen, k, n, dtype=torch.bfloat16, scale=k ** -0.5).to(dev)
+    backend.reset_launch_counts()
+    y = G.gemm(a, b, mode)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[f"gemm_{mode}"] == 1
+    assert tuple(y.shape) == (m, n) and y.dtype == torch.float32
+    _close(y, G.gemm_reference(a, b, mode), torch.bfloat16, 2e-4)
+
+
+def _attn_inputs(dev, b, h, hkv, s, d, dtype, layout, seed):
+    gen = torch.Generator().manual_seed(seed)
+    shapes = ([(b, h, s, d), (b, hkv, s, d)] if layout == "bhsd"
+              else [(b, s, h * d), (b, s, hkv * d)])
+    q = _randn(gen, *shapes[0], dtype=dtype).to(dev)
+    k = _randn(gen, *shapes[1], dtype=dtype).to(dev)
+    v = _randn(gen, *shapes[1], dtype=dtype).to(dev)
+    do = _randn(gen, *shapes[0], dtype=dtype).to(dev)
+    return q, k, v, do
+
+
+def _bhsd(x, layout, d):
+    return x if layout == "bhsd" else A._to_bhsd(x, 1, d)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (2, 4, 2, 70, 64), (1, 8, 8, 256, 128), (1, 4, 1, 129, 128),
+    (2, 2, 2, 1, 64)])
+def test_flash_fwd_exact_and_lse_match_plain(dev, b, h, hkv, s, d, causal,
+                                             dtype, layout):
+    q, k, v, _ = _attn_inputs(dev, b, h, hkv, s, d, dtype, layout, s + d)
+    heads = None if layout == "bhsd" else h
+    backend.reset_launch_counts()
+    o, lse = A.flash_fwd_exact(q, k, v, causal=causal, scale=d ** -0.5,
+                               heads=heads)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_fwd"] == 1
+    ref_o, ref_lse = A.attention_lse_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v)), causal=causal)
+    _close(_bhsd(o, layout, d), ref_o, dtype, 2e-2)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("force", [True, False, None])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (2, 8, 8, 512, 128), (1, 4, 2, 200, 64), (1, 4, 1, 65, 128)])
+def test_flash_fwd_bound_matches_plain_on_both_arms(dev, b, h, hkv, s, d,
+                                                    force, layout):
+    q, k, v, _ = _attn_inputs(dev, b, h, hkv, s, d, torch.bfloat16, layout,
+                              s + h)
+    heads = None if layout == "bhsd" else h
+    auto = int(A.bound_predicate(q, k, scale=d ** -0.5, heads=heads)[1])
+    backend.reset_launch_counts()
+    o, lse = A.flash_fwd_bound(q, k, v, scale=d ** -0.5, heads=heads,
+                               force_bound=force)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_fwd_bound"] == 1
+    assert backend.bound_arm_count() == (auto if force is None else force)
+    ref_o, ref_lse = A.attention_lse_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v)), causal=True)
+    _close(_bhsd(o, layout, d), ref_o, torch.bfloat16, 2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("size,arm", [(1.0, 1), (8.0, 0)])
+def test_bound_predicate_picks_the_arm_from_the_envelope(dev, size, arm):
+    """max|q| * scale * log2(e) * max|k| <= 60 takes the bound arm; unit
+    normals at D 64 give ~20, eight times larger ones ~1,200."""
+    gen = torch.Generator().manual_seed(4)
+    q = (_randn(gen, 1, 2, 64, 64) * size).to(torch.bfloat16).to(dev)
+    k = (_randn(gen, 1, 2, 64, 64) * size).to(torch.bfloat16).to(dev)
+    v = _randn(gen, 1, 2, 64, 64, dtype=torch.bfloat16).to(dev)
+    kn, pred = A.bound_predicate(q, k, scale=0.125)
+    assert int(pred.item()) == arm and kn.shape == (2,)
+    backend.reset_launch_counts()
+    o = attention(q, k, v, causal=True)
+    assert backend.launch_counts()["flash_fwd_bound"] == 1
+    assert backend.bound_arm_count() == arm
+    _close(o, attention_reference(q, k, v, causal=True), torch.bfloat16,
+           2e-2)
+
+
+def _bwd_case(dev, b, h, hkv, s, d, dtype, layout, causal, seed=0):
+    q, k, v, do = _attn_inputs(dev, b, h, hkv, s, d, dtype, layout, seed)
+    heads = None if layout == "bhsd" else h
+    scale = d ** -0.5
+    o, lse = A.attention_lse_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v)), causal=causal)
+    o = o if layout == "bhsd" else A._from_bhsd(o, 1)
+    return q, k, v, o.contiguous(), lse, do, heads, scale
+
+
+def _worst_tile(out, ref, tol=1e-2, atol=1e-5, tile=64):
+    """The largest ratio, over the (batch, head, ``tile``-row) tiles of
+    ``[B, H, S, D]`` tensors, of a tile's error norm to ``tol`` times its
+    reference norm plus ``atol`` per entry (RMS): the tiles agree where
+    it is <= 1."""
+    b, h, s, d = ref.shape
+    pad = (0, 0, 0, -s % tile)
+    err = F.pad(out.float() - ref.float(), pad).reshape(b * h, -1, tile * d)
+    ref = F.pad(ref.float(), pad).reshape(b * h, -1, tile * d)
+    bound = tol * ref.norm(dim=-1) + atol * (tile * d) ** 0.5
+    return float((err.norm(dim=-1) / bound).max())
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (2, 4, 2, 70, 64), (1, 8, 8, 256, 128), (1, 4, 1, 129, 128),
+    (1, 2, 2, 1, 64), (1, 8, 8, 2048, 128)])
+def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, d, causal, dtype,
+                                       layout):
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, b, h, hkv, s, d, dtype, layout, causal)
+    backend.reset_launch_counts()
+    grads = A.flash_bwd(q, k, v, o, lse, do, causal=causal, scale=scale,
+                        heads=heads)
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts["flash_dq"] == 1 and counts["flash_dkv"] == 1
+    refs = A.flash_bwd_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v, o)), lse,
+        _bhsd(do, layout, d), causal, scale)
+    for name, g, r, like in zip(("dq", "dk", "dv", "delta"), grads, refs,
+                                (q, k, v, lse)):
+        assert g.dtype == like.dtype, name
+        g = g if name == "delta" else _bhsd(g, layout, d)
+        if dtype == torch.float32 or name == "delta":
+            torch.testing.assert_close(g.float(), r, rtol=1e-4, atol=1e-4)
+        else:
+            assert _worst_tile(g, r) <= 1, (name, _worst_tile(g, r))
+
+
+# Faults planted in a copy of csrc/flash_bwd.cu: (what, the line as it
+# is, the line with the fault).  The first one drops work that only the
+# last rows see, whose gradient is far below the largest entries.
+_FAULTS = [
+    ("K6 skips the last query tile's diagonal KV tile",
+     "const int kv_end = causal ? min(S, q0 + kTile) : S;",
+     "const int kv_end = causal ? min(S - kTile, q0 + kTile) : S;"),
+    ("K6 skips KV tile 0 below the diagonal",
+     "for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {",
+     "for (int kv0 = q0 > 0 ? kTile : 0; kv0 < kv_end; kv0 += kTile) {"),
+    ("K7 skips the last query tile",
+     "for (int q0 = causal ? kv0 : 0; q0 < S; q0 += kTile) {",
+     "for (int q0 = causal ? kv0 : 0; q0 + kTile < S; q0 += kTile) {"),
+    ("K6 skips the diagonal KV tile",
+     "for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {",
+     "for (int kv0 = 0; kv0 + kTile < kv_end; kv0 += kTile) {"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _FAULTS,
+                         ids=[f[0] for f in _FAULTS])
+def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
+                                                 what, line, fault):
+    """The bf16 backward's per-tile check fails a K6 or K7 built with a
+    tile of its work left out, at the 170M model's attention shape (one
+    batch row): the kernels are rebuilt from a copy of csrc with the fault
+    in it.  The whole-tensor bound (2e-2 of the largest |entry|) that the
+    per-tile check replaced is printed beside it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    src = (csrc / "flash_bwd.cu").read_text()
+    assert src.count(line) == 1, what
+    (csrc / "flash_bwd.cu").write_text(src.replace(line, fault))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, 1, 8, 8, 2048, 128, torch.bfloat16, "bshd", True)
+    grads = A.flash_bwd(q, k, v, o, lse, do, causal=True, scale=scale,
+                        heads=heads)
+    refs = A.flash_bwd_reference(
+        *(_bhsd(t, "bshd", 128) for t in (q, k, v, o)), lse,
+        _bhsd(do, "bshd", 128), True, scale)
+    worst = {}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        g = _bhsd(g, "bshd", 128).float()
+        whole = float((g - r).abs().max() / r.abs().max())
+        worst[name] = (_worst_tile(g, r), whole)
+    print(f"{what}: worst tile / its bound, and max error / max |ref| "
+          f"(the whole-tensor bound was 2e-2): {worst}")
+    assert max(t for t, _ in worst.values()) > 1, (what, worst)
+
+
+def test_flash_dkv_is_deterministic(dev):
+    """dK/dV sum each GQA group in a fixed order, without atomics: the
+    same bits every run."""
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, 2, 8, 2, 300, 128, torch.bfloat16, "bshd", True)
+    first = A.flash_bwd(q, k, v, o, lse, do, causal=True, scale=scale,
+                        heads=heads)
+    again = A.flash_bwd(q, k, v, o, lse, do, causal=True, scale=scale,
+                        heads=heads)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bshd_matches_the_transposed_call(dev, dtype):
+    """attention_bshd and attention on the transposed inputs: the same
+    forward and gradients through autograd."""
+    b, h, hkv, s, d = 2, 4, 2, 200, 128
+    q, k, v, do = _attn_inputs(dev, b, h, hkv, s, d, dtype, "bshd", 9)
+    outs = []
+    for transposed in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        if transposed:
+            o = A._from_bhsd(attention(
+                *(A._to_bhsd(t, 1, d).contiguous() for t in leaves),
+                causal=True), 1)
+        else:
+            o = A.attention_bshd(*leaves, h, causal=True)
+        (o.float() * do.float()).sum().backward()
+        outs.append([o.detach()] + [t.grad for t in leaves])
+    for x, y in zip(*outs):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 def _grads(fn, tensors):
@@ -319,19 +567,20 @@ def test_pool_raises_on_what_the_kernel_does_not_take(dev):
         PL.max_pool2d(x, kernel=3, stride=1, padding=1)
 
 
-def test_kernels_without_backward_raise_under_grad(dev):
-    """attention and paged decode have no backward kernel yet (M2): a
-    CUDA input that requires grad raises instead of a detached result."""
+def test_paged_decode_refuses_grad_and_attention_has_a_backward(dev):
+    """Paged decode has no backward kernel (nor has JAX's): a CUDA input
+    that requires grad raises instead of a detached result.  Attention is
+    differentiable through K6/K7."""
     q = torch.zeros(1, 2, 8, 64, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="M2"):
-        attention(q, q, q)
-    with torch.no_grad():
-        attention(q, q, q)
+    backend.reset_launch_counts()
+    attention(q, q, q, causal=True).sum().backward()
+    assert backend.launch_counts()["flash_dq"] == 1
+    assert q.grad is not None and torch.isfinite(q.grad).all()
     qd = torch.zeros(1, 1, 1, 64, device=dev, requires_grad=True)
     pool = torch.zeros(2, 1, 8, 64, device=dev)
     tables = torch.zeros(1, 1, dtype=torch.int32, device=dev)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="M2"):
+    with pytest.raises(RuntimeError, match="no backward"):
         PA.paged_decode_attention(qd, pool, pool, tables, lengths, scale=1.0)
 
 
@@ -355,4 +604,41 @@ def test_cnn_step_on_card_matches_cpu(dev):
     assert abs(l_out - l_ref) <= 1e-5 * abs(l_ref)
     for k in g_ref:
         rel = (g_out[k] - g_ref[k]).norm() / g_ref[k].norm().clamp_min(1e-30)
+        assert rel <= 1e-4, (k, float(rel))
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(dim=256, num_heads=2, rope=True),                 # [B, S, H*D]
+    dict(dim=128, num_heads=2, num_kv_heads=1, rope=False)])  # transposed
+def test_tinygpt_step_on_card_matches_cpu(dev, cfg):
+    """TinyGPT.loss and every parameter's gradient in f32 on the card
+    (K1 all modes, K5, K6, K7) against the plain path on the CPU."""
+    from taper_tpu_torch.models import TinyGPT
+
+    cfg = dict(vocab_size=64, depth=2, max_seq=200, **cfg)
+    cpu = TinyGPT(**cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = TinyGPT(**cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 64, (2, 200), generator=gen)
+    tgts, mask = toks.roll(-1, 1), torch.ones(200)
+    out = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        loss, _ = model.loss(toks.to(d), tgts.to(d), mask.to(d))
+        loss.backward()
+        out.append((loss.item(), {k: p.grad.cpu() for k, p in
+                                  model.named_parameters()
+                                  if p.grad is not None}))
+    (l_ref, g_ref), (l_out, g_out) = out
+    assert abs(l_out - l_ref) <= 1e-5 * abs(l_ref)
+    assert g_out.keys() == g_ref.keys()
+    total = sum(float(g.norm()) ** 2 for g in g_ref.values()) ** 0.5
+    for k in g_ref:
+        if k.endswith("attn.bk") and not cfg["rope"]:
+            # zero in exact arithmetic without rope: rounding noise only
+            assert max(float(g_out[k].norm()),
+                       float(g_ref[k].norm())) <= 1e-6 * total, k
+            continue
+        rel = (g_out[k] - g_ref[k]).norm() / g_ref[k].norm()
         assert rel <= 1e-4, (k, float(rel))

@@ -81,6 +81,39 @@ def test_linear_grads_match_jax_vjp(activation, bias):
                  _jax_grads(ref, arrays, ct))
 
 
+@pytest.mark.parametrize("bias", [True, False])
+def test_bf16_linear_grads_match_jax_vjp(bias):
+    """bf16 operands (the transformer's trunk): f32 output; the cotangent
+    is cast to bf16 before modes nn and tn, whose f32 results are cast back
+    to bf16 (gemm.py:255-272).  Both sides form the same exact products in
+    f32 and differ in summation order, which can move a bf16 rounding by
+    one unit (2^-8): 1e-2."""
+    rng = np.random.default_rng(8)
+    x, w, b = _rand(rng, 24, 64), _rand(rng, 48, 64, scale=0.2), \
+        _rand(rng, 48)
+    ct = _rand(rng, 24, 48)
+    arrays = [x, w, b] if bias else [x, w]
+    port = (lambda *t: G.linear(*t, "none")) if bias else \
+        (lambda *t: G.linear_nb(*t, "none"))
+    ref = (lambda *t: jg.linear(*t, "none")) if bias else \
+        (lambda *t: jg.linear_nb(*t, "none"))
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+              for a in arrays]
+    out = port(*leaves)
+    (out * torch.from_numpy(ct)).sum().backward()
+    ref_out, vjp = jax.vjp(ref, *(jnp.asarray(a, jnp.bfloat16)
+                                  for a in arrays))
+    ref_grads = vjp(jnp.asarray(ct))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               rtol=TOL, atol=TOL)
+    for t, r in zip(leaves, ref_grads):
+        assert t.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(r, np.float32), rtol=1e-2,
+                                   atol=1e-2)
+
+
 def test_relu_grad_masks_where_the_output_is_zero():
     """The relu mask comes from the saved output (y > 0), as the JAX VJP
     takes it, including pre-activations that are exactly 0."""

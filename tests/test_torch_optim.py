@@ -54,6 +54,8 @@ def test_optimizer_matches_jax_over_five_steps(make):
 
 
 def test_optimizer_lr_is_a_field_and_step_needs_grads():
+    """A parameter without a gradient steps on a zero one, as JAX's
+    unused leaf does: plain SGD leaves it, L2 decay still moves it."""
     p = torch.ones(3)
     opt = optim.SGD(0.5).init([p])
     opt.lr = 0.25
@@ -62,8 +64,55 @@ def test_optimizer_lr_is_a_field_and_step_needs_grads():
     assert torch.equal(p, torch.full((3,), 0.75))
     opt.zero_grad()
     assert p.grad is None
-    with pytest.raises(RuntimeError, match="gradient"):
-        opt.step()
+    opt.step()
+    assert torch.equal(p, torch.full((3,), 0.75))
+    q = torch.ones(3)
+    optim.SGD(0.5, weight_decay=0.1).init([q]).step()
+    torch.testing.assert_close(q, torch.full((3,), 0.95))
+
+
+def test_adam_steps_an_unused_leaf_as_jax_does():
+    """A rope TinyGPT builds its position table and never reads it: the
+    port's backward leaves its .grad None, JAX's value_and_grad gives it
+    zeros.  Two Adam steps with L2 decay from the same JAX tree and the
+    same gradients (JAX's, so that the update is compared, not the
+    gradient) move every leaf alike, pos.w included."""
+    import jax
+
+    from taper_tpu import models as jmodels
+    from taper_tpu_torch.models import TinyGPT
+    from taper_tpu_torch.utils.convert import _flatten, load_jax_params
+
+    cfg = dict(vocab_size=16, dim=32, depth=1, num_heads=2, max_seq=8,
+               rope=True)
+    jmodel = jmodels.TinyGPT(**cfg)
+    jp = jmodel.init(jax.random.PRNGKey(0))
+    model = load_jax_params(TinyGPT(**cfg), jax.tree.map(np.asarray, jp))
+    jo, po = jopt.Adam(1e-3, weight_decay=1e-2), optim.Adam(
+        1e-3, weight_decay=1e-2)
+    state = jo.init(jp)
+    po.init(model.parameters())
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        toks = rng.integers(0, 16, (2, 8))
+        tgts, mask = np.roll(toks, -1, 1), np.ones(8, np.float32)
+        grads = jax.grad(lambda p: jmodel.loss(
+            p, jnp.asarray(toks), jnp.asarray(tgts), jnp.asarray(mask))[0])(jp)
+        jp, state = jo.update(grads, state, jp)
+        po.zero_grad()
+        model.loss(*map(torch.from_numpy, (toks, tgts, mask)))[0].backward()
+        assert model.pos.w.grad is None
+        flat = dict(_flatten(jax.tree.map(np.asarray, grads)))
+        for k, p in model.named_parameters():
+            if p.grad is not None:
+                p.grad = torch.from_numpy(flat[k].copy())
+        po.step()
+    ref = dict(_flatten(jax.tree.map(np.asarray, jp)))
+    for k, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    assert not np.array_equal(ref["pos.w"], np.asarray(
+        jmodel.init(jax.random.PRNGKey(0))["pos"]["w"]))
 
 
 @pytest.mark.parametrize("make", [

@@ -147,6 +147,16 @@ def test_trainer_raises_on_what_is_not_ported():
         tr.fit_device(x, y, x, y, 1, batch_size=8, checkpoint_path="c.npz")
 
 
+def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """device=None means the card; without one the Trainer raises and
+    says how to train on the CPU, instead of quietly using it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Trainer(mnist_mlp(), optim.SGD(0.1))
+    assert Trainer(mnist_mlp(), optim.SGD(0.1), device="cpu").device.type \
+        == "cpu"
+
+
 def test_training_path_imports_no_jax():
     code = ("import sys, taper_tpu_torch.train, taper_tpu_torch.data, "
             "taper_tpu_torch.models, taper_tpu_torch.nn, chip_smoke; "
