@@ -9,9 +9,12 @@ PyTorch versions, CUDA tensors the kernels.
 Ported so far: paged TinyGPT serving (``serve.ServingEngine`` over
 ``models.TinyGPT``), training the reference MNIST models
 (``train.Trainer`` over ``models.mnist_cnn`` and friends, with ``nn``,
-``losses``, ``optim`` and ``data``), and training TinyGPT
-(``TinyGPT.loss``; ``examples/train_tinylm.py``).  Importing this package imports no
-JAX, builds nothing and does not initialise CUDA.
+``losses``, ``optim`` and ``data``), training TinyGPT
+(``TinyGPT.loss``; ``examples/train_tinylm.py``), and training ResNet-8
+on CIFAR-10 and the reference's XOR and MNIST-MLP examples
+(``models.resnet8``, ``data.CIFAR10Dataset``, ``data.DataLoader``,
+``Trainer.fit``; ``examples/``).  Importing this package imports no JAX,
+builds nothing and does not initialise CUDA.
 """
 
 __version__ = "0.1.0"

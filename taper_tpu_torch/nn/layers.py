@@ -1,17 +1,23 @@
-"""Core layers: port of ``taper_tpu/nn/layers.py``, the part the MNIST
-models use (Linear, Conv2d, Conv2dReLU, MaxPool2d, AvgPool2d,
-AdaptiveAvgPool2d, Flatten).
+"""Core layers: port of ``taper_tpu/nn/layers.py``: Linear, ReLU,
+Sigmoid, Conv2d (``conv3x3``, ``conv1x1``), Conv2dReLU, MaxPool2d,
+AvgPool2d, AdaptiveAvgPool2d, Flatten, BatchNorm2d and BasicBlock.
 
 Each layer runs the op of ``taper_tpu_torch.ops`` its JAX counterpart
-runs, with the activation fused into the Linear and Conv epilogues.
+runs, with the activation fused into the Linear and Conv epilogues, and
+the ReLU and Sigmoid layers through the elementwise kernel K2.
 Initialisation follows ``layers.py:51-103``: Linear weights uniform in
 ``+-sqrt(2 / fan_in)``, Conv weights uniform in
 ``+-sqrt(2 / fan_in) * sqrt(3)``, biases zero; ``reset_parameters``
 draws them from an explicit ``torch.Generator`` (PyTorch's default
 Kaiming init is not used).
 
-Not ported yet: ReLU and Sigmoid layers (they run the elementwise ops of
-K2), Dropout, BatchNorm2d and BasicBlock.
+BatchNorm's running statistics are buffers (``running_mean``,
+``running_var``), where the JAX package keeps them in the parameter tree
+under ``running_`` names that its optimizers mask out; they follow
+``model.train()`` / ``model.eval()`` as JAX's ``apply_train`` /
+``apply`` do.
+
+Not ported yet: Dropout.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from taper_tpu_torch import ops
@@ -62,6 +69,16 @@ class Linear(nn.Module):
         return ops.linear(x, self.w, self.b, activation=self.activation)
 
 
+class ReLU(nn.Module):
+    def forward(self, x):
+        return ops.relu(x)
+
+
+class Sigmoid(nn.Module):
+    def forward(self, x):
+        return ops.sigmoid(x)
+
+
 class Conv2d(nn.Module):
     """NCHW convolution, weight ``w [out, in/groups, kh, kw]`` (OIHW)."""
 
@@ -97,6 +114,16 @@ class Conv2d(nn.Module):
         return ops.conv2d(x, self.w, self.b, stride=self.stride,
                           padding=self.padding, groups=self.groups,
                           activation=self.activation)
+
+
+def conv3x3(in_ch: int, out_ch: int, stride=1, **kw) -> Conv2d:
+    """3x3 same-padding convolution."""
+    return Conv2d(in_ch, out_ch, 3, stride=stride, padding=1, **kw)
+
+
+def conv1x1(in_ch: int, out_ch: int, stride=1, **kw) -> Conv2d:
+    """1x1 convolution."""
+    return Conv2d(in_ch, out_ch, 1, stride=stride, padding=0, **kw)
 
 
 class Conv2dReLU(Conv2d):
@@ -170,3 +197,80 @@ class Flatten(nn.Module):
 
     def forward(self, x):
         return x.reshape(*x.shape[:self.start_dim], -1)
+
+
+class BatchNorm2d(nn.Module):
+    """Batch norm over NCHW (``layers.py:218-294``): parameters ``scale``
+    and ``bias``, buffers ``running_mean`` and ``running_var``.
+
+    In train mode it normalises with the batch mean and the biased batch
+    variance and moves the running statistics by ``momentum`` toward the
+    batch mean and the Bessel-corrected variance (JAX's ``_unbias``); in
+    eval mode it normalises with the running statistics.  That is
+    ``F.batch_norm``'s convention, which computes it (the JAX package has
+    no kernel for batch norm either)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.scale, self.bias, training=self.training,
+                            momentum=self.momentum, eps=self.eps)
+
+
+class BasicBlock(nn.Module):
+    """conv3x3 (-> BN) -> ReLU (-> conv3x3 (-> BN)), with a residual add
+    when ``residual`` (``layers.py:297-359``): the shortcut is the input,
+    or a 1x1 projection when the stride or the width changes, and the sum
+    goes through a last ReLU.  With ``batchnorm`` the convolutions have no
+    bias.  The ReLUs run K2; the residual ``+`` is a plain add, as JAX's
+    ``y + shortcut`` is."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 residual: bool = False, batchnorm: bool = False):
+        super().__init__()
+        self.residual = residual
+        self.batchnorm = batchnorm
+        self.conv1 = conv3x3(in_ch, out_ch, stride, bias=not batchnorm)
+        self.conv2 = (conv3x3(out_ch, out_ch, bias=not batchnorm)
+                      if residual else None)
+        self.proj = (conv1x1(in_ch, out_ch, stride, bias=False)
+                     if residual and (stride != 1 or in_ch != out_ch)
+                     else None)
+        self.bn1 = BatchNorm2d(out_ch) if batchnorm else None
+        self.bn2 = BatchNorm2d(out_ch) if batchnorm and residual else None
+
+    def reset_parameters(self, generator=None) -> None:
+        for layer in (self.conv1, self.conv2, self.proj, self.bn1,
+                      self.bn2):
+            if layer is not None:
+                layer.reset_parameters(generator)
+
+    def forward(self, x):
+        y = self.conv1(x)
+        if self.bn1 is not None:
+            y = self.bn1(y)
+        y = ops.relu(y)
+        if not self.residual:
+            return y
+        y = self.conv2(y)
+        if self.bn2 is not None:
+            y = self.bn2(y)
+        shortcut = self.proj(x) if self.proj is not None else x
+        return ops.relu(y + shortcut)

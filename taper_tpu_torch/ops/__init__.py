@@ -3,8 +3,8 @@ JAX signatures, NCHW activations and OIHW weights.  Each op runs its
 hand-written CUDA kernel on CUDA tensors and its plain PyTorch version on
 CPU tensors (``ops/backend.py``), and is differentiable on both.
 
-Not ported yet: the elementwise ops (K2, the next slice), quantized
-weights, and the sliding-window and segment arguments of ``attention``.
+Not ported yet: quantized weights, ``ops/tensor_ops.py``, and the
+sliding-window and segment arguments of ``attention``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 from taper_tpu_torch.ops import gemm as _gemm
 from taper_tpu_torch.ops.attention import attention, attention_bshd
 from taper_tpu_torch.ops.conv import conv2d, conv2d_relu
+from taper_tpu_torch.ops.elementwise import (
+    add, div, fma, mul, relu, sigmoid, sub)
 from taper_tpu_torch.ops.gemm import matmul
 from taper_tpu_torch.ops.pool import avg_pool2d, max_pool2d
 
@@ -22,5 +24,6 @@ def linear(x, w, b=None, *, activation=None):
     return _gemm.linear(x, w, b, _gemm.activation_name(activation))
 
 
-__all__ = ["linear", "matmul", "conv2d", "conv2d_relu", "max_pool2d",
-           "avg_pool2d", "attention", "attention_bshd"]
+__all__ = ["relu", "sigmoid", "add", "mul", "fma", "sub", "div", "linear",
+           "matmul", "conv2d", "conv2d_relu", "max_pool2d", "avg_pool2d",
+           "attention", "attention_bshd"]

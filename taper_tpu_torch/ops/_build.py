@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES = {
     # x, w, bias, y, M, N, K, dtype, act, stream
     "taper_linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -63,6 +64,14 @@ _SIGNATURES = {
     # dtype, stream
     "taper_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _I, _P],
+    # a, b, c, y, n, op, dtype, stream
+    "taper_elementwise": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # host arrays p, g, m, v (device pointers), n (sizes), count, lr,
+    # step_size, b1, 1 - b1, b2, 1 - b2, eps, wd, decoupled, stream
+    "taper_adam": [_P] * 5 + [_I] + [_F] * 8 + [_I, _P],
+    # host arrays p, g, m (null without momentum), n, count, lr,
+    # momentum, wd, stream
+    "taper_sgd": [_P] * 4 + [_I] + [_F] * 3 + [_P],
 }
 
 _lib = None

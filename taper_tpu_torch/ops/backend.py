@@ -28,10 +28,13 @@ torch.backends.cudnn.allow_tf32 = False
 # bound-max forward K8 (bf16 causal inputs, whichever arm its device
 # predicate takes), "flash_dq"/"flash_dkv" the backward K6/K7;
 # "paged_decode" K16; "conv_fwd" counts K3a launches (forward and input
-# gradient), "conv_dw" K3b, "pool" K4.
+# gradient), "conv_dw" K3b, "pool" K4; "relu" ... "div" count K2, one
+# per elementwise op; "adam" (Adam and AdamW) and "sgd" count K17a/K17b,
+# one per launch over a table of tensors.
+EW_OPS = ("relu", "sigmoid", "add", "mul", "fma", "sub", "div")
 KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
            "flash_dq", "flash_dkv", "paged_decode", "conv_fwd", "conv_dw",
-           "pool")
+           "pool") + EW_OPS + ("adam", "sgd")
 _launches = dict.fromkeys(KERNELS, 0)
 # K8 launches that took the bound arm, counted by the kernel itself on the
 # device (the arm is decided there), one int32 counter per device

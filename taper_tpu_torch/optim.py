@@ -22,10 +22,17 @@ are not ``torch.optim``'s:
   two place ``eps`` differently, so they are different optimizers;
 * AdamW: as Adam, with decoupled decay ``p *= 1 - lr wd`` instead.
 
-The updates use PyTorch's multi-tensor (``_foreach``) ops, a few launches
-per step for all parameters; the fused flat-vector kernel (K17) is the
-next slice.  No parameter is frozen: the ``running_``/``fq_`` masks of the
-JAX package come with BatchNorm and quantization-aware training.
+On CUDA parameters the update is the fused kernel K17 (K17a for Adam and
+AdamW, K17b for SGD; ``ops/optim_kernels.py``): one launch per step for
+up to 256 parameter tensors, every parameter f32.  The JAX package keeps
+its flat-vector kernel opt-in because of the ravel copies around it; the
+port's multi-tensor kernel needs none, so it is the update of every
+training path on the card.  On CPU parameters the same formulas run as
+PyTorch ``_foreach`` ops (the kernel's plain version).
+
+A parameter with ``requires_grad=False`` is left out of the update: the
+port's form of the JAX package's ``running_``/``fq_`` masks (BatchNorm's
+running statistics are buffers and never reach the optimizer).
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import math
 from typing import List, Optional
 
 import torch
+
+from taper_tpu_torch.ops import optim_kernels as K
 
 
 class Optimizer:
@@ -46,8 +55,9 @@ class Optimizer:
         self.params: List[torch.Tensor] = []
 
     def init(self, params) -> "Optimizer":
-        """Bind ``params`` and reset the optimizer state."""
-        self.params = list(params)
+        """Bind the trainable ones of ``params`` (``requires_grad``) and
+        reset the optimizer state."""
+        self.params = [p for p in params if p.requires_grad]
         self._reset()
         return self
 
@@ -65,8 +75,7 @@ class Optimizer:
         TinyGPT's position table under RoPE) takes a zero gradient, as the
         leaf of JAX's ``value_and_grad`` does: weight decay still moves
         it."""
-        self._update([torch.zeros_like(p) if p.grad is None else p.grad
-                      for p in self.params])
+        self._update([p.grad for p in self.params])
 
     def _update(self, grads) -> None:
         raise NotImplementedError
@@ -87,15 +96,8 @@ class SGD(Optimizer):
         self.m = self._zeros() if self.momentum else None
 
     def _update(self, grads) -> None:
-        ps = self.params
-        if self.weight_decay:
-            grads = torch._foreach_add(grads, ps, alpha=self.weight_decay)
-        step = grads
-        if self.momentum:
-            torch._foreach_mul_(self.m, self.momentum)
-            torch._foreach_add_(self.m, grads)
-            step = self.m
-        torch._foreach_add_(ps, step, alpha=-self.lr)
+        K.sgd_update(self.params, grads, self.m, lr=self.lr,
+                     momentum=self.momentum, wd=self.weight_decay)
 
 
 class Adam(Optimizer):
@@ -115,21 +117,13 @@ class Adam(Optimizer):
         self.v = self._zeros()
 
     def _update(self, grads) -> None:
-        ps, wd = self.params, self.weight_decay
         self.t += 1
         step_size = (self.lr * math.sqrt(1.0 - self.b2 ** self.t)
                      / (1.0 - self.b1 ** self.t))
-        if wd and not self.decoupled:
-            grads = torch._foreach_add(grads, ps, alpha=wd)
-        torch._foreach_mul_(self.m, self.b1)
-        torch._foreach_add_(self.m, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.v, self.b2)
-        torch._foreach_addcmul_(self.v, grads, grads, value=1.0 - self.b2)
-        if wd and self.decoupled:
-            torch._foreach_mul_(ps, 1.0 - self.lr * wd)
-        denom = torch._foreach_sqrt(self.v)
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(ps, self.m, denom, value=-step_size)
+        K.adam_update(self.params, grads, self.m, self.v, lr=self.lr,
+                      step_size=step_size, b1=self.b1, b2=self.b2,
+                      eps=self.eps, wd=self.weight_decay,
+                      decoupled=self.decoupled)
 
 
 class AdamW(Adam):

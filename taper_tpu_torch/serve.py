@@ -103,8 +103,10 @@ class ServingEngine:
 
     ``submit()`` enqueues prompts; ``run()`` drains the queue and returns
     ``{request_id: generated tokens}`` (with the eos token when one ended
-    the row).  The engine runs on the device of ``model``'s parameters;
-    ``seed`` seeds the sampling generator."""
+    the row).  The engine runs on ``device`` and moves the model there:
+    the card by default (without one the constructor raises unless
+    ``device="cpu"`` asks for the CPU, as the Trainer does); ``seed``
+    seeds the sampling generator."""
 
     def __init__(self, model, *, slots: int = 8, prompt_pad: int = 64,
                  decode_block: int = 16, eos_token: Optional[int] = None,
@@ -112,7 +114,7 @@ class ServingEngine:
                  pool_blocks: Optional[int] = None, block_size: int = 128,
                  seed: int = 0, quantized_cache: bool = False,
                  system_prompt: Optional[Sequence[int]] = None,
-                 lora=None, lora_bank=None):
+                 lora=None, lora_bank=None, device=None):
         if pool_blocks is None:
             raise NotImplementedError(
                 "the contiguous-cache engine is not ported yet: pass "
@@ -122,12 +124,19 @@ class ServingEngine:
             raise NotImplementedError(
                 "int8 pools, system_prompt sharing and LoRA banks are not "
                 "ported yet")
-        self.model = model
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "ServingEngine: no CUDA device; the engine serves on the "
+                    "card unless asked otherwise, so pass device=\"cpu\" "
+                    "to serve on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
         self.slots = slots
         self.prompt_pad = prompt_pad
         self.decode_block = decode_block
         self.eos_token = eos_token
-        self.device = next(model.parameters()).device
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._queue = collections.deque()
         self._next_id = 0

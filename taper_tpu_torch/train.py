@@ -1,27 +1,37 @@
 """Training loop: port of ``taper_tpu/train.py`` (``Metrics``, and
-``Trainer`` with ``train_step``, ``fit_device`` and ``evaluate``).
+``Trainer`` with ``train_step``, ``train_epoch``, ``fit``,
+``fit_device``, ``evaluate`` and ``reset_parameters``).
 
 The JAX Trainer compiles the forward, backward and update of a step (or
 of a whole epoch, ``fit_device``) into one XLA program.  PyTorch runs
 eagerly: a step is the model's forward through the port's kernels,
 ``loss.backward()`` through their autograd Functions, and the
-optimizer's in-place update.  What the JAX epoch program keeps on the
-device stays there: the dataset (uploaded once), the batch gather, and
-the running loss and accuracy sums.  The host synchronises once per epoch,
-to read that epoch's metrics; a ``.item()`` per step would serialise the
-loop.
+optimizer's in-place update (K17 on the card).  What the JAX epoch program
+keeps on the device stays there: in ``fit_device`` the dataset (uploaded
+once), the batch gather, and the running loss and accuracy sums; in
+``train_epoch`` (``fit`` over a loader) the per-step losses.  The host
+synchronises once per epoch, to read that epoch's metrics; a ``.item()``
+per step would serialise the loop.
 
-The batch order comes from a ``torch.Generator`` seeded from ``seed``, not
-from JAX's key stream, so the two packages see different batches.
+BatchNorm's running statistics are buffers that follow the model's mode:
+a training step runs in ``model.train()``, evaluation in
+``model.eval()``, as JAX's ``apply_train`` and ``apply`` do.
 
-Not ported yet: ``fit`` over a ``DataLoader``, ``fit_device_fused``,
-``reset_parameters``, JSON metric logs, checkpoints and ``restore``,
-meshes (data/tensor parallel, ZeRO-1), augmentation, BatchNorm running
-state and dropout keys.  Their arguments raise ``NotImplementedError``.
+``fit_device``'s batch order comes from a ``torch.Generator`` seeded from
+``seed``, not from JAX's key stream, so the two packages see different
+batches there; ``fit`` takes its batches from the loader it is given (the
+port's ``DataLoader`` gives JAX's order for the same seed).
+
+Not ported yet: ``fit_device_fused``, checkpoints (``fit``'s
+``ckpt_manager``, ``fit_device``'s ``checkpoint_path``/``resume``,
+``save/load_checkpoint``, ``restore``), meshes (data/tensor parallel,
+ZeRO-1), augmentation and dropout keys.  Their arguments raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -35,13 +45,16 @@ from taper_tpu_torch.utils import not_ported
 
 @dataclass
 class Metrics:
-    """Per-epoch history of ``fit_device``."""
+    """Per-epoch history of ``fit`` and ``fit_device``.  With ``log_path``
+    set, every :meth:`record` also appends one JSON line ``{ts, epoch,
+    train_loss, train_acc, val_loss, val_acc, epoch_s}`` to that file."""
 
     train_loss: List[float] = field(default_factory=list)
     train_acc: List[float] = field(default_factory=list)
     val_loss: List[float] = field(default_factory=list)
     val_acc: List[float] = field(default_factory=list)
     epoch_times: List[float] = field(default_factory=list)
+    log_path: Optional[str] = None
 
     def record(self, tl, ta, vl, va, dt) -> None:
         self.train_loss.append(float(tl))
@@ -49,6 +62,13 @@ class Metrics:
         self.val_loss.append(float(vl))
         self.val_acc.append(float(va))
         self.epoch_times.append(float(dt))
+        if self.log_path:
+            with open(self.log_path, "a") as f:
+                f.write(json.dumps(
+                    {"ts": time.time(), "epoch": len(self.train_loss),
+                     "train_loss": float(tl), "train_acc": float(ta),
+                     "val_loss": float(vl), "val_acc": float(va),
+                     "epoch_s": float(dt)}) + "\n")
 
     def print_last(self) -> None:
         e = len(self.train_loss)
@@ -56,6 +76,18 @@ class Metrics:
               f"acc {self.train_acc[-1]*100:5.2f}% | val loss "
               f"{self.val_loss[-1]:.4f} acc {self.val_acc[-1]*100:5.2f}% | "
               f"{self.epoch_times[-1]:.2f}s")
+
+    def plot_summary(self) -> None:
+        if not self.val_acc:
+            print("no epochs recorded")
+            return
+        total = sum(self.epoch_times)
+        print("-" * 60)
+        print(f"best val acc  : {max(self.val_acc) * 100:.2f}%")
+        print(f"final val acc : {self.val_acc[-1] * 100:.2f}%")
+        print(f"total time    : {total:.2f}s "
+              f"({total / len(self.epoch_times):.2f}s/epoch)")
+        print("-" * 60)
 
 
 class Trainer:
@@ -74,6 +106,7 @@ class Trainer:
                  loss_fn: Callable = L.cross_entropy_loss, seed: int = 0,
                  device=None, mesh=None,
                  tensor_parallel: bool = False, zero1: bool = False,
+                 log_path: Optional[str] = None,
                  augment: Optional[Callable] = None):
         not_ported("Trainer", mesh=mesh is not None,
                    tensor_parallel=tensor_parallel, zero1=zero1,
@@ -90,10 +123,21 @@ class Trainer:
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.loss_fn = loss_fn
-        self.metrics = Metrics()
-        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.log_path = log_path
+        self._initial_lr = optimizer.lr
         self.model.to(self.device)
+        self.reset_parameters(seed)
+
+    def reset_parameters(self, seed: int = 0) -> None:
+        """A fresh training run: parameters (and BatchNorm statistics)
+        drawn from ``seed``, optimizer state, metrics, the scheduler and
+        ``fit_device``'s batch order."""
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.optimizer.init(self.model.parameters())
+        self.metrics = Metrics(log_path=self.log_path)
+        self.optimizer.lr = self._initial_lr
+        if self.scheduler is not None:
+            self.scheduler.reset()
         # batch order of fit_device, one permutation per epoch
         self._shuffle = torch.Generator().manual_seed(seed + 1)
 
@@ -190,5 +234,50 @@ class Trainer:
                 if verbose:
                     print(f"early stop: val acc {va_acc*100:.2f}% > "
                           f"{early_stop_acc*100:.1f}%")
+                break
+        return self.metrics
+
+    # -- epoch loops over a loader -----------------------------------------
+
+    def train_epoch(self, loader, log_every: int = 0) -> Dict[str, float]:
+        """One pass over ``loader``'s ``(images, labels)`` batches (numpy
+        arrays or tensors, moved to the trainer's device).  The per-step
+        losses stay on the device and the host syncs once at the end,
+        except every ``log_every`` steps when that is set."""
+        losses, accs = [], []
+        for i, (bx, by) in enumerate(loader):
+            loss, acc = self.train_step(*self._to_device(bx, by))
+            losses.append(loss)
+            accs.append(acc)
+            if log_every and (i + 1) % log_every == 0:
+                print(f"  batch {i + 1}/{len(loader)} loss "
+                      f"{float(loss):.4f} acc {float(acc) * 100:.2f}%")
+        if not losses:
+            return {"loss": 0.0, "acc": 0.0}
+        loss, acc = torch.stack([torch.stack(losses).mean(),
+                                 torch.stack(accs).mean()]).tolist()
+        return {"loss": loss, "acc": acc}
+
+    def fit(self, train_loader, val_images, val_labels, epochs: int,
+            early_stop_acc: float = 0.99, log_every: int = 0,
+            verbose: bool = True, ckpt_manager=None) -> Metrics:
+        """Epoch loop over a loader: train, evaluate the validation split,
+        step the scheduler (fed the validation loss), stop early once
+        validation accuracy exceeds ``early_stop_acc``."""
+        not_ported("Trainer.fit", ckpt_manager=ckpt_manager is not None)
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            tr = self.train_epoch(train_loader, log_every=log_every)
+            va = self.evaluate(val_images, val_labels)
+            self.metrics.record(tr["loss"], tr["acc"], va["loss"],
+                                va["acc"], time.perf_counter() - t0)
+            if verbose:
+                self.metrics.print_last()
+            if self.scheduler is not None:
+                self.optimizer.lr = self.scheduler.step(va["loss"])
+            if va["acc"] > early_stop_acc:
+                if verbose:
+                    print(f"early stop: val acc {va['acc'] * 100:.2f}% > "
+                          f"{early_stop_acc * 100:.1f}%")
                 break
         return self.metrics

@@ -34,6 +34,7 @@ Tolerances, by the operands' dtype:
 """
 
 import importlib
+import math
 import shutil
 
 import pytest
@@ -642,3 +643,177 @@ def test_tinygpt_step_on_card_matches_cpu(dev, cfg):
             continue
         rel = (g_out[k] - g_ref[k]).norm() / g_ref[k].norm()
         assert rel <= 1e-4, (k, float(rel))
+
+
+# -- K2: the elementwise kernel -----------------------------------------------
+
+def _ulps(out, ref):
+    """|out - ref| in units in the last place of ref, in ref's dtype."""
+    bits = 24 if ref.dtype == torch.float32 else 8
+    r = ref.float().abs()
+    _, e = torch.frexp(r.clamp_min(torch.finfo(ref.dtype).tiny))
+    return (out.float() - ref.float()).abs() / torch.ldexp(
+        torch.ones_like(r), e - bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", backend.EW_OPS)
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (4096, 0),
+                                      (1_000_003, 0), (4101, 1), (9, 3)])
+def test_elementwise_kernel_matches_plain(dev, op, dtype, n, offset):
+    """Odd sizes leave a tail past the last 16-byte vector; an offset
+    view (4 or 12 bytes into an aligned buffer) takes the scalar path.
+    relu/add/sub/mul are bit-equal to the plain version (one f32 op and
+    one rounding on both sides); sigmoid (expf), div and fma within 2 ulp
+    (fma is rounded once on both sides, the plain version through f64)."""
+    E = importlib.import_module("taper_tpu_torch.ops.elementwise")
+    gen = torch.Generator().manual_seed(n + offset)
+    xs = []
+    for i in range(E.ARITY[op]):
+        base = _randn(gen, n + offset, dtype=dtype) * 3
+        if op == "div" and i == 1:
+            base = (torch.where(base < 0, -1.0, 1.0)
+                    * (0.5 + base.float().abs())).to(dtype)
+        xs.append(base.to(dev)[offset:])
+    backend.reset_launch_counts()
+    out = E.elementwise(op, *xs)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[op] == 1
+    ref = E.elementwise_reference(op, *xs)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if op in ("relu", "add", "sub", "mul"):
+        assert torch.equal(out, ref)
+    else:
+        assert float(_ulps(out, ref).max()) <= 2.0
+
+
+def test_elementwise_ops_on_card_are_differentiable(dev):
+    E = importlib.import_module("taper_tpu_torch.ops.elementwise")
+    gen = torch.Generator().manual_seed(0)
+    a = _randn(gen, 4, 5, 6).to(dev).requires_grad_()
+    b = (_randn(gen, 5, 1).abs() + 0.5).to(dev).requires_grad_()
+    c = _randn(gen, 6).to(dev).requires_grad_()
+    outs = [E.relu(a), E.sigmoid(a), E.add(a, b), E.sub(a, b), E.mul(a, b),
+            E.div(a, b), E.fma(a, b, c)]
+    torch.stack(outs).sum().backward()
+    grads = [t.grad.clone() for t in (a, b, c)]
+    ac, bc, cc = (t.detach().cpu().requires_grad_() for t in (a, b, c))
+    ref = [torch.relu(ac), torch.sigmoid(ac), ac + bc, ac - bc, ac * bc,
+           ac / bc, ac * bc + cc]
+    torch.stack(ref).sum().backward()
+    for g, r in zip(grads, (ac.grad, bc.grad, cc.grad)):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-5, atol=1e-5)
+
+
+def test_elementwise_kernel_raises_on_what_it_does_not_take(dev):
+    E = importlib.import_module("taper_tpu_torch.ops.elementwise")
+    x = torch.ones(4, 6, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        E.elementwise("relu", x.t())
+    with pytest.raises(ValueError, match="dtype"):
+        E.elementwise("relu", x.half())
+    with pytest.raises(ValueError, match="differ"):
+        E.elementwise("add", x, torch.ones(6, 4, device=dev))
+
+
+# -- K17: the fused optimizer update ------------------------------------------
+
+_OPT_CASES = [("adam", dict(wd=1e-2, decoupled=False)),
+              ("adam", dict(wd=0.1, decoupled=True)),
+              ("adam", dict(wd=0.0, decoupled=False)),
+              ("sgd", dict(momentum=0.0, wd=0.0)),
+              ("sgd", dict(momentum=0.9, wd=1e-2)),
+              ("sgd", dict(momentum=0.0, wd=1e-2)),
+              ("sgd", dict(momentum=0.9, wd=0.0))]
+
+
+def _opt_run(dev, alg, hp, sizes, steps, none_at=(), lr=1e-2):
+    """``steps`` updates by the kernel and by the plain version on copies
+    of the same CUDA tensors; returns both parameter lists and the kernel
+    launches."""
+    K = importlib.import_module("taper_tpu_torch.ops.optim_kernels")
+    gen = torch.Generator().manual_seed(len(sizes))
+    ps = [_randn(gen, *s).to(dev) for s in sizes]
+    runs = []
+    backend.reset_launch_counts()
+    for fused in (True, False):
+        p = [t.clone() for t in ps]
+        m = ([torch.zeros_like(t) for t in p]
+             if alg == "adam" or hp.get("momentum") else None)
+        v = [torch.zeros_like(t) for t in p]
+        g_gen = torch.Generator().manual_seed(99)
+        for t in range(1, steps + 1):
+            g = [None if i in none_at else _randn(g_gen, *s).to(dev)
+                 for i, s in enumerate(sizes)]
+            if alg == "adam":
+                step_size = lr * math.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)
+                kw = dict(lr=lr, step_size=step_size, b1=0.9, b2=0.999,
+                          eps=1e-8, **hp)
+                (K.adam_update if fused else K.adam_reference)(
+                    p, g, m, v, **kw)
+            else:
+                (K.sgd_update if fused else K.sgd_reference)(
+                    p, g, m, lr=lr, **hp)
+        torch.cuda.synchronize()
+        runs.append(p)
+    return runs[0], runs[1], backend.launch_counts()[alg]
+
+
+@pytest.mark.parametrize("alg,hp", _OPT_CASES,
+                         ids=[f"{a}-{i}" for i, (a, _) in
+                              enumerate(_OPT_CASES)])
+def test_optimizer_kernel_matches_plain_over_ten_steps(dev, alg, hp):
+    """Tensors of 1, 3, 8,192 (one chunk), 8,193 (a chunk and one) and
+    100,000 elements and a 2-d one, one with a None gradient (a zero
+    gradient, weight decay still moves it).  Tolerance 1e-6 (1 + |p|)
+    after 10 steps: the same f32 formulas, but nvcc contracts a*b + c
+    into FMAs (one rounding where the plain version rounds twice), and
+    the plain version's _foreach ops order Adam's last product
+    differently."""
+    sizes = [(1,), (3,), (8192,), (8193,), (100_000,), (64, 33)]
+    out, ref, launches = _opt_run(dev, alg, hp, sizes, 10, none_at=(3,))
+    assert launches == 10
+    for o, r in zip(out, ref):
+        err = ((o - r).abs() / (1 + r.abs())).max()
+        assert float(err) <= 1e-6
+
+
+@pytest.mark.parametrize("alg,hp", [_OPT_CASES[1], _OPT_CASES[4]],
+                         ids=["adamw", "sgd_momentum"])
+def test_optimizer_kernel_splits_long_lists(dev, alg, hp):
+    """300 tensors: more than one launch's table of 256."""
+    sizes = [(i % 7 + 1, 5) for i in range(300)]
+    out, ref, launches = _opt_run(dev, alg, hp, sizes, 3)
+    assert launches == 3 * 2
+    for o, r in zip(out, ref):
+        assert float(((o - r).abs() / (1 + r.abs())).max()) <= 1e-6
+
+
+def test_optimizer_kernel_raises_on_what_it_does_not_take(dev):
+    K = importlib.import_module("taper_tpu_torch.ops.optim_kernels")
+    p = [torch.ones(4, device=dev, dtype=torch.bfloat16)]
+    with pytest.raises(ValueError, match="dtype"):
+        K.sgd_update(p, [None], None, lr=0.1, momentum=0.0, wd=0.0)
+    q = torch.ones(8, 2, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.sgd_update([q.t()], [None], None, lr=0.1, momentum=0.0, wd=0.0)
+    with pytest.raises(ValueError, match="gradient"):
+        K.sgd_update([q], [torch.ones(2, 8, device=dev)], None, lr=0.1,
+                     momentum=0.0, wd=0.0)
+
+
+def test_optimizers_launch_one_fused_update_per_step(dev):
+    from taper_tpu_torch import optim
+
+    model = mnist_cnn().to(dev)
+    for opt, name in ((optim.Adam(1e-3, weight_decay=1e-4), "adam"),
+                      (optim.AdamW(1e-3, weight_decay=1e-2), "adam"),
+                      (optim.SGD(0.1, momentum=0.9), "sgd")):
+        opt.init(model.parameters())
+        backend.reset_launch_counts()
+        for _ in range(3):
+            for p in model.parameters():
+                p.grad = torch.ones_like(p)
+            opt.step()
+        counts = backend.launch_counts()
+        assert counts[name] == 3 and sum(counts.values()) == 3, counts

@@ -39,7 +39,8 @@ def test_optimizer_matches_jax_over_five_steps(make):
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = jo.init(jp)
     po = make(optim)
-    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_()
+          for k, v in params.items()}
     po.init(tp.values())
     for step in range(5):
         grads = _arrays(step + 1)
@@ -49,14 +50,14 @@ def test_optimizer_matches_jax_over_five_steps(make):
             p.grad = torch.from_numpy(grads[k])
         po.step()
     for k in SHAPES:
-        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
                                    rtol=TOL, atol=TOL)
 
 
 def test_optimizer_lr_is_a_field_and_step_needs_grads():
     """A parameter without a gradient steps on a zero one, as JAX's
     unused leaf does: plain SGD leaves it, L2 decay still moves it."""
-    p = torch.ones(3)
+    p = torch.ones(3, requires_grad=True)
     opt = optim.SGD(0.5).init([p])
     opt.lr = 0.25
     p.grad = torch.ones(3)
@@ -66,7 +67,7 @@ def test_optimizer_lr_is_a_field_and_step_needs_grads():
     assert p.grad is None
     opt.step()
     assert torch.equal(p, torch.full((3,), 0.75))
-    q = torch.ones(3)
+    q = torch.ones(3, requires_grad=True)
     optim.SGD(0.5, weight_decay=0.1).init([q]).step()
     torch.testing.assert_close(q, torch.full((3,), 0.95))
 

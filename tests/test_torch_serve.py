@@ -62,11 +62,11 @@ def test_engine_matches_jax_engine():
     each engine."""
     jmodel, params, model = _models()
     prompts, max_new = _requests()
-    probe = _serve(ServingEngine(model, pool_blocks=12, **ENGINE), prompts,
-                   max_new)
+    probe = _serve(ServingEngine(model, pool_blocks=12, device="cpu",
+                                 **ENGINE), prompts, max_new)
     eos = probe[1][4]           # ends request 1 early (9 tokens asked)
     kw = dict(ENGINE, pool_blocks=6, eos_token=eos)
-    eng = ServingEngine(model, **kw)
+    eng = ServingEngine(model, device="cpu", **kw)
     out = _serve(eng, prompts, max_new)
     with jops.use_backend("pallas"):
         ref = _serve(jserve.ServingEngine(jmodel, params, **kw), prompts,
@@ -88,9 +88,10 @@ def test_sampled_rows_mix_with_greedy_rows():
     batch; the free sampler stays in the vocabulary and its budget."""
     _, _, model = _models(seed=1)
     prompts, max_new = _requests(4, seed=1)
-    greedy = _serve(ServingEngine(model, pool_blocks=12, **ENGINE), prompts,
-                    max_new)
-    eng = ServingEngine(model, pool_blocks=12, seed=3, **ENGINE)
+    greedy = _serve(ServingEngine(model, pool_blocks=12, device="cpu",
+                                  **ENGINE), prompts, max_new)
+    eng = ServingEngine(model, pool_blocks=12, seed=3, device="cpu",
+                        **ENGINE)
     ids = [eng.submit(prompts[0], max_new[0], temperature=0.7, top_k=1),
            eng.submit(prompts[1], max_new[1], temperature=1.3, top_p=0.0),
            eng.submit(prompts[2], max_new[2]),
@@ -132,7 +133,7 @@ def test_block_allocator():
 
 def test_engine_validates_requests_and_unported_modes():
     _, _, model = _models(seed=2)
-    eng = ServingEngine(model, pool_blocks=4, **ENGINE)
+    eng = ServingEngine(model, pool_blocks=4, device="cpu", **ENGINE)
     with pytest.raises(ValueError, match="prompt length"):
         eng.submit(list(range(17)), 2)
     with pytest.raises(ValueError, match="max_seq"):
@@ -145,6 +146,19 @@ def test_engine_validates_requests_and_unported_modes():
         ServingEngine(model, pool_blocks=4, system_prompt=[1] * 8)
     with pytest.raises(NotImplementedError):
         offline_serve(model, None, None, None)
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """device=None means the card, and the engine moves the model there;
+    without a card it raises and says how to serve on the CPU, instead of
+    quietly serving on the CPU where the model happens to live."""
+    _, _, model = _models(seed=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServingEngine(model, pool_blocks=4, **ENGINE)
+    eng = ServingEngine(model, pool_blocks=4, device="cpu", **ENGINE)
+    assert eng.device.type == "cpu"
+    assert next(eng.model.parameters()).device.type == "cpu"
 
 
 def test_import_leaves_jax_out():

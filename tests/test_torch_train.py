@@ -9,6 +9,7 @@ CNN (conv + relu, max pool, global average pool, linear).  Tolerance 1e-4
 of each tensor's largest entry; the loss to 1e-5.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -95,6 +96,52 @@ def test_adam_step_matches_jax_on_the_loss(monkeypatch):
         np.testing.assert_allclose(loss, jloss, rtol=1e-5)
 
 
+def test_adam_step_matches_jax_from_a_trained_state(monkeypatch):
+    """The port trains 20 Adam steps; JAX then takes the next step from the
+    port's parameters, moments and step count, on the same batch as the
+    port's own step.  Past the first steps Adam's update is smooth in the
+    gradient, so each parameter's new value must agree to 1e-3 of the
+    step's size (relative L2): the same step, in other rounding."""
+    monkeypatch.setenv("TAPER_CONV", "direct")
+    monkeypatch.setenv("TAPER_POOL", "pallas")
+    batches = _batches(21, seed=2)
+    with jops.use_backend("pallas"):
+        jt = jtrain.Trainer(jnn.Sequential(*_layers(jnn)),
+                            jopt.Adam(3e-3, weight_decay=1e-4), seed=0)
+        pt = Trainer(nn.Sequential(*_layers(nn)),
+                     optim.Adam(3e-3, weight_decay=1e-4), seed=0,
+                     device="cpu")
+        for x, y in batches[:-1]:
+            pt.train_step(torch.from_numpy(x), torch.from_numpy(y).long())
+        opt = pt.optimizer
+        slot = {id(p): j for j, p in enumerate(opt.params)}
+        named = dict(pt.model.named_parameters())
+        before = {k: p.detach().numpy().copy() for k, p in named.items()}
+
+        def tree(get):
+            return [{k: jnp.asarray(get(named[f"{i}.{k}"], f"{i}.{k}"))
+                     for k in layer} for i, layer in enumerate(jt.params)]
+
+        params = tree(lambda p, name: before[name])
+        state = {**jt.opt_state,
+                 "m": tree(lambda p, _: opt.m[slot[id(p)]].numpy().copy()),
+                 "v": tree(lambda p, _: opt.v[slot[id(p)]].numpy().copy()),
+                 "step": jnp.asarray(opt.t, jnp.int32)}
+        x, y = batches[-1]
+        params, _, jloss, _ = jt._train_step(
+            params, state, jnp.asarray(x), jnp.asarray(y),
+            jax.random.PRNGKey(0))
+        loss, _ = pt.train_step(torch.from_numpy(x),
+                                torch.from_numpy(y).long())
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    for i, layer in enumerate(params):
+        for k, v in layer.items():
+            name = f"{i}.{k}"
+            step = np.linalg.norm(np.asarray(v) - before[name])
+            err = np.linalg.norm(named[name].detach().numpy() - np.asarray(v))
+            assert err <= 1e-3 * step, (name, err, step)
+
+
 def _synthetic(n, seed):
     rng = np.random.default_rng(seed)
     y = rng.integers(0, 10, n).astype(np.int32)
@@ -164,3 +211,86 @@ def test_training_path_imports_no_jax():
             "('jax', 'jaxlib', 'taper_tpu')); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=Path(__file__).resolve().parents[1])
+
+
+class _MNISTSubset:
+    """n synthetic MNIST digits, rendered by the port's copy of the JAX
+    renderer (the same numpy code)."""
+
+    def __init__(self, n, seed):
+        from taper_tpu_torch.data import synthesize_images_numpy
+        self.labels = np.random.default_rng(seed).integers(
+            0, 10, n).astype(np.int32)
+        self.images = synthesize_images_numpy(self.labels, seed=seed)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def get_batch(self, idx):
+        idx = np.asarray(idx)
+        return self.images[idx], self.labels[idx]
+
+
+def test_fit_over_a_dataloader_matches_jax_fit():
+    """One epoch of the MLP with Adam through ``Trainer.fit`` over the
+    port's DataLoader, against the JAX Trainer's ``fit`` over JAX's
+    DataLoader (the same batch order for the same seed, test_torch_loader)
+    from JAX's parameters.  Parameters within 1e-4 relative L2 after 16
+    steps; the epoch's metrics within 1e-5."""
+    from taper_tpu import models as jmodels
+    from taper_tpu.data import loader as jloader
+    from taper_tpu_torch.data import DataLoader
+
+    train, val = _MNISTSubset(1024, 0), _MNISTSubset(256, 1)
+    jt = jtrain.Trainer(jmodels.mnist_mlp(), jopt.Adam(1e-3,
+                                                       weight_decay=1e-4),
+                        seed=0)
+    pt = Trainer(mnist_mlp(), optim.Adam(1e-3, weight_decay=1e-4), seed=0,
+                 device="cpu")
+    load_jax_params(pt.model, jax.tree.map(np.asarray, jt.params))
+    jm = jt.fit(jloader.DataLoader(train, 64, seed=5), val.images,
+                val.labels, epochs=1, verbose=False)
+    pm = pt.fit(DataLoader(train, 64, seed=5), val.images, val.labels,
+                epochs=1, verbose=False)
+    for name in ("train_loss", "train_acc", "val_loss", "val_acc"):
+        np.testing.assert_allclose(getattr(pm, name), getattr(jm, name),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    ported = dict(pt.model.named_parameters())
+    for i, layer in enumerate(jt.params):
+        for k, v in layer.items():
+            out = ported[f"{i}.{k}"].detach().numpy().astype(np.float64)
+            ref = np.asarray(v, np.float64)
+            assert np.linalg.norm(out - ref) <= 1e-4 * np.linalg.norm(ref)
+
+
+def test_fit_logs_json_lines_and_reset_starts_over(tmp_path):
+    from taper_tpu_torch.data import DataLoader
+
+    train = _MNISTSubset(128, 2)
+    log = tmp_path / "log.jsonl"
+    sched = optim.StepLR(0.01, step_size=1, gamma=0.5)
+    tr = Trainer(mnist_mlp(), optim.Adam(0.01), scheduler=sched, seed=0,
+                 device="cpu", log_path=str(log))
+    first = [p.detach().clone() for p in tr.model.parameters()]
+    m = tr.fit(DataLoader(train, 32, seed=0), train.images, train.labels,
+               epochs=2, early_stop_acc=2.0, verbose=False)
+    lines = [json.loads(s) for s in log.read_text().splitlines()]
+    assert [ln["epoch"] for ln in lines] == [1, 2]
+    assert lines[1]["val_acc"] == pytest.approx(m.val_acc[1])
+    assert tr.optimizer.lr == pytest.approx(0.0025)
+    tr.reset_parameters(0)
+    assert len(tr.metrics.val_acc) == 0 and tr.optimizer.lr == 0.01
+    assert all(torch.equal(a, b) for a, b in zip(first,
+                                                 tr.model.parameters()))
+    with pytest.raises(NotImplementedError, match="ckpt_manager"):
+        tr.fit(DataLoader(train, 32), train.images, train.labels, 1,
+               ckpt_manager=object())
+
+
+def test_xor_example_loss_falls_on_the_cpu():
+    from taper_tpu_torch.examples import train_xor
+
+    args = train_xor.parse_args(["--device", "cpu", "--steps", "2000"])
+    _, first, last, preds = train_xor.train(args)
+    assert last < first - 0.1
+    assert preds.shape == (4, 1) and torch.isfinite(preds).all()
