@@ -3,8 +3,9 @@ hand-written kernels: paged TinyGPT serving at full width, training the
 reference MNIST CNN at its published widths, training TinyGPT (the
 repository's 170M training workload, bench.py:141-199, at full width,
 and the sort task of examples/train_tinylm.py at its defaults), training
-ResNet-8 on CIFAR-10 (examples/train_cifar10_resnet.py), and the
-reference's XOR and MNIST-MLP examples.
+ResNet-8 on CIFAR-10 (examples/train_cifar10_resnet.py), the reference's
+XOR and MNIST-MLP examples, and PTQ-quantized serving (int8 and int4
+dequant-on-load, W8A8 prefill, examples/ptq_quantize.py).
 
     python3 chip_smoke.py
 
@@ -70,7 +71,27 @@ non-zero):
      must be solved with one K17b launch per step; the MNIST MLP through
      fit_device must stop early above 0.98 val accuracy within 10
      epochs; one epoch of the MLP through Trainer.fit over
-     PrefetchLoader(DataLoader).
+     PrefetchLoader(DataLoader);
+ 16. the quantized kernels against their plain versions at the shapes of
+     phases 17-19: K12/K13 (``linear_q8``/``linear_q4``) at decode (M=8)
+     and K12 at M=4096 and at the CNN's FC layers (M=2000), within 2e-4;
+     K14 (``quantize_rows``), K15b (``matmul_int8``) and K15a
+     (``matmul_int8_scaled``) exactly; ``torch._int_mm`` is K15b's
+     library call, the others have none;
+ 17. PTQ serving of benchmarks/bench_serving.py:39-52's model (dim 2048,
+     depth 6, 273M parameters, f32) with int8 and int4 weights in the
+     paged engine (the bench's contiguous cache is not ported): prefill
+     and decode logits against the port's CPU path with the same
+     weights, exactly 36 K12/K13 launches per decode step, 8 requests of
+     200 new tokens served, tokens/s beside f32, a profile of the decode
+     step in each format;
+ 18. bench.py:273-301's W8A8 prefill (dim 2048, depth 4, bf16, every 2-D
+     leaf int8, 4 x 1024 tokens): TAPER_W8A8=1 runs 24 K14 and 24 K15a,
+     the same weights through K12, the bf16 dense model through K1;
+     W8A8 logits against K12's, ms for each;
+ 19. examples/ptq_quantize.py through its entry point with --epochs 1:
+     int8 accuracy within 0.01 of f32, float16 within 0.001, three K12
+     launches per eval batch of 2000.
 The line before the last is the kernel report (JSON), one entry per
 kernel with its numbers per path under ``by_path``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -93,17 +114,22 @@ import torch.nn.functional as F
 from taper_tpu_torch import optim
 from taper_tpu_torch.data import CIFAR10Dataset, MNISTDataset
 from taper_tpu_torch.examples import (
-    train_cifar10_resnet, train_mnist, train_tinylm, train_xor)
+    ptq_quantize, train_cifar10_resnet, train_mnist, train_tinylm, train_xor)
 from taper_tpu_torch.models import TinyGPT, mnist_cnn, resnet8, xor_mlp
 from taper_tpu_torch.ops import _build, backend
 from taper_tpu_torch.ops import conv_direct as CD
 from taper_tpu_torch.ops import elementwise as EW
 from taper_tpu_torch.ops import optim_kernels as OK
 from taper_tpu_torch.ops import pool as PL
+from taper_tpu_torch.ops import quant as Q
 from taper_tpu_torch.ops.gemm import (
     gemm, gemm_reference, linear, linear_reference)
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_reference)
+from taper_tpu_torch.quantization import (
+    QuantizationConfig, QuantizationType, quantize, quantize_params,
+    quantized_bytes)
+from taper_tpu_torch.quantization.ptq import replace_leaf
 from taper_tpu_torch.serve import ServingEngine
 from taper_tpu_torch.train import Trainer
 
@@ -159,7 +185,10 @@ LM_BATCH, LM_LR, LM_WARMUP, LM_STEPS = 8, 1e-4, 2, 10
 #    worst of 8 seed/batch pairs was 7e-4, PERF.md).
 TOL = {"linear": 2e-4, "flash_fwd": 2e-2, "flash_fwd_bound": 2e-2,
        "paged_decode": 2e-2, "gemm_nn": 1e-4, "gemm_tn": 1e-4,
-       "conv_fwd": 1e-4, "conv_dw": 1e-4, "pool": 1e-6}
+       "conv_fwd": 1e-4, "conv_dw": 1e-4, "pool": 1e-6,
+       # the quantized kernels (reasons at QSERVE below)
+       "linear_q8": 2e-4, "linear_q4": 2e-4, "quantize_rows": 0.0,
+       "matmul_int8_scaled": 0.0, "matmul_int8": 0.0}
 LINEAR_F32_TOL = 1e-4           # linear on the training path (f32 FMA)
 BF16_GEMM_TOL = 2e-4
 LSE_TOL, LSE_F32_TOL, FLASH_F32_TOL = 1e-3, 1e-4, 1e-4
@@ -219,6 +248,12 @@ SOURCES = {
     "sgd": ("taper_tpu_torch/csrc/optim.cu",
             "taper_tpu/ops/pallas/optim_kernels.py:79"),
 }
+SOURCES.update({name: ("taper_tpu_torch/csrc/quant.cu",
+                       f"taper_tpu/ops/pallas/quant.py:{line}")
+                for name, line in (("linear_q8", 41), ("linear_q4", 159),
+                                   ("quantize_rows", 460),
+                                   ("matmul_int8_scaled", 324),
+                                   ("matmul_int8", 292))})
 SOURCES.update({op: ("taper_tpu_torch/csrc/elementwise.cu",
                      f"taper_tpu/ops/pallas/elementwise.py:{line}")
                 for op, line in (("relu", 64), ("sigmoid", 68), ("add", 72),
@@ -274,9 +309,9 @@ MLP_MIN_ACC, MLP_MAX_EPOCHS = 0.98, 10
 # accuracy, as the example reports it ("best val acc").
 CNN = dict(batch=256, lr=3e-3, weight_decay=1e-4, step_size=5, gamma=0.8,
            epochs=2, min_acc=0.95, eval_batch=2000)
-# Peak rates of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
-# cores, f32 outside them, and device memory.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# Peak rates of one H100 SXM (NVIDIA's data sheet): dense bf16 and int8
+# tensor cores, f32 outside them, and device memory.
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -1521,6 +1556,417 @@ def phase15_examples(dev, smi):
             for k in backend.KERNELS}
 
 
+# -- PTQ-quantized serving, W8A8 prefill and the PTQ example ------------------
+
+# The quantized serving model of benchmarks/bench_serving.py:39-52: vocab
+# 4096, dim 2048, depth 6, 16 heads of 128, 4 KV heads, RoPE, max_seq
+# 256, f32, ~273M parameters from SEED; PTQ int8 and int4 per tensor,
+# asymmetric, with tok and pos kept f32 as the bench keeps them.  The
+# engine serves 8 requests of 8-token prompts and 200 greedy new tokens
+# in paged mode (the bench's contiguous cache is not ported).
+QSERVE = dict(vocab_size=4096, dim=2048, depth=6, num_heads=16,
+              num_kv_heads=4, max_seq=256, rope=True)
+QSERVE_ENGINE = dict(slots=8, prompt_pad=8, decode_block=16,
+                     block_size=128)
+QSERVE_REQUESTS, QSERVE_PROMPT, QSERVE_NEW = 8, 8, 200
+# K12/K13 launches per decode step: 6 blocks x wq, wk, wv, wo, w1, w2
+QSERVE_PER_STEP = 36
+# The W8A8 prefill of bench.py:273-301: vocab 4096, dim 2048, depth 4, 16
+# heads, max_seq 1024, bf16 trunk, every 2-D leaf int8
+# (QuantizationConfig(qtype=INT8)), a forward of 4 x 1024 tokens.
+W8A8 = dict(vocab_size=4096, dim=2048, depth=4, num_heads=16, max_seq=1024,
+            rope=True)
+W8A8_BATCH, W8A8_ITERS = 4, 5
+# Tolerances (the kernels' in TOL):
+#  * K12/K13 against their plain versions: 2e-4 (1 + |ref|), as the bf16
+#    GEMM: both round the activations to bf16 and the int8/int4 codes are
+#    exact in bf16, so every product is exact in f32 and only the
+#    summation order differs (up to 8,192 terms).
+#  * K14 (codes, scales, sums), K15b (int32) and K15a (the same integer
+#    product, then the same f32 operations in the same order, no FMA
+#    contraction): exact.
+#  * quantized serving, card against the port's CPU path with the same
+#    int8/int4 weights, both f32: relative L2 of the logits 1e-2.  The
+#    kernels round the activations to bf16 on both sides; where the card's
+#    f32 activation differs from the CPU's in the last bit (other
+#    summation orders) the rounding of that element flips by 2^-8, at
+#    dim 2048 for tens of elements a step, and the final LayerNorm of a
+#    residual stream at init scale (std 0.02) amplifies each block's
+#    output about 50-fold.
+#  * W8A8 logits against the same int8 weights through K12, both bf16
+#    trunks: relative L2 5e-2.  The difference is the activation rounding:
+#    int8 per row (absmax / 127, up to 0.4% of the row's largest entry an
+#    element) against bf16 (2^-9 relative), through 4 blocks.
+#  * the PTQ example: int8 accuracy within 0.01 of f32, float16 within
+#    0.001 (the JAX example's own table reports the drops; the reference's
+#    PTQ goal is an int8 drop under 1%, BASELINE.md).
+QSERVE_REL_TOL, W8A8_REL_TOL = 1e-2, 5e-2
+PTQ_INT8_DROP, PTQ_F16_DROP = 0.01, 0.001
+QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_kernel"),
+                  ("K16 paged decode", "paged_decode"),
+                  ("K1 gemm", "gemm_f32"), ("head sgemm", "gemm"),
+                  ("K14 quantize_rows", "quantize_rows"),
+                  ("K15 int8 mma", "matmul_int8"))
+
+
+def qweight(gen, n, k, bits, dev):
+    """PTQ codes (per tensor, asymmetric, QuantizationConfig.int8/int4) of
+    a random weight at init scale, on ``dev``."""
+    cfg = (QuantizationConfig.int8() if bits == 8
+           else QuantizationConfig.int4())
+    return quantize(torch.randn(n, k, generator=gen) * 0.02, cfg).to(dev)
+
+
+def qlinear_work(m, n, k, bits):
+    """K12/K13: x f32 read once, the codes once, scale/zp/bias, y f32;
+    the products at the bf16 tensor-core rate."""
+    return (2 * m * n * k, 4 * m * k + n * k * bits // 8 + 12 * n
+            + 4 * m * n, "bf16")
+
+
+def phase16_quant_kernels(dev):
+    """K12, K13, K14, K15a/b against their plain versions at the shapes of
+    phases 17-19, with the bound and the library call where one exists."""
+    gen = torch.Generator().manual_seed(SEED)
+    rows = {}
+
+    def add(name, *args, **kw):
+        rows.setdefault(name, []).append(check_kernel(
+            name, *args, phase=16, **kw))
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dtype).to(dev)
+
+    dq_note = []
+    # K12 / K13 at the decode shapes of phase 17 (M = 8 rows: wq/wo, wk/wv,
+    # w1, w2), K12 at the W8A8 prefill's M = 4096 (phase 18's K12 run) and
+    # at the CNN's FC layers at an eval batch of 2000 (phase 19)
+    d = QSERVE["dim"]
+    kv = d // QSERVE["num_heads"] * QSERVE["num_kv_heads"]
+    decode = ((d, d), (kv, d), (4 * d, d), (d, 4 * d))
+    pm, pd = W8A8_BATCH * W8A8["max_seq"], W8A8["dim"]
+    prefill = ((pd, pd), (4 * pd, pd), (pd, 4 * pd))
+    cases = ([(QSERVE_REQUESTS, n, k, bits) for bits in (8, 4)
+              for n, k in decode]
+             + [(pm, n, k, 8) for n, k in prefill]
+             + [(2000, n, k, 8) for n, k in ((128, 128), (64, 128),
+                                             (10, 64))])
+    for m, n, k, bits in cases:
+        name = f"linear_q{bits}"
+        act = "relu" if m == 2000 and n != 10 else "none"
+
+        def make(m=m, n=n, k=k, bits=bits):
+            w = qweight(gen, n, k, bits, dev)
+            return (randn(m, k), w.values, w.scale, w.zero_point,
+                    randn(n) * 0.1)
+        first = make()
+        sets = [first] + [make() for _ in range(copies_for(*first) - 1)]
+        if bits == 8:
+            kern = (lambda x, q, s, z, b, act=act:
+                    Q.linear_q8(x, q, s, z, b, epilogue=act))
+            plain = (lambda x, q, s, z, b, act=act:
+                     Q.linear_q8_reference(x, q, s, z, b, act))
+        else:
+            kern = (lambda x, q, s, z, b, k=k:
+                    Q.linear_q4(x, q, s, z, b, n_features=k))
+            plain = (lambda x, q, s, z, b, k=k:
+                     Q.linear_q4_reference(x, q, s, z, b, n_features=k))
+        add(name, f"M={m} N={n} K={k} {act} (+bias)", kern, plain, sets,
+            work=qlinear_work(m, n, k, bits))
+        if m == QSERVE_REQUESTS and (n, k) == decode[2]:
+            # information, not a yardstick: dequantize + F.linear
+            qt = quantize(torch.randn(n, k, generator=gen) * 0.02,
+                          QuantizationConfig.int8() if bits == 8
+                          else QuantizationConfig.int4()).to(dev)
+            x, b = randn(m, k), randn(n) * 0.1
+            dq_note.append((bits, cuda_ms(
+                lambda x, b: F.linear(x, qt.dequantize(), b), [(x, b)])))
+    for bits, ms in dq_note:
+        print(f"phase 16: dequantize + F.linear, int{bits} M="
+              f"{QSERVE_REQUESTS} N={decode[2][0]} K={decode[2][1]} "
+              f"(information, not a library call for the same function): "
+              f"{ms:.4f} ms")
+
+    # K14 at the W8A8 prefill's activations (bf16): the inputs of the
+    # K = dim projections and of w2 (K = 4 dim)
+    for k in (pd, 4 * pd):
+        x = randn(pm, k, dtype=torch.bfloat16)
+        got, want = Q.quantize_rows(x), Q.quantize_rows_reference(x)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            "K14 is not exact"
+        add("quantize_rows", f"bf16 M={pm} K={k}", Q.quantize_rows,
+            Q.quantize_rows_reference, cold_sets(x),
+            work=(4 * pm * k, pm * k * 3 + 8 * pm, "f32"))
+
+    # K15b and K15a at the W8A8 prefill's shapes, and K15a at decode's M
+    # beside K12 (ROADMAP Queue 3 records W8A8's engage rule)
+    for m, n, k in ([(pm, n, k) for n, k in prefill]
+                    + [(QSERVE_REQUESTS, pd, pd)]):
+        xq = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int8).to(dev)
+        q = torch.randint(-128, 128, (n, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        if m > 16:
+            assert torch.equal(Q.matmul_int8(xq, q),
+                               Q.matmul_int8_reference(xq, q)), \
+                "K15b is not exact"
+            add("matmul_int8", f"M={m} N={n} K={k}", Q.matmul_int8,
+                Q.matmul_int8_reference, cold_sets(xq, q),
+                # [K, N] in column-major: cuBLASLt's int8 layout
+                library_fn=lambda xq, q: torch._int_mm(xq, q.t()),
+                work=(2 * m * n * k, m * k + n * k + 4 * m * n, "int8"))
+        sx = torch.rand(m, generator=gen).to(dev) * 0.01
+        corr = xq.float().sum(1)
+        sw = torch.rand(n, generator=gen).to(dev) * 1e-3
+        zw = torch.randint(-5, 5, (n,), generator=gen).float().to(dev)
+        bias = randn(n) * 0.1
+        args = (xq, q, sx, corr, sw, zw, bias)
+
+        def k15a(*a):
+            return Q.matmul_int8_scaled(*a, out_dtype=torch.bfloat16)
+
+        def k15a_plain(*a):
+            return Q.matmul_int8_scaled_reference(
+                *a, out_dtype=torch.bfloat16)
+        assert torch.equal(k15a(*args), k15a_plain(*args)), \
+            "K15a is not exact"
+        add("matmul_int8_scaled", f"M={m} N={n} K={k} bf16 (+bias)", k15a,
+            k15a_plain, cold_sets(*args),
+            work=(2 * m * n * k, m * k + n * k + 8 * m + 12 * n
+                  + 2 * m * n, "int8"))
+    return rows
+
+
+def restore_f32(qmodel, model, names):
+    """Put the f32 parameters ``names`` of ``model`` back into its PTQ
+    copy, as the bench keeps tok and pos f32."""
+    for name in names:
+        owner, _, attr = name.rpartition(".")
+        replace_leaf(qmodel.get_submodule(owner), attr, torch.nn.Parameter(
+            model.get_parameter(name).detach().clone()))
+    return qmodel
+
+
+def qserve_logits(model, dev, prompt):
+    """One padded prefill row and one paged decode step of ``model`` on
+    ``dev``: ``(prefill logits at the prompt, decode logits)`` on the
+    CPU."""
+    bs = QSERVE_ENGINE["block_size"]
+    table = torch.arange(1, QSERVE["max_seq"] // bs + 1,
+                         dtype=torch.int32)[None]
+    with torch.no_grad():
+        pools = model.init_paged_cache(QSERVE["max_seq"] // bs + 1, bs,
+                                       device=dev)
+        pre = model.prefill_paged(torch.tensor([prompt]).to(dev), pools,
+                                  table.to(dev))
+        step = model.decode_step_paged(
+            torch.tensor([int(pre[0, -1].argmax())]).to(dev),
+            torch.tensor([len(prompt)], dtype=torch.int32).to(dev), pools,
+            table.to(dev))
+    return pre[0].float().cpu(), step.float().cpu()
+
+
+def qserve_run(model, prompts):
+    """Serve ``prompts`` (QSERVE_NEW greedy tokens each) on the card: wall
+    seconds, tokens, launch counts and engine stats."""
+    per = -(-(QSERVE_PROMPT + QSERVE_NEW) // QSERVE_ENGINE["block_size"])
+    eng = ServingEngine(model, pool_blocks=QSERVE_ENGINE["slots"] * per + 1,
+                        seed=SEED, **QSERVE_ENGINE)
+    ids = [eng.submit(p, QSERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = backend.launch_counts()
+    for rid in ids:
+        assert len(out[rid]) == QSERVE_NEW, (rid, len(out[rid]))
+        assert all(0 <= t < QSERVE["vocab_size"] for t in out[rid]), rid
+    return wall, sum(len(out[i]) for i in ids), counts, eng.stats()
+
+
+def phase17_quant_serve(dev, smi):
+    """PTQ int8 and int4 serving of the bench_serving model on the card:
+    logits against the port's CPU path with the same weights, the exact
+    K12/K13 launches per decode step, every request served, and
+    generated tokens/s beside f32."""
+    print("phase 17: the bench's contiguous-cache engine is not ported; "
+          "the quantized model serves through the paged engine")
+    model = TinyGPT(**QSERVE)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, QSERVE["vocab_size"],
+                            QSERVE_PROMPT).tolist()
+               for _ in range(QSERVE_REQUESTS)]
+    variants = {"f32": model}
+    for name, cfg in (("int8", QuantizationConfig.int8()),
+                      ("int4", QuantizationConfig.int4())):
+        variants[name] = restore_f32(quantize_params(model, cfg), model,
+                                     ("tok.w", "pos.w"))
+    out = {"params": n_params}
+    for name, qm in variants.items():
+        nbytes = quantized_bytes(qm)
+        if name != "f32":
+            ref = qserve_logits(qm, "cpu", prompts[0])
+        variants[name] = card = qm.to(dev)
+        if name != "f32":
+            got = qserve_logits(card, dev, prompts[0])
+            for what, o, r in zip(("prefill", "decode step"), got, ref):
+                assert o.shape == r.shape and torch.isfinite(o).all()
+                rel = rel_l2(o, r)
+                print(f"phase 17: {name} {what} logits {tuple(o.shape)}, "
+                      f"card vs the port's CPU path: rel L2 {rel:.3e} (tol "
+                      f"{QSERVE_REL_TOL:.0e}), max abs err "
+                      f"{float((o - r).abs().max()):.3e}")
+                assert rel <= QSERVE_REL_TOL, f"{name} {what} logits"
+        wall, toks, counts, st = qserve_run(card, prompts)
+        steps = st["decode_blocks"] * QSERVE_ENGINE["decode_block"]
+        kern = {"int8": "linear_q8", "int4": "linear_q4"}.get(name)
+        line = (f"phase 17: {name} served {QSERVE_REQUESTS} requests "
+                f"({st['completed']} completed, {steps} decode steps) in "
+                f"{wall:.2f} s: {toks / wall:.1f} generated tokens/s; "
+                f"weights {nbytes / 2 ** 20:.1f} MiB")
+        if kern is not None:
+            per_step = (counts[kern] - QSERVE_PER_STEP * st["admitted"]) \
+                / steps
+            line += f"; {kern} launches per decode step {per_step:g}"
+            assert per_step == QSERVE_PER_STEP, counts
+            assert counts["linear"] == 0, counts
+        print(line + f"; on {smi}")
+        assert st["completed"] == QSERVE_REQUESTS, st
+        out[name] = dict(tokens_s=toks / wall, bytes=nbytes, counts=counts,
+                         wall_s=wall)
+    # the profiles after every timed run: a profiled process may keep
+    # some of the tracer's host cost
+    for name, card in variants.items():
+        out[name]["profile"] = qserve_profile(card, dev, name, prompts)
+    return out
+
+
+def qserve_profile(model, dev, name, prompts):
+    """Device time of 4 decode steps at 8 rows: wall against busy and each
+    kernel family's share."""
+    bs = QSERVE_ENGINE["block_size"]
+    n = len(prompts)
+    mb = QSERVE["max_seq"] // bs
+    tables = (torch.arange(n * mb, dtype=torch.int32).reshape(n, mb)
+              + 1).to(dev)
+    pools = model.init_paged_cache(n * mb + 1, bs, device=dev)
+    tok = torch.zeros(n, dtype=torch.int64, device=dev)
+    pos = torch.full((n,), 100, dtype=torch.int32, device=dev)
+
+    def step():
+        with torch.no_grad():
+            model.decode_step_paged(tok, pos, pools, tables)
+    step()
+    prof = profile_steps(step, 4, QUANT_FAMILIES)
+    print(f"phase 17: profiled 4 {name} decode steps (8 rows): "
+          f"{prof['wall_ms']:.2f} ms of wall per step (under the profiler) "
+          f"for {prof['busy_ms']:.3f} ms of device busy time, "
+          f"{prof['device_ops']:.0f} device ops per step; device ms per "
+          f"step by family {prof['ms']}; largest glue {prof['glue_top']}")
+    return prof
+
+
+def w8a8_forward(model, toks, iters=W8A8_ITERS):
+    """Logits of one forward and the mean ms of ``iters`` more."""
+    with torch.no_grad():
+        logits = model(toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(toks)
+        torch.cuda.synchronize()
+    return logits, (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase18_w8a8(dev, smi):
+    """bench.py:273-301's W8A8 prefill: the int8 model under TAPER_W8A8=1
+    (K14 + K15a), the same weights through K12, and the bf16 dense model
+    through K1."""
+    gen = torch.Generator().manual_seed(SEED)
+    dense = TinyGPT(**W8A8, compute_dtype=torch.bfloat16)
+    dense.reset_parameters(gen)
+    qmodel = quantize_params(
+        dense, QuantizationConfig(qtype=QuantizationType.INT8)).to(dev)
+    dense.to(dev)
+    toks = torch.randint(0, W8A8["vocab_size"],
+                         (W8A8_BATCH, W8A8["max_seq"]), generator=gen)
+    toks = toks.to(dev)
+    n_lin = 6 * W8A8["depth"]
+    runs = {}
+    for name, model, w8a8, want in (
+            ("w8a8", qmodel, "1", dict(quantize_rows=n_lin,
+                                       matmul_int8_scaled=n_lin)),
+            ("int8 K12", qmodel, "0", dict(linear_q8=n_lin)),
+            ("bf16 dense", dense, "0", dict(linear=n_lin))):
+        os.environ["TAPER_W8A8"] = w8a8
+        try:
+            torch.cuda.synchronize()
+            backend.reset_launch_counts()
+            with torch.no_grad():
+                model(toks)
+            torch.cuda.synchronize()
+            counts = {k: c for k, c in backend.launch_counts().items() if c}
+            logits, ms = w8a8_forward(model, toks)
+        finally:
+            os.environ.pop("TAPER_W8A8")
+        want.update(flash_fwd_bound=W8A8["depth"])
+        assert counts == want, (name, counts)
+        assert torch.isfinite(logits).all()
+        runs[name] = dict(logits=logits.float().cpu(), ms=ms, counts=counts)
+        print(f"phase 18: {name} forward of {W8A8_BATCH} x "
+              f"{W8A8['max_seq']} tokens: {ms:.2f} ms; launches {counts}")
+    rel = rel_l2(runs["w8a8"]["logits"], runs["int8 K12"]["logits"])
+    rel_dense = rel_l2(runs["int8 K12"]["logits"],
+                       runs["bf16 dense"]["logits"])
+    print(f"phase 18: W8A8 logits vs the same int8 weights through K12: "
+          f"rel L2 {rel:.3e} (tol {W8A8_REL_TOL:.0e}, the activation "
+          f"rounding); K12 vs bf16 dense {rel_dense:.3e} (the weight "
+          f"rounding); W8A8 {runs['w8a8']['ms']:.2f} ms, K12 "
+          f"{runs['int8 K12']['ms']:.2f} ms, bf16 dense "
+          f"{runs['bf16 dense']['ms']:.2f} ms; on {smi}")
+    assert rel <= W8A8_REL_TOL, rel
+    counts = dict.fromkeys(backend.KERNELS, 0)
+    for r in runs.values():
+        for k, c in r["counts"].items():
+            counts[k] += c
+    return counts, {k: dict(ms=r["ms"]) for k, r in runs.items()}
+
+
+def phase19_ptq_example(dev, smi):
+    """examples/ptq_quantize.py through its entry point, one epoch (from
+    SEED the card's CNN spikes in epoch 2: phase 8)."""
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ptq_quantize.main(["--device", "cuda", "--epochs", "1"])
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    # the int8 model: one diagnostic batch of 256 and the 10k test split
+    # in 5 eval batches of 2000, three int8 FC layers each
+    batches = 10000 // 2000
+    per_batch = (counts["linear_q8"] - 3) / batches
+    f32 = res["f32"]["acc"]
+    print(f"phase 19: examples/ptq_quantize.py --epochs 1 in "
+          f"{time.perf_counter() - t0:.1f} s (the example's default of 2 "
+          f"epochs meets the Adam spike from this seed on the card, phase "
+          f"8): " + "; ".join(
+              f"{k} acc {r['acc']:.4f} drop {f32 - r['acc']:+.4f} "
+              f"{r['bytes'] / 1e6:.3f} MB eval {r['eval_s']:.3f} s max "
+              f"logit diff {r['max_logit_diff']:.5f}"
+              for k, r in res.items())
+          + f"; K12 launches per eval batch of 2000: {per_batch:g}; on "
+          f"{smi}")
+    assert abs(res["int8"]["acc"] - f32) <= PTQ_INT8_DROP, res
+    assert abs(res["float16"]["acc"] - f32) <= PTQ_F16_DROP, res
+    assert per_batch == 3, counts
+    return counts
+
+
 def kernel_report(paths, standalone):
     """One entry per kernel: its launches and numbers on each path that
     launched it or measured it (``by_path``); the top-level numbers come
@@ -1599,6 +2045,14 @@ def main():
     new_rows = phase13_new_kernels(dev)
     resnet_counts, resnet_rows = phase14_resnet(dev, smi)
     example_counts = phase15_examples(dev, smi)
+    torch.cuda.empty_cache()
+
+    quant_rows = phase16_quant_kernels(dev)
+    qserve = phase17_quant_serve(dev, smi)
+    torch.cuda.empty_cache()
+    w8a8_counts, _ = phase18_w8a8(dev, smi)
+    torch.cuda.empty_cache()
+    ptq_counts = phase19_ptq_example(dev, smi)
 
     # train_lm: the 170M run's kernels at its shapes (K8's headline: the
     # bound arm in [B, S, H*D], the layout and arm its training takes),
@@ -1613,14 +2067,31 @@ def main():
     # each path: its launch counts and its kernel rows; the newest path
     # comes first and gives the top-level numbers.  The K2 ops other than
     # relu are on no path (nor are they in the JAX package): their rows
-    # come from phase 13 alone, with no launches
-    paths = {"train_resnet": (resnet_counts,
+    # come from phase 13 alone, with no launches; so is K15b, the JAX
+    # package's exact-integer primitive (linear_w8a8 runs K15a)
+    qserve_counts = {k: qserve["int8"]["counts"][k]
+                     + qserve["int4"]["counts"][k] for k in backend.KERNELS}
+    # headlines: K12/K13 at the decode up-projection (M=8 N=8192 K=2048),
+    # K12 at M=4096 N=8192 on the W8A8 path, at the first FC on the CNN's;
+    # K14 at K=2048, K15a at M=4096 N=K=2048
+    paths = {"serve_quant": (qserve_counts, dict(
+                 linear_q8=headline(quant_rows["linear_q8"], 2),
+                 linear_q4=headline(quant_rows["linear_q4"], 2))),
+             "prefill_w8a8": (w8a8_counts, dict(
+                 linear_q8=headline(quant_rows["linear_q8"], 5),
+                 quantize_rows=headline(quant_rows["quantize_rows"]),
+                 matmul_int8_scaled=headline(
+                     quant_rows["matmul_int8_scaled"]))),
+             "ptq_example": (ptq_counts, dict(
+                 linear_q8=headline(quant_rows["linear_q8"], 7))),
+             "train_resnet": (resnet_counts,
                               dict(relu=new_rows["relu"], **resnet_rows)),
              "examples": (example_counts, dict(sgd=new_rows["sgd"])),
              "train_lm": (lm_launches, lm_report),
              "train_cnn": (cnn_counts, cnn_report),
              "serve": (serve_counts, serve_report)}
-    kernels = kernel_report(paths, new_rows)
+    kernels = kernel_report(paths, dict(
+        new_rows, matmul_int8=headline(quant_rows["matmul_int8"])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -45,6 +45,24 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// 16-byte global->shared copy that zero-fills when `in` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  int bytes = in ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Fused epilogues of the GEMM and convolution kernels; codes shared with

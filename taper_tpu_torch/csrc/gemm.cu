@@ -54,24 +54,6 @@ namespace taper {
 // bf16 tensor-core tile kernel, all three modes
 // ---------------------------------------------------------------------------
 
-// 16-byte global->shared copy that zero-fills when `in` is false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  int bytes = in ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Starts loading the [ROWS, COLS] tile at (r0, c0) of a row-major
 // [rows, cols] bf16 matrix into shared memory (leading dimension LD),
 // zero-filling past the ragged edges.  `vec` (cols % 8 == 0, 16-byte

@@ -1,0 +1,673 @@
+// Quantized matrix products: the four kernels of
+// taper_tpu/ops/pallas/quant.py.
+//
+// K12 linear_q8 (replaces _q8_kernel, quant.py:41, launched by
+// _linear_q8_jit) and K13 linear_q4 (_q4_kernel, quant.py:159): one
+// templated kernel over int8 codes q[N, K] or int4 codes packed two to a
+// byte [N, K/2] (the even element in the low nibble), f32 out:
+//   y[m,n] = scale[n] * sum_k bf16(x[m,k]) q[n,k]
+//            - xsum[m] * (scale[n] zp[n])  (+ bias[n]) (+ relu | sigmoid)
+// with xsum[m] = sum_k x[m,k] over the unrounded f32 activations.  The
+// activations are rounded to bf16 before the product, as the TPU kernel
+// does (quant.py:53); int8 and int4 codes are exact in bf16, so the
+// products are exact in f32 and only the summation order differs from
+// the plain version.  JAX permutes the activation's columns into the
+// kernel's planar nibble order, a TPU lane trick; here each packed byte
+// is unpacked in its natural interleaved order, so nothing is permuted.
+//
+// K14 quantize_rows (_rowquant_kernel, quant.py:460): per row of x[M, K]
+// (f32 or bf16), s = max(absmax, 1e-8) / 127 (a multiply by the f32
+// reciprocal, as XLA runs the TPU kernel), xq = rint(x / s) as int8,
+// sx = s and xsum = sum xq, the same f32 operations as the plain version,
+// so codes, scales and sums are exact.  Every shape runs here: JAX's XLA
+// fallback for shapes no VMEM block fits (quant.py:492-498) is not needed.
+//
+// K15a matmul_int8_scaled / K15b matmul_int8 (_i8mm_scaled_kernel,
+// quant.py:324; _i8mm_kernel, :292): xq[M, K] int8 . q[N, K]^T int8 on the
+// int8 tensor cores with int32 accumulators.  K15b writes the exact int32
+// product; K15a the W8A8 epilogue in the TPU kernel's order,
+//   y = (sx[m] sw[n]) (float(acc) - zw[n] corr[m]) (+ bias[n]) (+ relu),
+// in f32 or bf16, through the _rn intrinsics so that nvcc contracts
+// nothing into an FMA (the plain version rounds every step).
+//
+// What bounds them on the H100:
+//   * K12/K13 at decode (M = 8 rows, weights of 1-16 MB): memory bound,
+//     every weight byte read once a step (int8: 1 byte a weight, int4
+//     half); at M = 2,000-4,096 rows: tensor-core bound (bf16 rate);
+//   * K14: memory bound, x read once, the int8 codes written once;
+//   * K15 at the W8A8 prefill (M = 4,096, N and K 2,048-8,192): int8
+//     tensor-core bound, 1,979 TOP/s.
+// What the simple design does about that:
+//   * K12/K13 stage the codes through registers and convert them to bf16
+//     on their way into shared memory (the f32 weights never exist in
+//     device memory), with the next tile's loads in flight while the
+//     current one is multiplied by WMMA 16x16x16 bf16; at decode (M <= 16)
+//     a block owns 16 output columns and its 4 warps split each 256-wide K
+//     tile, so a 2048-row weight spreads over 128 blocks; larger M takes
+//     128x128 or 64x64 tiles.  The row sum comes from the same f32
+//     registers, before the rounding, with a fixed-order reduction;
+//   * K14 is one block per row: an absmax pass, then a quantize pass that
+//     re-reads the row (from L1/L2), 16-byte vectors where aligned;
+//   * K15 runs mma.sync m16n8k32 s8 on 128x128x64 tiles (8 warps of
+//     64x32) fed by a 3-stage cp.async pipeline, the epilogue applied to
+//     the int32 accumulators in registers.  (WMMA's s8 fragments need
+//     32-byte aligned addresses, which 16-byte K steps of int8 cannot
+//     give; the PTX fragments load 4 bytes a register.)
+// wgmma, TMA, split-K across blocks for decode and a persistent schedule
+// are later work.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace taper {
+
+// ---------------------------------------------------------------------------
+// K12 / K13: dequant-on-load linear
+// ---------------------------------------------------------------------------
+
+// scale . acc - xsum . (scale . zp) (+ bias), each step rounded (no FMA
+// contraction), then the none/relu/sigmoid epilogue.
+__device__ __forceinline__ float q_epilogue(float acc, float xs, float s,
+                                            float z, const float* bias,
+                                            int n, int act) {
+  float out = __fsub_rn(__fmul_rn(acc, s), __fmul_rn(xs, __fmul_rn(s, z)));
+  if (bias != nullptr) out = __fadd_rn(out, bias[n]);
+  return epilogue(out, act);
+}
+
+// Sign-extended int4 codes of one packed byte (quant.py:170-171).
+__device__ __forceinline__ int nibble_lo(unsigned b) {
+  return static_cast<int>(b << 28) >> 28;
+}
+__device__ __forceinline__ int nibble_hi(unsigned b) {
+  return static_cast<int>(b << 24) >> 28;
+}
+
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int WARPS_K>
+struct QTiles {
+  static constexpr int NT = WARPS_M * WARPS_N * WARPS_K * 32;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int FM = WM / 16, FN = WN / 16;
+  static constexpr int KW = BK / WARPS_K;  // K columns per warp per tile
+  static constexpr int LD = BK + 8;        // bf16; keeps WMMA's 32 B rule
+  static constexpr int CPR_X = BK / 4;     // float4 chunks of x per row
+  static constexpr int X_CHUNKS = BM * CPR_X;
+  static constexpr int XC = X_CHUNKS / NT;  // x chunks per thread
+  static constexpr int CPR_Q = BK / 16;    // 16-code chunks per row
+  static constexpr int QC = BN * CPR_Q / NT;  // code chunks per thread
+  static constexpr int A_ELEMS = BM * LD, B_ELEMS = BN * LD;
+  static constexpr int PIPE_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;
+  // after the loop the pipeline holds the per-warp output staging (one
+  // 16x16 f32 tile a warp) or the split-K partial tiles
+  static constexpr int EPI_BYTES =
+      WARPS_K > 1 ? WARPS_K * BM * BN * 4 : WARPS_M * WARPS_N * 256 * 4;
+  static constexpr int SMEM_BYTES = PIPE_BYTES + X_CHUNKS * 4 + BM * 4;
+  static_assert(X_CHUNKS % NT == 0 && (BN * CPR_Q) % NT == 0, "chunks");
+  static_assert(EPI_BYTES <= PIPE_BYTES, "epilogue staging fits");
+  static_assert(KW % 16 == 0 && WM % 16 == 0 && WN % 16 == 0, "frags");
+  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory");
+};
+
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int WARPS_K,
+          int BITS>
+__global__ void __launch_bounds__(WARPS_M* WARPS_N* WARPS_K * 32)
+    linear_q_kernel(const float* __restrict__ x,
+                    const uint8_t* __restrict__ q,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ zp,
+                    const float* __restrict__ bias, float* __restrict__ y,
+                    int M, int N, int K, int act, bool vec) {
+  using L = QTiles<BM, BN, BK, WARPS_M, WARPS_N, WARPS_K>;
+  __shared__ __align__(128) unsigned char smem[L::SMEM_BYTES];
+  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* part = reinterpret_cast<float*>(smem + L::PIPE_BYTES);
+  float* xsum = part + L::X_CHUNKS;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wk = warp / (WARPS_M * WARPS_N);
+  const int wm = (warp % (WARPS_M * WARPS_N)) / WARPS_N;
+  const int wn = warp % WARPS_N;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int KT = (K + BK - 1) / BK;
+  const size_t row_bytes = BITS == 8 ? (size_t)K : (size_t)K / 2;
+
+  float4 xr[L::XC];      // the next tile's activations, f32
+  uint4 qr[L::QC];       // the next tile's codes, raw bytes
+  float xs[L::XC] = {};  // row-sum partials of this thread's x chunks
+
+  auto load_regs = [&](int kt) {
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < L::XC; ++i) {
+      const int c = tid + i * L::NT;
+      const int gm = m0 + c / L::CPR_X, gk = k0 + (c % L::CPR_X) * 4;
+      const float* src = x + (size_t)gm * K + gk;
+      if (vec && gm < M && gk < K) {
+        xr[i] = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = (gm < M && gk + e < K) ? src[e] : 0.0f;
+        xr[i] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < L::QC; ++i) {
+      const int c = tid + i * L::NT;
+      const int gn = n0 + c / L::CPR_Q, gk = k0 + (c % L::CPR_Q) * 16;
+      const uint8_t* src = q + gn * row_bytes + (BITS == 8 ? gk : gk / 2);
+      if (vec && gn < N && gk < K) {
+        if constexpr (BITS == 8) {
+          qr[i] = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          uint2 h = __ldg(reinterpret_cast<const uint2*>(src));
+          qr[i] = make_uint4(h.x, h.y, 0u, 0u);
+        }
+      } else {
+        // byte by byte, zero past the edges (an int4 byte holds codes
+        // gk + 2j and gk + 2j + 1, both in or both out: K is even)
+        __align__(16) uint8_t b[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int code = BITS == 8 ? gk + j : gk + 2 * j;
+          b[j] = (j < (BITS == 8 ? 16 : 8) && gn < N && code < K) ? src[j]
+                                                                  : 0;
+        }
+        qr[i] = *reinterpret_cast<uint4*>(b);
+      }
+    }
+  };
+
+  auto store_regs = [&](int buf) {
+    __nv_bfloat16* As = pipe + buf * (L::A_ELEMS + L::B_ELEMS);
+    __nv_bfloat16* Bs = As + L::A_ELEMS;
+#pragma unroll
+    for (int i = 0; i < L::XC; ++i) {
+      const int c = tid + i * L::NT;
+      const float4 v = xr[i];
+      xs[i] += ((v.x + v.y) + v.z) + v.w;  // unrounded f32 (quant.py:57)
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<unsigned*>(&lo);
+      packed.y = *reinterpret_cast<unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(As + (c / L::CPR_X) * L::LD +
+                                (c % L::CPR_X) * 4) = packed;
+    }
+#pragma unroll
+    for (int i = 0; i < L::QC; ++i) {
+      const int c = tid + i * L::NT;
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&qr[i]);
+      __align__(16) __nv_bfloat16 w[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        int code;
+        if constexpr (BITS == 8)
+          code = static_cast<int8_t>(b[j]);
+        else
+          code = (j & 1) ? nibble_hi(b[j / 2]) : nibble_lo(b[j / 2]);
+        w[j] = __int2bfloat16_rn(code);  // exact: |code| <= 128
+      }
+      uint4* dst = reinterpret_cast<uint4*>(Bs + (c / L::CPR_Q) * L::LD +
+                                            (c % L::CPR_Q) * 16);
+      dst[0] = reinterpret_cast<const uint4*>(w)[0];
+      dst[1] = reinterpret_cast<const uint4*>(w)[1];
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[L::FM][L::FN];
+#pragma unroll
+  for (int i = 0; i < L::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < L::FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  load_regs(0);
+  for (int kt = 0; kt < KT; ++kt) {
+    // buffer kt & 1 was last read two iterations ago, before every thread
+    // passed the previous iteration's barrier
+    store_regs(kt & 1);
+    __syncthreads();
+    if (kt + 1 < KT) load_regs(kt + 1);  // in flight during the products
+    const __nv_bfloat16* As = pipe + (kt & 1) * (L::A_ELEMS + L::B_ELEMS);
+    const __nv_bfloat16* Bs = As + L::A_ELEMS;
+#pragma unroll
+    for (int kk = wk * L::KW; kk < (wk + 1) * L::KW; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          af[L::FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major>
+          bf[L::FN];
+#pragma unroll
+      for (int i = 0; i < L::FM; ++i)
+        wmma::load_matrix_sync(af[i], As + (wm * L::WM + i * 16) * L::LD + kk,
+                               L::LD);
+#pragma unroll
+      for (int j = 0; j < L::FN; ++j)
+        // the [N, K] row-major tile is the K x N operand in column-major
+        wmma::load_matrix_sync(bf[j], Bs + (wn * L::WN + j * 16) * L::LD + kk,
+                               L::LD);
+#pragma unroll
+      for (int i = 0; i < L::FM; ++i)
+#pragma unroll
+        for (int j = 0; j < L::FN; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    }
+  }
+
+  // row sums: each chunk slot's partial, then a fixed-order sum per row
+#pragma unroll
+  for (int i = 0; i < L::XC; ++i) part[tid + i * L::NT] = xs[i];
+  __syncthreads();  // also: every warp is done with the pipeline
+  if (tid < BM) {
+    float s = 0.0f;
+    for (int c = 0; c < L::CPR_X; ++c) s += part[tid * L::CPR_X + c];
+    xsum[tid] = s;
+  }
+
+  float* stage = reinterpret_cast<float*>(smem);
+  if constexpr (WARPS_K > 1) {
+    // split-K: each warp's partial tile, summed in warp order
+#pragma unroll
+    for (int i = 0; i < L::FM; ++i)
+#pragma unroll
+      for (int j = 0; j < L::FN; ++j)
+        wmma::store_matrix_sync(
+            stage + wk * BM * BN + (wm * L::WM + i * 16) * BN + wn * L::WN +
+                j * 16,
+            acc[i][j], BN, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < BM * BN; e += L::NT) {
+      const int r = e / BN, c = e % BN, gm = m0 + r, gn = n0 + c;
+      if (gm < M && gn < N) {
+        float a = 0.0f;
+#pragma unroll
+        for (int w = 0; w < WARPS_K; ++w) a += stage[w * BM * BN + e];
+        y[(size_t)gm * N + gn] =
+            q_epilogue(a, xsum[r], scale[gn], zp[gn], bias, gn, act);
+      }
+    }
+  } else {
+    __syncthreads();  // xsum is complete
+    float* mine = stage + warp * 256;
+#pragma unroll
+    for (int i = 0; i < L::FM; ++i)
+#pragma unroll
+      for (int j = 0; j < L::FN; ++j) {
+        wmma::store_matrix_sync(mine, acc[i][j], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int r = wm * L::WM + i * 16 + e / 16;
+          const int gm = m0 + r, gn = n0 + wn * L::WN + j * 16 + e % 16;
+          if (gm < M && gn < N)
+            y[(size_t)gm * N + gn] =
+                q_epilogue(mine[e], xsum[r], scale[gn], zp[gn], bias, gn,
+                           act);
+        }
+        __syncwarp();
+      }
+  }
+}
+
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int WARPS_K,
+          int BITS>
+int launch_linear_q(const float* x, const uint8_t* q, const float* scale,
+                    const float* zp, const float* bias, float* y, int M,
+                    int N, int K, int act, cudaStream_t s) {
+  // 16-byte x chunks need K % 4 == 0; 16-code chunks K % 16 == 0 (int8
+  // rows of 16 bytes, int4 rows of 8); bases are 16-byte aligned (the
+  // wrapper checks)
+  const bool vec = K % 16 == 0;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  linear_q_kernel<BM, BN, BK, WARPS_M, WARPS_N, WARPS_K, BITS>
+      <<<grid, WARPS_M * WARPS_N * WARPS_K * 32, 0, s>>>(
+          x, q, scale, zp, bias, y, M, N, K, act, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int linear_q(const float* x, const uint8_t* q, const float* scale,
+             const float* zp, const float* bias, float* y, int M, int N,
+             int K, int act, cudaStream_t s) {
+  if (M <= 16)  // decode: 16 columns a block, 4 warps split K
+    return launch_linear_q<16, 16, 256, 1, 1, 4, BITS>(x, q, scale, zp, bias,
+                                                       y, M, N, K, act, s);
+  const long long big_tiles =
+      (long long)((M + 127) / 128) * ((N + 127) / 128);
+  if (big_tiles >= 132)
+    return launch_linear_q<128, 128, 32, 2, 4, 1, BITS>(
+        x, q, scale, zp, bias, y, M, N, K, act, s);
+  return launch_linear_q<64, 64, 32, 2, 2, 1, BITS>(x, q, scale, zp, bias,
+                                                    y, M, N, K, act, s);
+}
+
+// ---------------------------------------------------------------------------
+// K14: per-row activation quantization
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 256;
+
+template <typename T>
+__device__ __forceinline__ void load8(float (&v)[8], const T* p);
+template <>
+__device__ __forceinline__ void load8<float>(float (&v)[8], const float* p) {
+  float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+template <>
+__device__ __forceinline__ void load8<__nv_bfloat16>(
+    float (&v)[8], const __nv_bfloat16* p) {
+  uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
+}
+
+__device__ __forceinline__ int8_t quantize_one(float v, float s) {
+  return static_cast<int8_t>(__float2int_rn(__fdiv_rn(v, s)));  // rint
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                         float* __restrict__ sx, float* __restrict__ xsum,
+                         int K, bool vec) {
+  __shared__ float red_max[kRowThreads / 32];
+  __shared__ int red_sum[kRowThreads / 32];
+  __shared__ float row_scale;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const T* xr = x + (size_t)blockIdx.x * K;
+  int8_t* qr = xq + (size_t)blockIdx.x * K;
+
+  float a = 0.0f;
+  if (vec) {
+    for (int k = tid * 8; k < K; k += kRowThreads * 8) {
+      float v[8];
+      load8(v, xr + k);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) a = fmaxf(a, fabsf(v[e]));
+    }
+  } else {
+    for (int k = tid; k < K; k += kRowThreads)
+      a = fmaxf(a, fabsf(to_f32(xr[k])));
+  }
+  a = warp_max(a);
+  if (lane == 0) red_max[warp] = a;
+  __syncthreads();
+  if (tid == 0) {
+    float m = red_max[0];
+    for (int w = 1; w < kRowThreads / 32; ++w) m = fmaxf(m, red_max[w]);
+    // / 127 as XLA runs the TPU kernel's division by the constant: a
+    // multiply by its f32 reciprocal
+    row_scale = __fmul_rn(fmaxf(m, 1e-8f), 1.0f / 127.0f);
+  }
+  __syncthreads();
+  const float s = row_scale;
+
+  int sum = 0;  // exact: at most 127 K
+  if (vec) {
+    for (int k = tid * 8; k < K; k += kRowThreads * 8) {
+      float v[8];
+      load8(v, xr + k);
+      __align__(8) int8_t c[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        c[e] = quantize_one(v[e], s);
+        sum += c[e];
+      }
+      *reinterpret_cast<uint2*>(qr + k) = *reinterpret_cast<uint2*>(c);
+    }
+  } else {
+    for (int k = tid; k < K; k += kRowThreads) {
+      int8_t c = quantize_one(to_f32(xr[k]), s);
+      qr[k] = c;
+      sum += c;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0) red_sum[warp] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < kRowThreads / 32; ++w) total += red_sum[w];
+    sx[blockIdx.x] = s;
+    xsum[blockIdx.x] = static_cast<float>(total);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K15a / K15b: int8 x int8 -> int32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+enum I8Out : int { kOutF32 = 0, kOutBF16 = 1, kOutI32 = 2 };
+
+constexpr int I8_BM = 128, I8_BN = 128, I8_BK = 64, I8_STAGES = 3;
+constexpr int I8_WARPS_M = 2, I8_WARPS_N = 4;
+constexpr int I8_NT = I8_WARPS_M * I8_WARPS_N * 32;
+constexpr int I8_LD = I8_BK + 16;  // bytes; a multiple of 16 for WMMA
+constexpr int I8_STAGE = (I8_BM + I8_BN) * I8_LD;
+constexpr size_t I8_SMEM = (size_t)I8_STAGES * I8_STAGE;
+
+// Starts loading the [ROWS, I8_BK] int8 tile at (r0, k0) of a row-major
+// [rows, K] matrix: 16-byte cp.async chunks zero-filled past the edges
+// when `vec` (K % 16 == 0), else byte by byte.
+template <int ROWS>
+__device__ __forceinline__ void load_tile_i8(int8_t* sm, const int8_t* g,
+                                             int r0, int rows, int k0, int K,
+                                             bool vec) {
+  constexpr int CPR = I8_BK / 16;
+  for (int c = threadIdx.x; c < ROWS * CPR; c += I8_NT) {
+    const int r = c / CPR, kc = (c % CPR) * 16;
+    const int gr = r0 + r, gk = k0 + kc;
+    int8_t* dst = sm + r * I8_LD + kc;
+    if (vec) {
+      const bool in = gr < rows && gk < K;
+      cp_async16(dst, in ? g + (size_t)gr * K + gk : g, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (gr < rows && gk + e < K) ? g[(size_t)gr * K + gk + e] : 0;
+    }
+  }
+}
+
+// One m16n8k32 int8 tensor-core product, accumulated in place (PTX
+// fragment layouts: a = A[g][4t..], A[g+8][4t..], A[g][16+4t..],
+// A[g+8][16+4t..]; b = B[4t..][g], B[16+4t..][g]; c = C[g][2t], C[g][2t+1],
+// C[g+8][2t], C[g+8][2t+1], with g = lane / 4 and t = lane % 4).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+template <int OUT>
+__global__ void __launch_bounds__(I8_NT)
+    matmul_int8_kernel(const int8_t* __restrict__ xq,
+                       const int8_t* __restrict__ q,
+                       const float* __restrict__ sx,
+                       const float* __restrict__ corr,
+                       const float* __restrict__ sw,
+                       const float* __restrict__ zw,
+                       const float* __restrict__ bias, void* __restrict__ y,
+                       int M, int N, int K, int relu, bool vec) {
+  constexpr int WM = I8_BM / I8_WARPS_M, WN = I8_BN / I8_WARPS_N;
+  constexpr int FM = WM / 16, FN = WN / 8;  // m16n8k32 fragments a warp
+  extern __shared__ __align__(128) unsigned char i8_smem[];
+  int8_t* smem = reinterpret_cast<int8_t*>(i8_smem);
+
+  const int m0 = blockIdx.y * I8_BM, n0 = blockIdx.x * I8_BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / I8_WARPS_N, wn = warp % I8_WARPS_N;
+  const int KT = (K + I8_BK - 1) / I8_BK;
+
+  auto load_stage = [&](int kt) {
+    int8_t* As = smem + (kt % I8_STAGES) * I8_STAGE;
+    int8_t* Bs = As + I8_BM * I8_LD;
+    load_tile_i8<I8_BM>(As, xq, m0, M, kt * I8_BK, K, vec);
+    load_tile_i8<I8_BN>(Bs, q, n0, N, kt * I8_BK, K, vec);
+  };
+
+  int acc[FM][FN][4] = {};
+#pragma unroll
+  for (int s = 0; s < I8_STAGES - 1; ++s) {
+    if (s < KT) load_stage(s);
+    cp_async_commit();  // one group per stage, empty ones included
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<I8_STAGES - 2>();  // tile kt has landed
+    __syncthreads();                 // ... for every thread; kt-1 is free
+    if (kt + I8_STAGES - 1 < KT) load_stage(kt + I8_STAGES - 1);
+    cp_async_commit();
+    const int8_t* As = smem + (kt % I8_STAGES) * I8_STAGE;
+    const int8_t* Bs = As + I8_BM * I8_LD;
+#pragma unroll
+    for (int kk = 0; kk < I8_BK; kk += 32) {
+      unsigned a[FM][4], b[FN][2];
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const int8_t* p = As + (wm * WM + i * 16 + g) * I8_LD + kk + 4 * t;
+        a[i][0] = ld32(p);
+        a[i][1] = ld32(p + 8 * I8_LD);
+        a[i][2] = ld32(p + 16);
+        a[i][3] = ld32(p + 8 * I8_LD + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        // the [N, K] row-major tile is B = q^T in column-major
+        const int8_t* p = Bs + (wn * WN + j * 8 + g) * I8_LD + kk + 4 * t;
+        b[j][0] = ld32(p);
+        b[j][1] = ld32(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) mma_s8(acc[i][j], a[i], b[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int gm = m0 + wm * WM + i * 16 + g + (r >> 1) * 8;
+        const int gn = n0 + wn * WN + j * 8 + 2 * t + (r & 1);
+        if (gm >= M || gn >= N) continue;
+        const size_t o = (size_t)gm * N + gn;
+        if constexpr (OUT == kOutI32) {
+          static_cast<int*>(y)[o] = acc[i][j][r];
+        } else {
+          float v = __fmul_rn(__fmul_rn(sx[gm], sw[gn]),
+                              __fsub_rn(__int2float_rn(acc[i][j][r]),
+                                        __fmul_rn(zw[gn], corr[gm])));
+          if (bias != nullptr) v = __fadd_rn(v, bias[gn]);
+          if (relu) v = fmaxf(v, 0.0f);
+          if constexpr (OUT == kOutBF16)
+            static_cast<__nv_bfloat16*>(y)[o] = __float2bfloat16(v);
+          else
+            static_cast<float*>(y)[o] = v;
+        }
+      }
+}
+
+template <int OUT>
+int launch_matmul_int8(const void* xq, const void* q, const void* sx,
+                       const void* corr, const void* sw, const void* zw,
+                       const void* bias, void* y, int M, int N, int K,
+                       int relu, cudaStream_t s) {
+  auto kernel = matmul_int8_kernel<OUT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)I8_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + I8_BN - 1) / I8_BN, (M + I8_BM - 1) / I8_BM);
+  kernel<<<grid, I8_NT, I8_SMEM, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(q),
+      static_cast<const float*>(sx), static_cast<const float*>(corr),
+      static_cast<const float*>(sw), static_cast<const float*>(zw),
+      static_cast<const float*>(bias), y, M, N, K, relu, K % 16 == 0);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace taper
+
+using namespace taper;
+
+// K12 (bits 8) and K13 (bits 4); act codes of ACTIVATIONS in ops/gemm.py.
+extern "C" int taper_linear_q(const void* x, const void* q,
+                              const void* scale, const void* zp,
+                              const void* bias, void* y, int M, int N, int K,
+                              int bits, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 || (bits != 8 && bits != 4) ||
+      (bits == 4 && K % 2))
+    return (int)cudaErrorInvalidValue;
+  auto xp = static_cast<const float*>(x);
+  auto qp = static_cast<const uint8_t*>(q);
+  auto sp = static_cast<const float*>(scale);
+  auto zpp = static_cast<const float*>(zp);
+  auto bp = static_cast<const float*>(bias);
+  auto yp = static_cast<float*>(y);
+  if (bits == 8) return linear_q<8>(xp, qp, sp, zpp, bp, yp, M, N, K, act, s);
+  return linear_q<4>(xp, qp, sp, zpp, bp, yp, M, N, K, act, s);
+}
+
+// K14; dtype codes of DTYPES in ops/_build.py.
+extern "C" int taper_quantize_rows(const void* x, void* xq, void* sx,
+                                   void* xsum, int M, int K, int dtype,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec = K % 8 == 0;  // 16-byte loads, 8-byte code stores
+  auto q = static_cast<int8_t*>(xq);
+  auto sp = static_cast<float*>(sx), xs = static_cast<float*>(xsum);
+  if (dtype == kBFloat16)
+    quantize_rows_kernel<__nv_bfloat16><<<M, kRowThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), q, sp, xs, K, vec);
+  else if (dtype == kFloat32)
+    quantize_rows_kernel<float><<<M, kRowThreads, 0, s>>>(
+        static_cast<const float*>(x), q, sp, xs, K, vec);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// K15a (out dtype f32 or bf16, with sx/corr/sw/zw) and K15b (out dtype
+// int32, the vectors null).
+extern "C" int taper_matmul_int8(const void* xq, const void* q,
+                                 const void* sx, const void* corr,
+                                 const void* sw, const void* zw,
+                                 const void* bias, void* y, int M, int N,
+                                 int K, int relu, int out_dtype,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (out_dtype == kOutI32)
+    return launch_matmul_int8<kOutI32>(xq, q, sx, corr, sw, zw, bias, y, M,
+                                       N, K, relu, s);
+  if (sx == nullptr || corr == nullptr || sw == nullptr || zw == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (out_dtype == kOutBF16)
+    return launch_matmul_int8<kOutBF16>(xq, q, sx, corr, sw, zw, bias, y, M,
+                                        N, K, relu, s);
+  if (out_dtype == kOutF32)
+    return launch_matmul_int8<kOutF32>(xq, q, sx, corr, sw, zw, bias, y, M,
+                                       N, K, relu, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -28,6 +28,7 @@ from taper_tpu_torch.data.seq import masked_token_loss
 from taper_tpu_torch.nn.transformer import (
     Embedding, LayerNorm, RMSNorm, TransformerBlock)
 from taper_tpu_torch.ops.paged_attention import paged_write_prefill
+from taper_tpu_torch.quantization.qtensor import dense
 from taper_tpu_torch.utils import not_ported
 
 # TinyGPT.loss takes the naive branch (full [B, S, vocab] logits) up to
@@ -123,7 +124,8 @@ class TinyGPT(nn.Module):
     def cast_projections(self, dtype):
         """Cast the attention and MLP weights and biases to ``dtype`` once,
         in place: the per-call cast in ``_proj`` then does nothing, with
-        the same numbers.  Embeddings, norms and the head stay f32."""
+        the same numbers.  Embeddings, norms and the head stay f32, and a
+        quantized weight (not a parameter) stays as it is."""
         for blk in self.blocks:
             for mod in (blk.attn, blk.mlp):
                 for p in mod.parameters(recurse=False):
@@ -147,7 +149,9 @@ class TinyGPT(nn.Module):
         return self._embed(tokens, torch.arange(s, device=tokens.device))
 
     def _head_weights(self):
-        return self.tok.w if self.tied_head else self.head
+        """Tied or untied head ``[V, D]``; a PTQ'd head dequantizes
+        (``taper_tpu/models/transformer.py:247-253``)."""
+        return dense(self.tok.w if self.tied_head else self.head)
 
     def _logits(self, x):
         # the f32 logits product stays a plain matmul, as JAX's einsum

@@ -17,6 +17,11 @@ under ``running_`` names that its optimizers mask out; they follow
 ``model.train()`` / ``model.eval()`` as JAX's ``apply_train`` /
 ``apply`` do.
 
+Linear, Conv2d and Conv2dReLU take a PTQ ``QuantizedTensor`` in place of
+their weight parameter (``quantization.quantize_params`` installs one
+under the same name): ``ops.linear`` sends int8 and int4 weights to the
+dequant-on-load kernels, and the convolutions dequantize.
+
 Not ported yet: Dropout.
 """
 

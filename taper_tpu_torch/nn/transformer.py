@@ -9,9 +9,14 @@ weight to the activation dtype (``TinyGPT.cast_projections`` does that
 cast once, ahead of serving).  Normalisation statistics and the softmax
 stay f32.
 
+A weight may be a PTQ ``QuantizedTensor`` in place of its parameter
+(``quantization.quantize_params``): :func:`_proj` hands it to
+``ops.linear`` untouched, so int8 and int4 weights reach the
+dequant-on-load kernels, and ``Embedding`` dequantizes its table.
+
 Not ported yet: dropout, sliding windows, segment ids and per-token
-positions, MoE, LoRA and quantized weights, and the contiguous-cache
-decode helpers; their constructor arguments raise ``NotImplementedError``.
+positions, MoE, LoRA, and the contiguous-cache decode helpers; their
+constructor arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from torch import nn
 from taper_tpu_torch import ops
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_write)
+from taper_tpu_torch.ops.quant import w8a8_engages
+from taper_tpu_torch.quantization.qtensor import QuantizedTensor, dense
 from taper_tpu_torch.utils import not_ported
 
 
@@ -74,13 +81,21 @@ class Embedding(nn.Module):
             self.w.normal_(0.0, self.init_std, generator=generator)
 
     def forward(self, ids):
-        return F.embedding(ids, self.w)
+        return F.embedding(ids, dense(self.w))   # a PTQ'd table dequantizes
 
 
 def _proj(x2, w, b):
     """``[R, E_in] @ w[E_out, E_in]^T + b`` at the activation dtype: the
     weights are cast to ``x2``'s dtype (a no-op once cast ahead), the
-    kernel returns f32, which is cast back so a bf16 trunk stays bf16."""
+    kernel returns f32, which is cast back so a bf16 trunk stays bf16.
+
+    A quantized weight goes to ``ops.linear`` untouched
+    (``taper_tpu/nn/transformer.py:121-134``) with f32 activations, or
+    with the trunk's own where W8A8 engages: its row quantization reads
+    them as they are, and a bf16 trunk keeps a bf16 product."""
+    if isinstance(w, QuantizedTensor):
+        xin = x2 if w8a8_engages(x2, w) else x2.float()
+        return ops.linear(xin, w, b).to(x2.dtype)
     return ops.linear(x2, w.to(x2.dtype), b.to(x2.dtype)).to(x2.dtype)
 
 

@@ -30,11 +30,14 @@ torch.backends.cudnn.allow_tf32 = False
 # "paged_decode" K16; "conv_fwd" counts K3a launches (forward and input
 # gradient), "conv_dw" K3b, "pool" K4; "relu" ... "div" count K2, one
 # per elementwise op; "adam" (Adam and AdamW) and "sgd" count K17a/K17b,
-# one per launch over a table of tensors.
+# one per launch over a table of tensors; "linear_q8" K12, "linear_q4" K13,
+# "quantize_rows" K14, "matmul_int8_scaled" K15a and "matmul_int8" K15b.
 EW_OPS = ("relu", "sigmoid", "add", "mul", "fma", "sub", "div")
+QUANT_OPS = ("linear_q8", "linear_q4", "quantize_rows",
+             "matmul_int8_scaled", "matmul_int8")
 KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
            "flash_dq", "flash_dkv", "paged_decode", "conv_fwd", "conv_dw",
-           "pool") + EW_OPS + ("adam", "sgd")
+           "pool") + EW_OPS + ("adam", "sgd") + QUANT_OPS
 _launches = dict.fromkeys(KERNELS, 0)
 # K8 launches that took the bound arm, counted by the kernel itself on the
 # device (the arm is decided there), one int32 counter per device

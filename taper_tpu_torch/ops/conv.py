@@ -14,6 +14,9 @@ NCHW activations, OIHW weights, differentiable on every route:
   ``_extract_patches``) and run the fused GEMM (K1);
 * grouped convolutions run each group through the routes above and
   concatenate, as ``conv.py:85-96`` does.
+
+A quantized weight or bias (``quantization.QuantizedTensor``) is
+dequantized first, as ``taper_tpu/ops/__init__.py:180-191`` does.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from taper_tpu_torch.ops.conv_direct import conv2d_direct
 from taper_tpu_torch.ops.gemm import activation_name, linear
+from taper_tpu_torch.quantization.qtensor import dense
 
 
 def _pair(v):
@@ -44,6 +48,7 @@ def conv2d(x, w, b=None, *, stride=(1, 1), padding=(0, 0), groups=1,
     epilogue (a name or a callable with that name); ``w`` is OIHW."""
     stride, padding = _pair(stride), _pair(padding)
     act = activation_name(activation)
+    w, b = dense(w), dense(b)
     if groups != 1:
         if x.shape[1] % groups or w.shape[0] % groups:
             raise ValueError(f"conv2d: {groups} groups do not divide "

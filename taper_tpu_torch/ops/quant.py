@@ -1,0 +1,321 @@
+"""Quantized matrix products: port of ``taper_tpu/ops/pallas/quant.py``
+and of the quantized branch of ``taper_tpu/ops/__init__.py::linear``.
+
+Four kernels (``csrc/quant.cu``), each with its plain PyTorch version
+beside it:
+
+* K12 :func:`linear_q8` (``_q8_kernel``, ``quant.py:41``): int8 weights
+  dequantized on load.  With ``w = (q - zp) * scale`` per tensor or per
+  output channel the output factorises as
+  ``y[m,n] = scale[n] * sum_k bf16(x[m,k]) q[n,k]
+  - scale[n] zp[n] * sum_k x[m,k] (+ b) (+ relu|sigmoid)``:
+  the activations are rounded to bf16 before the product, as the TPU
+  kernel does (``quant.py:53``, a known numerics gap reproduced here), and
+  the row sum is taken over the unrounded f32 activations (``:57``);
+* K13 :func:`linear_q4` (``_q4_kernel``, ``quant.py:159``): the same over
+  int4 codes packed two to a byte ``[N, K/2]`` (K even);
+* K14 :func:`quantize_rows` (``_rowquant_kernel``, ``quant.py:460``):
+  per-row symmetric activation quantization ``s = max(absmax, 1e-8) /
+  127`` (a multiply by the f32 reciprocal, as XLA runs it),
+  ``xq = rint(x / s)``, and the codes' row sum;
+* K15a/b :func:`matmul_int8_scaled` / :func:`matmul_int8`
+  (``_i8mm_scaled_kernel`` / ``_i8mm_kernel``, ``quant.py:324`` /
+  ``:292``): int8 x int8 -> int32 on the tensor cores, K15b writing the
+  exact int32 product, K15a the W8A8 epilogue
+  ``sx[m] sw[n] (acc - zw[n] corr[m]) (+ b) (+ relu)`` in the output
+  dtype.
+
+:func:`linear_w8a8` composes K14 and K15a and applies a sigmoid epilogue
+outside the kernel (``quant.py:519-548``).  :func:`linear_quantized` is the
+dispatch of ``ops.linear`` for a quantized weight.
+
+CPU tensors run the plain versions; CUDA tensors launch the kernels or
+raise (no fallback).  None of these is differentiable: under grad mode a
+CUDA input that requires grad raises, as ``paged_decode_attention`` does.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from taper_tpu_torch.ops import _build
+from taper_tpu_torch.ops import backend
+from taper_tpu_torch.ops.gemm import ACTIVATIONS, apply_activation
+from taper_tpu_torch.ops.gemm import linear as _dense_linear
+from taper_tpu_torch.quantization.config import QuantizationType
+from taper_tpu_torch.quantization.qtensor import (
+    QuantizedTensor, dense, unpack_int4)
+
+# W8A8 engages for int8 weights at this many rows or more, under
+# TAPER_W8A8=1 (the JAX rule, kept: it decides the model's numbers)
+W8A8_MIN_ROWS = 256
+
+
+def w8a8_engages(x, w) -> bool:
+    """The one W8A8 predicate, read at call time: ``TAPER_W8A8=1``, an
+    int8 :class:`QuantizedTensor` weight, and at least
+    :data:`W8A8_MIN_ROWS` rows of ``x``.  ``ops.linear`` dispatches on it
+    and ``nn.transformer._proj`` keeps bf16 activations on it."""
+    return (isinstance(w, QuantizedTensor)
+            and w.qtype == QuantizationType.INT8
+            and os.environ.get("TAPER_W8A8") == "1"
+            and x.shape[0] >= W8A8_MIN_ROWS)
+
+
+def _row(v, n: int, device) -> torch.Tensor:
+    """A per-tensor scalar or a per-channel ``[n]`` vector as a contiguous
+    f32 ``[n]`` vector (``quant.py:108-111``)."""
+    v = torch.as_tensor(v, device=device).float().reshape(-1)
+    return v.expand(n).contiguous()
+
+
+def _check_epilogue(epilogue: str) -> None:
+    if epilogue not in ACTIVATIONS:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+# -- K12 / K13: dequant-on-load linear ----------------------------------------
+
+def linear_q8_reference(x, q, scale, zp, b=None, epilogue: str = "none"):
+    """Plain version of K12 over integer codes ``q [N, K]``: the factorised
+    product step by step; products of bf16 activations and integer codes
+    are exact in f32, so it differs from the kernel in the summation order
+    only."""
+    n = q.shape[0]
+    acc = torch.matmul(x.to(torch.bfloat16).float(), q.float().t())
+    xsum = x.float().sum(1, keepdim=True)
+    scale, zp = _row(scale, n, x.device), _row(zp, n, x.device)
+    out = acc * scale - xsum * (scale * zp)
+    if b is not None:
+        out = out + b.float()
+    return apply_activation(out, epilogue)
+
+
+def linear_q4_reference(x, packed, scale, zp, b=None, *, n_features: int,
+                        epilogue: str = "none"):
+    """Plain version of K13: unpack the nibbles in their natural order,
+    then K12's plain version (JAX permutes the activation's columns to its
+    planar nibble order instead; only the summation order differs)."""
+    n = packed.numel() * 2 // n_features
+    return linear_q8_reference(x, unpack_int4(packed, (n, n_features)),
+                               scale, zp, b, epilogue)
+
+
+def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
+    _check_epilogue(epilogue)
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not [M, {k}]")
+    if b is not None and tuple(b.shape) != (n,):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} is not [{n}]")
+    backend.refuse_grad(name, x, b)
+    dev = x.device
+    scale, zp = _row(scale, n, dev), _row(zp, n, dev)
+    b = None if b is None else b.float().contiguous()
+    backend.check_kernel_args(name, x, dtypes=(torch.float32,))
+    backend.check_kernel_args(name, q, scale, zp, b)
+    m = x.shape[0]
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = _build.library().taper_linear_q(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+        None if b is None else b.data_ptr(), y.data_ptr(), m, n, k, bits,
+        ACTIVATIONS[epilogue], _build.stream(x))
+    _build.check(code, name)
+    backend.count_launch(name)
+    return y
+
+
+def linear_q8(x, q, scale, zp, b=None, *, epilogue: str = "none"):
+    """``y = act(x @ dequant(q).T + b)`` with ``q`` int8 ``[N, K]``,
+    ``scale``/``zp`` per tensor or ``[N]``; ``x`` ``[M, K]`` f32; f32
+    out.  Not differentiable."""
+    if not backend.on_cuda(x, q, b):
+        _check_epilogue(epilogue)
+        return linear_q8_reference(x, q, scale, zp, b, epilogue)
+    if q.dim() != 2 or q.dtype != torch.int8:
+        raise ValueError(f"linear_q8: q must be int8 [N, K], got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    return _q_linear("linear_q8", 8, x, q, scale, zp, b, epilogue,
+                     q.shape[0], q.shape[1])
+
+
+def linear_q4(x, packed, scale, zp, b=None, *, n_features: int,
+              epilogue: str = "none"):
+    """``y = act(x @ dequant(int4 packed).T + b)``: ``packed`` holds the
+    nibbles of a row-major ``[N, K]`` weight (``qtensor.pack_nibbles``),
+    ``n_features = K``, even.  Not differentiable."""
+    k = n_features
+    if k % 2 or (packed.numel() * 2) % k:
+        raise ValueError(f"linear_q4: K = {k} must be even and divide "
+                         f"{packed.numel() * 2} codes")
+    if not backend.on_cuda(x, packed, b):
+        _check_epilogue(epilogue)
+        return linear_q4_reference(x, packed, scale, zp, b, n_features=k,
+                                   epilogue=epilogue)
+    if packed.dtype != torch.uint8:
+        raise ValueError(f"linear_q4: packed must be uint8, got "
+                         f"{packed.dtype}")
+    n = packed.numel() * 2 // k
+    return _q_linear("linear_q4", 4, x, packed.reshape(n, k // 2), scale,
+                     zp, b, epilogue, n, k)
+
+
+# -- K14: per-row activation quantization -------------------------------------
+
+# K14's 1/127 as the TPU kernel's ``s = max(a, 1e-8) / 127.0``
+# (``quant.py:463``) runs: XLA folds the division by the constant into a
+# multiply by its f32 reciprocal
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def quantize_rows_reference(x):
+    """Plain version of K14, the kernel's steps in three passes:
+    ``(xq int8 [M, K], sx f32 [M], xsum f32 [M])``."""
+    xf = x.float()
+    sx = xf.abs().amax(-1).clamp_min(1e-8) * _INV127.to(xf.device)
+    qc = torch.round(xf / sx[:, None])
+    return qc.to(torch.int8), sx, qc.sum(-1)
+
+
+def quantize_rows(x):
+    """One-pass dynamic per-row symmetric quantization of ``x [M, K]`` (f32
+    or bf16): ``sx = max(absmax, 1e-8) * f32(1/127)``, ``xq = rint(x /
+    sx)``,
+    ``xsum = sum_k xq``.  Codes, scales and sums are exact (the same f32
+    operations as the plain version).  Not differentiable."""
+    if x.dim() != 2:
+        raise ValueError(f"quantize_rows: x {tuple(x.shape)} is not 2-D")
+    if not backend.on_cuda(x):
+        return quantize_rows_reference(x)
+    backend.refuse_grad("quantize_rows", x)
+    backend.check_kernel_args("quantize_rows", x, dtypes=_build.DTYPES)
+    m, k = x.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty(m, dtype=torch.float32, device=x.device)
+    xsum = torch.empty(m, dtype=torch.float32, device=x.device)
+    code = _build.library().taper_quantize_rows(
+        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), m, k,
+        _build.DTYPES[x.dtype], _build.stream(x))
+    _build.check(code, "quantize_rows")
+    backend.count_launch("quantize_rows")
+    return xq, sx, xsum
+
+
+# -- K15a / K15b: int8 x int8 on the tensor cores -----------------------------
+
+def matmul_int8_reference(xq, q):
+    """Plain version of K15b: the exact int32 product, through f64 (every
+    product and partial sum of int8 codes is an integer below 2^53; CUDA
+    has no integer matmul)."""
+    return torch.matmul(xq.double(), q.double().t()).to(torch.int32)
+
+
+def matmul_int8_scaled_reference(xq, q, sx, corr, sw, zw, bias=None,
+                                 relu=False, out_dtype=torch.float32):
+    """Plain version of K15a: the exact product, then the epilogue in the
+    TPU kernel's order, ``(sx sw) (acc - zw corr)`` (``quant.py:351``)."""
+    acc = matmul_int8_reference(xq, q).float()
+    y = (sx.float()[:, None] * sw.float()[None, :]) * (
+        acc - zw.float()[None, :] * corr.float()[:, None])
+    if bias is not None:
+        y = y + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def _i8mm(name, xq, q, vecs, bias, relu, out_dtype):
+    if (xq.dim() != 2 or q.dim() != 2 or xq.shape[1] != q.shape[1]
+            or xq.dtype != torch.int8 or q.dtype != torch.int8):
+        raise ValueError(f"{name}: xq {xq.dtype} {tuple(xq.shape)} and q "
+                         f"{q.dtype} {tuple(q.shape)} are not int8 [M, K] "
+                         f"and [N, K]")
+    m, k = xq.shape
+    n = q.shape[0]
+    backend.check_kernel_args(name, xq, q, *vecs, bias)
+    y = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    ptr = [None if t is None else t.data_ptr() for t in (*vecs, bias)]
+    code = _build.library().taper_matmul_int8(
+        xq.data_ptr(), q.data_ptr(), *ptr, y.data_ptr(), m, n, k, int(relu),
+        _OUT_DTYPES[out_dtype], _build.stream(xq))
+    _build.check(code, name)
+    backend.count_launch(name)
+    return y
+
+
+def matmul_int8(xq, q):
+    """``xq [M, K] int8 @ q [N, K] int8 ^T -> int32 [M, N]``, exact."""
+    if not backend.on_cuda(xq, q):
+        return matmul_int8_reference(xq, q)
+    return _i8mm("matmul_int8", xq, q, (None,) * 4, None, False,
+                 torch.int32)
+
+
+def matmul_int8_scaled(xq, q, sx, corr, sw, zw, bias=None, relu=False,
+                       out_dtype=torch.float32):
+    """Fused W8A8 linear core: ``xq [M, K] @ q [N, K]^T`` with the per-row
+    activation scale ``sx [M]``, codes sum ``corr [M]``, weight scale ``sw
+    [N]`` and zero point ``zw [N]`` applied in the epilogue, plus optional
+    bias and ReLU; ``[M, N]`` in ``out_dtype`` (f32 or bf16)."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"matmul_int8_scaled: out_dtype {out_dtype}")
+    if not backend.on_cuda(xq, q, sx, corr, sw, zw, bias):
+        return matmul_int8_scaled_reference(xq, q, sx, corr, sw, zw, bias,
+                                            relu, out_dtype)
+    m, n = xq.shape[0], q.shape[0]
+    dev = xq.device
+    vecs = (_row(sx, m, dev), _row(corr, m, dev), _row(sw, n, dev),
+            _row(zw, n, dev))
+    bias = None if bias is None else _row(bias, n, dev)
+    return _i8mm("matmul_int8_scaled", xq, q, vecs, bias, relu, out_dtype)
+
+
+def linear_w8a8(x, q, scale, zp, b=None, *, epilogue: str = "none"):
+    """W8A8 linear (``quant.py:519-548``): the activations quantized per
+    row (K14), the int8 weight codes as they are, the product and its
+    affine algebra on the int8 tensor cores (K15a); a sigmoid epilogue
+    runs after the kernel.  bf16 activations give a bf16 result, others
+    f32.  The activation rounding is the only approximation."""
+    _check_epilogue(epilogue)
+    xq, sx, corr = quantize_rows(x)
+    n = q.shape[0]
+    sw, zw = _row(scale, n, x.device), _row(zp, n, x.device)
+    out_dtype = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    y = matmul_int8_scaled(xq, q, sx, corr, sw, zw, bias=b,
+                           relu=epilogue == "relu", out_dtype=out_dtype)
+    if epilogue == "sigmoid":
+        y = torch.sigmoid(y)
+    return y
+
+
+# -- ops.linear's quantized branch --------------------------------------------
+
+def linear_quantized(x, w: QuantizedTensor, b=None, activation="none"):
+    """``ops.linear`` for a :class:`QuantizedTensor` weight
+    (``taper_tpu/ops/__init__.py:91-161``), on either device: int8 goes to
+    K12 at every M (W8A8's K14 + K15a where :func:`w8a8_engages`), int4
+    with an even K to K13, every other format dequantizes and goes to K1.
+    The JAX package's TPU-measured row threshold for K12 (M >= 64 unless
+    ``TAPER_Q8_KERNEL=1``) is not inherited."""
+    b = dense(b)
+    if w.qtype == QuantizationType.INT8:
+        if w8a8_engages(x, w):
+            return linear_w8a8(x, w.values, w.scale, w.zero_point, b,
+                               epilogue=activation)
+        return linear_q8(x, w.values, w.scale, w.zero_point, b,
+                         epilogue=activation)
+    if w.qtype == QuantizationType.INT4 and w.shape[1] % 2 == 0:
+        return linear_q4(x, w.values, w.scale, w.zero_point, b,
+                         n_features=w.shape[1], epilogue=activation)
+    wd = w.dequantize().to(x.dtype)
+    return _dense_linear(x, wd, None if b is None else b.to(x.dtype),
+                         activation)
+
+
+__all__ = ["linear_q8", "linear_q4", "quantize_rows", "matmul_int8",
+           "matmul_int8_scaled", "linear_w8a8", "linear_quantized",
+           "w8a8_engages"]

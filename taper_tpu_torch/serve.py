@@ -25,6 +25,10 @@ their writes never touch a live request's blocks.  Admission reserves
 prefill scatters ``ceil(prompt_pad / bs)`` blocks, and any beyond the
 reservation go back to the allocator right after admission.
 
+A PTQ'd model (``quantization.quantize_params``) serves as it is: its
+quantized weights move to the engine's device with the model, and its
+projections run the dequant-on-load kernels.
+
 Greedy rows get exactly the tokens of the JAX engine up to numerics;
 sampled rows draw from an explicit ``torch.Generator`` (their numbers
 differ from JAX's key stream).

@@ -5,12 +5,36 @@ The port's modules name their parameters after the JAX parameter tree
 untied, ``head``), and both packages keep weights as ``[out, in]``, so a
 tree converts leaf by leaf under its dotted path.  BatchNorm's
 ``running_*`` leaves land in the buffers of the same names.
+
+A PTQ tree (``taper_tpu.quantization.ptq.quantize_params``) loads too: a
+leaf that carries ``values``, ``scale``, ``zero_point``, ``qtype.name``,
+``schema.name`` and ``shape`` is a quantized tensor (recognised by those
+attributes; the port imports nothing of the JAX package), and lands as the
+port's ``QuantizedTensor`` in place of the parameter of that name, with
+the codes bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
+
+from taper_tpu_torch.quantization.config import (
+    QuantizationSchema, QuantizationType)
+from taper_tpu_torch.quantization.ptq import replace_leaf
+from taper_tpu_torch.quantization.qtensor import QuantizedTensor
+
+_QT_FIELDS = ("values", "scale", "zero_point", "qtype", "schema", "shape")
+# numpy dtypes (ml_dtypes' among them) that torch.from_numpy cannot take,
+# by name: the integer view to read them through and the torch dtype
+_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+          "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+def _is_qtensor(leaf) -> bool:
+    return all(hasattr(leaf, f) for f in _QT_FIELDS)
 
 
 def _flatten(tree, prefix=""):
@@ -25,21 +49,43 @@ def _flatten(tree, prefix=""):
 
 
 def _targets(model: torch.nn.Module) -> dict:
-    """The port's tensors a JAX tree fills: every parameter, and every
-    buffer named ``running_*`` (BatchNorm's statistics, which the JAX
-    package keeps in the parameter tree under those names)."""
+    """The port's tensors a JAX tree fills: every parameter, every
+    QuantizedTensor, and every buffer named ``running_*`` (BatchNorm's
+    statistics, which the JAX package keeps in the parameter tree under
+    those names)."""
     out = dict(model.named_parameters())
+    out.update((k, m) for k, m in model.named_modules()
+               if isinstance(m, QuantizedTensor))
     out.update((k, b) for k, b in model.named_buffers()
                if k.rsplit(".", 1)[-1].startswith("running_"))
     return out
 
 
+def _tensor(array) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype, bit for bit."""
+    a = np.asarray(array)
+    view = _VIEWS.get(a.dtype.name)
+    if view is None:
+        return torch.from_numpy(np.array(a))
+    return torch.from_numpy(np.array(a.view(view[0]))).view(view[1])
+
+
+def _qtensor(leaf, device) -> QuantizedTensor:
+    """The port's QuantizedTensor of a JAX quantized tensor."""
+    return QuantizedTensor(
+        _tensor(leaf.values), _tensor(leaf.scale),
+        _tensor(leaf.zero_point), QuantizationType[leaf.qtype.name],
+        QuantizationSchema[leaf.schema.name], tuple(leaf.shape)).to(device)
+
+
 def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     """Copy a JAX parameter tree (nested dicts/lists of numpy arrays, as
     ``TinyGPT.init`` or any layer's ``init`` returns, passed through
-    ``np.asarray``) into ``model``'s parameters and ``running_*`` buffers,
-    in place.  Each leaf keeps the dtype and device of the tensor it lands
-    in.  Raises on a missing, extra or mis-shaped leaf."""
+    ``np.asarray``, or a PTQ tree whose quantized leaves are JAX's
+    ``QuantizedTensor``s) into ``model``, in place.  A plain leaf keeps the
+    dtype and device of the tensor it lands in; a quantized leaf replaces
+    the parameter of its name with a ``QuantizedTensor`` on that device.
+    Raises on a missing, extra or mis-shaped leaf."""
     leaves = dict(_flatten(tree))
     targets = _targets(model)
     if leaves.keys() != targets.keys():
@@ -48,9 +94,22 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
                        f"the port {sorted(targets.keys() - leaves.keys())}")
     with torch.no_grad():
         for name, t in targets.items():
-            value = np.asarray(leaves[name])
-            if tuple(value.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: JAX shape {value.shape}, port "
-                                 f"shape {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(value.astype(np.float32)))
+            leaf = leaves[name]
+            shape = (tuple(leaf.shape) if _is_qtensor(leaf)
+                     else np.shape(leaf))
+            if tuple(shape) != tuple(t.shape):
+                raise ValueError(f"{name}: JAX shape {shape}, port shape "
+                                 f"{tuple(t.shape)}")
+            owner, _, attr = name.rpartition(".")
+            module = model.get_submodule(owner)
+            device = t.device
+            if _is_qtensor(leaf):
+                replace_leaf(module, attr, _qtensor(leaf, device))
+            elif isinstance(t, QuantizedTensor):
+                replace_leaf(module, attr, nn.Parameter(
+                    torch.from_numpy(np.array(leaf, np.float32)).to(
+                        device)))
+            else:
+                t.copy_(torch.from_numpy(
+                    np.asarray(leaf).astype(np.float32)))
     return model

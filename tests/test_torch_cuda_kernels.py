@@ -24,6 +24,11 @@ Tolerances, by the operands' dtype:
     ones, and the bf16 output itself keeps 8 bits.
   * logsumexp: 1e-4 (f32 on both sides from the same scores; 1e-3 for bf16
     inputs, whose bound arm sums weights shifted far below 1).
+  * quantized linear K12/K13: 2e-4 (1 + |ref|); the activations are
+    rounded to bf16 on both sides and the int8/int4 codes are exact in
+    bf16, so the products are exact in f32 and only the summation order
+    differs, as for the bf16 GEMM.  K14 and K15a/b: exact (integer
+    products, the same f32 operations in the same order).
   * flash backward: 1e-4 in f32.  bf16, against the plain backward in f32
     on the same bf16 inputs (the kernels round the weights and ds to bf16
     before their products, as JAX does, and round their outputs): each
@@ -817,3 +822,217 @@ def test_optimizers_launch_one_fused_update_per_step(dev):
             opt.step()
         counts = backend.launch_counts()
         assert counts[name] == 3 and sum(counts.values()) == 3, counts
+
+
+# -- quantized products (K12, K13, K14, K15a/b) -----------------------------
+
+Q = importlib.import_module("taper_tpu_torch.ops.quant")
+
+
+def _qweight(gen, n, k, bits, per_channel, symmetric):
+    """Random int codes with their scale and zero point, as PTQ makes
+    them: the weight ``(q - zp) * scale``."""
+    from taper_tpu_torch.quantization import (
+        QuantizationConfig, QuantizationSchema, QuantizationType, quantize)
+    w = _randn(gen, n, k, scale=0.05)
+    cfg = QuantizationConfig(
+        QuantizationType.INT8 if bits == 8 else QuantizationType.INT4,
+        QuantizationSchema.PER_CHANNEL if per_channel
+        else QuantizationSchema.UNIFORM, symmetric)
+    return quantize(w, cfg)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,n,k", [
+    (8, 2048, 2048), (8, 512, 2048), (8, 2048, 8192), (2000, 128, 128),
+    (2000, 10, 64), (300, 1024, 512), (5, 19, 38), (17, 70, 130)])
+@pytest.mark.parametrize("per_channel,symmetric,bias,act", [
+    (False, False, True, "none"), (True, False, False, "relu"),
+    (False, True, True, "sigmoid"), (True, True, False, "none")])
+def test_linear_q_kernel_matches_plain(dev, bits, m, n, k, per_channel,
+                                       symmetric, bias, act):
+    gen = torch.Generator().manual_seed(m * n + k + bits)
+    qt = _qweight(gen, n, k, bits, per_channel, symmetric).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev) if bias else None
+    backend.reset_launch_counts()
+    if bits == 8:
+        y = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point, b,
+                        epilogue=act)
+        ref = Q.linear_q8_reference(x, qt.values, qt.scale, qt.zero_point,
+                                    b, act)
+    else:
+        y = Q.linear_q4(x, qt.values, qt.scale, qt.zero_point, b,
+                        n_features=k, epilogue=act)
+        ref = Q.linear_q4_reference(x, qt.values, qt.scale, qt.zero_point,
+                                    b, n_features=k, epilogue=act)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[f"linear_q{bits}"] == 1
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(300, 2048), (16, 8192), (34, 192),
+                                 (5, 37), (1, 1)])
+def test_quantize_rows_kernel_is_exact(dev, m, k, dtype):
+    gen = torch.Generator().manual_seed(m + k)
+    x = _randn(gen, m, k, dtype=dtype, scale=2.0).to(dev)
+    x[0, 0] = 0.0
+    backend.reset_launch_counts()
+    out = Q.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["quantize_rows"] == 1
+    for got, want in zip(out, Q.quantize_rows_reference(x)):
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,k", [(37, 53, 100), (512, 384, 2048),
+                                   (300, 130, 64), (1, 1, 16),
+                                   (256, 2048, 8192)])
+def test_matmul_int8_kernels_are_exact(dev, m, n, k):
+    gen = torch.Generator().manual_seed(m + n + k)
+    xq = torch.randint(-127, 128, (m, k), generator=gen,
+                       dtype=torch.int8).to(dev)
+    q = torch.randint(-128, 128, (n, k), generator=gen,
+                      dtype=torch.int8).to(dev)
+    backend.reset_launch_counts()
+    acc = Q.matmul_int8(xq, q)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["matmul_int8"] == 1
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, Q.matmul_int8_reference(xq, q))
+    sx = torch.rand(m, generator=gen).to(dev) * 0.01
+    corr = xq.float().sum(1)
+    sw = torch.rand(n, generator=gen).to(dev) * 0.01
+    zw = torch.randint(-5, 5, (n,), generator=gen).float().to(dev)
+    bias = _randn(gen, n).to(dev)
+    for out_dtype, b, relu in ((torch.float32, bias, False),
+                               (torch.bfloat16, None, True),
+                               (torch.float32, None, True)):
+        y = Q.matmul_int8_scaled(xq, q, sx, corr, sw, zw, b, relu,
+                                 out_dtype)
+        want = Q.matmul_int8_scaled_reference(xq, q, sx, corr, sw, zw, b,
+                                              relu, out_dtype)
+        assert y.dtype == out_dtype
+        assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "sigmoid"])
+def test_linear_w8a8_on_card_matches_plain(dev, dtype, act):
+    gen = torch.Generator().manual_seed(7)
+    qt = _qweight(gen, 384, 512, 8, True, False).to(dev)
+    x = _randn(gen, 256, 512, dtype=dtype).to(dev)
+    b = _randn(gen, 384, scale=0.1).to(dev)
+    backend.reset_launch_counts()
+    y = Q.linear_w8a8(x, qt.values, qt.scale, qt.zero_point, b,
+                      epilogue=act)
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts["quantize_rows"] == 1
+    assert counts["matmul_int8_scaled"] == 1
+    xq, sx, corr = Q.quantize_rows_reference(x)
+    want = Q.matmul_int8_scaled_reference(
+        xq, qt.values, sx, corr, qt.scale.expand(384),
+        qt.zero_point.float(), b, act == "relu", y.dtype)
+    if act == "sigmoid":
+        want = torch.sigmoid(want)
+    assert y.dtype == (dtype if dtype == torch.bfloat16 else torch.float32)
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+
+
+def test_quant_kernels_refuse_grad(dev):
+    """No backward kernel: a CUDA input that requires grad raises under
+    grad mode, and runs under no_grad."""
+    gen = torch.Generator().manual_seed(3)
+    q8 = _qweight(gen, 32, 64, 8, False, False).to(dev)
+    q4 = _qweight(gen, 32, 64, 4, False, False).to(dev)
+    x = _randn(gen, 256, 64).to(dev).requires_grad_()
+    calls = (
+        lambda: Q.linear_q8(x, q8.values, q8.scale, q8.zero_point),
+        lambda: Q.linear_q4(x, q4.values, q4.scale, q4.zero_point,
+                            n_features=64),
+        lambda: Q.quantize_rows(x),
+        lambda: Q.linear_w8a8(x, q8.values, q8.scale, q8.zero_point))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            out = call()
+        for t in out if isinstance(out, tuple) else (out,):
+            assert torch.isfinite(t.float()).all()
+
+
+def test_quantized_linear_dispatch_on_card(dev, monkeypatch):
+    """``ops.linear`` with a QuantizedTensor: int8 to K12 at every M, int4
+    to K13, other formats dequantized to K1, W8A8 (opt-in) to K14 + K15a
+    from 256 rows."""
+    import copy
+
+    from taper_tpu_torch import ops
+    from taper_tpu_torch.quantization import QuantizationConfig, quantize
+
+    gen = torch.Generator().manual_seed(5)
+    w = _randn(gen, 96, 128, scale=0.05)
+    x = _randn(gen, 300, 128).to(dev)
+    cases = ((QuantizationConfig.int8(), {"linear_q8": 1}),
+             (QuantizationConfig.int4(), {"linear_q4": 1}),
+             (QuantizationConfig.nf4(), {"linear": 1}),
+             (QuantizationConfig.fp8_e4m3(), {"linear": 1}))
+    for cfg, want in cases:
+        qt = quantize(w, cfg).to(dev)
+        for rows in (1, 300):
+            backend.reset_launch_counts()
+            y = ops.linear(x[:rows], qt, activation="relu")
+            torch.cuda.synchronize()
+            got = {k: c for k, c in backend.launch_counts().items() if c}
+            assert got == want, (cfg, rows, got)
+            ref = ops.linear(x[:rows].cpu(), copy.deepcopy(qt).cpu(),
+                             activation="relu")
+            torch.testing.assert_close(y.cpu(), ref, rtol=2e-4, atol=2e-4)
+    monkeypatch.setenv("TAPER_W8A8", "1")
+    qt = quantize(w, QuantizationConfig.int8()).to(dev)
+    for rows, want in ((255, {"linear_q8": 1}),
+                       (256, {"quantize_rows": 1,
+                              "matmul_int8_scaled": 1})):
+        backend.reset_launch_counts()
+        ops.linear(x[:rows], qt)
+        torch.cuda.synchronize()
+        got = {k: c for k, c in backend.launch_counts().items() if c}
+        assert got == want, (rows, got)
+
+
+def test_quantized_model_moves_to_the_card(dev):
+    """A PTQ copy of TinyGPT moves its quantized buffers with
+    ``model.to``, and its decode step runs 6 K12 launches a block."""
+    from taper_tpu_torch.models import TinyGPT
+    from taper_tpu_torch.quantization import (QuantizationConfig,
+                                              quantize_params)
+
+    cfg = dict(vocab_size=64, dim=128, depth=2, num_heads=2,
+               num_kv_heads=1, max_seq=64, rope=True)
+    cpu = TinyGPT(**cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    qcpu = quantize_params(cpu, QuantizationConfig.int8()).eval()
+    qcard = quantize_params(cpu, QuantizationConfig.int8()).to(dev).eval()
+    assert qcard.blocks[0].attn.wq.values.device.type == "cuda"
+    assert qcard.blocks[0].attn.wq.values.dtype == torch.int8
+    table = torch.arange(1, 9, dtype=torch.int32)[None]
+    prompt = torch.randint(0, 64, (1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    outs = []
+    with torch.no_grad():
+        for model, d in ((qcpu, "cpu"), (qcard, dev)):
+            pools = model.init_paged_cache(9, 8, device=d)
+            model.prefill_paged(prompt.to(d), pools, table.to(d))
+            backend.reset_launch_counts()
+            step = model.decode_step_paged(
+                torch.tensor([3], device=d),
+                torch.tensor([16], dtype=torch.int32, device=d), pools,
+                table.to(d))
+            outs.append((step.cpu(), backend.launch_counts()))
+    (ref, _), (out, counts) = outs
+    assert counts["linear_q8"] == 12 and counts["linear"] == 0, counts
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4)

@@ -47,6 +47,17 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_guard_covers_the_quantization_modules():
+    """The PTQ slice's modules are among the sources the guard parses: the
+    port keeps its own copy of the JAX package's pure-Python quantization
+    modules rather than importing them."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("quantization/__init__.py", "quantization/config.py",
+                "quantization/qtensor.py", "quantization/ptq.py",
+                "ops/quant.py", "examples/ptq_quantize.py"):
+        assert f"taper_tpu_torch/{mod}" in names, mod
+
+
 def test_the_guard_sees_each_form_of_import():
     src = ("import jax\nfrom taper_tpu.ops import x\n"
            "import importlib\nimportlib.import_module('jax.numpy')\n"
