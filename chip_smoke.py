@@ -4,8 +4,10 @@ reference MNIST CNN at its published widths, training TinyGPT (the
 repository's 170M training workload, bench.py:141-199, at full width,
 and the sort task of examples/train_tinylm.py at its defaults), training
 ResNet-8 on CIFAR-10 (examples/train_cifar10_resnet.py), the reference's
-XOR and MNIST-MLP examples, and PTQ-quantized serving (int8 and int4
-dequant-on-load, W8A8 prefill, examples/ptq_quantize.py).
+XOR and MNIST-MLP examples, PTQ-quantized serving (int8 and int4
+dequant-on-load, W8A8 prefill, examples/ptq_quantize.py), int8 KV caches
+and the contiguous-cache engine (bench.py's bench_paged_decode), and the
+Trainer's checkpoints.
 
     python3 chip_smoke.py
 
@@ -80,7 +82,7 @@ non-zero):
      library call, the others have none;
  17. PTQ serving of benchmarks/bench_serving.py:39-52's model (dim 2048,
      depth 6, 273M parameters, f32) with int8 and int4 weights in the
-     paged engine (the bench's contiguous cache is not ported): prefill
+     paged engine (the bench's contiguous cache runs in phase 21): prefill
      and decode logits against the port's CPU path with the same
      weights, exactly 36 K12/K13 launches per decode step, 8 requests of
      200 new tokens served, tokens/s beside f32, a profile of the decode
@@ -91,7 +93,26 @@ non-zero):
      W8A8 logits against K12's, ms for each;
  19. examples/ptq_quantize.py through its entry point with --epochs 1:
      int8 accuracy within 0.01 of f32, float16 within 0.001, three K12
-     launches per eval batch of 2000.
+     launches per eval batch of 2000;
+ 20. K16 over int8 pools (``paged_decode_int8``) against its plain
+     version at bench_paged_decode's shapes (16 rows, 8 KV heads, G 1,
+     D 128, block 128, 257/4033 positions, bf16 q) and at phase 17's
+     model shape (4 KV heads, G 4, f32 q), with the bound of the live
+     int8 rows, their scales, q and o; the bf16 kernel at the same mixed
+     lengths beside it;
+ 21. the 32-request mix of phase 5 through the contiguous bf16, paged
+     int8 and contiguous int8 engines: every request completes, exact
+     launches per decode step (48 K1 and 8 K16 int8; contiguous: 48 K1),
+     paged int8 against contiguous int8 logits on the card and
+     contiguous bf16 against the f32 CPU path, generated tokens/s and a
+     profile of one decode block each;
+ 22. bench_paged_decode's four contenders (contig, paged_int8_mixed,
+     contig_short, paged_short) through decode_step/decode_step_paged
+     with argmax feedback: tokens/s, device time a step, and the bench's
+     two ratios;
+ 23. the MNIST MLP through fit_device for 2 epochs with a checkpoint
+     each epoch, against the same run cut after epoch 1 and resumed:
+     bit-equal parameters and Adam moments.
 The line before the last is the kernel report (JSON), one entry per
 kernel with its numbers per path under ``by_path``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -115,7 +136,8 @@ from taper_tpu_torch import optim
 from taper_tpu_torch.data import CIFAR10Dataset, MNISTDataset
 from taper_tpu_torch.examples import (
     ptq_quantize, train_cifar10_resnet, train_mnist, train_tinylm, train_xor)
-from taper_tpu_torch.models import TinyGPT, mnist_cnn, resnet8, xor_mlp
+from taper_tpu_torch.models import (
+    TinyGPT, mnist_cnn, mnist_mlp, resnet8, xor_mlp)
 from taper_tpu_torch.ops import _build, backend
 from taper_tpu_torch.ops import conv_direct as CD
 from taper_tpu_torch.ops import elementwise as EW
@@ -237,6 +259,8 @@ SOURCES = {
                   "taper_tpu/ops/pallas/attention.py:687"),
     "paged_decode": ("taper_tpu_torch/csrc/paged_decode.cu",
                      "taper_tpu/ops/pallas/paged_attention.py:158"),
+    "paged_decode_int8": ("taper_tpu_torch/csrc/paged_decode.cu",
+                          "taper_tpu/ops/pallas/paged_attention.py:158"),
     "conv_fwd": ("taper_tpu_torch/csrc/conv_direct.cu",
                  "taper_tpu/ops/pallas/conv_direct.py:135"),
     "conv_dw": ("taper_tpu_torch/csrc/conv_direct.cu",
@@ -585,6 +609,17 @@ def phase4_model(dev, prompt):
     clear = float(top2[0] - top2[1]) > 2 * float(
         (pre_out - pre_ref).abs().max())
     return card, int(pre_ref[-1].argmax()), clear
+
+
+def serving_model(dev):
+    """Phase 4's card model again (the same weights from SEED, projections
+    cast to bf16, a bf16 trunk)."""
+    model = TinyGPT(**MODEL)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model.eval()
+    model = model.to(dev).cast_projections(torch.bfloat16)
+    model.compute_dtype = torch.bfloat16
+    return model
 
 
 def prefill_rate(model, dev, n=8):
@@ -1516,7 +1551,9 @@ def phase15_examples(dev, smi):
 
     backend.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer = train_mnist.main(["--device", "cuda"])
+    ckpt_dir = tempfile.TemporaryDirectory()
+    trainer = train_mnist.main(["--device", "cuda", "--checkpoint",
+                                os.path.join(ckpt_dir.name, "mlp.npz")])
     torch.cuda.synchronize()
     mlp_s = time.perf_counter() - t0
     first_epoch_acc = trainer.metrics.val_acc[0]
@@ -1540,7 +1577,9 @@ def phase15_examples(dev, smi):
     backend.reset_launch_counts()
     t0 = time.perf_counter()
     trainer = train_mnist.main(["--device", "cuda", "--loader", "--epochs",
-                                "1"])
+                                "1", "--checkpoint",
+                                os.path.join(ckpt_dir.name, "mlp1.npz")])
+    ckpt_dir.cleanup()
     torch.cuda.synchronize()
     loader_counts = backend.launch_counts()
     m = trainer.metrics
@@ -1563,7 +1602,7 @@ def phase15_examples(dev, smi):
 # 256, f32, ~273M parameters from SEED; PTQ int8 and int4 per tensor,
 # asymmetric, with tok and pos kept f32 as the bench keeps them.  The
 # engine serves 8 requests of 8-token prompts and 200 greedy new tokens
-# in paged mode (the bench's contiguous cache is not ported).
+# in paged mode (the contiguous engine runs in phase 21).
 QSERVE = dict(vocab_size=4096, dim=2048, depth=6, num_heads=16,
               num_kv_heads=4, max_seq=256, rope=True)
 QSERVE_ENGINE = dict(slots=8, prompt_pad=8, decode_block=16,
@@ -1791,8 +1830,8 @@ def phase17_quant_serve(dev, smi):
     logits against the port's CPU path with the same weights, the exact
     K12/K13 launches per decode step, every request served, and
     generated tokens/s beside f32."""
-    print("phase 17: the bench's contiguous-cache engine is not ported; "
-          "the quantized model serves through the paged engine")
+    print("phase 17: the quantized model serves through the paged engine "
+          "(the contiguous engine runs in phase 21)")
     model = TinyGPT(**QSERVE)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     model.eval()
@@ -1967,6 +2006,401 @@ def phase19_ptq_example(dev, smi):
     return counts
 
 
+# -- int8 KV caches and the contiguous-cache engine; checkpoints -------------
+
+# bench.py:202-271 bench_paged_decode at its shapes: MODEL in bf16, 16
+# rows, block 128, rows alternating 256 and 4032 tokens of context (so the
+# first step attends 257 and 4033 positions), each table reserving
+# ceil((len + 64) / 128) blocks; "short": every row at 256, 3 blocks.
+BENCH = dict(batch=16, smax=MODEL["max_seq"], bs=128, short=256,
+             long=MODEL["max_seq"] - 64, steps=30, warmup=3, rounds=2)
+# K16 over int8 pools against its plain version: both compute in f32 from
+# the same int8 codes and f32 scales (the kernel scales the score and the
+# softmax weight, the plain version the gathered rows; other summation
+# orders), and round o to q's dtype: 2e-2 (1 + |ref|) with bf16 q (8
+# bits), 1e-4 with f32 q.
+INT8_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Launches per decode step of MODEL (8 layers x wq, wk, wv, wo, w1, w2):
+# the paged int8 engine also launches K16's int8 branch once a layer, the
+# contiguous engine no paged kernel (its decode attention is plain
+# PyTorch, as JAX's is XLA).
+INT8_PER_STEP = dict(linear=48, paged_decode_int8=8)
+CONTIG_PER_STEP = dict(linear=48)
+# Logits on the card, one prefill (512 padded tokens) and one decode step:
+#  * paged int8 against contiguous int8: the same prefill stores the same
+#    codes and scales (prefill logits bit-equal); the decode step's
+#    attention is K16 int8 (o rounded to bf16 from f32) against the plain
+#    contiguous version (f32, cast to bf16 after), so a bf16 rounding of
+#    o flips here and there in each of 8 layers: 1e-2 relative L2;
+#  * contiguous bf16 against the f32 CPU path: the bf16 trunk's rounding
+#    through 8 blocks, MODEL_REL_TOL as phase 4.
+INT8_PAGED_VS_CONTIG_TOL = 1e-2
+# Phase 23: the MNIST MLP (examples/train_mnist.py's settings) for 2
+# epochs, and the same run cut after epoch 1 and resumed.  Every kernel of
+# that path is deterministic (K1's f32 modes and K17a sum in a fixed
+# order, no atomics), so the two must end bit-equal.
+CKPT_EPOCHS = 2
+DECODE_FAMILIES = (("K1 gemm", "gemm_bf16_kernel"), ("K1 gemm", "gemm_f32"),
+                   ("K16 paged decode", "paged_decode"),
+                   ("head sgemm", "gemm"))
+
+
+def bench_tables(lens, mb, bs):
+    """bench_paged_decode's tables: each row ceil((len + 64) / bs)
+    consecutive blocks from block 1 (block 0 unused); and the pool's
+    block count."""
+    tables = np.zeros((len(lens), mb), np.int32)
+    nxt = 1
+    for i, n in enumerate(lens):
+        nb = -(-(int(n) + 64) // bs)
+        tables[i, :nb] = np.arange(nxt, nxt + nb)
+        nxt += nb
+    return tables, nxt
+
+
+def int8_pools(gen, n_blocks, kvh, bs, d, dev):
+    """int8 K/V pools with their per-position scales, as kv_quantize
+    stores rows of std ~1: (k codes, k scales, v codes, v scales)."""
+    out = []
+    for _ in range(2):
+        x = torch.randn(n_blocks, kvh, bs, d, generator=gen)
+        scale = x.abs().amax(-1).clamp_min(1e-8) / 127.0
+        out += [torch.round(x / scale[..., None]).to(torch.int8).to(dev),
+                scale.to(dev)]
+    return out
+
+
+def int8_row(name, shape, q, pools, tables, lengths, phase=20):
+    """K16 over int8 pools against its plain version; the bound is the
+    bytes of the live rows, their scales, q and o."""
+    kq, ks, vq, vs = pools
+    d = q.shape[-1]
+    sets = [(q, kq, vq, tables, lengths, ks, vs)]
+    sets += [tuple(t.clone() for t in sets[0])
+             for _ in range(copies_for(kq, vq, ks, vs) - 1)]
+
+    def kernel(q, kq, vq, tb, ln, ks, vs):
+        return paged_decode_attention(q, kq, vq, tb, ln, scale=d ** -0.5,
+                                      k_scales=ks, v_scales=vs)
+
+    def plain(q, kq, vq, tb, ln, ks, vs):
+        return paged_decode_reference(q, kq, vq, tb, ln, scale=d ** -0.5,
+                                      k_scales=ks, v_scales=vs)
+    live = int(lengths.sum()) * q.shape[1]          # positions x kv heads
+    return check_kernel(
+        name, shape, kernel, plain, sets, phase=phase,
+        tol=INT8_TOL[q.dtype],
+        work=(4 * live * q.shape[2] * d,
+              2 * live * (d + 4) + 2 * nbytes(q), "f32"))
+
+
+def phase20_int8_kernel(dev):
+    """K16's int8 branch at bench_paged_decode's shapes (bf16 q) and at
+    phase 17's model shape (kvh 4, G 4, f32 q), with the bf16 kernel at
+    the same mixed lengths beside it."""
+    gen = torch.Generator().manual_seed(SEED)
+    b, bs = BENCH["batch"], BENCH["bs"]
+    mb = BENCH["smax"] // bs
+    lens = [BENCH["short"] if i % 2 == 0 else BENCH["long"]
+            for i in range(b)]
+    tables, n_blocks = bench_tables(lens, mb, bs)
+    tables = torch.from_numpy(tables).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
+    kvh = MODEL["num_heads"]
+    q = torch.randn(b, kvh, 1, 128, generator=gen).to(torch.bfloat16).to(dev)
+    span = f"lengths {BENCH['short'] + 1}/{BENCH['long'] + 1}"
+    rows = {"paged_decode_int8": [int8_row(
+        "paged_decode_int8", f"bf16 q B={b} kvh={kvh} G=1 D=128 bs={bs} "
+        f"mb={mb} {span}", q, int8_pools(gen, n_blocks, kvh, bs, 128, dev),
+        tables, lengths)]}
+    kp, vp = (torch.randn(n_blocks, kvh, bs, 128, generator=gen).to(
+        torch.bfloat16).to(dev) for _ in range(2))
+    tokens = int(lengths.sum())
+    rows["paged_decode"] = check_kernel(
+        "paged_decode", f"bf16 B={b} kvh={kvh} G=1 D=128 bs={bs} {span}",
+        lambda *a: paged_decode_attention(*a, scale=128 ** -0.5),
+        lambda *a: paged_decode_reference(*a, scale=128 ** -0.5),
+        cold_sets(q, kp, vp, tables, lengths), phase=20,
+        work=(4 * tokens * kvh * 128,
+              2 * tokens * kvh * 128 * 2 + 2 * nbytes(q), "bf16"))
+    del kp, vp
+    # phase 17's model: 8 slots, 16 query heads on 4 KV heads, f32, max_seq
+    # 256 in two blocks of 128, lengths of 8-token prompts plus up to 200
+    # new tokens
+    qs, qbs = QSERVE_ENGINE["slots"], QSERVE_ENGINE["block_size"]
+    qkvh, g = QSERVE["num_kv_heads"], QSERVE["num_heads"] // QSERVE[
+        "num_kv_heads"]
+    qmb = QSERVE["max_seq"] // qbs
+    qlen = torch.linspace(QSERVE_PROMPT + 1, QSERVE_PROMPT + QSERVE_NEW,
+                          qs).round().to(torch.int32).to(dev)
+    qtab = (torch.arange(qs * qmb, dtype=torch.int32).reshape(qs, qmb)
+            + 1).to(dev)
+    rows["paged_decode_int8"].append(int8_row(
+        "paged_decode_int8", f"f32 q B={qs} kvh={qkvh} G={g} D=128 "
+        f"bs={qbs} lengths {int(qlen.min())}..{int(qlen.max())}",
+        torch.randn(qs, qkvh, g, 128, generator=gen).to(dev),
+        int8_pools(gen, qs * qmb + 1, qkvh, qbs, 128, dev), qtab, qlen))
+    return rows
+
+
+def decode_profile(step, n=2):
+    prof = profile_steps(step, n, DECODE_FAMILIES)
+    prof["busy_share"] = prof["busy_ms"] / prof["wall_ms"]
+    return prof
+
+
+def engine_logits(model, dev, prompt, paged, quant):
+    """Prefill of one padded prompt and one decode step through the
+    contiguous cache or paged pools of ``model`` on ``dev``: ``(prefill
+    logits at the prompt, decode logits)`` on the CPU."""
+    bs, pad = ENGINE["block_size"], ENGINE["prompt_pad"]
+    padded = torch.zeros(1, pad, dtype=torch.int64)
+    padded[0, :len(prompt)] = torch.tensor(prompt)
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+    tok = torch.tensor([7], device=dev)
+    with torch.no_grad():
+        if paged:
+            table = torch.zeros(1, MODEL["max_seq"] // bs, dtype=torch.int32)
+            table[0, :pad // bs + 1] = torch.arange(1, pad // bs + 2)
+            table = table.to(dev)
+            pools = model.init_paged_cache(pad // bs + 2, bs, device=dev,
+                                           quantized=quant)
+            pre = model.prefill_paged(padded.to(dev), pools, table)
+            step = model.decode_step_paged(tok, pos, pools, table)
+        else:
+            caches = model.init_cache(1, quantized=quant, device=dev)
+            pre = model.prefill(padded.to(dev), caches)
+            step = model.decode_step(tok, pos, caches)
+    return pre[0, :len(prompt)].float().cpu(), step.float().cpu()
+
+
+def serve_mode(model, reqs, paged, quant):
+    """The 32-request mix through one engine mode: wall, generated tokens,
+    launch counts, stats, and a profile of one decode block with 16
+    requests admitted."""
+    kw = dict(ENGINE, pool_blocks=pool_blocks() if paged else None,
+              quantized_cache=quant, seed=SEED)
+    eng = ServingEngine(model, **kw)
+    ids = [eng.submit(p, m, **s) for p, m, s in reqs]
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = backend.launch_counts()
+    for rid, (_, max_new, _) in zip(ids, reqs):
+        assert len(out[rid]) == max_new, (rid, len(out[rid]), max_new)
+        assert all(0 <= t < MODEL["vocab_size"] for t in out[rid]), rid
+    st = eng.stats()
+    assert st["completed"] == N_REQUESTS, st
+    steps = st["decode_blocks"] * ENGINE["decode_block"]
+    # the prefills' launches: 6 projections a layer and one K8
+    per = {k: (c - (MODEL["depth"] * 6 * st["admitted"] if k == "linear"
+                    else 0)) / steps
+           for k, c in counts.items() if c and k != "flash_fwd_bound"}
+    assert counts["flash_fwd_bound"] == MODEL["depth"] * st["admitted"], \
+        counts
+    want = INT8_PER_STEP if paged and quant else CONTIG_PER_STEP
+    assert per == want, (per, want)
+    del eng, out
+    torch.cuda.empty_cache()
+    # one decode block of 16 admitted requests (admission and its first
+    # block through step(), then the block profiled)
+    eng = ServingEngine(model, **kw)
+    for p, m, s in reqs[:ENGINE["slots"]]:
+        eng.submit(p, max(MAX_NEW), **s)
+    eng.step()
+    with torch.no_grad():
+        prof = decode_profile(eng._decode_block, 1)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, tokens=sum(m for _, m, _ in reqs),
+                counts=counts, stats=st, per_step=per, profile=prof)
+
+
+def phase21_serve_modes(card, dev, reqs, smi):
+    """The 32-request mix through the contiguous bf16, paged int8 and
+    contiguous int8 engines, with logits checks and profiles."""
+    prompt = reqs[0][0]
+    got = {name: engine_logits(card, dev, prompt, paged, quant)
+           for name, paged, quant in (("paged_int8", True, True),
+                                      ("contig_int8", False, True),
+                                      ("contig_bf16", False, False))}
+    (pp, ps), (cp, cs) = got["paged_int8"], got["contig_int8"]
+    assert torch.equal(pp, cp), "paged and contiguous int8 prefill differ"
+    rel = rel_l2(ps, cs)
+    print(f"phase 21: paged int8 vs contiguous int8 on the card: prefill "
+          f"logits {tuple(pp.shape)} bit-equal; decode step rel L2 "
+          f"{rel:.3e} (tol {INT8_PAGED_VS_CONTIG_TOL:.0e}), max abs err "
+          f"{float((ps - cs).abs().max()):.3e}")
+    assert torch.isfinite(ps).all() and rel <= INT8_PAGED_VS_CONTIG_TOL
+    cpu = TinyGPT(**MODEL)
+    cpu.reset_parameters(torch.Generator().manual_seed(SEED))
+    cpu.eval()
+    ref = engine_logits(cpu, "cpu", prompt, False, False)
+    del cpu
+    for what, o, r in zip(("prefill", "decode step"), got["contig_bf16"],
+                          ref):
+        assert o.shape == r.shape and torch.isfinite(o).all()
+        rel = rel_l2(o, r)
+        print(f"phase 21: contiguous bf16 {what} logits {tuple(o.shape)}, "
+              f"card vs the f32 CPU path: rel L2 {rel:.3e} (tol "
+              f"{MODEL_REL_TOL:.0e})")
+        assert rel <= MODEL_REL_TOL, f"contiguous {what} logits"
+    out = {}
+    for name, paged, quant in (("contig_bf16", False, False),
+                               ("paged_int8", True, True),
+                               ("contig_int8", False, True)):
+        r = out[name] = serve_mode(card, reqs, paged, quant)
+        st, prof = r["stats"], r["profile"]
+        print(f"phase 21: {name} served {N_REQUESTS} requests "
+              f"({st['completed']} completed, {st['decode_blocks']} decode "
+              f"blocks) in {r['wall_s']:.2f} s: "
+              f"{r['tokens'] / r['wall_s']:.1f} generated tokens/s; "
+              f"launches per decode step {r['per_step']}; one decode block "
+              f"of {ENGINE['decode_block']} steps ({ENGINE['slots']} rows) "
+              f"profiled: "
+              f"{prof['wall_ms']:.1f} ms of wall for {prof['busy_ms']:.2f} "
+              f"ms of device busy ({prof['busy_share']:.3f}), "
+              f"{prof['device_ops']:.0f} device ops; device ms by family "
+              f"{prof['ms']}; largest glue {prof['glue_top']}; on {smi}")
+    return out
+
+
+def bench_contenders(model, dev):
+    """bench_paged_decode's four contenders: (name, step, state)."""
+    b, bs = BENCH["batch"], BENCH["bs"]
+    mb = BENCH["smax"] // bs
+    lens = [BENCH["short"] if i % 2 == 0 else BENCH["long"]
+            for i in range(b)]
+    tables, n_blocks = bench_tables(lens, mb, bs)
+    short = np.zeros((b, mb), np.int32)
+    short[:, :3] = np.arange(1, b * 3 + 1).reshape(b, 3)
+    mixed_pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    short_pos = torch.full((b,), BENCH["short"], dtype=torch.int32,
+                           device=dev)
+
+    def cstep(state):
+        tok, pos, caches = state
+        logits = model.decode_step(tok, pos, caches)
+        return logits.argmax(-1), pos + 1, caches
+
+    def pstep(tables):
+        def step(state):
+            tok, pos, pools = state
+            logits = model.decode_step_paged(tok, pos, pools, tables)
+            return logits.argmax(-1), pos + 1, pools
+        return step
+    tok0 = torch.zeros(b, dtype=torch.int64, device=dev)
+    return [("contig", cstep, (tok0, mixed_pos, model.init_cache(b))),
+            ("paged_int8_mixed", pstep(torch.from_numpy(tables).to(dev)),
+             (tok0, mixed_pos, model.init_paged_cache(n_blocks, bs,
+                                                      quantized=True))),
+            ("contig_short", cstep, (tok0, short_pos, model.init_cache(b))),
+            ("paged_short", pstep(torch.from_numpy(short).to(dev)),
+             (tok0, short_pos, model.init_paged_cache(b * 3 + 1, bs)))]
+
+
+def phase22_bench_decode(card, dev, smi):
+    """bench_paged_decode's contenders on the card, argmax feedback as
+    there: tokens/s (batch over the per-step time of BENCH["steps"] steps
+    ended by a sync, the mean over BENCH["rounds"] rounds in turn) and the
+    device time of a step (profiled), and the bench's two ratios."""
+    cs = bench_contenders(card, dev)
+    states = {name: state for name, _, state in cs}
+    times = {name: [] for name, _, _ in cs}
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(BENCH["rounds"]):
+            for name, step, _ in cs:
+                st = states[name]
+                for _ in range(BENCH["warmup"]):
+                    st = step(st)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(BENCH["steps"]):
+                    st = step(st)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0)
+                                   / BENCH["steps"])
+                # rewind the positions: every round times the same lengths
+                states[name] = (st[0], states[name][1], st[2])
+        counts = backend.launch_counts()
+        out = {}
+        for name, step, _ in cs:
+            st = [states[name]]
+
+            def one(step=step, st=st):
+                st[0] = step(st[0])
+            prof = decode_profile(one, 3)
+            t = sum(times[name]) / len(times[name])
+            out[name] = dict(step_ms=t * 1e3, tokens_s=BENCH["batch"] / t,
+                             rounds_ms=[x * 1e3 for x in times[name]],
+                             profile=prof)
+            print(f"phase 22: {name}: {out[name]['tokens_s']:.1f} tokens/s "
+                  f"({t * 1e3:.3f} ms a step of {BENCH['batch']} rows; "
+                  f"rounds {[round(x * 1e3, 3) for x in times[name]]} ms), "
+                  f"device busy {prof['busy_ms']:.3f} ms a step "
+                  f"(profiled, {prof['wall_ms']:.2f} ms of wall), device ms "
+                  f"by family {prof['ms']}")
+    ratios = dict(
+        paged_int8_mixed_speedup=out["contig"]["step_ms"]
+        / out["paged_int8_mixed"]["step_ms"],
+        paged_short_speedup=out["contig_short"]["step_ms"]
+        / out["paged_short"]["step_ms"])
+    print(f"phase 22: bench_paged_decode's ratios on the card: {ratios}; "
+          f"launches {dict((k, c) for k, c in counts.items() if c)}; on "
+          f"{smi}")
+    assert counts["paged_decode_int8"] > 0 and counts["paged_decode"] > 0
+    del cs, states
+    torch.cuda.empty_cache()
+    return counts, out, ratios
+
+
+def phase23_checkpoints(dev, smi):
+    """The MNIST MLP through fit_device for CKPT_EPOCHS epochs with a
+    checkpoint every epoch, and the same run cut after epoch 1 and
+    resumed: the same parameters and Adam moments at the end."""
+    train, test = MNISTDataset(train=True), MNISTDataset(train=False)
+
+    def trainer():
+        return Trainer(mnist_mlp(), optim.Adam(1e-3, weight_decay=1e-4),
+                       seed=SEED, device=dev)
+    kw = dict(batch_size=256, early_stop_acc=2.0, verbose=False,
+              save_every=1)
+    args = (train.images, train.labels, test.images, test.labels)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full = trainer()
+        full.fit_device(*args, CKPT_EPOCHS,
+                        checkpoint_path=os.path.join(tmp, "full.npz"), **kw)
+        cut_path = os.path.join(tmp, "cut.npz")
+        trainer().fit_device(*args, 1, checkpoint_path=cut_path, **kw)
+        resumed = trainer()
+        m = resumed.fit_device(*args, CKPT_EPOCHS, checkpoint_path=cut_path,
+                               resume=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(cut_path)
+    pairs = list(zip(full.model.parameters(), resumed.model.parameters()))
+    pairs += list(zip(full.optimizer.m + full.optimizer.v,
+                      resumed.optimizer.m + resumed.optimizer.v))
+    with torch.no_grad():
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+    print(f"phase 23: MNIST MLP fit_device {CKPT_EPOCHS} epochs with a "
+          f"checkpoint each epoch ({size} bytes), against 1 epoch, a fresh "
+          f"Trainer and resume=True: resumed epochs {len(m.val_acc)}, val "
+          f"acc {full.metrics.val_acc[-1]:.4f} and {m.val_acc[-1]:.4f}; "
+          f"max abs difference of the parameters and Adam moments {err:.3e}"
+          f" (tol 0: deterministic kernels); {wall:.2f} s for the three "
+          f"runs; on {smi}")
+    assert len(m.val_acc) == CKPT_EPOCHS - 1
+    assert resumed.optimizer.t == full.optimizer.t
+    assert err == 0.0, "the resumed run does not end where the full one did"
+
+
 def kernel_report(paths, standalone):
     """One entry per kernel: its launches and numbers on each path that
     launched it or measured it (``by_path``); the top-level numbers come
@@ -2053,6 +2487,16 @@ def main():
     w8a8_counts, _ = phase18_w8a8(dev, smi)
     torch.cuda.empty_cache()
     ptq_counts = phase19_ptq_example(dev, smi)
+    torch.cuda.empty_cache()
+
+    int8_rows = phase20_int8_kernel(dev)
+    card = serving_model(dev)
+    modes = phase21_serve_modes(card, dev, reqs, smi)
+    torch.cuda.empty_cache()
+    bench_counts, _, _ = phase22_bench_decode(card, dev, smi)
+    del card
+    torch.cuda.empty_cache()
+    phase23_checkpoints(dev, smi)
 
     # train_lm: the 170M run's kernels at its shapes (K8's headline: the
     # bound arm in [B, S, H*D], the layout and arm its training takes),
@@ -2074,7 +2518,21 @@ def main():
     # headlines: K12/K13 at the decode up-projection (M=8 N=8192 K=2048),
     # K12 at M=4096 N=8192 on the W8A8 path, at the first FC on the CNN's;
     # K14 at K=2048, K15a at M=4096 N=K=2048
-    paths = {"serve_quant": (qserve_counts, dict(
+    # K16 int8's headline: bench_paged_decode's shape (the serving model,
+    # bf16 q, 257/4033 positions); the contiguous engines launch no paged
+    # kernel, their decode attention is plain PyTorch
+    int8_head = int8_rows["paged_decode_int8"][0]
+    contig_counts = {k: modes["contig_bf16"]["counts"][k]
+                     + modes["contig_int8"]["counts"][k]
+                     for k in backend.KERNELS}
+    paths = {"serve_int8": (modes["paged_int8"]["counts"], dict(
+                 paged_decode_int8=headline(
+                     int8_rows["paged_decode_int8"]))),
+             "serve_contig": (contig_counts, {}),
+             "bench_decode": (bench_counts, dict(
+                 paged_decode_int8=int8_head,
+                 paged_decode=int8_rows["paged_decode"])),
+             "serve_quant": (qserve_counts, dict(
                  linear_q8=headline(quant_rows["linear_q8"], 2),
                  linear_q4=headline(quant_rows["linear_q4"], 2))),
              "prefill_w8a8": (w8a8_counts, dict(

@@ -6,14 +6,17 @@ CUDA kernel for the H100 (``taper_tpu_torch/csrc``), built on first use.
 Ops dispatch by the device of their tensors: CPU tensors run the plain
 PyTorch versions, CUDA tensors the kernels.
 
-Ported so far: paged TinyGPT serving (``serve.ServingEngine`` over
-``models.TinyGPT``), training the reference MNIST models
-(``train.Trainer`` over ``models.mnist_cnn`` and friends, with ``nn``,
-``losses``, ``optim`` and ``data``), training TinyGPT
-(``TinyGPT.loss``; ``examples/train_tinylm.py``), and training ResNet-8
-on CIFAR-10 and the reference's XOR and MNIST-MLP examples
-(``models.resnet8``, ``data.CIFAR10Dataset``, ``data.DataLoader``,
-``Trainer.fit``; ``examples/``).  Importing this package imports no JAX,
+Ported so far: TinyGPT serving (``serve.ServingEngine`` over
+``models.TinyGPT``, with a contiguous or paged KV cache in the model's
+dtype or int8), training the reference MNIST models (``train.Trainer``
+over ``models.mnist_cnn`` and friends, with ``nn``, ``losses``, ``optim``
+and ``data``), training TinyGPT (``TinyGPT.loss``;
+``examples/train_tinylm.py``), training ResNet-8 on CIFAR-10 and the
+reference's XOR and MNIST-MLP examples (``models.resnet8``,
+``data.CIFAR10Dataset``, ``data.DataLoader``, ``Trainer.fit``;
+``examples/``), PTQ-quantized serving (``quantization``), and
+checkpoints (``utils.checkpoint``, ``utils.safetensors_io``, the
+Trainer's ``save_checkpoint``/``restore``/``resume``).  Importing this package imports no JAX,
 builds nothing and does not initialise CUDA.
 """
 

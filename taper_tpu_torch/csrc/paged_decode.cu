@@ -22,7 +22,22 @@
 //     and the eight partial results are merged once through shared memory;
 //   * four rows per warp are loaded before any is used, to keep more bytes
 //     in flight.
-// Split-K across blocks (flash-decoding) and int8 pools are later work.
+//
+// int8 pools (taper_paged_decode_int8; the TPU kernel's quant=True arm):
+// pools hold int8 rows with one f32 scale per stored position,
+// k_scales/v_scales [n_blocks, kvh, bs], indexed like the rows without
+// their D.  q and o stay f32 or bf16.  A row of D = 128 int8 values is 128
+// bytes, 4 a lane (one char4 load; D = 64: one char2), a quarter of an f32
+// row and half a bf16 row, so the same warps stream the live positions in
+// fewer bytes.  The int8 -> f32 convert happens in registers; the k scale
+// multiplies the scalar score after warp_sum (s = q.k_int8 * scale *
+// k_scale[pos]), and the v scale multiplies the softmax weight before it
+// meets the row (acc += (p * v_scale[pos]) * v_int8), while the row sum l
+// accumulates the unscaled p: the TPU kernel's order.  The scales are two
+// 4-byte loads a position, broadcast to the warp.
+// Split-K across blocks (flash-decoding) and cp.async are later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace taper {
@@ -39,6 +54,14 @@ template <>
 struct RowVec<float, 2> { using type = float2; };
 template <>
 struct RowVec<float, 4> { using type = float4; };
+template <>
+struct RowVec<int8_t, 2> { using type = char2; };
+template <>
+struct RowVec<int8_t, 4> { using type = char4; };
+
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T, int VPL>
 __device__ __forceinline__ void load_row(float (&out)[VPL], const T* p) {
@@ -49,10 +72,14 @@ __device__ __forceinline__ void load_row(float (&out)[VPL], const T* p) {
   for (int i = 0; i < VPL; ++i) out[i] = to_f32(e[i]);
 }
 
-template <typename T, int D, int G>
+// T: q and o (f32 or bf16); P: the pools (T, or int8 with QUANT, where
+// ks/vs are the per-position scales; null otherwise)
+template <typename T, typename P, int D, int G, bool QUANT>
 __global__ void __launch_bounds__(kPdWarps * 32)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                        const T* __restrict__ vp,
+    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                        const P* __restrict__ vp,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
                         const int* __restrict__ tables,
                         const int* __restrict__ lengths, T* __restrict__ o,
                         int kvh, int bs, int mb, float scale_log2) {
@@ -84,13 +111,18 @@ __global__ void __launch_bounds__(kPdWarps * 32)
   for (int p0 = warp * kPdUnroll; p0 < len;
        p0 += kPdWarps * kPdUnroll) {
     float kr[kPdUnroll][VPL], vr[kPdUnroll][VPL];
+    float ksc[kPdUnroll], vsc[kPdUnroll];
 #pragma unroll
     for (int u = 0; u < kPdUnroll; ++u) {
       int p = p0 + u;
       if (p < len) {
         size_t row = ((size_t)table[p / bs] * kvh + h) * bs + p % bs;
-        load_row<T, VPL>(kr[u], kp + row * D + lane * VPL);
-        load_row<T, VPL>(vr[u], vp + row * D + lane * VPL);
+        load_row<P, VPL>(kr[u], kp + row * D + lane * VPL);
+        load_row<P, VPL>(vr[u], vp + row * D + lane * VPL);
+        if (QUANT) {
+          ksc[u] = ks[row];
+          vsc[u] = vs[row];
+        }
       }
     }
 #pragma unroll
@@ -102,13 +134,15 @@ __global__ void __launch_bounds__(kPdWarps * 32)
 #pragma unroll
         for (int i = 0; i < VPL; ++i) s = fmaf(qr[g][i], kr[u][i], s);
         s = warp_sum(s);  // a valid position: s is finite
+        if (QUANT) s *= ksc[u];
         float m_new = fmaxf(m[g], s);
         float corr = exp2f(m[g] - m_new);
         float pe = exp2f(s - m_new);
-        l[g] = l[g] * corr + pe;
+        l[g] = l[g] * corr + pe;  // the unscaled weight
+        float pv = QUANT ? pe * vsc[u] : pe;
 #pragma unroll
         for (int i = 0; i < VPL; ++i)
-          acc[g][i] = fmaf(acc[g][i], corr, pe * vr[u][i]);
+          acc[g][i] = fmaf(acc[g][i], corr, pv * vr[u][i]);
         m[g] = m_new;
       }
     }
@@ -144,26 +178,64 @@ __global__ void __launch_bounds__(kPdWarps * 32)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D, bool QUANT>
 int launch_paged_g(const void* q, const void* kp, const void* vp,
-                   const int* tables, const int* lengths, void* o, int B,
-                   int kvh, int G, int bs, int mb, float scale_log2,
-                   cudaStream_t s) {
+                   const float* ks, const float* vs, const int* tables,
+                   const int* lengths, void* o, int B, int kvh, int G, int bs,
+                   int mb, float scale_log2, cudaStream_t s) {
   dim3 grid(B * kvh), block(kPdWarps * 32);
   auto args = [&](auto kernel) {
     kernel<<<grid, block, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), kvh,
-        bs, mb, scale_log2);
+        static_cast<const T*>(q), static_cast<const P*>(kp),
+        static_cast<const P*>(vp), ks, vs, tables, lengths,
+        static_cast<T*>(o), kvh, bs, mb, scale_log2);
   };
   switch (G) {
-    case 1: args(paged_decode_kernel<T, D, 1>); break;
-    case 2: args(paged_decode_kernel<T, D, 2>); break;
-    case 4: args(paged_decode_kernel<T, D, 4>); break;
-    case 8: args(paged_decode_kernel<T, D, 8>); break;
+    case 1: args(paged_decode_kernel<T, P, D, 1, QUANT>); break;
+    case 2: args(paged_decode_kernel<T, P, D, 2, QUANT>); break;
+    case 4: args(paged_decode_kernel<T, P, D, 4, QUANT>); break;
+    case 8: args(paged_decode_kernel<T, P, D, 8, QUANT>); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool QUANT>
+int launch_paged_d(const void* q, const void* kp, const void* vp,
+                   const float* ks, const float* vs, const int* tables,
+                   const int* lengths, void* o, int B, int kvh, int G, int D,
+                   int bs, int mb, float scale_log2, cudaStream_t s) {
+  using P = typename std::conditional<QUANT, int8_t, T>::type;
+  if (D == 64)
+    return launch_paged_g<T, P, 64, QUANT>(q, kp, vp, ks, vs, tables,
+                                           lengths, o, B, kvh, G, bs, mb,
+                                           scale_log2, s);
+  if (D == 128)
+    return launch_paged_g<T, P, 128, QUANT>(q, kp, vp, ks, vs, tables,
+                                            lengths, o, B, kvh, G, bs, mb,
+                                            scale_log2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q of `dtype` (f32 or bf16); pools of the same type, or int8 with QUANT
+template <bool QUANT>
+int launch_paged(const void* q, const void* kp, const void* vp,
+                 const float* ks, const float* vs, const void* tables,
+                 const void* lengths, void* o, int B, int kvh, int G, int D,
+                 int bs, int mb, float scale, int dtype, void* stream) {
+  if (B <= 0 || kvh <= 0 || bs <= 0 || mb <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto tb = static_cast<const int*>(tables);
+  auto ln = static_cast<const int*>(lengths);
+  auto s = static_cast<cudaStream_t>(stream);
+  float sl = scale * kLog2e;
+  if (dtype == kBFloat16)
+    return launch_paged_d<__nv_bfloat16, QUANT>(q, kp, vp, ks, vs, tb, ln, o,
+                                                B, kvh, G, D, bs, mb, sl, s);
+  if (dtype == kFloat32)
+    return launch_paged_d<float, QUANT>(q, kp, vp, ks, vs, tb, ln, o, B, kvh,
+                                        G, D, bs, mb, sl, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace taper
@@ -175,26 +247,24 @@ extern "C" int taper_paged_decode(const void* q, const void* k_pool,
                                   const void* lengths, void* o, int B,
                                   int kvh, int G, int D, int bs, int mb,
                                   float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto tb = static_cast<const int*>(tables);
-  auto ln = static_cast<const int*>(lengths);
-  float sl = scale * kLog2e;
-  if (B <= 0 || kvh <= 0 || bs <= 0 || mb <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == kBFloat16) {
-    if (D == 64)
-      return launch_paged_g<__nv_bfloat16, 64>(q, k_pool, v_pool, tb, ln, o,
-                                               B, kvh, G, bs, mb, sl, s);
-    if (D == 128)
-      return launch_paged_g<__nv_bfloat16, 128>(q, k_pool, v_pool, tb, ln, o,
-                                                B, kvh, G, bs, mb, sl, s);
-  } else if (dtype == kFloat32) {
-    if (D == 64)
-      return launch_paged_g<float, 64>(q, k_pool, v_pool, tb, ln, o, B, kvh,
-                                       G, bs, mb, sl, s);
-    if (D == 128)
-      return launch_paged_g<float, 128>(q, k_pool, v_pool, tb, ln, o, B, kvh,
-                                        G, bs, mb, sl, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_paged<false>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                             lengths, o, B, kvh, G, D, bs, mb, scale, dtype,
+                             stream);
+}
+
+// int8 pools: k_pool/v_pool int8 [n_blocks, kvh, bs, D], k_scales/v_scales
+// f32 [n_blocks, kvh, bs]; q and o f32 or bf16 (dtype)
+extern "C" int taper_paged_decode_int8(const void* q, const void* k_pool,
+                                       const void* v_pool,
+                                       const void* k_scales,
+                                       const void* v_scales,
+                                       const void* tables,
+                                       const void* lengths, void* o, int B,
+                                       int kvh, int G, int D, int bs, int mb,
+                                       float scale, int dtype, void* stream) {
+  return launch_paged<true>(q, k_pool, v_pool,
+                            static_cast<const float*>(k_scales),
+                            static_cast<const float*>(v_scales), tables,
+                            lengths, o, B, kvh, G, D, bs, mb, scale, dtype,
+                            stream);
 }

@@ -14,8 +14,8 @@ The flags are the JAX example's, with these differences:
   step) instead of ``fit_device`` (the dataset resident on the device);
 * ``--fused`` (``fit_device_fused``) is not ported and exits with an
   error; ``--profile`` writes a torch.profiler chrome trace of one epoch;
-* checkpoints are not ported yet: the example says so where the JAX one
-  saves.
+* the trained state is saved where the JAX example saves it,
+  ``checkpoints/mnist_mlp.npz`` (``--checkpoint`` moves it).
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--data-dir", default="data/mnist")
+    ap.add_argument("--checkpoint", default="checkpoints/mnist_mlp.npz",
+                    help="where the trained state is saved (the JAX "
+                         "example's path)")
     ap.add_argument("--loader", action="store_true",
                     help="Trainer.fit over PrefetchLoader(DataLoader)")
     ap.add_argument("--fused", action="store_true",
@@ -95,8 +98,8 @@ def main(argv=None) -> Trainer:
               * (len(train_ds) // args.batch_size) * args.batch_size)
     print(f"throughput: {n_seen / total:,.0f} samples/s "
           f"(device={args.device}, {'fit' if args.loader else 'fit_device'})")
-    print("checkpoint: not saved (checkpoints are not ported to "
-          "taper_tpu_torch yet)")
+    trainer.save_checkpoint(args.checkpoint)
+    print(f"checkpoint saved to {args.checkpoint}")
     return trainer
 
 

@@ -7,8 +7,9 @@ early stop above 99.5% val accuracy.
 
 The flags are the JAX example's, with ``--device`` (default ``cuda``) in
 place of ``--backend``; ``--fused`` (``fit_device_fused``) is not ported
-and exits with an error, and checkpoints are not ported yet: the example
-says so where the JAX one saves.
+and exits with an error.  The trained state is saved where the JAX
+example saves it, ``checkpoints/mnist_cnn.npz`` (``--checkpoint`` moves
+it).
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--data-dir", default="data/mnist")
+    ap.add_argument("--checkpoint", default="checkpoints/mnist_cnn.npz",
+                    help="where the trained state is saved (the JAX "
+                         "example's path)")
     ap.add_argument("--fused", action="store_true",
                     help="Trainer.fit_device_fused (not ported: exits)")
     args = ap.parse_args(argv)
@@ -61,8 +65,8 @@ def main(argv=None) -> Trainer:
     n_seen = n_epochs * (len(train_ds) // args.batch_size) * args.batch_size
     print(f"throughput: {n_seen / total:,.0f} samples/s "
           f"({total / n_epochs:.2f}s/epoch, device={args.device})")
-    print("checkpoint: not saved (checkpoints are not ported to "
-          "taper_tpu_torch yet)")
+    trainer.save_checkpoint(args.checkpoint)
+    print(f"checkpoint saved to {args.checkpoint}")
     return trainer
 
 

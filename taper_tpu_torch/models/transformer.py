@@ -1,5 +1,6 @@
 """Decoder-only transformer LM: port of
-``taper_tpu/models/transformer.py``, the part paged serving runs.
+``taper_tpu/models/transformer.py``, the part that training and serving
+(contiguous and paged KV caches, f32, bf16 and int8) run.
 
 GPT-2 style: token embedding (+ learned positions unless ``rope``), pre-LN
 blocks, final norm, tied or untied LM head.  ``compute_dtype`` runs the
@@ -10,10 +11,15 @@ and the logits stay f32.
 (full logits, then the masked next-token loss), through the port's
 kernels and autograd.
 
-Not ported yet: remat, dropout, MoE, windows and the fused
-vocab-chunked loss (their arguments raise ``NotImplementedError``), and
-the contiguous-cache generation paths (``generate``, ``decode_step``,
-``decode_chunk``, beam search, speculative decoding).
+The caches are filled and updated in place (``prefill``,
+``decode_step``, ``prefill_paged``, ``decode_step_paged``), where the JAX
+package returns new caches.
+
+Not ported yet: remat, dropout, MoE, windows with their ring caches and
+the fused vocab-chunked loss (their arguments raise
+``NotImplementedError``), and generation (``generate``,
+``generate_continued``, ``decode_chunk``, ``prefill_paged_continued``,
+beam search, speculative decoding).
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from torch import nn
 from taper_tpu_torch.data.seq import masked_token_loss
 from taper_tpu_torch.nn.transformer import (
     Embedding, LayerNorm, RMSNorm, TransformerBlock)
-from taper_tpu_torch.ops.paged_attention import paged_write_prefill
+from taper_tpu_torch.ops.paged_attention import (
+    paged_write_prefill, paged_write_prefill_scale)
 from taper_tpu_torch.quantization.qtensor import dense
 from taper_tpu_torch.utils import not_ported
 
@@ -187,35 +194,85 @@ class TinyGPT(nn.Module):
                 "taper_tpu_torch yet (ROADMAP.md, Queue 1)")
         return masked_token_loss(self(tokens), targets, mask, z_loss=z_loss)
 
-    def prefill(self, prompt):
-        """Whole prompt ``[B, P]`` in one forward (flash attention).
-        Returns ``(logits [B, P, vocab], kv)``: ``kv`` holds each layer's
-        rotated ``(k, v)`` ``[B, kvh, P, D]``, the cache positions
-        ``[0, P)``."""
+    def _device(self, device):
+        return self.tok.w.device if device is None else device
+
+    def _caches(self, batch, length, dtype, quantized, device):
+        dt = dtype or self.compute_dtype or torch.float32
+        return [blk.attn.init_cache(batch, length, dt, quantized,
+                                    self._device(device))
+                for blk in self.blocks]
+
+    def init_cache(self, batch: int, dtype=None, quantized: bool = False,
+                   device=None, ring: bool = False):
+        """Per-layer contiguous caches ``{"k", "v": [batch, kvh, max_seq,
+        D]}`` (+ per-position ``"k_scale"``/``"v_scale"`` when
+        ``quantized``: int8 rows, ``dtype`` ignored) on ``device`` (the
+        model's by default).  ``ring`` caches (window models) are not
+        ported."""
+        not_ported("TinyGPT.init_cache", ring=ring)
+        return self._caches(batch, self.max_seq, dtype, quantized, device)
+
+    def prefill(self, prompt, caches):
+        """Process the whole prompt ``[B, P]`` in one forward (flash
+        attention) and fill cache positions ``[0, P)`` of every layer, in
+        place.  Returns logits ``[B, P, vocab]``."""
         x = self._embed_prompt(prompt)
-        kv = []
-        for blk in self.blocks:
-            x, layer_kv = blk.prefill(x)
-            kv.append(layer_kv)
-        return self._logits(self.ln_f(x).float()), kv
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.prefill(x, cache)
+        return self._logits(self.ln_f(x).float())
+
+    def _embed_step(self, tok_t, pos):
+        """``tok_t [B]`` at ``pos`` (a scalar or ``[B]``) -> ``[B, 1, E]``.
+        A frozen serving row may step past ``max_seq``; its tokens are
+        discarded, so any in-range position will do."""
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            positions = pos[:, None].long()
+        else:
+            positions = torch.as_tensor(pos, device=tok_t.device).reshape(1)
+        return self._embed(tok_t[:, None],
+                           positions.long().clamp(max=self.max_seq - 1))
+
+    def decode_step(self, tok_t, pos, caches):
+        """One token per sequence against the contiguous caches: ``tok_t``
+        ``[B]`` at ``pos`` (a scalar, or ``[B]`` per-row positions for
+        ragged serving).  Writes each layer's K/V at ``pos`` in place;
+        returns logits ``[B, vocab]``."""
+        x = self._embed_step(tok_t, pos)
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.decode(x, cache, pos)
+        return self._logits(self.ln_f(x).float())[:, 0]
 
     def init_paged_cache(self, n_blocks: int, block_size: int = 128,
-                         dtype=None, device=None):
-        """Per-layer paged pools ``{"k", "v": [n_blocks, kvh, bs, D]}``;
-        block tables live outside (the serving engine owns them)."""
+                         dtype=None, device=None, quantized: bool = False):
+        """Per-layer paged pools ``{"k", "v": [n_blocks, kvh, bs, D]}``
+        (+ per-position ``"k_scale"``/``"v_scale"`` ``[n_blocks, kvh,
+        bs]`` when ``quantized``: int8 pools) on ``device`` (the model's
+        by default); block tables live outside (the serving engine owns
+        them)."""
         dt = dtype or self.compute_dtype or torch.float32
-        return [blk.attn.init_paged_pool(n_blocks, block_size, dt, device)
+        return [blk.attn.init_paged_pool(n_blocks, block_size, dt,
+                                         self._device(device), quantized)
                 for blk in self.blocks]
 
     def prefill_paged(self, prompt, pools, tables):
-        """Prefill ``prompt [B, P]``, then scatter each row's K/V into its
-        table's blocks (``ceil(P / bs)`` per row), in place.  Returns
-        logits ``[B, P, vocab]``."""
-        logits, kv = self.prefill(prompt)
-        for pool, (k, v) in zip(pools, kv):
-            for i in range(prompt.shape[0]):   # engine admissions: 1 row
-                paged_write_prefill(pool["k"], pool["v"], k[i], v[i],
-                                    tables[i])
+        """Prefill ``prompt [B, P]`` into prompt-length caches, then
+        scatter each row's K/V (and, for int8 pools, their scales) into
+        its table's blocks (``ceil(P / bs)`` per row), in place.  The
+        prefill attention runs on the full-precision K/V; only the stored
+        rows are int8.  Returns logits ``[B, P, vocab]``."""
+        b, p = prompt.shape
+        quantized = "k_scale" in pools[0]
+        tmp = self._caches(b, p, None, quantized, prompt.device)
+        logits = self.prefill(prompt, tmp)
+        for pool, c in zip(pools, tmp):
+            for i in range(b):                 # engine admissions: 1 row
+                paged_write_prefill(pool["k"], pool["v"], c["k"][i],
+                                    c["v"][i], tables[i])
+                if quantized:
+                    for name in ("k_scale", "v_scale"):
+                        paged_write_prefill_scale(pool[name], c[name][i],
+                                                  tables[i])
         return logits
 
     def decode_step_paged(self, tok_t, pos, pools, tables):
@@ -223,10 +280,7 @@ class TinyGPT(nn.Module):
         ``pos [B]`` int32 positions, ``tables [B, mb]`` int32.  Writes
         each layer's K/V at ``pos`` in place; returns logits
         ``[B, vocab]``."""
-        # a frozen serving row may step past the table; its tokens are
-        # discarded, so any in-range position will do
-        x = self._embed(tok_t[:, None],
-                        pos[:, None].long().clamp(max=self.max_seq - 1))
+        x = self._embed_step(tok_t, pos)
         for blk, pool in zip(self.blocks, pools):
             x = blk.decode_paged(x, pool, tables, pos)
         return self._logits(self.ln_f(x).float())[:, 0]

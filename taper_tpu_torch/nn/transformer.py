@@ -1,5 +1,6 @@
 """Transformer building blocks: port of ``taper_tpu/nn/transformer.py``,
-the part that paged serving and training run.
+the part that serving (contiguous and paged KV caches, f32, bf16 and
+int8) and training run.
 
 Modules are ``torch.nn.Module``s whose parameter names mirror the JAX
 parameter tree (``wq``, ``bq``, ..., ``g``, ``b``), so one tree moves
@@ -14,9 +15,17 @@ A weight may be a PTQ ``QuantizedTensor`` in place of its parameter
 ``ops.linear`` untouched, so int8 and int4 weights reach the
 dequant-on-load kernels, and ``Embedding`` dequantizes its table.
 
-Not ported yet: dropout, sliding windows, segment ids and per-token
-positions, MoE, LoRA, and the contiguous-cache decode helpers; their
-constructor arguments raise ``NotImplementedError``.
+The KV caches are updated IN PLACE (``_cache_write``, the paged writes),
+where the JAX package returns new caches that its jitted programs donate.
+A contiguous cache is ``{"k", "v": [B, kvh, max_seq, D]}``, with int8 rows
+and ``"k_scale"``/``"v_scale"`` ``[B, kvh, max_seq]`` f32 when quantized;
+decode attention over it (``_decode_attention``) is plain PyTorch, as the
+JAX package leaves it to XLA with no Pallas kernel.
+
+Not ported yet: dropout, sliding windows (and their ring caches), segment
+ids and per-token positions, MoE, LoRA, bias-free projections and chunked
+decode (``q_offsets``, per-row chunks); their arguments raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from torch import nn
 
 from taper_tpu_torch import ops
 from taper_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_write)
+    paged_decode_attention, paged_write, paged_write_scale)
 from taper_tpu_torch.ops.quant import w8a8_engages
 from taper_tpu_torch.quantization.qtensor import QuantizedTensor, dense
 from taper_tpu_torch.utils import not_ported
@@ -111,11 +120,16 @@ def rope_angles(head_dim: int, max_seq: int, base: float = 10000.0):
 
 def apply_rope(x, cos, sin, offset=0):
     """Rotate ``x [B, H, S, D]`` by position (half-split, not interleaved).
-    ``offset``: an int shifts the table; a ``[B]`` tensor gives each row
-    its own position (decode, S == 1).  The f32 tables are cast to
-    ``x``'s dtype before the multiply."""
+    ``offset``: an int or a 0-d tensor shifts the table (a tensor start
+    is clamped into the table, as ``dynamic_slice`` clamps it); a ``[B]``
+    tensor gives each row its own position (decode, S == 1).  The f32
+    tables are cast to ``x``'s dtype before the multiply."""
     s, half = x.shape[2], x.shape[3] // 2
-    if torch.is_tensor(offset):
+    if torch.is_tensor(offset) and offset.dim() == 0:
+        start = offset.long().clamp(0, cos.shape[0] - s)
+        idx = start + torch.arange(s, device=offset.device)
+        c, si = cos[idx][None, None], sin[idx][None, None]
+    elif torch.is_tensor(offset):
         if s != 1:
             raise ValueError("per-row rope offsets require single-token "
                              f"steps, got {s} tokens")
@@ -145,6 +159,95 @@ def apply_rope_bshd(x, cos, sin, n_heads, offset=0):
     out = torch.cat([x1 * c - x2 * si, x2 * c + x1 * si], dim=-1)
     return out.reshape(b, s, e)
 
+# ---------------------------------------------------------------------------
+# KV-cache decode path (serving)
+# ---------------------------------------------------------------------------
+
+def _is_rows(pos) -> bool:
+    """A ``[B]`` tensor of per-row positions (ragged serving), as against
+    a scalar position (an int or a 0-d tensor) shared by every row."""
+    return torch.is_tensor(pos) and pos.dim() == 1
+
+
+def kv_quantize(x):
+    """Symmetric int8 row quantization for KV cache entries: one scale per
+    (batch, head, position), amax over the head dim, round half to even.
+    Returns ``(int8 rows, f32 scales [..., :-1 dims])``.
+
+    The scale is ``max(amax, 1e-8) * f32(1/127)``: JAX's ``/ 127.0``
+    under ``jit`` (every serving program of the JAX package) is folded by
+    XLA into that multiply, where an eager JAX call divides, which differs
+    in the last bit.  The codes divide by the scale (a tensor: one true
+    division on every device)."""
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    scale = torch.clamp(amax, min=1e-8) * inv
+    q = torch.round(xf / scale[..., None])
+    return q.to(torch.int8), scale
+
+
+def _decode_attention(q, k_cache, v_cache, pos, scale, window=None,
+                      k_scale=None, v_scale=None, q_offsets=None,
+                      ring=False):
+    """Single-position attention against a contiguous KV cache: ``q``
+    ``[B, H, Q, D]``, caches ``[B, H, Smax, D]``; entries past ``pos`` (a
+    scalar, or ``[B]`` per-row positions) are masked out.  Scores and the
+    softmax are f32.  int8 caches (``k_scale``/``v_scale`` ``[B, H,
+    Smax]``): the rows enter the dots in f32, the k scale multiplies the
+    scores after the dot and the v scale the softmax weights before
+    theirs.  f32/bf16 caches: the weights are cast to the cache dtype
+    before ``P.V``, as JAX does.  Plain PyTorch on every device: JAX runs
+    this as XLA, with no Pallas kernel."""
+    not_ported("_decode_attention", window=window is not None,
+               q_offsets=q_offsets is not None, ring=ring)
+    s = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
+    idx = torch.arange(k_cache.shape[2], device=q.device)
+    if _is_rows(pos):
+        mask = idx[None, None, None, :] <= pos.long()[:, None, None, None]
+    else:
+        mask = idx <= pos
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+        return torch.matmul(p, v_cache.float())
+    return torch.matmul(p.to(v_cache.dtype), v_cache)
+
+
+def _cache_write(cache, k, v, pos, ring=False):
+    """Write new K/V rows ``[B, kvh, C, D]`` into a contiguous cache, in
+    place: at ``[pos, pos + C)`` for a scalar ``pos`` (prefill, lockstep
+    decode), or row b's single row at ``pos[b]`` for ``[B]`` positions
+    (ragged decode, C = 1).  Quantizes the rows when the cache holds
+    scales.  A position past the cache is clamped, as XLA's
+    ``dynamic_update_slice`` clamps it: a frozen serving row that keeps
+    stepping past ``max_seq`` rewrites its last entry, whose tokens the
+    engine discards.  One indexed write stands for JAX's three write
+    strategies, which are XLA speed choices with one result."""
+    not_ported("_cache_write", ring=ring)
+    quantized = "k_scale" in cache
+    new = {"k": k, "v": v}
+    if quantized:
+        new["k"], new["k_scale"] = kv_quantize(k)
+        new["v"], new["v_scale"] = kv_quantize(v)
+    smax, c = cache["k"].shape[2], k.shape[2]
+    if _is_rows(pos):
+        not_ported("_cache_write", per_row_chunks=c != 1)
+        rows = torch.arange(k.shape[0], device=k.device)
+        at = pos.long().clamp(0, smax - 1)
+        for name, x in new.items():
+            cache[name][rows, :, at] = x[:, :, 0].to(cache[name].dtype)
+        return cache
+    # the clamped start of dynamic_update_slice, kept on the device
+    start = torch.as_tensor(pos, device=k.device).long().clamp(0, smax - c)
+    at = start + torch.arange(c, device=k.device)
+    for name, x in new.items():
+        cache[name].index_copy_(2, at, x.to(cache[name].dtype))
+    return cache
+
 
 class MultiHeadAttention(nn.Module):
     """Multi-head self-attention over the flash kernels (on CUDA tensors).
@@ -155,12 +258,13 @@ class MultiHeadAttention(nn.Module):
     transposes to ``[B, H, S, D]`` otherwise."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
-                 init_std: float = 0.02,
+                 bias: bool = True, init_std: float = 0.02,
                  out_init_std: Optional[float] = None, rope: bool = False,
                  max_seq: int = 4096, num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None):
         super().__init__()
-        not_ported("MultiHeadAttention", window=window is not None)
+        not_ported("MultiHeadAttention", bias=not bias,
+                   window=window is not None)
         self.num_kv_heads = num_heads if num_kv_heads is None \
             else num_kv_heads
         if dim % num_heads or num_heads % self.num_kv_heads:
@@ -242,28 +346,9 @@ class MultiHeadAttention(nn.Module):
         o = ops.attention_bshd(q, k, v, self.num_heads, causal=self.causal)
         return _proj(o.reshape(b * s, e), self.wo, self.bo).reshape(b, s, e)
 
-    def prefill(self, x):
-        """Prompt prefill (``mha_apply_prefill``): one flash attention
-        forward over ``x [B, P, E]``.  Returns ``(y [B, P, E], (k, v))``
-        with the rotated K/V ``[B, kvh, P, D]`` that fill the cache."""
-        q, k, v = self._qkv_heads(x)
-        o = ops.attention(q, k, v, causal=True)
-        return self._out(o), (k, v)
-
-    def init_paged_pool(self, n_blocks: int, block_size: int,
-                        dtype=torch.float32, device=None):
-        """``mha_init_paged_pool``: zero K/V pools
-        ``[n_blocks, kvh, block_size, D]``."""
-        shape = (n_blocks, self.num_kv_heads, block_size, self.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-    def decode_paged(self, x_t, pool, tables, pos):
-        """One decode step against a paged pool
-        (``mha_apply_decode_paged``): ``x_t [B, 1, E]``, ``pool`` {"k",
-        "v"}, ``tables [B, mb]`` int32, ``pos [B]`` int32 per-row
-        positions.  Writes this step's K/V into the pool in place, then
-        attends to positions ``[0, pos]``.  Returns ``y [B, 1, E]``."""
+    def _decode_heads(self, x_t, pos):
+        """This step's rotated ``q [B, H, 1, D]`` and ``k``, ``v`` ``[B,
+        kvh, 1, D]`` from ``x_t [B, 1, E]`` at ``pos``."""
         b, _, e = x_t.shape
         x2 = x_t.reshape(b, e)
 
@@ -273,23 +358,105 @@ class MultiHeadAttention(nn.Module):
         q = self._rope(heads(self.wq, self.bq, self.num_heads), pos)
         k = self._rope(heads(self.wk, self.bk, self.num_kv_heads), pos)
         v = heads(self.wv, self.bv, self.num_kv_heads)
+        return q, k, v
+
+    def _out_step(self, o, x_t):
+        """Output projection of one step's ``[B, kvh, G, D]`` attention."""
+        b, _, e = x_t.shape
+        y = _proj(o.reshape(b, e).to(x_t.dtype), self.wo, self.bo)
+        return y.reshape(b, 1, e)
+
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.float32,
+                   quantized: bool = False, device=None):
+        """``mha_init_cache``: zero K/V ``[batch, kvh, max_seq, D]`` of
+        ``dtype``, or int8 rows with f32 ``k_scale``/``v_scale`` ``[batch,
+        kvh, max_seq]`` when ``quantized`` (``dtype`` is then ignored)."""
+        shape = (batch, self.num_kv_heads, max_seq, self.head_dim)
+        return _zero_cache(shape, dtype, quantized, device)
+
+    def prefill(self, x, cache):
+        """Prompt prefill (``mha_apply_prefill``): one flash attention
+        forward over ``x [B, P, E]`` on the full-precision K/V, which also
+        fill cache positions ``[0, P)`` in place (quantized when the cache
+        holds scales).  Returns ``y [B, P, E]``."""
+        q, k, v = self._qkv_heads(x)
+        _cache_write(cache, k, v, 0)
+        return self._out(ops.attention(q, k, v, causal=True))
+
+    def decode(self, x_t, cache, pos):
+        """One decode step against a contiguous cache
+        (``mha_apply_decode``): ``x_t [B, 1, E]`` at ``pos`` (a scalar, or
+        ``[B]`` per-row positions).  Writes this step's K/V in place, then
+        attends to ``[0, pos]``, with GQA's query groups folded into the
+        query dim against the kv-sized cache (never repeated).  Returns
+        ``y [B, 1, E]``."""
+        b = x_t.shape[0]
+        q, k, v = self._decode_heads(x_t, pos)
+        _cache_write(cache, k, v, pos)
+        qg = q.reshape(b, self.num_kv_heads, self.kv_groups, self.head_dim)
+        o = _decode_attention(qg, cache["k"], cache["v"], pos,
+                              self.head_dim ** -0.5,
+                              k_scale=cache.get("k_scale"),
+                              v_scale=cache.get("v_scale"))
+        return self._out_step(o, x_t)
+
+    def init_paged_pool(self, n_blocks: int, block_size: int,
+                        dtype=torch.float32, device=None,
+                        quantized: bool = False):
+        """``mha_init_paged_pool``: zero K/V pools
+        ``[n_blocks, kvh, block_size, D]``, or int8 pools with f32
+        ``k_scale``/``v_scale`` ``[n_blocks, kvh, block_size]``."""
+        shape = (n_blocks, self.num_kv_heads, block_size, self.head_dim)
+        return _zero_cache(shape, dtype, quantized, device)
+
+    def decode_paged(self, x_t, pool, tables, pos):
+        """One decode step against a paged pool
+        (``mha_apply_decode_paged``): ``x_t [B, 1, E]``, ``pool`` {"k",
+        "v"} (+ "k_scale", "v_scale" for int8 pools), ``tables [B, mb]``
+        int32, ``pos [B]`` int32 per-row positions.  Writes this step's
+        K/V (quantized, with their scales, into int8 pools) in place, then
+        attends to positions ``[0, pos]``.  Returns ``y [B, 1, E]``."""
+        b = x_t.shape[0]
+        q, k, v = self._decode_heads(x_t, pos)
+        scales = {}
+        if "k_scale" in pool:            # int8 paged pools
+            k, k_sc = kv_quantize(k)
+            v, v_sc = kv_quantize(v)
+            paged_write_scale(pool["k_scale"], k_sc[:, :, 0], tables, pos)
+            paged_write_scale(pool["v_scale"], v_sc[:, :, 0], tables, pos)
+            scales = dict(k_scales=pool["k_scale"],
+                          v_scales=pool["v_scale"])
         paged_write(pool["k"], pool["v"], k, v, tables, pos)
         # GQA folds each KV head's query group into rows: query head
         # kvh_idx * G + g, the same [B, kvh, G, D] form as JAX; MHA is G=1
         qg = q.reshape(b, self.num_kv_heads, self.kv_groups, self.head_dim)
         o = paged_decode_attention(qg, pool["k"], pool["v"], tables,
-                                   pos + 1, scale=self.head_dim ** -0.5)
-        y = _proj(o.reshape(b, e).to(x2.dtype), self.wo, self.bo)
-        return y.reshape(b, 1, e)
+                                   pos + 1, scale=self.head_dim ** -0.5,
+                                   **scales)
+        return self._out_step(o, x_t)
+
+
+def _zero_cache(shape, dtype, quantized, device):
+    """Zero K/V of ``shape``; int8 with per-position f32 scales when
+    ``quantized``."""
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 class MLPBlock(nn.Module):
     """Position-wise FFN: Linear -> tanh-GELU -> Linear (hidden =
     ratio * dim), or SwiGLU with ``gated=True``."""
 
-    def __init__(self, dim: int, ratio: int = 4, init_std: float = 0.02,
+    def __init__(self, dim: int, ratio: int = 4, bias: bool = True,
+                 init_std: float = 0.02,
                  out_init_std: Optional[float] = None, gated: bool = False):
         super().__init__()
+        not_ported("MLPBlock", bias=not bias)
         hidden = ratio * dim
         self.gated = gated
         self.init_std = init_std
@@ -360,11 +527,17 @@ class TransformerBlock(nn.Module):
         x = x + self.attn(self.ln1(x))
         return x + self.mlp(self.ln2(x))
 
-    def prefill(self, x):
-        """``block_apply_prefill``: returns ``(x, (k, v))``."""
-        a, kv = self.attn.prefill(self.ln1(x))
-        x = x + a
-        return x + self.mlp(self.ln2(x)), kv
+    def prefill(self, x, cache):
+        """``block_apply_prefill``: fills ``cache`` at ``[0, P)`` in
+        place; returns ``x``."""
+        x = x + self.attn.prefill(self.ln1(x), cache)
+        return x + self.mlp(self.ln2(x))
+
+    def decode(self, x_t, cache, pos):
+        """``block_apply_decode``: one token per row against a contiguous
+        cache, updated in place."""
+        x_t = x_t + self.attn.decode(self.ln1(x_t), cache, pos)
+        return x_t + self.mlp(self.ln2(x_t))
 
     def decode_paged(self, x_t, pool, tables, pos):
         """``block_apply_decode_paged``: one token per row; updates

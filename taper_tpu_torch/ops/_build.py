@@ -64,6 +64,9 @@ _SIGNATURES = {
     # dtype, stream
     "taper_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _I, _P],
+    # q, k_pool, v_pool, k_scales, v_scales, tables, lengths, o, B, kvh, G,
+    # D, bs, mb, scale, q dtype, stream
+    "taper_paged_decode_int8": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     # a, b, c, y, n, op, dtype, stream
     "taper_elementwise": [_P, _P, _P, _P, _L, _I, _I, _P],
     # host arrays p, g, m, v (device pointers), n (sizes), count, lr,

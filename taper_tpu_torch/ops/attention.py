@@ -33,6 +33,7 @@ import torch
 
 from taper_tpu_torch.ops import _build
 from taper_tpu_torch.ops import backend
+from taper_tpu_torch.utils import not_ported
 
 HEAD_DIMS = (64, 128)
 LOG2E = math.log2(math.e)
@@ -309,9 +310,13 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def attention(q, k, v, *, causal=False, scale=None):
+def attention(q, k, v, *, causal=False, scale=None, window=None,
+              segment_ids=None):
     """Flash attention over ``[B, H, S, D]``, differentiable; see the
-    module docstring."""
+    module docstring.  ``window`` and ``segment_ids`` are not ported yet
+    and raise."""
+    not_ported("attention", window=window is not None,
+               segment_ids=segment_ids is not None)
     d = _dims(q, k, v)[4]
     scale = d ** -0.5 if scale is None else scale
     return _Flash.apply(q, k, v, bool(causal), float(scale), None)

@@ -43,6 +43,7 @@ from typing import List, Optional
 import torch
 
 from taper_tpu_torch.ops import optim_kernels as K
+from taper_tpu_torch.utils.checkpoint import flatten, nest
 
 
 class Optimizer:
@@ -83,6 +84,39 @@ class Optimizer:
     def _zeros(self):
         return [torch.zeros_like(p) for p in self.params]
 
+    def _slots(self):
+        """The per-parameter state lists, by the JAX state's names."""
+        return {}
+
+    def state_tree(self, names) -> dict:
+        """The optimizer state as the JAX package keeps it: ``lr``, the
+        step count where there is one, and each moment as a tree under the
+        bound parameters' ``names`` (the tensors themselves)."""
+        if len(names) != len(self.params):
+            raise ValueError(f"{len(names)} names for {len(self.params)} "
+                             f"bound parameters")
+        # lr in f64, the port's Python float, so a resumed run keeps it
+        # to the bit (JAX keeps an f32 lr in its state)
+        tree = {"lr": torch.tensor(self.lr, dtype=torch.float64)}
+        if hasattr(self, "t"):
+            tree["step"] = torch.tensor(self.t, dtype=torch.int32)
+        for slot, tensors in self._slots().items():
+            tree[slot] = nest(dict(zip(names, tensors)))
+        return tree
+
+    def load_state_tree(self, tree, names) -> None:
+        """Take a loaded :meth:`state_tree` of the same ``names``: ``lr``
+        and the step count, and the moments copied into the optimizer's
+        own tensors in place."""
+        self.lr = float(tree["lr"])
+        if hasattr(self, "t"):
+            self.t = int(tree["step"])
+        with torch.no_grad():
+            for slot, tensors in self._slots().items():
+                src = dict(flatten(tree[slot], sep="."))
+                for name, t in zip(names, tensors):
+                    t.copy_(src[name])
+
 
 class SGD(Optimizer):
     """SGD with optional momentum and L2 weight decay."""
@@ -94,6 +128,9 @@ class SGD(Optimizer):
 
     def _reset(self) -> None:
         self.m = self._zeros() if self.momentum else None
+
+    def _slots(self):
+        return {"m": self.m} if self.m is not None else {}
 
     def _update(self, grads) -> None:
         K.sgd_update(self.params, grads, self.m, lr=self.lr,
@@ -115,6 +152,9 @@ class Adam(Optimizer):
         self.t = 0
         self.m = self._zeros()
         self.v = self._zeros()
+
+    def _slots(self):
+        return {"m": self.m, "v": self.v}
 
     def _update(self, grads) -> None:
         self.t += 1

@@ -1,29 +1,40 @@
-"""Continuous-batching serving engine for TinyGPT with a paged KV cache:
-port of ``taper_tpu/serve.py`` (``ServingEngine(pool_blocks=...)``).
+"""Continuous-batching serving engine for TinyGPT: port of
+``taper_tpu/serve.py`` (``ServingEngine``, with a contiguous or a paged KV
+cache, in the model's dtype or int8).
 
 A fixed batch of ``slots`` decodes together; requests stream through the
 slots:
 
 * **admission**: a one-row prefill of the prompt, right-padded to
-  ``prompt_pad``, through the flash attention kernel; its K/V rows are
-  scattered into blocks taken from a shared pool by a host-side
-  :class:`BlockAllocator`, and the first token is sampled from the logit
-  at the prompt's last position.
+  ``prompt_pad``, through the flash attention kernel.  Paged mode
+  scatters its K/V rows into blocks taken from a shared pool by a
+  host-side :class:`BlockAllocator`; contiguous mode prefills straight
+  into the slot's row of the engine's ``[slots, kvh, max_seq, D]`` caches
+  (positions ``[0, prompt_pad)``; what lies beyond is never attended, as
+  decode writes a position before attending to it).  The first token is
+  sampled from the logit at the prompt's last position.
 * **decode**: ``decode_block`` steps for all slots, each row at its own
-  position, through the GEMM and paged-attention kernels.  The JAX engine
-  runs the block as one ``lax.scan``; here it is a Python loop over
-  eagerly launched kernels, with one host sync per block (the ``[K, B]``
-  token tile) and one per admission (the first token).
+  position, through the GEMM kernel and, in paged mode, the
+  paged-attention kernel (contiguous decode attention is plain PyTorch,
+  as the JAX package leaves it to XLA).  The JAX engine runs the block as
+  one ``lax.scan``; here it is a Python loop over eagerly launched
+  kernels, with one host sync per block (the ``[K, B]`` token tile) and
+  one per admission (the first token).
 * **retirement**: after each block the host scans the token tile for eos
-  and the per-request budget, frees the request's blocks and re-admits
-  from the queue.  A row that finishes inside a block keeps decoding to
-  the block's end; those extra tokens are discarded.
+  and the per-request budget, frees the request's blocks (paged) and
+  re-admits from the queue.  A row that finishes inside a block keeps
+  decoding to the block's end; those extra tokens are discarded, and a
+  position past ``max_seq`` is clamped on the way.
 
-Idle and retired slots point their tables at a reserved trash block, so
-their writes never touch a live request's blocks.  Admission reserves
-``ceil((len + max_new) / bs)`` blocks, the request's true worst case; the
-prefill scatters ``ceil(prompt_pad / bs)`` blocks, and any beyond the
-reservation go back to the allocator right after admission.
+``quantized_cache=True`` stores K/V as int8 rows with one f32 scale per
+(row, head, position), in either mode; paged int8 pools run the int8
+branch of the paged-attention kernel.
+
+Paged mode: idle and retired slots point their tables at a reserved trash
+block, so their writes never touch a live request's blocks.  Admission
+reserves ``ceil((len + max_new) / bs)`` blocks, the request's true worst
+case; the prefill scatters ``ceil(prompt_pad / bs)`` blocks, and any
+beyond the reservation go back to the allocator right after admission.
 
 A PTQ'd model (``quantization.quantize_params``) serves as it is: its
 quantized weights move to the engine's device with the model, and its
@@ -33,9 +44,11 @@ Greedy rows get exactly the tokens of the JAX engine up to numerics;
 sampled rows draw from an explicit ``torch.Generator`` (their numbers
 differ from JAX's key stream).
 
-Not ported yet: the contiguous-cache engine (``pool_blocks=None``),
-``system_prompt`` prefix sharing, LoRA adapter banks, int8 pools and
-:func:`offline_serve`.
+Not ported yet: ``system_prompt`` prefix sharing, LoRA adapter banks
+(``lora``, ``lora_bank``, ``submit(adapter=)``) and
+:func:`offline_serve`.  ``paged_impl`` picks a JAX backend: ``None`` and
+``"pallas"`` mean the kernel; ``"xla"`` (the gather oracle) is what a CPU
+engine runs, and raises on the card.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from taper_tpu_torch.utils import not_ported
 
 
 def _sample_per_row(logits, generator, temps, top_ks, top_ps):
@@ -103,7 +118,9 @@ class BlockAllocator:
 
 
 class ServingEngine:
-    """Slot-based continuous batching over a paged-cache TinyGPT.
+    """Slot-based continuous batching over a TinyGPT, with a contiguous KV
+    cache (``pool_blocks=None``) or a paged one (``pool_blocks=N`` blocks
+    of ``block_size`` positions), int8 with ``quantized_cache``.
 
     ``submit()`` enqueues prompts; ``run()`` drains the queue and returns
     ``{request_id: generated tokens}`` (with the eos token when one ended
@@ -118,16 +135,13 @@ class ServingEngine:
                  pool_blocks: Optional[int] = None, block_size: int = 128,
                  seed: int = 0, quantized_cache: bool = False,
                  system_prompt: Optional[Sequence[int]] = None,
+                 paged_impl: Optional[str] = None,
                  lora=None, lora_bank=None, device=None):
-        if pool_blocks is None:
-            raise NotImplementedError(
-                "the contiguous-cache engine is not ported yet: pass "
-                "pool_blocks for the paged cache")
-        if quantized_cache or system_prompt is not None or \
-                lora is not None or lora_bank is not None:
-            raise NotImplementedError(
-                "int8 pools, system_prompt sharing and LoRA banks are not "
-                "ported yet")
+        not_ported("ServingEngine", system_prompt=system_prompt is not None,
+                   lora=lora is not None, lora_bank=lora_bank is not None)
+        if paged_impl not in (None, "pallas", "xla"):
+            raise ValueError(f"paged_impl {paged_impl!r}: None, 'pallas' or "
+                             f"'xla'")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -136,6 +150,10 @@ class ServingEngine:
                     "to serve on the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        # the gather oracle is the CPU's paged attention; on the card the
+        # kernel is the only one
+        not_ported("ServingEngine", paged_impl=paged_impl == "xla"
+                   and self.device.type == "cuda")
         self.model = model.to(self.device)
         self.slots = slots
         self.prompt_pad = prompt_pad
@@ -158,22 +176,29 @@ class ServingEngine:
         self._topps = np.full((slots,), self._default_sampling[2],
                               np.float32)
 
-        bs = block_size
-        self._block_size = bs
-        self._max_blocks = -(-model.max_seq // bs)
-        self._alloc = BlockAllocator(pool_blocks)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
-        # host-side tables, pushed to the device per call (tiny int32)
-        self._tables = np.zeros((slots, self._max_blocks), np.int32)
-        # the pools are updated in place (JAX donates them to its programs)
-        self._pools = model.init_paged_cache(pool_blocks, bs,
-                                             device=self.device)
-        # decode writes K/V for EVERY slot each step (frozen rows rewrite
-        # their own last position); idle and retired slots' tables point
-        # at a reserved trash block so their writes never touch a live
-        # request's blocks
-        self._trash = self._alloc.alloc(1)[0]
-        self._tables[:] = self._trash
+        # the caches are updated in place (JAX donates them to its
+        # programs)
+        self._paged = pool_blocks is not None
+        if self._paged:
+            bs = block_size
+            self._block_size = bs
+            self._max_blocks = -(-model.max_seq // bs)
+            self._alloc = BlockAllocator(pool_blocks)
+            self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+            # host-side tables, pushed to the device per call (tiny int32)
+            self._tables = np.zeros((slots, self._max_blocks), np.int32)
+            self._caches = model.init_paged_cache(
+                pool_blocks, bs, device=self.device,
+                quantized=quantized_cache)
+            # decode writes K/V for EVERY slot each step (frozen rows
+            # rewrite their own last position); idle and retired slots'
+            # tables point at a reserved trash block so their writes never
+            # touch a live request's blocks
+            self._trash = self._alloc.alloc(1)[0]
+            self._tables[:] = self._trash
+        else:
+            self._caches = model.init_cache(slots, quantized=quantized_cache,
+                                            device=self.device)
         self._last_tok = torch.zeros(slots, dtype=torch.int64,
                                      device=self.device)
         self._pos = torch.zeros(slots, dtype=torch.int32, device=self.device)
@@ -190,8 +215,9 @@ class ServingEngine:
         out["queued"] = len(self._queue)
         out["active_slots"] = sum(r is not None for r in self._slot_req)
         out["slots"] = self.slots
-        out["pool_blocks_total"] = self._alloc.n_blocks - 1
-        out["pool_blocks_free"] = self._alloc.available
+        if self._paged:
+            out["pool_blocks_total"] = self._alloc.n_blocks - 1
+            out["pool_blocks_free"] = self._alloc.available
         return out
 
     # -- request lifecycle -------------------------------------------------
@@ -199,9 +225,11 @@ class ServingEngine:
     def submit(self, prompt: Sequence[int], max_new: int,
                temperature: Optional[float] = None,
                top_k: Optional[int] = None,
-               top_p: Optional[float] = None) -> int:
+               top_p: Optional[float] = None,
+               adapter: Optional[int] = None) -> int:
         """Enqueue one request; ``temperature``/``top_k``/``top_p``
         override the engine defaults for this request."""
+        not_ported("ServingEngine.submit", adapter=adapter is not None)
         if not 1 <= len(prompt) <= self.prompt_pad:
             raise ValueError(f"prompt length {len(prompt)} is outside "
                              f"[1, {self.prompt_pad}]")
@@ -209,13 +237,14 @@ class ServingEngine:
             raise ValueError(f"prompt_pad + max_new = "
                              f"{self.prompt_pad + max_new} exceeds max_seq "
                              f"{self.model.max_seq}")
-        need = self._paged_need(len(prompt), int(max_new))[2]
-        usable = self._alloc.n_blocks - 1
-        if need > usable:
-            raise ValueError(
-                f"request needs {need} blocks but the pool only has "
-                f"{usable} usable (one is the trash block): it could "
-                f"never be admitted")
+        if self._paged:
+            need = self._paged_need(len(prompt), int(max_new))[2]
+            usable = self._alloc.n_blocks - 1
+            if need > usable:
+                raise ValueError(
+                    f"request needs {need} blocks but the pool only has "
+                    f"{usable} usable (one is the trash block): it could "
+                    f"never be admitted")
         rid = self._next_id
         self._next_id += 1
         dt, dk, dp = self._default_sampling
@@ -251,32 +280,41 @@ class ServingEngine:
         return _sample_per_row(logits, self._gen, *sampling)
 
     def _admit_one(self, slot: int) -> bool:
-        _, prompt, max_new, _ = self._queue[0]
-        _, keep, need = self._paged_need(len(prompt), max_new)
-        if need > self._alloc.available:
-            self._stats["admission_deferrals"] += 1
-            return False              # first come, first served: wait
+        if self._paged:
+            _, prompt, max_new, _ = self._queue[0]
+            _, keep, need = self._paged_need(len(prompt), max_new)
+            if need > self._alloc.available:
+                self._stats["admission_deferrals"] += 1
+                return False          # first come, first served: wait
         rid, prompt, max_new, (temp, topk, topp) = self._queue.popleft()
         self._temps[slot], self._topks[slot], self._topps[slot] = \
             temp, topk, topp
         padded = np.zeros((1, self.prompt_pad), np.int64)
         padded[0, :len(prompt)] = prompt
-        ids = self._alloc.alloc(need)
-        row = np.full((self._max_blocks,), self._trash, np.int32)
-        row[:need] = ids
-        self._tables[slot] = row
-        logits = self.model.prefill_paged(
-            torch.from_numpy(padded).to(self.device), self._pools,
-            torch.from_numpy(row[None]).to(self.device))
+        padded = torch.from_numpy(padded).to(self.device)
+        if self._paged:
+            ids = self._alloc.alloc(need)
+            row = np.full((self._max_blocks,), self._trash, np.int32)
+            row[:need] = ids
+            self._tables[slot] = row
+            logits = self.model.prefill_paged(
+                padded, self._caches,
+                torch.from_numpy(row[None]).to(self.device))
+            if need > keep:   # prompt-pad scatter overshoot: return it now
+                self._alloc.free(ids[keep:])
+                self._tables[slot, keep:] = self._trash
+            self._slot_blocks[slot] = ids[:keep]
+        else:
+            # the slot's row of every layer's cache, as a one-row view:
+            # the prefill fills [0, prompt_pad) of it in place
+            logits = self.model.prefill(padded, [
+                {k: c[slot:slot + 1] for k, c in cache.items()}
+                for cache in self._caches])
         tok = self._sample(logits[0, len(prompt) - 1][None],
                            self._sampling(slice(slot, slot + 1)))
         self._last_tok[slot] = tok[0]
         self._pos[slot] = len(prompt)
         self._active[slot] = True
-        if need > keep:   # prompt-pad scatter overshoot: return it now
-            self._alloc.free(ids[keep:])
-            self._tables[slot, keep:] = self._trash
-        self._slot_blocks[slot] = ids[:keep]
         self._slot_req[slot] = (rid, max_new)
         self._stats["admitted"] += 1
         self._stats["tokens_emitted"] += 1
@@ -297,23 +335,28 @@ class ServingEngine:
             self._active[slot] = False
             self._done_ids.append(rid)
             self._stats["completed"] += 1
-            self._alloc.free(self._slot_blocks[slot])
-            self._slot_blocks[slot] = []
-            self._tables[slot, :] = self._trash
+            if self._paged:
+                self._alloc.free(self._slot_blocks[slot])
+                self._slot_blocks[slot] = []
+                self._tables[slot, :] = self._trash
 
     def _decode_block(self):
         """``decode_block`` steps for all slots; frozen rows hold their
         token and position.  Returns the ``[K, B]`` token tile (host)."""
         # host state goes to the device once per block, not per step
-        tables = torch.from_numpy(self._tables).to(self.device)
+        if self._paged:
+            tables = torch.from_numpy(self._tables).to(self.device)
+            decode = lambda tok, pos: self.model.decode_step_paged(  # noqa
+                tok, pos, self._caches, tables)
+        else:
+            decode = lambda tok, pos: self.model.decode_step(  # noqa
+                tok, pos, self._caches)
         sampling = self._sampling(slice(None))
         active = self._active
         tok, pos = self._last_tok, self._pos
         tile = []
         for _ in range(self.decode_block):
-            logits = self.model.decode_step_paged(tok, pos, self._pools,
-                                                  tables)
-            nxt = self._sample(logits, sampling)
+            nxt = self._sample(decode(tok, pos), sampling)
             tok = torch.where(active, nxt, tok)
             pos = torch.where(active, pos + 1, pos)
             tile.append(tok)
@@ -328,7 +371,7 @@ class ServingEngine:
             if not self._queue:
                 break
             if not self._admit_one(slot):
-                break                 # pool full: decode first
+                break                 # paged pool full: decode first
         if not any(r is not None for r in self._slot_req):
             return bool(self._queue)
         self._stats["decode_blocks"] += 1

@@ -1,6 +1,9 @@
 """Training loop: port of ``taper_tpu/train.py`` (``Metrics``, and
 ``Trainer`` with ``train_step``, ``train_epoch``, ``fit``,
-``fit_device``, ``evaluate`` and ``reset_parameters``).
+``fit_device``, ``evaluate``, ``reset_parameters`` and the checkpoints:
+``save_checkpoint``, ``load_checkpoint``, ``restore``, ``fit``'s
+``ckpt_manager`` and ``fit_device``'s ``checkpoint_path``/``save_every``/
+``resume``).
 
 The JAX Trainer compiles the forward, backward and update of a step (or
 of a whole epoch, ``fit_device``) into one XLA program.  PyTorch runs
@@ -17,21 +20,28 @@ BatchNorm's running statistics are buffers that follow the model's mode:
 a training step runs in ``model.train()``, evaluation in
 ``model.eval()``, as JAX's ``apply_train`` and ``apply`` do.
 
-``fit_device``'s batch order comes from a ``torch.Generator`` seeded from
-``seed``, not from JAX's key stream, so the two packages see different
-batches there; ``fit`` takes its batches from the loader it is given (the
-port's ``DataLoader`` gives JAX's order for the same seed).
+``fit_device``'s batch order for epoch ``e`` is a permutation drawn from a
+``torch.Generator`` seeded from ``(seed, e)`` alone, as JAX draws it from
+``fold_in(key, e)``: a run resumed at epoch ``e`` sees the batches the
+interrupted run would have seen.  The numbers are not JAX's key stream, so
+the two packages see different batches there; ``fit`` takes its batches
+from the loader it is given (the port's ``DataLoader`` gives JAX's order
+for the same seed).
 
-Not ported yet: ``fit_device_fused``, checkpoints (``fit``'s
-``ckpt_manager``, ``fit_device``'s ``checkpoint_path``/``resume``,
-``save/load_checkpoint``, ``restore``), meshes (data/tensor parallel,
-ZeRO-1), augmentation and dropout keys.  Their arguments raise
-``NotImplementedError``.
+A checkpoint holds ``{"params", "opt_state"}`` in the JAX package's
+``.npz`` format (``utils/checkpoint.py``): the parameters (and BatchNorm
+statistics) under the JAX tree's names, and the optimizer's ``lr``, step
+count and moments.
+
+Not ported yet: ``fit_device_fused``, meshes (data/tensor parallel,
+ZeRO-1), augmentation and dropout keys (``train_uses_rng``).  Their
+arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -40,7 +50,13 @@ import torch
 
 from taper_tpu_torch import losses as L
 from taper_tpu_torch import optim as opt_mod
+from taper_tpu_torch.utils import checkpoint as ckpt
 from taper_tpu_torch.utils import not_ported
+
+# fit_device's batch order: epoch e draws its permutation from the seed
+# seed + 1 + e * _EPOCH_STRIDE (epoch 0 keeps the seed + 1 of a generator
+# drawn in sequence)
+_EPOCH_STRIDE = 0x9E3779B9
 
 
 @dataclass
@@ -106,10 +122,12 @@ class Trainer:
                  loss_fn: Callable = L.cross_entropy_loss, seed: int = 0,
                  device=None, mesh=None,
                  tensor_parallel: bool = False, zero1: bool = False,
+                 train_uses_rng: bool = False,
                  log_path: Optional[str] = None,
                  augment: Optional[Callable] = None):
         not_ported("Trainer", mesh=mesh is not None,
                    tensor_parallel=tensor_parallel, zero1=zero1,
+                   train_uses_rng=train_uses_rng,
                    augment=augment is not None)
         if device is None:
             if not torch.cuda.is_available():
@@ -138,8 +156,17 @@ class Trainer:
         self.optimizer.lr = self._initial_lr
         if self.scheduler is not None:
             self.scheduler.reset()
-        # batch order of fit_device, one permutation per epoch
-        self._shuffle = torch.Generator().manual_seed(seed + 1)
+        self._seed = seed
+        # epochs completed before this process (set by restore): keeps
+        # fit's checkpoint numbering global across resumes
+        self._epoch_offset = 0
+
+    def _epoch_order(self, n: int, epoch: int) -> torch.Tensor:
+        """fit_device's permutation of ``n`` samples for ``epoch``, from
+        the seed and the epoch alone."""
+        gen = torch.Generator().manual_seed(
+            (self._seed + 1 + epoch * _EPOCH_STRIDE) % 2 ** 63)
+        return torch.randperm(n, generator=gen)
 
     # -- steps -------------------------------------------------------------
 
@@ -192,13 +219,25 @@ class Trainer:
                    early_stop_acc: float = 0.99, verbose: bool = True,
                    eval_batch_size: int = 2000,
                    checkpoint_path: Optional[str] = None,
-                   resume: bool = False) -> Metrics:
+                   save_every: int = 1, resume: bool = False) -> Metrics:
         """Train with both splits resident on the device: per epoch, a
         shuffled pass of ``len // batch_size`` full batches, an evaluation
         of the validation split, the scheduler step (fed the validation
         loss) and the early stop once validation accuracy exceeds
-        ``early_stop_acc``."""
-        not_ported("Trainer", checkpoint_path=checkpoint_path, resume=resume)
+        ``early_stop_acc``.
+
+        With ``checkpoint_path``, the parameters, the optimizer state and
+        the epoch count are saved every ``save_every`` epochs, and
+        ``resume=True`` continues an interrupted run from that file: it
+        trains epochs ``[done, epochs)`` with the scheduler fast-forwarded
+        past the ``done`` epochs and each epoch's own batch order."""
+        start_epoch = 0
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            start_epoch = int(self._load(checkpoint_path).get("epochs", 0))
+            self._fast_forward_scheduler(start_epoch)
+            if verbose and start_epoch:
+                print(f"resumed from {checkpoint_path} at epoch "
+                      f"{start_epoch}")
         ti, tl = self._to_device(train_images, train_labels)
         vi, vl = self._to_device(val_images, val_labels)
         n, nv = len(tl), len(vl)
@@ -206,9 +245,9 @@ class Trainer:
         if steps == 0:
             raise ValueError(f"fit_device: {n} samples make no batch of "
                              f"{batch_size}")
-        for _ in range(epochs):
+        for e in range(start_epoch, epochs):
             t0 = time.perf_counter()
-            order = torch.randperm(n, generator=self._shuffle)
+            order = self._epoch_order(n, e)
             order = order[:steps * batch_size].view(steps, batch_size)
             order = order.to(self.device)
             loss_sum = torch.zeros((), device=self.device)
@@ -230,6 +269,9 @@ class Trainer:
                 self.metrics.print_last()
             if self.scheduler is not None:
                 self.optimizer.lr = self.scheduler.step(va_loss)
+            if checkpoint_path and (e + 1) % max(save_every, 1) == 0:
+                ckpt.save_checkpoint(checkpoint_path, self._state_tree(),
+                                     metadata={"epochs": e + 1})
             if va_acc > early_stop_acc:
                 if verbose:
                     print(f"early stop: val acc {va_acc*100:.2f}% > "
@@ -262,9 +304,15 @@ class Trainer:
             early_stop_acc: float = 0.99, log_every: int = 0,
             verbose: bool = True, ckpt_manager=None) -> Metrics:
         """Epoch loop over a loader: train, evaluate the validation split,
-        step the scheduler (fed the validation loss), stop early once
-        validation accuracy exceeds ``early_stop_acc``."""
-        not_ported("Trainer.fit", ckpt_manager=ckpt_manager is not None)
+        step the scheduler (fed the validation loss), optionally save a
+        checkpoint, stop early once validation accuracy exceeds
+        ``early_stop_acc``.
+
+        ``ckpt_manager`` (a :class:`utils.checkpoint.CheckpointManager`)
+        saves ``{params, opt_state}`` after every epoch under the global
+        epoch index (``restore``'s count plus this process's epochs), with
+        the validation accuracy as its metric when its mode is ``'max'``
+        and the validation loss otherwise."""
         for _ in range(epochs):
             t0 = time.perf_counter()
             tr = self.train_epoch(train_loader, log_every=log_every)
@@ -275,9 +323,80 @@ class Trainer:
                 self.metrics.print_last()
             if self.scheduler is not None:
                 self.optimizer.lr = self.scheduler.step(va["loss"])
+            if ckpt_manager is not None:
+                epoch = self._epoch_offset + len(self.metrics.val_acc)
+                metric = (va["acc"] if ckpt_manager.mode == "max"
+                          else va["loss"])
+                ckpt_manager.save(
+                    epoch, self._state_tree(),
+                    metadata={"epochs": float(epoch), "val_acc": va["acc"]},
+                    metric=metric)
             if va["acc"] > early_stop_acc:
                 if verbose:
                     print(f"early stop: val acc {va['acc'] * 100:.2f}% > "
                           f"{early_stop_acc * 100:.1f}%")
                 break
+        if ckpt_manager is not None:
+            ckpt_manager.wait()
         return self.metrics
+
+    # -- checkpoints -------------------------------------------------------
+
+    def _trainable_names(self):
+        return [n for n, p in self.model.named_parameters()
+                if p.requires_grad]
+
+    def _state_tree(self) -> dict:
+        """``{"params", "opt_state"}``: the model's tensors and the
+        optimizer's state, as the JAX Trainer checkpoints them."""
+        return {"params": ckpt.params_tree(self.model),
+                "opt_state": self.optimizer.state_tree(
+                    self._trainable_names())}
+
+    def _take(self, tree) -> None:
+        """Load a restored ``{"params", "opt_state"}`` tree in place."""
+        ckpt.copy_tree_(ckpt.params_tree(self.model), tree["params"])
+        self.optimizer.load_state_tree(tree["opt_state"],
+                                       self._trainable_names())
+
+    def _load(self, path: str) -> dict:
+        tree, meta = ckpt.load_checkpoint(path, self._state_tree())
+        self._take(tree)
+        return meta
+
+    def save_checkpoint(self, path: str) -> None:
+        ckpt.save_checkpoint(path, self._state_tree(),
+                             metadata={"epochs": len(self.metrics.val_acc)})
+
+    def load_checkpoint(self, path: str) -> None:
+        self._load(path)
+
+    def _fast_forward_scheduler(self, epochs: int) -> None:
+        """Advance the LR scheduler past ``epochs`` completed epochs.
+        Deterministic schedules recompute lr from the epoch count and set
+        it; ReduceLROnPlateau cannot replay its metrics, so only its epoch
+        count advances and the loaded lr stays (the optimizer's, which the
+        checkpoint restored)."""
+        if self.scheduler is None or not epochs:
+            return
+        lr_loaded = self.optimizer.lr
+        for _ in range(epochs):
+            lr = self.scheduler.step(None)
+        if isinstance(self.scheduler, opt_mod.ReduceLROnPlateau):
+            self.scheduler.lr = lr_loaded
+        else:
+            self.optimizer.lr = lr
+
+    def restore(self, manager, step: Optional[int] = None) -> int:
+        """Resume ``{params, opt_state}`` from a CheckpointManager: loads
+        ``step`` (default: the latest in its manifest), fast-forwards the
+        scheduler by the stored epoch count and returns that count (pass
+        ``epochs - resumed`` to ``fit`` to finish an interrupted run).
+        Later ``fit(..., ckpt_manager=...)`` saves continue the global
+        epoch numbering."""
+        tree, meta = manager.restore(self._state_tree(), step=step)
+        self._take(tree)
+        epochs = int(meta.get("epochs", 0))
+        self._epoch_offset = epochs
+        self._fast_forward_scheduler(epochs)
+        return epochs

@@ -22,6 +22,11 @@ Tolerances, by the operands' dtype:
   * bf16 attention: 2e-2; the kernel rounds the running-max-relative
     softmax weights to bf16 where the plain version rounds the normalised
     ones, and the bf16 output itself keeps 8 bits.
+  * paged decode over int8 pools: 1e-4 (1 + |ref|) with f32 q, 2e-2 with
+    bf16 q (the bf16 output's 8 bits).  Both sides compute in f32 from the
+    same int8 codes and scales; the kernel applies the k scale to the
+    score and the v scale to the weight where the plain version scales
+    the rows, and sums in another order.
   * logsumexp: 1e-4 (f32 on both sides from the same scores; 1e-3 for bf16
     inputs, whose bound arm sums weights shifted far below 1).
   * quantized linear K12/K13: 2e-4 (1 + |ref|); the activations are
@@ -149,6 +154,76 @@ def test_paged_kernel_matches_plain(dev, b, kvh, g, d, bs, mb, lengths,
     _close(o, ref, dtype, 2e-2)
 
 
+def _int8_pools(gen, n_blocks, kvh, bs, d, dev):
+    """int8 codes and their f32 per-position scales, as kv_quantize
+    stores rows of std ~1."""
+    out = []
+    for _ in range(2):
+        x = torch.randn(n_blocks, kvh, bs, d, generator=gen)
+        scale = x.abs().amax(-1).clamp_min(1e-8) / 127.0
+        codes = torch.round(x / scale[..., None]).to(torch.int8)
+        out += [codes.to(dev), scale.to(dev)]
+    return out          # k codes, k scales, v codes, v scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_int8_kernel_matches_plain(dev, d, g, bs, dtype):
+    """K16 over int8 pools: lengths of 1, one block, one block and one
+    position, and 4033 (mixed with the others in one launch)."""
+    gen = torch.Generator().manual_seed(d * g + bs)
+    b, kvh = 4, 2
+    mb = -(-4033 // bs)
+    n_blocks = b * mb + 1
+    q = _randn(gen, b, kvh, g, d, dtype=dtype).to(dev)
+    kq, ks, vq, vs = _int8_pools(gen, n_blocks, kvh, bs, d, dev)
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb]
+    tables = tables.reshape(b, mb).to(torch.int32).to(dev)
+    lengths = torch.tensor([1, bs, bs + 1, 4033], dtype=torch.int32,
+                           device=dev)
+    args = (q, kq, vq, tables, lengths)
+    sc = dict(scale=d ** -0.5, k_scales=ks, v_scales=vs)
+    backend.reset_launch_counts()
+    o = PA.paged_decode_attention(*args, **sc)
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts["paged_decode_int8"] == 1 and counts["paged_decode"] == 0
+    assert o.dtype == dtype
+    ref = PA.paged_decode_reference(*args, **sc)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert float(((o.float() - ref.float()).abs()
+                  / (1 + ref.float().abs())).max()) <= tol
+
+
+def test_paged_int8_refuses_bad_scales_without_the_plain_version(
+        dev, monkeypatch):
+    """int8 pools with scales of the wrong shape or dtype, or without
+    them, raise on the card; the plain version is never run."""
+    gen = torch.Generator().manual_seed(3)
+    kq, ks, vq, vs = _int8_pools(gen, 5, 2, 16, 64, dev)
+    q = torch.randn(2, 2, 1, 64, generator=gen).to(dev)
+    tables = torch.arange(4, dtype=torch.int32, device=dev).reshape(2, 2)
+    lengths = torch.tensor([3, 20], dtype=torch.int32, device=dev)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(PA, "paged_decode_reference", plain)
+    bad = [dict(k_scales=ks[:, :, :8], v_scales=vs),
+           dict(k_scales=ks, v_scales=vs.half()),
+           dict(k_scales=ks, v_scales=None),
+           dict(k_scales=ks.to(torch.float64), v_scales=vs), dict()]
+    for kw in bad:
+        with pytest.raises(ValueError, match="scales"):
+            PA.paged_decode_attention(q, kq, vq, tables, lengths, scale=0.1,
+                                      **kw)
+    with pytest.raises(ValueError, match="scales"):    # f32 pools + scales
+        PA.paged_decode_attention(q, kq.float(), vq.float(), tables,
+                                  lengths, scale=0.1, k_scales=ks,
+                                  v_scales=vs)
+
+
 def test_kernels_raise_on_what_they_do_not_take(dev):
     """A CUDA tensor runs the kernel or raises: never the plain version."""
     q = torch.zeros(1, 2, 8, 48, device=dev)
@@ -189,6 +264,39 @@ def test_engine_on_card_matches_cpu(dev):
     counts = backend.launch_counts()
     assert all(counts[k] > 0 for k in ("linear", "flash_fwd",
                                        "paged_decode")), counts
+    assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_int8_cache_engines_on_card_match_cpu(dev, paged):
+    """The engine over int8 KV caches on the card, paged (K16's int8
+    branch) and contiguous, emits the CPU engine's greedy tokens (f32,
+    GQA: G=2, D=64)."""
+    from taper_tpu_torch.models import TinyGPT
+    from taper_tpu_torch.serve import ServingEngine
+
+    cfg = dict(vocab_size=64, dim=128, depth=2, num_heads=2,
+               num_kv_heads=1, max_seq=64, rope=True)
+    cpu = TinyGPT(**cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = TinyGPT(**cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 64, (n,), generator=gen).tolist()
+               for n in (5, 16, 9, 12)]
+    kw = dict(pool_blocks=12, block_size=8) if paged else {}
+    outs = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        eng = ServingEngine(model, slots=2, prompt_pad=16, decode_block=4,
+                            quantized_cache=True, device=d, **kw)
+        ids = [eng.submit(p, 7) for p in prompts]
+        backend.reset_launch_counts()
+        out = eng.run()
+        outs.append([out[i] for i in ids])
+    counts = backend.launch_counts()
+    assert counts["paged_decode_int8"] > 0 if paged else \
+        counts["paged_decode_int8"] == 0
+    assert counts["paged_decode"] == 0 and counts["linear"] > 0
     assert outs[1] == outs[0]
 
 

@@ -140,8 +140,9 @@ def test_engine_validates_requests_and_unported_modes():
         eng.submit([1, 2], 40)
     with pytest.raises(ValueError, match="never be admitted"):
         eng.submit([1, 2], 30)
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        ServingEngine(model)
+    with pytest.raises(NotImplementedError, match="lora"):
+        ServingEngine(model, lora=object(), lora_bank=object(),
+                      device="cpu")
     with pytest.raises(NotImplementedError):
         ServingEngine(model, pool_blocks=4, system_prompt=[1] * 8)
     with pytest.raises(NotImplementedError):

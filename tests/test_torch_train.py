@@ -27,6 +27,7 @@ from taper_tpu import train as jtrain
 from taper_tpu_torch import nn, optim
 from taper_tpu_torch.models import mnist_mlp
 from taper_tpu_torch.train import Metrics, Trainer
+from taper_tpu_torch.utils.checkpoint import CheckpointManager
 from taper_tpu_torch.utils.convert import load_jax_params
 
 torch.set_num_threads(1)
@@ -185,13 +186,10 @@ def test_fit_device_is_reproducible_from_the_seed():
 
 def test_trainer_raises_on_what_is_not_ported():
     for kw in (dict(mesh=object()), dict(zero1=True),
-               dict(tensor_parallel=True), dict(augment=lambda b, k: b)):
+               dict(tensor_parallel=True), dict(augment=lambda b, k: b),
+               dict(train_uses_rng=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(mnist_mlp(), optim.SGD(0.1), device="cpu", **kw)
-    tr = Trainer(mnist_mlp(), optim.SGD(0.1), device="cpu")
-    x, y = _synthetic(8, 3)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tr.fit_device(x, y, x, y, 1, batch_size=8, checkpoint_path="c.npz")
 
 
 def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -282,9 +280,11 @@ def test_fit_logs_json_lines_and_reset_starts_over(tmp_path):
     assert len(tr.metrics.val_acc) == 0 and tr.optimizer.lr == 0.01
     assert all(torch.equal(a, b) for a, b in zip(first,
                                                  tr.model.parameters()))
-    with pytest.raises(NotImplementedError, match="ckpt_manager"):
-        tr.fit(DataLoader(train, 32), train.images, train.labels, 1,
-               ckpt_manager=object())
+    # fit's checkpoints: one per epoch, under the global epoch index
+    mgr = CheckpointManager(str(tmp_path / "ck"), max_to_keep=1)
+    tr.fit(DataLoader(train, 32), train.images, train.labels, 2,
+           early_stop_acc=2.0, verbose=False, ckpt_manager=mgr)
+    assert mgr.all_steps() == [2]
 
 
 def test_xor_example_loss_falls_on_the_cpu():
