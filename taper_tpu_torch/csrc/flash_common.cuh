@@ -55,6 +55,87 @@ struct Tiles {
   static constexpr size_t rows = align128(sizeof(float) * kTile);
 };
 
+// The mask every flash kernel applies on top of the ragged edge: causal,
+// a sliding window over the past (window > 0: row r keeps cols > r -
+// window, the `window` term of attention.py:_mask), and segment ids of
+// packed documents (seg [B, S] int32, non-null: a pair is kept when the
+// ids are equal; id 0 is padding, which attends padding).
+//
+// Each kernel is instantiated twice: MASKED = false takes a causal mask
+// or none, and its tests below compile to the causal test alone, so the
+// unmasked path keeps the code it had before windows and segments;
+// MASKED = true takes every mask.  A kernel takes the fields as scalar
+// parameters and builds its Mask inside.  Measured on an H100 at the 170M
+// shape: with the extra tests in its inner loops K6 took 1.63 ms against
+// 1.44, and with the struct as a by-value parameter the forward took
+// 5-10% longer (tools/flash_ab.py).
+struct Mask {
+  int causal, window;
+  const int* seg;
+};
+
+// True for a mask only the MASKED instantiation takes.
+inline bool masked(const Mask& m) { return m.window > 0 || m.seg != nullptr; }
+
+template <bool MASKED>
+__device__ __forceinline__ bool keep(const Mask& m, int row, int col) {
+  if constexpr (MASKED)
+    return (!m.causal || col <= row) &&
+           (m.window <= 0 || col > row - m.window);
+  return !m.causal || col <= row;
+}
+
+template <bool MASKED>
+__device__ __forceinline__ bool has_ids(const Mask& m) {
+  return MASKED && m.seg != nullptr;
+}
+
+// The band of tiles a mask leaves (the counterparts of attention.py's
+// _kv_band_start/_kv_band and _q_band): a query tile [q0, q0 + 64) needs
+// the KV tiles from (q0 - window + 1), rounded down to a tile, up to the
+// diagonal (or to S without causality); a KV tile [kv0, kv0 + 64) is seen
+// by the query tiles from the diagonal (0 without causality) up to row
+// kv0 + 63 + window - 1.  Without a window both run from 0 to S.
+template <bool MASKED>
+__device__ __forceinline__ int kv_begin(const Mask& m, int q0) {
+  return MASKED && m.window > 0 ? max(0, q0 - m.window + 1) / kTile * kTile
+                                : 0;
+}
+__device__ __forceinline__ int kv_end(const Mask& m, int q0, int S) {
+  return m.causal ? min(S, q0 + kTile) : S;
+}
+__device__ __forceinline__ int q_begin(const Mask& m, int kv0) {
+  return m.causal ? kv0 : 0;
+}
+template <bool MASKED>
+__device__ __forceinline__ int q_end(const Mask& m, int kv0, int S) {
+  return MASKED && m.window > 0 ? min(S, kv0 + kTile - 1 + m.window) : S;
+}
+
+// The segment ids of rows [row0, row0 + 64) of batch row `b` into shared
+// memory (-1 past S, which the ragged-edge test masks anyway).
+__device__ __forceinline__ void load_ids(int* sm, const Mask& m, int b,
+                                         int row0, int S) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads)
+    sm[i] = row0 + i < S ? m.seg[(size_t)b * S + row0 + i] : -1;
+}
+
+// Whether two tiles' segment ids can meet: their [min, max] ranges
+// overlap.  Every thread scans both 64-id tiles in shared memory and so
+// reaches the same answer, and a block skips a tile pair whole or not at
+// all.  A skipped pair has no kept entry, so skipping changes no result.
+__device__ __forceinline__ bool ids_meet(const int* a, const int* b) {
+  int alo = a[0], ahi = a[0], blo = b[0], bhi = b[0];
+#pragma unroll 8
+  for (int i = 1; i < kTile; ++i) {
+    alo = min(alo, a[i]);
+    ahi = max(ahi, a[i]);
+    blo = min(blo, b[i]);
+    bhi = max(bhi, b[i]);
+  }
+  return alo <= bhi && blo <= ahi;
+}
+
 // Rows [row0, row0 + 64) of one head (row stride `ld` elements) into a
 // shared tile, zeros past S (zeros matter: 0 * garbage could be NaN).
 template <typename T, int D, int LD>
@@ -200,6 +281,51 @@ struct WarpAcc<T, D, false> {
         C[r * Tiles<T, D>::LDO + lane + 32 * j] = v[j][r];
   }
 };
+
+// C[16 x D] (f32, leading dimension LDO) = A[16 x 64] . B[64 x D] for one
+// warp, with A given transposed: At is a [64, 64] weight tile (LDP) whose
+// columns [c0, c0 + 16) are the warp's rows.  The fused backward forms
+// dQ's share of a tile pair this way from the ds^T tile it already holds.
+template <typename T, int D>
+__device__ __forceinline__ void warp_mma_t(const T* At, const T* B,
+                                           float* C) {
+  using L = Tiles<T, D>;
+  if constexpr (L::kTC) {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        // At stored [64, LDP] row-major is the 16 x 64 operand col-major
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major>
+            a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major>
+            b;
+        wmma::load_matrix_sync(a, At + kk * L::LDP, L::LDP);
+        wmma::load_matrix_sync(b, B + kk * L::LDT + n * 16, L::LDT);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(C + n * 16, acc, L::LDO, wmma::mem_row_major);
+    }
+  } else {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      float acc[16] = {};
+      for (int c = 0; c < kTile; ++c) {
+        float bv = to_f32(B[c * L::LDT + lane + 32 * j]);
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          acc[r] = fmaf(to_f32(At[c * L::LDP + r]), bv, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r) C[r * L::LDO + lane + 32 * j] = acc[r];
+    }
+  }
+}
 
 // Writes a warp's 16 staged rows (f32, leading dimension LDO) times
 // `scale` to rows [row0, row0 + 16) of one head, skipping rows past S.

@@ -3,7 +3,8 @@
 //
 // Replaces two TPU kernels of taper_tpu/ops/pallas/attention.py, both
 // launched by _flash_fwd:
-//   * _fwd_kernel (K5), the exact online softmax: f32 and non-causal inputs
+//   * _fwd_kernel (K5), the exact online softmax: f32 and non-causal
+//     inputs, and every input with a sliding window or segment ids
 //     (flash_fwd_kernel<T, D, false>);
 //   * _fwd_kernel_bound (K8), the bound-max arm that JAX selects for bf16
 //     causal inputs (flash_fwd_kernel<bf16, D, true>).  Softmax is
@@ -39,10 +40,16 @@
 //   * online softmax in f32 (base 2, log2(e) folded into the scale), the
 //     running output kept in shared memory in f32 and rescaled row by row
 //     (exact arm only);
-//   * causal tiles above the diagonal are skipped; ragged S is masked, the
-//     TPU's S % 128 rule does not apply; fully masked rows are guarded
-//     with a finite stand-in for the running max and get lse = -inf, as
-//     the TPU kernel does.
+//   * causal tiles above the diagonal are skipped, and with a window the
+//     tiles behind it (the loop runs over the band of _kv_band_start, so
+//     the work scales with S * W, not S^2); ragged S is masked, the TPU's
+//     S % 128 rule does not apply; segment ids (packed documents) are
+//     staged per tile in shared memory and masked pairwise, and a KV
+//     tile whose id range cannot meet the query tile's is skipped; a row whose
+//     first visited tiles are all masked (a window's lower edge, another
+//     document) and a fully masked row are guarded with a finite stand-in
+//     for the running max, and the latter gets lse = -inf, as the TPU
+//     kernel does.
 // mma.sync/wgmma register-resident accumulators, TMA and a pipelined KV
 // loop are later work.
 #include "flash_common.cuh"
@@ -62,17 +69,21 @@ struct FwdSmem {
   static constexpr size_t m_off = o_off + L::out;
   static constexpr size_t l_off = m_off + L::rows;
   static constexpr size_t c_off = l_off + L::rows;
-  static constexpr size_t bytes = c_off + L::rows;
+  static constexpr size_t sq_off = c_off + L::rows;   // segment ids
+  static constexpr size_t sk_off = sq_off + L::rows;
+  static constexpr size_t bytes = sk_off + L::rows;
 };
 
-template <typename T, int D, bool BOUND>
+template <typename T, int D, bool BOUND, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, const float* __restrict__ kn,
                      const int* __restrict__ pred, int* bound_count,
-                     Layout lay, int H, int Hkv, int S, float scale_log2,
-                     int causal) {
+                     Layout lay, int causal, int window,
+                     const int* __restrict__ seg, int H, int Hkv, int S,
+                     float scale_log2) {
+  const Mask mask{causal, window, seg};  // see Mask
   using L = Tiles<T, D>;
   using M = FwdSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -85,6 +96,8 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = reinterpret_cast<float*>(smem + M::m_off);
   float* l_s = reinterpret_cast<float*>(smem + M::l_off);
   float* c_s = reinterpret_cast<float*>(smem + M::c_off);
+  int* sq_s = reinterpret_cast<int*>(smem + M::sq_off);
+  int* sk_s = reinterpret_cast<int*>(smem + M::sk_off);
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
@@ -99,6 +112,7 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (BOUND) fast = pred[0] != 0;
 
   load_rows<T, D, L::LDT>(Qs, qg, lay.qs, q0, S);
+  if (has_ids<MASKED>(mask)) load_ids(sq_s, mask, b, q0, S);
   for (int e = threadIdx.x; e < kTile * L::LDO; e += kThreads) Os[e] = 0.0f;
   __syncthreads();
   // row statistics, each warp for its own rows: the running max starts at
@@ -119,12 +133,18 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
+  // only the band of KV tiles the mask leaves; a row's first tiles may
+  // still be all masked for it (the lower edge of a window, an earlier
+  // document), which the finite stand-in for the running max absorbs
+  const int kv_hi = kv_end(mask, q0, S);
+  for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {
     __syncthreads();  // previous tile fully consumed (and Q/O/m/l ready)
     load_rows<T, D, L::LDT>(Ks, kg, lay.ks, kv0, S);
     load_rows<T, D, L::LDT>(Vs, vg, lay.ks, kv0, S);
+    if (has_ids<MASKED>(mask)) load_ids(sk_s, mask, b, kv0, S);
     __syncthreads();
+    if (has_ids<MASKED>(mask) && !ids_meet(sq_s, sk_s))
+      continue;  // no shared document
 
     // ---- scores for this warp's rows: S = Q K^T (raw, unscaled) ----
     warp_scores<T, D>(Qs + r0 * L::LDT, Ks, Ss + r0 * L::LDS);
@@ -136,9 +156,10 @@ __global__ void __launch_bounds__(kThreads)
       float s[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        int col = kv0 + lane + 32 * j;
-        bool ok = col < S && (!causal || col <= row);
-        s[j] = ok ? Ss[r * L::LDS + lane + 32 * j] * scale_log2 : -INFINITY;
+        const int c = lane + 32 * j, col = kv0 + c;
+        bool ok = col < S && keep<MASKED>(mask, row, col) &&
+                  (!has_ids<MASKED>(mask) || sq_s[r] == sk_s[c]);
+        s[j] = ok ? Ss[r * L::LDS + c] * scale_log2 : -INFINITY;
       }
       float p0, p1;
       if (fast) {
@@ -239,13 +260,13 @@ __global__ void __launch_bounds__(kThreads)
     atomicAdd(bound_count, 1);
 }
 
-template <typename T, int D, bool BOUND>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, const float* kn, const int* pred,
-               int* bound_count, int B, int H, int Hkv, int S, float scale,
-               int causal, int layout, cudaStream_t stream) {
+template <typename T, int D, bool BOUND, bool MASKED>
+int launch_fwd_as(const void* q, const void* k, const void* v, void* o,
+                  float* lse, const float* kn, const int* pred,
+                  int* bound_count, int B, int H, int Hkv, int S,
+                  float scale, Mask mask, int layout, cudaStream_t stream) {
   constexpr size_t bytes = FwdSmem<T, D>::bytes;
-  auto kernel = flash_fwd_kernel<T, D, BOUND>;
+  auto kernel = flash_fwd_kernel<T, D, BOUND, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -253,9 +274,26 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, kn, pred,
-      bound_count, make_layout(layout, H, Hkv, S, D), H, Hkv, S,
-      scale * kLog2e, causal);
+      bound_count, make_layout(layout, H, Hkv, S, D), mask.causal,
+      mask.window, mask.seg, H, Hkv, S,
+      scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool BOUND>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, const float* kn, const int* pred,
+               int* bound_count, int B, int H, int Hkv, int S, float scale,
+               Mask mask, int layout, cudaStream_t stream) {
+  if constexpr (!BOUND) {
+    if (masked(mask))
+      return launch_fwd_as<T, D, false, true>(q, k, v, o, lse, kn, pred,
+                                              bound_count, B, H, Hkv, S,
+                                              scale, mask, layout, stream);
+  }
+  return launch_fwd_as<T, D, BOUND, false>(q, k, v, o, lse, kn, pred,
+                                           bound_count, B, H, Hkv, S, scale,
+                                           mask, layout, stream);
 }
 
 }  // namespace flash
@@ -264,33 +302,36 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 using namespace taper;
 using namespace taper::flash;
 
-// The exact kernel (K5).  lse: [B*H, S] f32.
+// The exact kernel (K5).  lse: [B*H, S] f32; seg: [B, S] int32 segment
+// ids or null; window: > 0 keeps cols > row - window.
 extern "C" int taper_flash_fwd(const void* q, const void* k, const void* v,
-                               void* o, void* lse, int B, int H, int Hkv,
-                               int S, int D, float scale, int causal,
-                               int layout, int dtype, void* stream) {
+                               void* o, void* lse, const void* seg, int B,
+                               int H, int Hkv, int S, int D, float scale,
+                               int causal, int window, int layout, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const Mask m{causal, window, static_cast<const int*>(seg)};
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16) {
     if (D == 64)
       return launch_fwd<__nv_bfloat16, 64, false>(
-          q, k, v, o, l, nullptr, nullptr, nullptr, B, H, Hkv, S, scale,
-          causal, layout, s);
+          q, k, v, o, l, nullptr, nullptr, nullptr, B, H, Hkv, S, scale, m,
+          layout, s);
     if (D == 128)
       return launch_fwd<__nv_bfloat16, 128, false>(
-          q, k, v, o, l, nullptr, nullptr, nullptr, B, H, Hkv, S, scale,
-          causal, layout, s);
+          q, k, v, o, l, nullptr, nullptr, nullptr, B, H, Hkv, S, scale, m,
+          layout, s);
   } else if (dtype == kFloat32) {
     if (D == 64)
       return launch_fwd<float, 64, false>(q, k, v, o, l, nullptr, nullptr,
-                                          nullptr, B, H, Hkv, S, scale,
-                                          causal, layout, s);
+                                          nullptr, B, H, Hkv, S, scale, m,
+                                          layout, s);
     if (D == 128)
       return launch_fwd<float, 128, false>(q, k, v, o, l, nullptr, nullptr,
-                                           nullptr, B, H, Hkv, S, scale,
-                                           causal, layout, s);
+                                           nullptr, B, H, Hkv, S, scale, m,
+                                           layout, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -308,14 +349,15 @@ extern "C" int taper_flash_fwd_bound(const void* q, const void* k,
   auto knp = static_cast<const float*>(kn);
   auto pp = static_cast<const int*>(pred);
   auto cp = static_cast<int*>(bound_count);
+  const Mask m{1, 0, nullptr};
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (D == 64)
     return launch_fwd<__nv_bfloat16, 64, true>(q, k, v, o, l, knp, pp, cp, B,
-                                               H, Hkv, S, scale, 1, layout, s);
+                                               H, Hkv, S, scale, m, layout, s);
   if (D == 128)
     return launch_fwd<__nv_bfloat16, 128, true>(q, k, v, o, l, knp, pp, cp,
-                                                B, H, Hkv, S, scale, 1,
+                                                B, H, Hkv, S, scale, m,
                                                 layout, s);
   return (int)cudaErrorInvalidValue;
 }

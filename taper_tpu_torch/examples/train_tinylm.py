@@ -13,7 +13,8 @@ differences:
   hand-written kernels, CPU tensors through the plain versions.  There is
   no ``--backend``: the port has no backend switch.
 * ``--opt`` takes ``adam`` and ``adamw``; Lion, Muon and Adafactor are not
-  ported and raise, as do ``--window`` and ``--experts``.
+  ported and raise, as does ``--experts``.  ``--window W`` trains with
+  sliding-window attention over the last W positions, as in JAX.
 * The greedy generation at the end of the JAX example needs the
   contiguous-cache ``generate``, which is not ported (ROADMAP.md, Queue
   1); it is left out.
@@ -66,7 +67,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kv-heads", type=int, default=0,
                     help="GQA: number of KV heads (0 = same as --heads)")
     ap.add_argument("--window", type=int, default=0,
-                    help="sliding-window attention (not ported: raises)")
+                    help="sliding-window attention over the last W "
+                         "positions (0 = full causal)")
     ap.add_argument("--experts", type=int, default=0,
                     help="MoE experts per FFN (not ported: raises)")
     return ap.parse_args(argv)

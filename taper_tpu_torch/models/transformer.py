@@ -11,13 +11,19 @@ and the logits stay f32.
 (full logits, then the masked next-token loss), through the port's
 kernels and autograd.
 
+``hidden``, ``forward`` and ``loss`` take ``segment_ids``/``positions``
+``[B, S]`` for packed-sequence training (``data/packing.py``); a
+``window`` model attends each token to the last W keys and may decode
+from W-slot ring caches (``init_cache(ring=True)``).
+
 The caches are filled and updated in place (``prefill``,
 ``decode_step``, ``prefill_paged``, ``decode_step_paged``), where the JAX
-package returns new caches.
+package returns new caches.  Paged caches refuse a window model, as JAX
+asserts; the contiguous engine serves one through the full cache.
 
-Not ported yet: remat, dropout, MoE, windows with their ring caches and
-the fused vocab-chunked loss (their arguments raise
-``NotImplementedError``), and generation (``generate``,
+Not ported yet: remat, dropout, MoE and the fused vocab-chunked loss
+(their arguments raise ``NotImplementedError``), and generation
+(``generate``,
 ``generate_continued``, ``decode_chunk``, ``prefill_paged_continued``,
 beam search, speculative decoding).
 """
@@ -92,13 +98,14 @@ class TinyGPT(nn.Module):
         not_ported("TinyGPT", dropout=dropout != 0.0,
                    n_experts=n_experts != 0, top_k=top_k != 2,
                    capacity_factor=capacity_factor is not None,
-                   window=window is not None, remat=remat)
+                   remat=remat)
         self.vocab_size = vocab_size
         self.dim = dim
         self.depth = depth
         self.max_seq = max_seq
         self.tied_head = tied_head
         self.rope = rope
+        self.window = window
         self.compute_dtype = compute_dtype
         out_std = 0.02 / math.sqrt(2 * depth)
         self.tok = Embedding(vocab_size, dim)
@@ -107,8 +114,8 @@ class TinyGPT(nn.Module):
             TransformerBlock(dim, num_heads, causal=True,
                              mlp_ratio=mlp_ratio, out_init_std=out_std,
                              rope=rope, max_seq=max_seq,
-                             num_kv_heads=num_kv_heads, norm=norm,
-                             mlp_act=mlp_act)
+                             num_kv_heads=num_kv_heads, window=window,
+                             norm=norm, mlp_act=mlp_act)
             for _ in range(depth))
         self.ln_f = (RMSNorm if norm == "rms" else LayerNorm)(dim)
         self.head = None if tied_head else \
@@ -147,13 +154,16 @@ class TinyGPT(nn.Module):
             x = x.to(self.compute_dtype)
         return x
 
-    def _embed_prompt(self, tokens):
-        """Embed ``tokens [B, S]`` at positions ``[0, S)``."""
+    def _embed_prompt(self, tokens, positions=None):
+        """Embed ``tokens [B, S]`` at positions ``[0, S)``, or at
+        ``positions [B, S]``."""
         s = tokens.shape[1]
         if s > self.max_seq:
             raise ValueError(f"sequence of {s} tokens exceeds max_seq "
                              f"{self.max_seq}")
-        return self._embed(tokens, torch.arange(s, device=tokens.device))
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device)
+        return self._embed(tokens, positions)
 
     def _head_weights(self):
         """Tied or untied head ``[V, D]``; a PTQ'd head dequantizes
@@ -164,22 +174,28 @@ class TinyGPT(nn.Module):
         # the f32 logits product stays a plain matmul, as JAX's einsum
         return torch.matmul(x, self._head_weights().t())
 
-    def hidden(self, tokens):
-        """Trunk forward: final-normed activations ``[B, S, D]`` (f32)."""
-        x = self._embed_prompt(tokens)
+    def hidden(self, tokens, segment_ids=None, positions=None):
+        """Trunk forward: final-normed activations ``[B, S, D]`` (f32).
+        ``segment_ids``/``positions`` ``[B, S]``: packed sequences,
+        attention within each document and positions restarting per
+        document (JAX ``models/transformer.py:212-240``)."""
+        x = self._embed_prompt(tokens, positions)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, segment_ids, positions)
         return self.ln_f(x).float()
 
-    def forward(self, tokens):
+    def forward(self, tokens, segment_ids=None, positions=None):
         """Logits ``[B, S, vocab]`` (JAX's ``TinyGPT.apply``)."""
-        return self._logits(self.hidden(tokens))
+        return self._logits(self.hidden(tokens, segment_ids, positions))
 
-    def loss(self, tokens, targets, mask, z_loss: float = 0.0, chunk=None):
+    def loss(self, tokens, targets, mask, z_loss: float = 0.0, chunk=None,
+             segment_ids=None, positions=None):
         """Masked next-token loss and accuracy, ``(loss, acc)`` as 0-d
         tensors (JAX ``models/transformer.py:259-309``).  ``targets``
         ``[B, S]``, ``mask`` ``[S]`` or ``[B, S]``; ``z_loss`` adds
-        ``z_loss * mean(logsumexp^2)`` over the masked positions.  JAX takes
+        ``z_loss * mean(logsumexp^2)`` over the masked positions;
+        ``segment_ids``/``positions`` as :meth:`hidden` (the packer's loss
+        mask already zeroes cross-document targets).  JAX takes
         the naive branch (full logits) where ``B * S * vocab <=
         2^28`` or ``chunk == 0``, and the fused vocab-chunked loss beyond
         or for an explicit ``chunk``; the port has the naive branch only,
@@ -192,15 +208,16 @@ class TinyGPT(nn.Module):
                 "TinyGPT.loss: the fused vocab-chunked loss "
                 "(fused_linear_cross_entropy) is not ported to "
                 "taper_tpu_torch yet (ROADMAP.md, Queue 1)")
-        return masked_token_loss(self(tokens), targets, mask, z_loss=z_loss)
+        return masked_token_loss(self(tokens, segment_ids, positions),
+                                 targets, mask, z_loss=z_loss)
 
     def _device(self, device):
         return self.tok.w.device if device is None else device
 
-    def _caches(self, batch, length, dtype, quantized, device):
+    def _caches(self, batch, length, dtype, quantized, device, ring=False):
         dt = dtype or self.compute_dtype or torch.float32
         return [blk.attn.init_cache(batch, length, dt, quantized,
-                                    self._device(device))
+                                    self._device(device), ring)
                 for blk in self.blocks]
 
     def init_cache(self, batch: int, dtype=None, quantized: bool = False,
@@ -208,10 +225,12 @@ class TinyGPT(nn.Module):
         """Per-layer contiguous caches ``{"k", "v": [batch, kvh, max_seq,
         D]}`` (+ per-position ``"k_scale"``/``"v_scale"`` when
         ``quantized``: int8 rows, ``dtype`` ignored) on ``device`` (the
-        model's by default).  ``ring`` caches (window models) are not
-        ported."""
-        not_ported("TinyGPT.init_cache", ring=ring)
-        return self._caches(batch, self.max_seq, dtype, quantized, device)
+        model's by default).  ``ring``: W-slot ring buffers for a window
+        model (raises for any other), which ``prefill`` and
+        ``decode_step`` read and write as rings: cache memory and decode
+        reads drop from O(max_seq) to O(W) per layer."""
+        return self._caches(batch, self.max_seq, dtype, quantized, device,
+                            ring)
 
     def prefill(self, prompt, caches):
         """Process the whole prompt ``[B, P]`` in one forward (flash
@@ -260,7 +279,9 @@ class TinyGPT(nn.Module):
         scatter each row's K/V (and, for int8 pools, their scales) into
         its table's blocks (``ceil(P / bs)`` per row), in place.  The
         prefill attention runs on the full-precision K/V; only the stored
-        rows are int8.  Returns logits ``[B, P, vocab]``."""
+        rows are int8.  Returns logits ``[B, P, vocab]``.  Raises for a
+        window model."""
+        self.blocks[0].attn._refuse_paged()
         b, p = prompt.shape
         quantized = "k_scale" in pools[0]
         tmp = self._caches(b, p, None, quantized, prompt.device)

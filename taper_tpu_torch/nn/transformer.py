@@ -20,10 +20,15 @@ where the JAX package returns new caches that its jitted programs donate.
 A contiguous cache is ``{"k", "v": [B, kvh, max_seq, D]}``, with int8 rows
 and ``"k_scale"``/``"v_scale"`` ``[B, kvh, max_seq]`` f32 when quantized;
 decode attention over it (``_decode_attention``) is plain PyTorch, as the
-JAX package leaves it to XLA with no Pallas kernel.
+JAX package leaves it to XLA with no Pallas kernel.  A sliding-window
+model (``window=W``) may keep a W-slot ring instead (``init_cache(...,
+ring=True)``): position ``p`` lives in slot ``p % W``, and a cache shorter
+than ``max_seq`` is read and written as a ring, as in JAX.
 
-Not ported yet: dropout, sliding windows (and their ring caches), segment
-ids and per-token positions, MoE, LoRA, bias-free projections and chunked
+Packed sequences: ``forward(x, segment_ids=, positions=)`` masks attention
+to each document and rotates every token by its own position.
+
+Not ported yet: dropout, MoE, LoRA, bias-free projections and chunked
 decode (``q_offsets``, per-row chunks); their arguments raise
 ``NotImplementedError``.
 """
@@ -122,10 +127,15 @@ def apply_rope(x, cos, sin, offset=0):
     """Rotate ``x [B, H, S, D]`` by position (half-split, not interleaved).
     ``offset``: an int or a 0-d tensor shifts the table (a tensor start
     is clamped into the table, as ``dynamic_slice`` clamps it); a ``[B]``
-    tensor gives each row its own position (decode, S == 1).  The f32
-    tables are cast to ``x``'s dtype before the multiply."""
+    tensor gives each row its own position (decode, S == 1); a ``[B, S]``
+    tensor gives every token its own (packed sequences: positions restart
+    per document).  The f32 tables are cast to ``x``'s dtype before the
+    multiply."""
     s, half = x.shape[2], x.shape[3] // 2
-    if torch.is_tensor(offset) and offset.dim() == 0:
+    if torch.is_tensor(offset) and offset.dim() == 2:
+        idx = offset.long()
+        c, si = cos[idx][:, None], sin[idx][:, None]       # [B, 1, S, half]
+    elif torch.is_tensor(offset) and offset.dim() == 0:
         start = offset.long().clamp(0, cos.shape[0] - s)
         idx = start + torch.arange(s, device=offset.device)
         c, si = cos[idx][None, None], sin[idx][None, None]
@@ -149,12 +159,22 @@ def apply_rope(x, cos, sin, offset=0):
 def apply_rope_bshd(x, cos, sin, n_heads, offset=0):
     """Rotate ``x [B, S, H*D]`` by position: the projection-layout twin of
     :func:`apply_rope` (the ``[B, S, H, D]`` view is a reshape, not a
-    copy).  ``offset``: an int shifts the table."""
+    copy).  ``offset``: an int shifts the table; a ``[B, S]`` tensor gives
+    every token its own position."""
     b, s, e = x.shape
     half = e // n_heads // 2
     x4 = x.reshape(b, s, n_heads, 2 * half)
-    c = cos[offset:offset + s][None, :, None].to(x.dtype)
-    si = sin[offset:offset + s][None, :, None].to(x.dtype)
+    if torch.is_tensor(offset):
+        if offset.dim() != 2:
+            raise ValueError("apply_rope_bshd: offset is an int or [B, S] "
+                             "positions ([B] per-row offsets are a decode "
+                             "form: use apply_rope)")
+        idx = offset.long()
+        c, si = cos[idx][:, :, None], sin[idx][:, :, None]  # [B, S, 1, half]
+    else:
+        c = cos[offset:offset + s][None, :, None]
+        si = sin[offset:offset + s][None, :, None]
+    c, si = c.to(x.dtype), si.to(x.dtype)
     x1, x2 = x4[..., :half], x4[..., half:]
     out = torch.cat([x1 * c - x2 * si, x2 * c + x1 * si], dim=-1)
     return out.reshape(b, s, e)
@@ -197,18 +217,25 @@ def _decode_attention(q, k_cache, v_cache, pos, scale, window=None,
     Smax]``): the rows enter the dots in f32, the k scale multiplies the
     scores after the dot and the v scale the softmax weights before
     theirs.  f32/bf16 caches: the weights are cast to the cache dtype
-    before ``P.V``, as JAX does.  Plain PyTorch on every device: JAX runs
-    this as XLA, with no Pallas kernel."""
-    not_ported("_decode_attention", window=window is not None,
-               q_offsets=q_offsets is not None, ring=ring)
+    before ``P.V``, as JAX does.  ``window``: entries at or before ``pos -
+    window`` are masked too.  ``ring``: the cache is a W-slot ring (W its
+    length) whose slot ``s`` holds absolute position ``pos - ((pos - s)
+    mod W)``; only slots never written (a negative position) are masked,
+    the window holds by construction.  Plain PyTorch on every device: JAX
+    runs this as XLA, with no Pallas kernel."""
+    not_ported("_decode_attention", q_offsets=q_offsets is not None)
     s = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
     if k_scale is not None:
         s = s * k_scale[:, :, None, :]
     idx = torch.arange(k_cache.shape[2], device=q.device)
-    if _is_rows(pos):
-        mask = idx[None, None, None, :] <= pos.long()[:, None, None, None]
+    qpos = pos.long()[:, None, None, None] if _is_rows(pos) else pos
+    if ring:
+        # torch.remainder is a floor modulo, as numpy's and JAX's %
+        mask = qpos - torch.remainder(qpos - idx, k_cache.shape[2]) >= 0
     else:
-        mask = idx <= pos
+        mask = idx <= qpos
+        if window is not None:
+            mask = mask & (idx > qpos - window)
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     if v_scale is not None:
@@ -226,14 +253,29 @@ def _cache_write(cache, k, v, pos, ring=False):
     ``dynamic_update_slice`` clamps it: a frozen serving row that keeps
     stepping past ``max_seq`` rewrites its last entry, whose tokens the
     engine discards.  One indexed write stands for JAX's three write
-    strategies, which are XLA speed choices with one result."""
-    not_ported("_cache_write", ring=ring)
+    strategies, which are XLA speed choices with one result.
+
+    ``ring=True``: the cache is a W-slot ring (W its length); position
+    ``p`` lands in slot ``p % W``, and of a C-row write longer than W only
+    the last W rows are kept (only they would survive anyway)."""
     quantized = "k_scale" in cache
     new = {"k": k, "v": v}
     if quantized:
         new["k"], new["k_scale"] = kv_quantize(k)
         new["v"], new["v_scale"] = kv_quantize(v)
     smax, c = cache["k"].shape[2], k.shape[2]
+    if ring and _is_rows(pos):
+        pos = torch.remainder(pos, smax)       # then the per-row write
+    elif ring:
+        if c > smax:
+            new = {name: x[:, :, c - smax:] for name, x in new.items()}
+            pos, c = pos + (c - smax), smax
+        start = torch.as_tensor(pos, device=k.device).long()
+        slots = torch.remainder(start + torch.arange(c, device=k.device),
+                                smax)
+        for name, x in new.items():
+            cache[name].index_copy_(2, slots, x.to(cache[name].dtype))
+        return cache
     if _is_rows(pos):
         not_ported("_cache_write", per_row_chunks=c != 1)
         rows = torch.arange(k.shape[0], device=k.device)
@@ -252,10 +294,14 @@ def _cache_write(cache, k, v, pos, ring=False):
 class MultiHeadAttention(nn.Module):
     """Multi-head self-attention over the flash kernels (on CUDA tensors).
     Input ``[B, S, E]``; GQA when ``num_kv_heads`` is smaller than
-    ``num_heads``.  ``forward`` keeps a head dim that is a multiple of 128
-    in the projections' ``[B, S, H*D]`` layout end to end
+    ``num_heads``; ``window=W`` attends each token to the last W keys.
+    ``forward`` keeps a head dim that is a multiple of 128 in the
+    projections' ``[B, S, H*D]`` layout end to end
     (``ops.attention_bshd``, as JAX's ``nn/transformer.py:205-225``), and
-    transposes to ``[B, H, S, D]`` otherwise."""
+    transposes to ``[B, H, S, D]`` otherwise.  JAX leaves the ``[B, S,
+    H*D]`` path for a window or segment ids (``:205-207``), because its
+    bshd kernel takes neither; the port's kernels read either layout
+    through strides with the same numbers, so it keeps the one path."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
                  bias: bool = True, init_std: float = 0.02,
@@ -263,8 +309,9 @@ class MultiHeadAttention(nn.Module):
                  max_seq: int = 4096, num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None):
         super().__init__()
-        not_ported("MultiHeadAttention", bias=not bias,
-                   window=window is not None)
+        not_ported("MultiHeadAttention", bias=not bias)
+        if window is not None and window < 1:
+            raise ValueError(f"window must be a positive int, got {window}")
         self.num_kv_heads = num_heads if num_kv_heads is None \
             else num_kv_heads
         if dim % num_heads or num_heads % self.num_kv_heads:
@@ -282,6 +329,7 @@ class MultiHeadAttention(nn.Module):
             else out_init_std
         self.rope = rope
         self.max_seq = max_seq
+        self.window = window
         for name, out in (("q", dim), ("k", self.kv_dim), ("v", self.kv_dim),
                           ("o", dim)):
             self.register_parameter(f"w{name}",
@@ -308,8 +356,9 @@ class MultiHeadAttention(nn.Module):
             return x
         return apply_rope(x, self.rope_cos, self.rope_sin, offset)
 
-    def _qkv_heads(self, x):
-        """Projections as contiguous ``[B, H(kv), S, D]`` heads, rotated."""
+    def _qkv_heads(self, x, positions=None):
+        """Projections as contiguous ``[B, H(kv), S, D]`` heads, rotated
+        (by ``positions [B, S]`` when given)."""
         b, s, e = x.shape
         x2 = x.reshape(b * s, e)
 
@@ -317,8 +366,9 @@ class MultiHeadAttention(nn.Module):
             y = _proj(x2, w, bias).reshape(b, s, n, self.head_dim)
             return y.transpose(1, 2).contiguous()
 
-        q = self._rope(heads(self.wq, self.bq, self.num_heads))
-        k = self._rope(heads(self.wk, self.bk, self.num_kv_heads))
+        off = 0 if positions is None else positions
+        q = self._rope(heads(self.wq, self.bq, self.num_heads), off)
+        k = self._rope(heads(self.wk, self.bk, self.num_kv_heads), off)
         v = heads(self.wv, self.bv, self.num_kv_heads)
         return q, k, v
 
@@ -327,10 +377,15 @@ class MultiHeadAttention(nn.Module):
         o2 = o.transpose(1, 2).reshape(b * s, h * d)
         return _proj(o2, self.wo, self.bo).reshape(b, s, h * d)
 
-    def forward(self, x):
+    def forward(self, x, segment_ids=None, positions=None):
+        """``segment_ids [B, S]`` (packed sequences) masks attention to
+        same-segment keys; ``positions [B, S]`` gives every token its own
+        RoPE position (restarting per document)."""
+        mask = dict(causal=self.causal, window=self.window,
+                    segment_ids=segment_ids)
         if self.head_dim % 128:
-            q, k, v = self._qkv_heads(x)
-            return self._out(ops.attention(q, k, v, causal=self.causal))
+            q, k, v = self._qkv_heads(x, positions)
+            return self._out(ops.attention(q, k, v, **mask))
         # the transpose-free path: [B, S, H*D] from the projections to the
         # output projection
         b, s, e = x.shape
@@ -339,11 +394,12 @@ class MultiHeadAttention(nn.Module):
         k = _proj(x2, self.wk, self.bk).reshape(b, s, self.kv_dim)
         v = _proj(x2, self.wv, self.bv).reshape(b, s, self.kv_dim)
         if self.rope:
+            off = 0 if positions is None else positions
             q = apply_rope_bshd(q, self.rope_cos, self.rope_sin,
-                                self.num_heads)
+                                self.num_heads, off)
             k = apply_rope_bshd(k, self.rope_cos, self.rope_sin,
-                                self.num_kv_heads)
-        o = ops.attention_bshd(q, k, v, self.num_heads, causal=self.causal)
+                                self.num_kv_heads, off)
+        o = ops.attention_bshd(q, k, v, self.num_heads, **mask)
         return _proj(o.reshape(b * s, e), self.wo, self.bo).reshape(b, s, e)
 
     def _decode_heads(self, x_t, pos):
@@ -367,21 +423,35 @@ class MultiHeadAttention(nn.Module):
         return y.reshape(b, 1, e)
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.float32,
-                   quantized: bool = False, device=None):
+                   quantized: bool = False, device=None, ring: bool = False):
         """``mha_init_cache``: zero K/V ``[batch, kvh, max_seq, D]`` of
         ``dtype``, or int8 rows with f32 ``k_scale``/``v_scale`` ``[batch,
-        kvh, max_seq]`` when ``quantized`` (``dtype`` is then ignored)."""
+        kvh, max_seq]`` when ``quantized`` (``dtype`` is then ignored).
+        ``ring``: W slots in place of ``max_seq``, for a model with a
+        window W shorter than ``max_seq`` only (raises otherwise)."""
+        if ring:
+            if self.window is None or self.window >= max_seq:
+                raise ValueError("ring caches need a sliding-window model "
+                                 f"(window {self.window}, max_seq "
+                                 f"{max_seq})")
+            max_seq = self.window
         shape = (batch, self.num_kv_heads, max_seq, self.head_dim)
         return _zero_cache(shape, dtype, quantized, device)
+
+    def _ring(self, cache):
+        """A cache shorter than ``max_seq`` is a ring (JAX's rule)."""
+        return cache["k"].shape[2] < self.max_seq
 
     def prefill(self, x, cache):
         """Prompt prefill (``mha_apply_prefill``): one flash attention
         forward over ``x [B, P, E]`` on the full-precision K/V, which also
         fill cache positions ``[0, P)`` in place (quantized when the cache
-        holds scales).  Returns ``y [B, P, E]``."""
+        holds scales; through the ring, keeping the last W rows, when the
+        cache is one).  Returns ``y [B, P, E]``."""
         q, k, v = self._qkv_heads(x)
-        _cache_write(cache, k, v, 0)
-        return self._out(ops.attention(q, k, v, causal=True))
+        _cache_write(cache, k, v, 0, ring=self._ring(cache))
+        return self._out(ops.attention(q, k, v, causal=True,
+                                       window=self.window))
 
     def decode(self, x_t, cache, pos):
         """One decode step against a contiguous cache
@@ -391,13 +461,14 @@ class MultiHeadAttention(nn.Module):
         query dim against the kv-sized cache (never repeated).  Returns
         ``y [B, 1, E]``."""
         b = x_t.shape[0]
+        ring = self._ring(cache)
         q, k, v = self._decode_heads(x_t, pos)
-        _cache_write(cache, k, v, pos)
+        _cache_write(cache, k, v, pos, ring=ring)
         qg = q.reshape(b, self.num_kv_heads, self.kv_groups, self.head_dim)
         o = _decode_attention(qg, cache["k"], cache["v"], pos,
-                              self.head_dim ** -0.5,
+                              self.head_dim ** -0.5, self.window,
                               k_scale=cache.get("k_scale"),
-                              v_scale=cache.get("v_scale"))
+                              v_scale=cache.get("v_scale"), ring=ring)
         return self._out_step(o, x_t)
 
     def init_paged_pool(self, n_blocks: int, block_size: int,
@@ -405,7 +476,9 @@ class MultiHeadAttention(nn.Module):
                         quantized: bool = False):
         """``mha_init_paged_pool``: zero K/V pools
         ``[n_blocks, kvh, block_size, D]``, or int8 pools with f32
-        ``k_scale``/``v_scale`` ``[n_blocks, kvh, block_size]``."""
+        ``k_scale``/``v_scale`` ``[n_blocks, kvh, block_size]``.  Raises
+        for a window model, as JAX asserts (``nn/transformer.py:637``)."""
+        self._refuse_paged()
         shape = (n_blocks, self.num_kv_heads, block_size, self.head_dim)
         return _zero_cache(shape, dtype, quantized, device)
 
@@ -416,6 +489,7 @@ class MultiHeadAttention(nn.Module):
         int32, ``pos [B]`` int32 per-row positions.  Writes this step's
         K/V (quantized, with their scales, into int8 pools) in place, then
         attends to positions ``[0, pos]``.  Returns ``y [B, 1, E]``."""
+        self._refuse_paged()
         b = x_t.shape[0]
         q, k, v = self._decode_heads(x_t, pos)
         scales = {}
@@ -434,6 +508,12 @@ class MultiHeadAttention(nn.Module):
                                    pos + 1, scale=self.head_dim ** -0.5,
                                    **scales)
         return self._out_step(o, x_t)
+
+    def _refuse_paged(self):
+        if self.window is not None:
+            raise ValueError("paged caches are for full-attention models; "
+                             "a window model uses the contiguous cache or "
+                             "the O(W) ring cache")
 
 
 def _zero_cache(shape, dtype, quantized, device):
@@ -507,7 +587,6 @@ class TransformerBlock(nn.Module):
         super().__init__()
         not_ported("TransformerBlock", dropout=dropout != 0.0,
                    n_experts=n_experts != 0, top_k=top_k != 2,
-                   window=window is not None,
                    capacity_factor=capacity_factor is not None)
         if norm not in ("layer", "rms") or mlp_act not in ("gelu", "swiglu"):
             raise ValueError(f"norm {norm!r} (layer|rms) or mlp_act "
@@ -517,14 +596,14 @@ class TransformerBlock(nn.Module):
         self.attn = MultiHeadAttention(
             dim, num_heads, causal=causal, init_std=init_std,
             out_init_std=out_init_std, rope=rope, max_seq=max_seq,
-            num_kv_heads=num_kv_heads)
+            num_kv_heads=num_kv_heads, window=window)
         self.ln2 = norm_cls(dim)
         self.mlp = MLPBlock(dim, ratio=mlp_ratio, init_std=init_std,
                             out_init_std=out_init_std,
                             gated=mlp_act == "swiglu")
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, segment_ids=None, positions=None):
+        x = x + self.attn(self.ln1(x), segment_ids, positions)
         return x + self.mlp(self.ln2(x))
 
     def prefill(self, x, cache):

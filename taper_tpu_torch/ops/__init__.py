@@ -9,8 +9,8 @@ the quantized products of ``ops/quant.py``.
 ``ops.quant.linear_quantized`` says (int8 to K12, int4 to K13, W8A8 to
 K14 + K15a, other formats dequantized), the convolutions dequantize it.
 
-Not ported yet: ``ops/tensor_ops.py``, and the sliding-window and segment
-arguments of ``attention``.
+``attention`` and ``attention_bshd`` take a sliding ``window`` and packed
+``segment_ids``.  Not ported yet: ``ops/tensor_ops.py``.
 """
 
 from __future__ import annotations

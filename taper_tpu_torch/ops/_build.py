@@ -49,17 +49,24 @@ _SIGNATURES = {
     "taper_conv_dw": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # x, y, planes, H, W, kh, kw, mode, stream
     "taper_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, lse, B, H, Hkv, S, D, scale, causal, layout, dtype, stream
-    "taper_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, lse, seg, B, H, Hkv, S, D, scale, causal, window, layout,
+    # dtype, stream
+    "taper_flash_fwd": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     # q, k, v, o, lse, kn, pred, bound_count, B, H, Hkv, S, D, scale,
     # layout, stream
     "taper_flash_fwd_bound": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, o, do, lse, dq, delta, B, H, Hkv, S, D, scale, causal,
-    # layout, dtype, stream
-    "taper_flash_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
-    # q, k, v, do, lse, delta, dk, dv, B, H, Hkv, S, D, scale, causal,
-    # layout, dtype, stream
-    "taper_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dq, delta, seg, B, H, Hkv, S, D, scale, causal,
+    # window, layout, dtype, stream
+    "taper_flash_dq": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    # q, k, v, do, lse, delta, dk, dv, seg, B, H, Hkv, S, D, scale, causal,
+    # window, layout, dtype, stream
+    "taper_flash_dkv": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    # q, k, v, do, lse, delta, dk_part, dv_part, B, H, Hkv, S, D, scale,
+    # causal, window, layout, dtype, stream
+    "taper_flash_dkv_t": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    # q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, seg, B, H, Hkv, S, D,
+    # scale, causal, window, layout, dtype, stream
+    "taper_flash_bwd_fused": [_P] * 12 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     # q, k_pool, v_pool, tables, lengths, o, B, kvh, G, D, bs, mb, scale,
     # dtype, stream
     "taper_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -27,7 +27,9 @@ torch.backends.cudnn.allow_tf32 = False
 # flash forward K5 (f32 or non-causal inputs), "flash_fwd_bound" the
 # bound-max forward K8 (bf16 causal inputs, whichever arm its device
 # predicate takes), "flash_dq"/"flash_dkv" the backward K6/K7;
-# "paged_decode" K16 over f32/bf16 pools, "paged_decode_int8" K16 over
+# "flash_dkv_t" the transposed per-head dK/dV K11 and "flash_bwd_fused" the
+# fused backward K10 (one count per call: its delta pre-pass, sweep and dQ
+# epilogue are three launches); "paged_decode" K16 over f32/bf16 pools, "paged_decode_int8" K16 over
 # int8 pools with per-position scales; "conv_fwd" counts K3a launches (forward and input
 # gradient), "conv_dw" K3b, "pool" K4; "relu" ... "div" count K2, one
 # per elementwise op; "adam" (Adam and AdamW) and "sgd" count K17a/K17b,
@@ -37,7 +39,8 @@ EW_OPS = ("relu", "sigmoid", "add", "mul", "fma", "sub", "div")
 QUANT_OPS = ("linear_q8", "linear_q4", "quantize_rows",
              "matmul_int8_scaled", "matmul_int8")
 KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
-           "flash_dq", "flash_dkv", "paged_decode", "paged_decode_int8",
+           "flash_dq", "flash_dkv", "flash_dkv_t", "flash_bwd_fused",
+           "paged_decode", "paged_decode_int8",
            "conv_fwd", "conv_dw", "pool") + EW_OPS + ("adam", "sgd") + QUANT_OPS
 _launches = dict.fromkeys(KERNELS, 0)
 # K8 launches that took the bound arm, counted by the kernel itself on the

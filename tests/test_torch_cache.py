@@ -183,8 +183,17 @@ def test_cache_layer_functions_match_jax():
                                   v_scale=c.get("v_scale"))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=1e-5)
-    with pytest.raises(NotImplementedError, match="window"):
-        T._decode_attention(torch.from_numpy(q), c["k"], c["v"], 3, 0.25,
-                            window=4)
-    with pytest.raises(NotImplementedError, match="ring"):
+    # a window masks the keys at or before pos - window too; a ring cache
+    # (tests/test_torch_window_model.py) needs a window model
+    ref = JT._decode_attention(jnp.asarray(q), jc["k"], jc["v"],
+                               jnp.asarray(pos), 0.25, window=4, **sc)
+    out = T._decode_attention(torch.from_numpy(q), c["k"], c["v"],
+                              torch.from_numpy(pos), 0.25, window=4,
+                              k_scale=c.get("k_scale"),
+                              v_scale=c.get("v_scale"))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="window"):
         TinyGPT(**CFG).init_cache(1, ring=True)
+    assert TinyGPT(**CFG, window=5).init_cache(1, ring=True)[0]["k"].shape[
+        2] == 5

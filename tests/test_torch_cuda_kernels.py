@@ -471,17 +471,18 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, d, causal, dtype,
 # last rows see, whose gradient is far below the largest entries.
 _FAULTS = [
     ("K6 skips the last query tile's diagonal KV tile",
-     "const int kv_end = causal ? min(S, q0 + kTile) : S;",
-     "const int kv_end = causal ? min(S - kTile, q0 + kTile) : S;"),
+     "const int kv_hi = kv_end(mask, q0, S);",
+     "const int kv_hi = min(S - kTile, kv_end(mask, q0, S));"),
     ("K6 skips KV tile 0 below the diagonal",
-     "for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {",
-     "for (int kv0 = q0 > 0 ? kTile : 0; kv0 < kv_end; kv0 += kTile) {"),
+     "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {",
+     "for (int kv0 = q0 > 0 ? kTile : 0; kv0 < kv_hi; kv0 += kTile) {"),
     ("K7 skips the last query tile",
-     "for (int q0 = causal ? kv0 : 0; q0 < S; q0 += kTile) {",
-     "for (int q0 = causal ? kv0 : 0; q0 + kTile < S; q0 += kTile) {"),
+     "for (int q0 = q_lo; q0 < q_hi; q0 += kTile)\n",
+     "for (int q0 = q_lo; q0 + kTile < q_hi; q0 += kTile)\n"),
     ("K6 skips the diagonal KV tile",
-     "for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {",
-     "for (int kv0 = 0; kv0 + kTile < kv_end; kv0 += kTile) {"),
+     "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {",
+     "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 + kTile < kv_hi; "
+     "kv0 += kTile) {"),
 ]
 
 
@@ -756,6 +757,231 @@ def test_tinygpt_step_on_card_matches_cpu(dev, cfg):
             continue
         rel = (g_out[k] - g_ref[k]).norm() / g_ref[k].norm()
         assert rel <= 1e-4, (k, float(rel))
+
+
+# -- windows and segment ids in K5/K6/K7, K11 and K10 -------------------------
+
+def _segments(b, s, kind):
+    """Segment ids ``[b, s]`` int32: "docs" packs ragged documents with
+    padding (id 0) at the end, so that rows of a later document meet
+    whole leading KV tiles of another one (every tile of row 130's first
+    two is document 1's); "shuffled" gives ids that are not sorted."""
+    if kind == "docs":
+        bounds = [0, 130, 167, 300, s - 20]
+        seg = torch.zeros(s, dtype=torch.int32)
+        for i, (a, z) in enumerate(zip(bounds[:-1], bounds[1:])):
+            seg[a:z] = i + 1
+        return seg.repeat(b, 1)
+    gen = torch.Generator().manual_seed(s)
+    return torch.randint(0, 3, (b, s), generator=gen, dtype=torch.int32)
+
+
+# (causal, window, segment layout)
+_MASKS = [(True, 1, None), (True, 64, None), (True, 65, None),
+          (True, 512, None), (False, 65, None), (False, 1, None),
+          (True, None, "docs"), (False, None, "docs"),
+          (True, None, "shuffled")]
+_MASK_IDS = [f"{'causal' if c else 'full'}-"
+             + (f"w{w}" if w else f"seg-{g}") for c, w, g in _MASKS]
+
+
+def _masked_case(dev, b, h, hkv, s, d, dtype, layout, mask, seed=0):
+    causal, window, segs = mask
+    q, k, v, o, lse, do, heads, scale = _bwd_case(dev, b, h, hkv, s, d,
+                                                  dtype, layout, causal,
+                                                  seed)
+    seg = None if segs is None else _segments(b, s, segs).to(dev)
+    o, lse = A.attention_lse_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v)), causal=causal,
+        window=window, segment_ids=seg)
+    o = o if layout == "bhsd" else A._from_bhsd(o, 1).contiguous()
+    kw = dict(causal=causal, scale=scale, heads=heads, window=window,
+              segment_ids=seg)
+    return q, k, v, o, lse, do, kw
+
+
+def _masked_refs(q, k, v, o, lse, do, kw, layout, d, per_query_head=False):
+    return A.flash_bwd_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v, o)), lse,
+        _bhsd(do, layout, d), kw["causal"], kw["scale"],
+        window=kw["window"], segment_ids=kw["segment_ids"],
+        per_query_head=per_query_head)
+
+
+def _hold_grads(grads, refs, dtype, names=("dq", "dk", "dv")):
+    """Gradients ``[B, H, S, D]`` against the plain backward's: 1e-4 in
+    f32, each 64-row tile within 1e-2 of its own norm in bf16."""
+    for name, g, r in zip(names, grads, refs):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g.float(), r, rtol=1e-4, atol=1e-4)
+        else:
+            assert _worst_tile(g, r) <= 1, (name, _worst_tile(g, r))
+
+
+_MASK_SHAPES = [(2, 4, 2, 333, 64), (1, 4, 4, 700, 128)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d", _MASK_SHAPES)
+@pytest.mark.parametrize("mask", _MASKS, ids=_MASK_IDS)
+def test_flash_masked_fwd_matches_plain(dev, mask, b, h, hkv, s, d, dtype,
+                                        layout):
+    """K5 with a window or segment ids: the band-limited loop and the
+    guard of a row whose first visited tiles are all masked (no NaN)."""
+    q, k, v, o_ref, lse_ref, _, kw = _masked_case(dev, b, h, hkv, s, d,
+                                                  dtype, layout, mask)
+    backend.reset_launch_counts()
+    o, lse = A.flash_fwd_exact(q, k, v, **{n: kw[n] for n in (
+        "causal", "scale", "heads", "window", "segment_ids")})
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_fwd"] == 1
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    _close(_bhsd(o, layout, d), _bhsd(o_ref, layout, d), dtype, 2e-2)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, lse_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d", _MASK_SHAPES)
+@pytest.mark.parametrize("mask", _MASKS, ids=_MASK_IDS)
+def test_flash_masked_bwd_matches_plain(dev, mask, b, h, hkv, s, d, dtype,
+                                        layout):
+    """K6 and K7 with a window or segment ids against the plain backward:
+    a masked pair across documents adds nothing to dS."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, b, h, hkv, s, d, dtype,
+                                           layout, mask)
+    backend.reset_launch_counts()
+    grads = A.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts["flash_dq"] == 1 and counts["flash_dkv"] == 1
+    refs = _masked_refs(q, k, v, o, lse, do, kw, layout, d)
+    _hold_grads([_bhsd(g, layout, d) for g in grads[:3]], refs[:3], dtype)
+    torch.testing.assert_close(grads[3], refs[3], rtol=1e-4, atol=1e-4)
+
+
+_DKV_T_MASKS = [(False, None, None), (True, 64, None), (True, 65, None),
+                (True, 512, None), (False, 65, None), (True, 1, None)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d", [(2, 4, 1, 333, 64),
+                                         (1, 4, 2, 700, 128),
+                                         (1, 2, 2, 129, 128)])
+@pytest.mark.parametrize("mask", _DKV_T_MASKS,
+                         ids=[f"{'causal' if c else 'full'}-w{w}"
+                              for c, w, _ in _DKV_T_MASKS])
+def test_flash_dkv_t_matches_plain(dev, mask, b, h, hkv, s, d, dtype,
+                                   layout, monkeypatch):
+    """K11: its per-query-head partials against the plain backward's, and
+    through TAPER_ATTN_DKV_T=1 the group-summed dK/dV against K7's."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, b, h, hkv, s, d, dtype,
+                                           layout, mask)
+    _, delta = A.flash_dq(q, k, v, o, lse, do, **kw)
+    backend.reset_launch_counts()
+    parts = A.flash_dkv_t(q, k, v, lse, delta, do, **{
+        n: kw[n] for n in ("causal", "scale", "heads", "window")})
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_dkv_t"] == 1
+    assert all(p.dtype == torch.float32 for p in parts)
+    refs = _masked_refs(q, k, v, o, lse, do, kw, layout, d,
+                        per_query_head=True)
+    # the partials are f32 sums of bf16-rounded products: held as K7
+    _hold_grads(parts, refs[1:3], dtype, ("dk", "dv"))
+    monkeypatch.setenv("TAPER_ATTN_DKV_T", "1")
+    backend.reset_launch_counts()
+    grads = A.flash_bwd(q, k, v, o, lse, do, **kw)
+    counts = backend.launch_counts()
+    monkeypatch.delenv("TAPER_ATTN_DKV_T")
+    ref7 = A.flash_bwd(q, k, v, o, lse, do, **kw)
+    plain_causal = mask[0] and mask[1] is None
+    assert counts["flash_dkv_t"] == (0 if plain_causal else 1)
+    assert counts["flash_dkv"] == (1 if plain_causal else 0)
+    for g, r, like in zip(grads[1:3], ref7[1:3], (k, v)):
+        assert g.shape == like.shape and g.dtype == like.dtype
+        # two f32 sums of the same products in other orders, rounded once
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (2, 4, 2, 70, 64), (1, 8, 8, 256, 128), (1, 4, 1, 129, 128),
+    (1, 2, 2, 1, 64), (1, 8, 8, 2048, 128)])
+def test_flash_bwd_fused_matches_plain(dev, b, h, hkv, s, d, dtype, layout,
+                                       monkeypatch):
+    """K10 (causal) against the plain backward, and chosen by
+    TAPER_ATTN_FUSED_BWD=1.  Held by tolerance, not bits: its dQ sums
+    with atomics, in an order that changes from run to run."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, b, h, hkv, s, d, dtype,
+                                           layout, (True, None, None))
+    monkeypatch.setenv("TAPER_ATTN_FUSED_BWD", "1")
+    backend.reset_launch_counts()
+    grads = A.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts["flash_bwd_fused"] == 1
+    assert counts["flash_dq"] == counts["flash_dkv"] == 0
+    for g, like in zip(grads, (q, k, v, lse)):
+        assert g.shape == like.shape and g.dtype == like.dtype
+    refs = _masked_refs(q, k, v, o, lse, do, kw, layout, d)
+    _hold_grads([_bhsd(g, layout, d) for g in grads[:3]], refs[:3], dtype)
+    torch.testing.assert_close(grads[3], refs[3], rtol=1e-4, atol=1e-4)
+    # the flag leaves windows and segments to K6 + K7, as JAX does
+    seg = torch.ones(b, s, dtype=torch.int32, device=dev)
+    backend.reset_launch_counts()
+    A.flash_bwd(q, k, v, o, lse, do, **dict(kw, segment_ids=seg))
+    assert backend.launch_counts()["flash_bwd_fused"] == 0
+
+
+def test_flash_bwd_fused_general_mask(dev):
+    """K10's kernel takes the full mask (the dispatch sends it plain
+    causal attention only): non-causal and windowed, GQA, bf16."""
+    for mask in ((False, None, None), (True, 65, None), (True, None, "docs")):
+        q, k, v, o, lse, do, kw = _masked_case(dev, 1, 4, 2, 333, 64,
+                                               torch.bfloat16, "bshd", mask)
+        grads = A.flash_bwd_fused(q, k, v, o, lse, do, **kw)
+        refs = _masked_refs(q, k, v, o, lse, do, kw, "bshd", 64)
+        _hold_grads([_bhsd(g, "bshd", 64) for g in grads[:3]], refs[:3],
+                    torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_attention_masks_dispatch_on_card(dev, layout):
+    """A bf16 causal call with a window or segment ids takes K5, not K8
+    (which would drop the mask), through autograd, and matches the plain
+    path on the same bf16 inputs."""
+    b, h, s, d = 2, 4, 333, 64
+    q, k, v, do = _attn_inputs(dev, b, h, 2, s, d, torch.bfloat16, layout,
+                               5)
+    heads = None if layout == "bhsd" else h
+    for kw in (dict(window=70), dict(segment_ids=_segments(b, s, "docs"))):
+        outs = []
+        for device in (dev, "cpu"):
+            leaves = [t.detach().to(device).requires_grad_(True)
+                      for t in (q, k, v)]
+            kwd = {n: (x.to(device) if torch.is_tensor(x) else x)
+                   for n, x in kw.items()}
+            backend.reset_launch_counts()
+            if heads is None:
+                o = attention(*leaves, causal=True, **kwd)
+            else:
+                o = A.attention_bshd(*leaves, heads, causal=True, **kwd)
+            (o.float() * do.to(device).float()).sum().backward()
+            if device == dev:
+                counts = backend.launch_counts()
+                assert counts["flash_fwd"] == 1, counts
+                assert counts["flash_fwd_bound"] == 0, counts
+            outs.append([o.detach().cpu().float()]
+                        + [t.grad.cpu().float() for t in leaves])
+        torch.testing.assert_close(outs[0][0], outs[1][0], rtol=2e-2,
+                                   atol=2e-2)
+        for g, r in zip(outs[0][1:], outs[1][1:]):
+            assert float((g - r).norm() / r.norm()) <= 2e-2
 
 
 # -- K2: the elementwise kernel -----------------------------------------------

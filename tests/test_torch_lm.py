@@ -142,5 +142,21 @@ def test_loss_takes_the_naive_branch_only():
                                 dict(capacity_factor=1.25),
                                 dict(remat=True)])
 def test_unported_options_raise(kw):
+    """Each option the port cannot honour raises naming ROADMAP.md; a
+    window is ported (tests/test_torch_window_model.py holds it against
+    JAX), so it builds a model whose rows see the last 8 keys only: the
+    last row's output is that of the model on the last 8 tokens alone
+    (RoPE makes attention depend on relative positions only)."""
+    if "window" in kw:
+        model = TinyGPT(vocab_size=VOCAB, dim=32, depth=1, num_heads=2,
+                        rope=True, max_seq=16, **kw)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        toks = torch.randint(0, VOCAB, (1, 16),
+                             generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            full = model(toks)[0, -1]
+            alone = model(toks[:, -8:])[0, -1]
+        torch.testing.assert_close(full, alone, rtol=1e-5, atol=1e-5)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TinyGPT(vocab_size=VOCAB, dim=32, depth=1, num_heads=2, **kw)

@@ -64,11 +64,19 @@ def test_attention_and_mlp_bias():
 
 
 def test_ops_attention_window_and_segment_ids():
-    q = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.attention(q, q, q, causal=True, window=2)
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        ops.attention(q, q, q, segment_ids=torch.zeros(1, 4))
+    """Both are taken (tests/test_torch_attention_masks.py holds them
+    against JAX): a window of 1 leaves each row its own key, and two
+    segments attend each within itself."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 4, 8, generator=gen) for _ in range(3))
+    out = ops.attention(q, k, v, causal=True, window=1)
+    torch.testing.assert_close(out, v)
+    seg = torch.tensor([[1, 1, 2, 2]], dtype=torch.int32)
+    out = ops.attention(q, k, v, segment_ids=seg)
+    for sl in (slice(0, 2), slice(2, 4)):
+        torch.testing.assert_close(
+            out[:, :, sl], ops.attention(q[:, :, sl], k[:, :, sl],
+                                         v[:, :, sl]))
 
 
 def test_trainer_train_uses_rng_and_save_every(tmp_path):
