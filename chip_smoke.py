@@ -41,7 +41,8 @@ non-zero):
      synthetic 60k/10k set: the best epoch's validation accuracy >= 0.95,
      exact launch counts;
   9. the LM kernels against their plain versions at the 170M model's
-     shapes in bf16 (batch 8 x 2048 tokens): K1 in modes nt/nn/tn at the
+     shapes in bf16 (batch 8 x 2048 tokens): K1 (wgmma) in modes nt/nn/tn
+     at the
      three projection shapes of a layer, the flash forward K5 (with its
      lse) and K8 with its predicate forced to each arm, in both layouts,
      and the flash backward K6 and K7; ``F.scaled_dot_product_attention``
@@ -68,9 +69,11 @@ non-zero):
  14. ResNet-8 at its published widths, batch 256, f32, AdamW(3e-3, wd
      5e-4) with a cosine schedule, on the synthetic 50k/10k CIFAR-10 set:
      one step on the card against the CPU (loss, every gradient on shared
-     forward values, the new running statistics), then fit_device for
-     RESNET["epochs"] epochs: accuracy at or above RESNET_MIN_ACC, exact
-     launch counts per step;
+     forward values, the new running statistics), K1 against its plain
+     version at the patch-GEMM and head shapes (forward, dX, dW: the dW
+     split over K), then fit_device for RESNET["epochs"] epochs: accuracy
+     at or above RESNET_MIN_ACC, exact launch counts per step, one step's
+     K1 routes, a profile;
  15. the examples through their entry points: XOR (XOR_STEPS SGD steps)
      must be solved with one K17b launch per step; the MNIST MLP through
      fit_device must stop early above 0.98 val accuracy within 10
@@ -142,9 +145,19 @@ non-zero):
  28. (run right after phase 11, on its model) the 170M step with
      TAPER_ATTN_FUSED_BWD=1 and with the split backward, in turns: ms/step
      each, 12 K10 calls and no K6/K7 a step, gradients against the split
-     backward's.
+     backward's;
+ 29. (run right after phase 9) K1 bit for bit: for each bf16 route
+     (wgmma, wmma, decode) and mode, the kernel writing bf16 equals its
+     own f32 result cast to bf16; split-K calls (bf16 wgmma, f32) give the
+     same bits twice; the wmma route timed at a K of 1,001 (no TMA).
+Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
+``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
+the call took them (``backend.route_counts()``); phases 11 and 14 hold a
+step's K1 calls by route to what ``plan`` predicts for its shapes.
 The line before the last is the kernel report (JSON), one entry per
-kernel with its numbers per path under ``by_path``; the last line is
+kernel with its numbers per path under ``by_path``; K1's entries give
+their route and K split (``k1_route``, ``splits``), the top-level numbers
+from the 170M model's (e, 4e) projection; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -176,7 +189,7 @@ from taper_tpu_torch.ops import optim_kernels as OK
 from taper_tpu_torch.ops import pool as PL
 from taper_tpu_torch.ops import quant as Q
 from taper_tpu_torch.ops.gemm import (
-    gemm, gemm_reference, linear, linear_reference)
+    gemm, gemm_reference, linear, linear_reference, plan, plan_for)
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_reference)
 from taper_tpu_torch.quantization import (
@@ -273,6 +286,16 @@ EW_TOL = {"relu": 0.0, "add": 0.0, "sub": 0.0, "mul": 0.0, "sigmoid": 3e-7,
           "div": 3e-7, "fma": 3e-7}
 OPT_TOL = 1e-6
 OPT_T0, OPT_STEPS = 11, 3
+# K1's counters and their modes; a K1 row's source follows its route
+K1_MODES = {"linear": "nt", "gemm_nn": "nn", "gemm_tn": "tn"}
+K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu"}
+
+
+def route_key(route, mode, splits):
+    """The key of ``backend.route_counts()`` for one K1 call."""
+    return f"{route} {mode}" + (" split" if splits > 1 else "")
+
+
 SOURCES = {
     "linear": ("taper_tpu_torch/csrc/gemm.cu",
                "taper_tpu/ops/pallas/gemm.py:83"),
@@ -341,6 +364,11 @@ SORT_PER_STEP = dict(linear=12, gemm_nn=12, gemm_tn=12, flash_fwd=2,
 # average pool (K4); one AdamW update.
 RESNET_PER_STEP = dict(relu=7, linear=5, gemm_nn=5, gemm_tn=5, conv_fwd=9,
                        conv_dw=5, pool=1, adam=1)
+# ResNet-8's K1 products at batch 256, (rows, K_in, N_out): the stride-2
+# 3x3 convolutions 16->32 (32x32 -> 16x16) and 32->64 (-> 8x8) and the 1x1
+# stride-2 projections as patch GEMMs, and the head
+RESNET_GEMMS = ((65536, 144, 32), (65536, 16, 32), (16384, 288, 64),
+                (16384, 32, 64), (256, 64, 10))
 # The MLP: 3 FC layers (dX of the first is skipped: its input is data).
 MLP_PER_STEP = dict(linear=3, gemm_nn=2, gemm_tn=3, adam=1)
 XOR_PER_STEP = dict(linear=2, gemm_nn=1, gemm_tn=2, sgd=1)
@@ -457,9 +485,20 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     to match, see :func:`within`) and times the kernel over all the sets,
     the plain version (unless its time is given) and, where given, the
     library call (or takes its time).  ``work`` is ``(flops, bytes,
-    kind)`` for the bound.  Returns the report row."""
+    kind)`` for the bound.  A K1 row (``name`` in K1_MODES, operands
+    first) records the route and K split ``plan`` gives its operands, and
+    checks that the call took them.  Returns the report row."""
+    mode = K1_MODES.get(name)
+    if mode is not None:
+        route, splits = plan_for(*arg_sets[0][:2], mode)
+        before = backend.route_counts()
     outs = _tuple(kernel_fn(*arg_sets[0]))
     torch.cuda.synchronize()
+    if mode is not None:
+        taken = {k: c - before.get(k, 0)
+                 for k, c in backend.route_counts().items()
+                 if c != before.get(k, 0)}
+        assert taken == {route_key(route, mode, splits): 1}, (name, taken)
     refs = _tuple(plain_fn(*arg_sets[0]))
     tols = _tuple(TOL[name] if tol is None else tol, len(outs))
     hows = _tuple(("max" if name in NORMWISE else "each") if how is None
@@ -477,11 +516,15 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
               else cuda_ms(library_fn, arg_sets))
     row = dict(at=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, **bound(*work))
+    via = ""
+    if mode is not None:
+        row.update(k1_route=route, splits=splits)
+        via = f" via {route} x{splits}"
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    print(f"phase {phase}: {name} {shape}: max_abs_err {err:.3e} ({held}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {len(arg_sets)} "
-          f"operand set(s)")
+    print(f"phase {phase}: {name} {shape}{via}: max_abs_err {err:.3e} "
+          f"({held}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+          f"{lib} bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{len(arg_sets)} operand set(s)")
     assert ok, f"{name} {shape} disagrees with its plain version"
     return row
 
@@ -923,16 +966,16 @@ def phase8_train(dev, train, test, smi):
 
 # -- the LM path ---------------------------------------------------------------
 
-def lm_gemm_rows(dev, t, shapes, dtype, phase, tol, gen):
-    """K1 in modes nt, nn and tn at the projections ``(K_in, N_out)`` of a
-    layer with ``t`` tokens: the forward, dX and dW."""
+def gemm_rows(dev, shapes, dtype, phase, tol, gen):
+    """K1 in modes nt, nn and tn at the products ``(t, K_in, N_out)`` of a
+    layer with ``t`` rows: the forward, dX and dW."""
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     rows = {}
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dtype).to(dev)
 
-    for k_in, n_out in shapes:
+    for t, k_in, n_out in shapes:
         x, w = randn(t, k_in), randn(n_out, k_in, scale=k_in ** -0.5)
         b = randn(n_out, scale=0.1)
         rows.setdefault("linear", []).append(check_kernel(
@@ -1064,13 +1107,98 @@ def phase9_lm_kernels(dev):
     """The LM kernels at the 170M model's full-width shapes in bf16."""
     gen = torch.Generator().manual_seed(SEED)
     t, e = LM_BATCH * LM["max_seq"], LM["dim"]
-    rows = lm_gemm_rows(dev, t, ((e, e), (e, 4 * e), (4 * e, e)),
-                        torch.bfloat16, 9, BF16_GEMM_TOL, gen)
+    rows = gemm_rows(dev, ((t, e, e), (t, e, 4 * e), (t, 4 * e, e)),
+                     torch.bfloat16, 9, BF16_GEMM_TOL, gen)
     torch.cuda.empty_cache()
     rows.update(lm_flash_rows(
         dev, LM_BATCH, LM["num_heads"], LM["max_seq"],
         e // LM["num_heads"], torch.bfloat16, 9, gen, ("bhsd", "bshd"),
         ("exact", "bound", "bound_off")))
+    torch.cuda.empty_cache()
+    return rows
+
+
+# K1's bitwise checks: each bf16 route and mode at a shape that takes it,
+# (route, mode, M, N, K); and the split shapes called twice
+K1_BIT_CASES = (("wgmma", "nt", 2048, 4096, 1024),
+                ("wgmma", "nn", 2048, 1024, 4096),
+                ("wgmma", "tn", 1024, 4096, 16384),
+                ("wgmma", "tn", 1024, 1024, 16384),   # split in 2
+                ("wgmma", "nt", 300, 264, 520),       # ragged, split
+                ("wgmma", "nt", 300, 262, 520),       # direct stores
+                ("wmma", "nt", 33, 70, 130), ("wmma", "nn", 33, 70, 130),
+                ("wmma", "tn", 33, 70, 130),
+                ("decode", "nt", 16, 1024, 1024))
+K1_REPEAT_CASES = (("tn", 1024, 1024, 16384, torch.bfloat16),
+                   ("tn", 128, 128, 8192, torch.float32),     # sort dW
+                   ("tn", 32, 144, 65536, torch.float32))     # ResNet-8 dW
+
+
+def k1_operands(mode, m, n, k, dtype, gen, dev):
+    a = torch.randn(*((m, k) if mode != "tn" else (k, m)), generator=gen)
+    b = torch.randn(*((n, k) if mode == "nt" else (k, n)),
+                    generator=gen) * k ** -0.5
+    return a.to(dtype).to(dev), b.to(dtype).to(dev)
+
+
+def k1_call(a, b, mode, out_dtype=None):
+    if mode == "nt":
+        return linear(a, b, None, out_dtype=out_dtype)
+    return gemm(a, b, mode, out_dtype=out_dtype)
+
+
+def phase29_k1_bits(dev):
+    """K1 on the card, bit for bit: (a) for each bf16 route and mode, the
+    kernel writing bf16 equals its own f32 result cast to bf16 (one
+    round-to-nearest-even of the same f32 value); (b) a split-K call
+    repeats its bits (the splits summed in a fixed order, no atomics).
+    Also times the wmma route against its plain version; returns its
+    rows."""
+    gen = torch.Generator().manual_seed(SEED)
+    for route, mode, m, n, k in K1_BIT_CASES:
+        a, b = k1_operands(mode, m, n, k, torch.bfloat16, gen, dev)
+        got, splits = plan_for(a, b, mode)
+        assert got == route, (route, mode, m, n, k, got)
+        y32 = k1_call(a, b, mode)
+        y16 = k1_call(a, b, mode, torch.bfloat16)
+        same = torch.equal(y16, y32.to(torch.bfloat16))
+        print(f"phase 29: K1 {route} x{splits} {mode} M={m} N={n} K={k}: "
+              f"bf16 out equals the f32 out cast: {same}")
+        assert y16.dtype == torch.bfloat16 and same, (route, mode)
+    # the wmma route's time (no path shape takes it: every path's operands
+    # are TMA-aligned): K_in of 1,001
+    t, k_in, n_out = 512, 1001, 1000
+    x, w = k1_operands("nt", t, n_out, k_in, torch.bfloat16, gen, dev)
+    g = k1_operands("nn", t, k_in, n_out, torch.bfloat16, gen, dev)[0]
+    bias = torch.randn(n_out, generator=gen).to(torch.bfloat16).to(dev)
+    rows = dict(
+        linear=check_kernel(
+            "linear", f"bf16 [{t},{k_in}].[{n_out},{k_in}]^T + b", linear,
+            linear_reference, cold_sets(x, w, bias), phase=29,
+            tol=BF16_GEMM_TOL, library_fn=F.linear,
+            work=gemm_work(t, n_out, k_in, "bf16", True)),
+        gemm_nn=check_kernel(
+            "gemm_nn", f"bf16 dX [{t},{n_out}].[{n_out},{k_in}]",
+            lambda a, b: gemm(a, b, "nn"),
+            lambda a, b: gemm_reference(a, b, "nn"), cold_sets(g, w),
+            phase=29, tol=BF16_GEMM_TOL, library_fn=torch.matmul,
+            work=gemm_work(t, k_in, n_out, "bf16")),
+        gemm_tn=check_kernel(
+            "gemm_tn", f"bf16 dW [{t},{n_out}]^T.[{t},{k_in}]",
+            lambda a, b: gemm(a, b, "tn"),
+            lambda a, b: gemm_reference(a, b, "tn"), cold_sets(g, x),
+            phase=29, tol=BF16_GEMM_TOL,
+            library_fn=lambda a, b: torch.matmul(a.t(), b),
+            work=gemm_work(n_out, k_in, t, "bf16")))
+    assert all(r["k1_route"] == "wmma" for r in rows.values()), rows
+    for mode, m, n, k, dtype in K1_REPEAT_CASES:
+        a, b = k1_operands(mode, m, n, k, dtype, gen, dev)
+        route, splits = plan_for(a, b, mode)
+        ys = [k1_call(a, b, mode) for _ in range(2)]
+        same = torch.equal(ys[0], ys[1])
+        print(f"phase 29: K1 {route} x{splits} {mode} M={m} N={n} K={k} "
+              f"{dtype}: two calls bit-equal: {same}")
+        assert splits > 1 and same, (mode, m, n, k, splits)
     torch.cuda.empty_cache()
     return rows
 
@@ -1127,15 +1255,19 @@ def phase10_lm_step(dev):
     return results
 
 
-LM_FAMILIES = (("K1 gemm", "gemm_bf16_kernel"), ("K1 gemm", "gemm_f32"),
-               ("K17 optimizer", "multi_tensor_kernel"),
-               ("K8/K5 flash fwd", "flash_fwd_kernel"),
-               ("K6 flash dq", "flash_dq_kernel"),
-               ("K7 flash dkv", "flash_dkv_kernel"))
-CONV_FAMILIES = (("K1 gemm", "gemm_f32"), ("K3a conv fwd/dX", "conv_fwd"),
+# every K1 kernel: the wgmma route, the WMMA tiles (wmma, decode), the f32
+# tile, and the split-K reduce of both
+K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_bf16_kernel"),
+               ("K1 gemm", "gemm_f32"), ("K1 gemm", "splitk_reduce"))
+OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
+LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
+                             ("K8/K5 flash fwd", "flash_fwd_kernel"),
+                             ("K6 flash dq", "flash_dq_kernel"),
+                             ("K7 flash dkv", "flash_dkv_kernel"))
+CONV_FAMILIES = K1_FAMILIES + (("K3a conv fwd/dX", "conv_fwd"),
                  ("K3b conv dW", "conv_dw"), ("K3b conv dW", "split_sum"),
                  ("K4 pool", "pool_"), ("K2 elementwise", "ew_kernel"),
-                 ("K17 optimizer", "multi_tensor_kernel"))
+                 OPT_FAMILY)
 
 
 def profile_steps(step, n, families=LM_FAMILIES):
@@ -1182,6 +1314,20 @@ def per_step(counts, steps):
     return {k: c / steps for k, c in counts.items() if c}
 
 
+def planned_routes(products, dtype):
+    """K1 calls a step makes by route, as ``plan`` predicts them: the
+    forward, dX and dW of each ``(t, K_in, N_out)`` product (operands
+    TMA-aligned)."""
+    want = {}
+    for t, k_in, n_out in products:
+        for mode, m, n, k in (("nt", t, n_out, k_in), ("nn", t, k_in, n_out),
+                              ("tn", n_out, k_in, t)):
+            route, splits = plan(m, n, k, dtype, mode, True)
+            key = route_key(route, mode, splits)
+            want[key] = want.get(key, 0) + 1
+    return want
+
+
 def phase11_lm_train(dev, smi):
     """Train the 170M model in bf16: batch 8 x 2048, Adam(1e-4)."""
     gen = torch.Generator().manual_seed(SEED)
@@ -1204,6 +1350,7 @@ def phase11_lm_train(dev, smi):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / LM_STEPS
     counts = backend.launch_counts()
+    routes = per_step(backend.route_counts(), LM_STEPS)
     bound_taken = backend.bound_arm_count()      # one read from the device
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
@@ -1225,6 +1372,15 @@ def phase11_lm_train(dev, smi):
           f"bound arm: {bound_taken} of {counts['flash_fwd_bound']}")
     assert all(math.isfinite(x) for x in losses), losses
     assert per_step(counts, LM_STEPS) == LM_PER_STEP, counts
+    # every projection through wgmma, dW at (e, e) split over K
+    e = LM["dim"]
+    want = {k: v * LM["depth"] for k, v in planned_routes(
+        ((tokens, e, e),) * 4 + ((tokens, e, 4 * e), (tokens, 4 * e, e)),
+        torch.bfloat16).items()}
+    print(f"phase 11: K1 calls per step by route {routes} (plan: {want})")
+    assert routes == want, (routes, want)
+    assert all(k.startswith("wgmma") for k in routes)
+    assert routes.get("wgmma tn split"), routes
     params = list(model.parameters())
     adam_row = opt_row("adam", f"170M TinyGPT Adam({LM_LR})", params,
                        [p.grad for p in params],
@@ -1252,10 +1408,10 @@ def phase12_sort_task(dev, smi):
     gen = torch.Generator().manual_seed(SEED)
     seq = 2 * args.length + 2
     t = args.batch * seq
-    rows = lm_gemm_rows(dev, t, ((args.dim, args.dim),
-                                 (args.dim, 4 * args.dim),
-                                 (4 * args.dim, args.dim)),
-                        torch.float32, 12, LINEAR_F32_TOL, gen)
+    rows = gemm_rows(dev, ((t, args.dim, args.dim),
+                           (t, args.dim, 4 * args.dim),
+                           (t, 4 * args.dim, args.dim)),
+                     torch.float32, 12, LINEAR_F32_TOL, gen)
     rows.update(lm_flash_rows(dev, args.batch, args.heads, seq,
                               args.dim // args.heads, torch.float32, 12,
                               gen, ("bhsd",), ("exact",)))
@@ -1514,6 +1670,11 @@ def phase14_resnet(dev, smi):
                        dict(lr=RESNET["lr"], wd=RESNET["weight_decay"],
                             decoupled=True), 14)
     del tr
+    # K1 at the patch-GEMM and head shapes: the forward, dX and dW (split
+    # over K: a few output tiles over 16,384 or 65,536 rows)
+    k1_rows = gemm_rows(dev, RESNET_GEMMS, torch.float32, 14,
+                        LINEAR_F32_TOL, torch.Generator().manual_seed(SEED))
+    torch.cuda.empty_cache()
 
     trainer = resnet_trainer(dev)
     steps = len(train) // RESNET["batch"]
@@ -1551,6 +1712,14 @@ def phase14_resnet(dev, smi):
     assert ev["acc"] >= RESNET_MIN_ACC, ev
     xd = torch.as_tensor(x, device=dev)
     yd = torch.as_tensor(y, device=dev).long()
+    backend.reset_launch_counts()
+    trainer.train_step(xd, yd)
+    torch.cuda.synchronize()
+    routes, want = backend.route_counts(), planned_routes(RESNET_GEMMS,
+                                                          torch.float32)
+    print(f"phase 14: K1 calls of one ResNet-8 step by route {routes} "
+          f"(plan: {want})")
+    assert routes == want, (routes, want)
     prof = profile_steps(lambda: trainer.train_step(xd, yd), 3,
                          CONV_FAMILIES)
     print(f"phase 14: profiled 3 ResNet-8 steps: {prof['wall_ms']:.2f} ms "
@@ -1558,7 +1727,8 @@ def phase14_resnet(dev, smi):
           f"ms of device busy time, {prof['device_ops']:.0f} device ops per "
           f"step; device ms per step by family {prof['ms']}; largest glue "
           f"{prof['glue_top']}")
-    return fit_counts, dict(adam=adam_row)
+    return fit_counts, dict(adam=adam_row, **{
+        k: headline(r) for k, r in k1_rows.items()})
 
 
 # -- the reference's examples -------------------------------------------------
@@ -1705,8 +1875,8 @@ W8A8_BATCH, W8A8_ITERS = 4, 5
 QSERVE_REL_TOL, W8A8_REL_TOL = 1e-2, 5e-2
 PTQ_INT8_DROP, PTQ_F16_DROP = 0.01, 0.001
 QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_kernel"),
-                  ("K16 paged decode", "paged_decode"),
-                  ("K1 gemm", "gemm_f32"), ("head sgemm", "gemm"),
+                  ("K16 paged decode", "paged_decode")) + K1_FAMILIES + (
+                  ("head sgemm", "gemm"),
                   ("K14 quantize_rows", "quantize_rows"),
                   ("K15 int8 mma", "matmul_int8"))
 
@@ -2103,9 +2273,8 @@ INT8_PAGED_VS_CONTIG_TOL = 1e-2
 # that path is deterministic (K1's f32 modes and K17a sum in a fixed
 # order, no atomics), so the two must end bit-equal.
 CKPT_EPOCHS = 2
-DECODE_FAMILIES = (("K1 gemm", "gemm_bf16_kernel"), ("K1 gemm", "gemm_f32"),
-                   ("K16 paged decode", "paged_decode"),
-                   ("head sgemm", "gemm"))
+DECODE_FAMILIES = K1_FAMILIES + (("K16 paged decode", "paged_decode"),
+                                 ("head sgemm", "gemm"))
 
 
 def bench_tables(lens, mb, bs):
@@ -2895,7 +3064,7 @@ def phase25_packed_training(dev, smi):
     return counts_all, out
 
 
-ATTN_FAMILIES = (("attention", "flash_"),) + LM_FAMILIES[:3]
+ATTN_FAMILIES = (("attention", "flash_"),) + K1_FAMILIES + (OPT_FAMILY,)
 
 
 def phase26_window_training(dev, smi):
@@ -3186,18 +3355,24 @@ def phase28_fused_backward(dev, smi, lm):
     return counts["K10"], dict(step_ms=ms, winner=winner)
 
 
-def kernel_report(paths, standalone):
+def kernel_report(paths, standalone, top=None):
     """One entry per kernel: its launches and numbers on each path that
     launched it or measured it (``by_path``); the top-level numbers come
-    from the first path with a row for it, else from ``standalone``."""
+    from the path ``top`` names for it, else the first path with a row
+    for it, else from ``standalone``.  K1's rows also give the route and
+    K split their call took (``k1_route``, ``splits``)."""
     kernels = []
     for k in backend.KERNELS:
         by_path = {p: dict(launches=c[k], **rep.get(k, {}))
                    for p, (c, rep) in paths.items() if k in rep or c[k]}
-        first = next((dict(rep[k]) for _, rep in paths.values() if k in rep),
+        first = next((dict(rep[k]) for p, (_, rep) in paths.items()
+                      if k in rep and p == (top or {}).get(k, p)),
                      standalone.get(k))
+        extra = ({} if "k1_route" not in first else
+                 dict(k1_route=first["k1_route"], splits=first["splits"]))
         kernels.append(dict(
-            name=k, route="cuda", source=SOURCES[k][0],
+            name=k, route="cuda",
+            source=K1_SOURCES.get(first.get("k1_route"), SOURCES[k][0]),
             replaces=SOURCES[k][1], path="+".join(by_path) or "none",
             launches=sum(r["launches"] for r in by_path.values()),
             max_abs_err=max([r["max_abs_err"] for r in by_path.values()
@@ -3205,7 +3380,7 @@ def kernel_report(paths, standalone):
                             + [first["max_abs_err"]]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-            library_ms=first["library_ms"], at=first["at"],
+            library_ms=first["library_ms"], at=first["at"], **extra,
             by_path=by_path))
     return kernels
 
@@ -3255,6 +3430,7 @@ def main():
     del train, test
 
     lm_rows = phase9_lm_kernels(dev)
+    phase29_k1_bits(dev)
     phase10_lm_step(dev)
     lm_counts, lm_stats = phase11_lm_train(dev, smi)
     fused_counts, _ = phase28_fused_backward(dev, smi, lm_stats)
@@ -3352,8 +3528,11 @@ def main():
              "train_lm": (lm_launches, lm_report),
              "train_cnn": (cnn_counts, cnn_report),
              "serve": (serve_counts, serve_report)}
+    # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
+    # largest
     kernels = kernel_report(paths, dict(
-        new_rows, matmul_int8=headline(quant_rows["matmul_int8"])))
+        new_rows, matmul_int8=headline(quant_rows["matmul_int8"])),
+        top=dict.fromkeys(K1_MODES, "train_lm"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,315 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels of
+// taper_tpu_torch: mbarriers, TMA tile loads and their descriptors,
+// wgmma shared-memory descriptors, instructions and fences, and register
+// rebalancing between warpgroups.  K1's wgmma GEMM (gemm_sm90.cu) is built
+// on them; they are written so that the flash kernels' redesign can use
+// them as they are.
+//
+// Conventions:
+//   * shared-memory addresses are 32-bit (``smem_u32``);
+//   * operand tiles use the 128-byte swizzle throughout: TMA writes them
+//     with CU_TENSOR_MAP_SWIZZLE_128B, wgmma reads them through a
+//     descriptor of layout B128, and each tile starts on a 1024-byte
+//     boundary (the swizzle repeats every 8 rows of 128 bytes);
+//   * a TMA box is at most 128 bytes wide (64 bf16) under that swizzle.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace taper {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers --
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes mbarrier.init visible to the other threads and to the async proxy
+// (TMA); between the inits and the block's first barrier.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects ``bytes`` of TMA transactions this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity ``parity`` has completed (the barrier's
+// current phase differs from it).  A phase's parity is the number of its
+// earlier completions, mod 2.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// -- TMA --
+
+__device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Copies the box at coordinates (c0 innermost, c1) of ``map`` into shared
+// memory at ``dst``; completion is reported to ``bar`` as transaction
+// bytes.  Out-of-bounds elements are filled with zeros.  ``map`` must be a
+// kernel parameter (``__grid_constant__``) or lie in global memory.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Copies the shared-memory box at ``src`` to the box at (c0, c1) or (c0,
+// c1, c2) of ``map`` in global memory (elements outside the tensor are not
+// written), as one bulk group of the issuing thread.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most ``N`` bulk groups of the thread still read their
+// shared-memory source (the source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most ``N`` bulk groups of the thread are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy
+// (a TMA store that reads them after a barrier).
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier ``id`` (1..15; 0 is __syncthreads) over ``count`` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// -- wgmma --
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand tile
+// starting at ``addr`` (PTX ISA, "Matrix Descriptor Format"): the start
+// address, the leading and stride byte offsets (16-byte units), layout
+// type 1 (B128) in bits 62-63; the base offset is 0 because tiles start
+// on 1024-byte boundaries.
+//   * K-major (K contiguous, 64 bf16 = one 128-byte row per M/N index):
+//     stride = 1024 (the next 8 rows), leading unused; the k-th 16-wide
+//     slice starts 32 k bytes into the row.
+//   * M/N-major (M/N contiguous, one 128-byte row per K index, 64 wide):
+//     leading = the bytes between 64-wide M/N blocks, stride = 1024 (the
+//     next 8 K rows); the k-th 16-deep slice starts 16 k rows further.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead,
+                                              uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
+}
+
+// Orders earlier register and shared-memory writes before the wgmma that
+// follow; required before the first wgmma of a batch.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most ``N`` committed wgmma groups of the warp are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator
+// register across the asynchronous wgmma that own it.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// One wgmma m64n128k16 (bf16 in, f32 accumulate) on the warpgroup's 64 x
+// 128 accumulator fragment ``d`` (d += A . B, A from ``da``, B from
+// ``db``).  TA / TB: 0 if the operand is K-major in shared memory, 1 if it
+// is M- / N-major (the instruction's transpose bits).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// -- warpgroup register rebalancing --
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// -- host: TMA descriptors --
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime (so the
+// library needs no -lcuda); null if the driver has none.
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A TMA descriptor of the dense row-major tensor at ``ptr`` with ``rank``
+// dimensions ``dims`` (innermost first; the innermost contiguous, its
+// bytes a multiple of 16, ``ptr`` 16-byte aligned), read or written in
+// boxes ``box``.  Loads outside the tensor read zeros; stores outside it
+// are dropped.  Returns 0 or a cudaError_t code.
+inline int tma_desc(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                    int rank, const void* ptr, const uint64_t* dims,
+                    const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t gdims[3], strides[2];
+  cuuint32_t gbox[3], elem_strides[3] = {1, 1, 1};
+  uint64_t stride = (uint64_t)elem;
+  for (int i = 0; i < rank; ++i) {
+    gdims[i] = dims[i];
+    gbox[i] = box[i];
+    stride *= dims[i];
+    if (i + 1 < rank) strides[i] = stride;  // bytes to the next index
+  }
+  CUresult r = fn(map, type, rank, const_cast<void*>(ptr), gdims, strides,
+                  gbox, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// An operand tile's descriptor: the row-major bf16 matrix ``[outer,
+// inner]`` (``inner`` a multiple of 8) in boxes of ``box_outer`` rows of
+// ``box_inner`` (<= 64) elements under the 128-byte swizzle.
+inline int tma_desc_bf16(CUtensorMap* map, const void* ptr, uint64_t inner,
+                         uint64_t outer, uint32_t box_inner,
+                         uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return tma_desc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, ptr, dims,
+                  box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+}  // namespace hopper
+}  // namespace taper

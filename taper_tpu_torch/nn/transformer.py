@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from taper_tpu_torch import ops
+from taper_tpu_torch.ops import gemm as _gemm
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_write, paged_write_scale)
 from taper_tpu_torch.ops.quant import w8a8_engages
@@ -100,8 +101,9 @@ class Embedding(nn.Module):
 
 def _proj(x2, w, b):
     """``[R, E_in] @ w[E_out, E_in]^T + b`` at the activation dtype: the
-    weights are cast to ``x2``'s dtype (a no-op once cast ahead), the
-    kernel returns f32, which is cast back so a bf16 trunk stays bf16.
+    weights are cast to ``x2``'s dtype (a no-op once cast ahead), and K1
+    writes its f32 result in that dtype (the same bits as JAX's f32
+    result cast back), so a bf16 trunk stays bf16.
 
     A quantized weight goes to ``ops.linear`` untouched
     (``taper_tpu/nn/transformer.py:121-134``) with f32 activations, or
@@ -110,7 +112,9 @@ def _proj(x2, w, b):
     if isinstance(w, QuantizedTensor):
         xin = x2 if w8a8_engages(x2, w) else x2.float()
         return ops.linear(xin, w, b).to(x2.dtype)
-    return ops.linear(x2, w.to(x2.dtype), b.to(x2.dtype)).to(x2.dtype)
+    return _gemm.linear(x2, w.to(x2.dtype),
+                        None if b is None else b.to(x2.dtype),
+                        out_dtype=x2.dtype)
 
 
 def rope_angles(head_dim: int, max_seq: int, base: float = 10000.0):

@@ -39,10 +39,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # x, w, bias, y, M, N, K, dtype, act, stream
-    "taper_linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a, b, y, M, N, K, mode, dtype, stream
-    "taper_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, bias, y, workspace, M, N, K, mode, dtype, out dtype, act,
+    # route, splits, stream
+    "taper_gemm": [_P] * 5 + [_I] * 9 + [_P],
     # x, w, bias, y, N, C, H, W, O, kh, kw, ph, pw, act, stream
     "taper_conv_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # x, g, part, dw, N, C, H, W, O, kh, kw, ph, pw, splits, stream

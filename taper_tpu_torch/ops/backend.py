@@ -43,6 +43,9 @@ KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
            "paged_decode", "paged_decode_int8",
            "conv_fwd", "conv_dw", "pool") + EW_OPS + ("adam", "sgd") + QUANT_OPS
 _launches = dict.fromkeys(KERNELS, 0)
+# K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; a
+# tally of its own, so that the per-kernel counts stay one a call
+_routes = {}
 # K8 launches that took the bound arm, counted by the kernel itself on the
 # device (the arm is decided there), one int32 counter per device
 _bound_arm = {}
@@ -57,9 +60,21 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def count_route(route: str, mode: str, splits: int) -> None:
+    key = f"{route} {mode}" + (" split" if splits > 1 else "")
+    _routes[key] = _routes.get(key, 0) + 1
+
+
+def route_counts() -> dict:
+    """K1 calls by route and mode since the last
+    :func:`reset_launch_counts` (" split" marks a split-K call)."""
+    return dict(_routes)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _routes.clear()
     for counter in _bound_arm.values():
         counter.zero_()
 
@@ -103,9 +118,11 @@ def refuse_grad(name: str, *tensors) -> None:
             f"that do not require grad")
 
 
-def check_kernel_args(name: str, *tensors, dtypes=None) -> None:
+def check_kernel_args(name: str, *tensors, dtypes=None,
+                      aligned: bool = True) -> None:
     """Raise on inputs a kernel does not take: non-contiguous tensors,
-    rows not 16-byte aligned, or a dtype outside ``dtypes``."""
+    rows not 16-byte aligned (unless ``aligned`` is False: the kernel
+    reads any address), or a dtype outside ``dtypes``."""
     for t in tensors:
         if t is None:
             continue
@@ -113,7 +130,7 @@ def check_kernel_args(name: str, *tensors, dtypes=None) -> None:
             raise ValueError(f"{name}: kernel needs contiguous tensors, got "
                              f"strides {t.stride()} for shape "
                              f"{tuple(t.shape)}")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
         if dtypes is not None and t.dtype not in dtypes:
             raise ValueError(f"{name}: kernel takes dtype in "

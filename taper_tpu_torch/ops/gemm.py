@@ -4,7 +4,7 @@ port of ``taper_tpu/ops/pallas/gemm.py`` (``_gemm_jit`` ->
 ``linear_nb``).
 
 The modes of ``_MODES`` (``gemm.py:76-80``), each operand in its natural
-layout, output ``[M, N]`` in f32:
+layout, output ``[M, N]``:
 
 * ``"nt"``: ``a[M, K] . b[N, K]^T`` (+ bias, + epilogue): linear forward;
 * ``"nn"``: ``a[M, K] . b[K, N]``: linear backward dX;
@@ -14,16 +14,25 @@ layout, output ``[M, N]`` in f32:
 both packages), ``b [N]`` or ``None``, all of one dtype (f32 or bf16).  The
 product accumulates in f32, the bias is added in f32, then the
 ``"none"``/``"relu"``/``"sigmoid"`` epilogue; the result is f32 for any
-operand dtype, as ``_gemm_jit`` returns it, and callers cast back.
+operand dtype, as ``_gemm_jit`` returns it.  The private keyword
+``out_dtype`` (f32, or the operands' bf16) rounds that f32 result once,
+to nearest even, as ``.to(out_dtype)`` would: the kernel writes it in the
+caller's dtype, where the JAX package casts it in a separate pass.
 
 ``linear``, ``linear_nb`` and ``matmul`` are ``torch.autograd.Function``s
 whose backward follows the JAX VJPs: the cotangent is masked by ``y > 0``
-(relu) or multiplied by ``y (1 - y)`` (sigmoid), ``db = sum(g)``,
-``dX = g . W`` in mode nn and ``dW = g^T . X`` in mode tn.
+(relu) or multiplied by ``y (1 - y)`` (sigmoid), ``db = sum(g)`` in f32,
+``dX = g . W`` in mode nn and ``dW = g^T . X`` in mode tn, each written
+in its operand's dtype.
 
 CPU tensors run the plain versions (:func:`linear_reference`,
-:func:`gemm_reference`); CUDA tensors run the kernels of ``csrc/gemm.cu``,
-every mode in f32 or bf16.
+:func:`gemm_reference`); CUDA tensors run K1's kernels, chosen by
+:func:`plan` from the shape, dtype and alignment alone: ``wgmma``
+(``csrc/gemm_sm90.cu``, bf16 through TMA and Hopper's warpgroup MMA),
+``wmma`` and ``decode`` (bf16 WMMA tiles, ``csrc/gemm.cu``) and ``f32``
+(the FMA tile kernel, ``csrc/gemm.cu``); ``wgmma`` and ``f32`` split a
+long K over blocks when the output's tiles are too few to fill the card,
+and sum the splits in a fixed order.
 """
 
 from __future__ import annotations
@@ -35,6 +44,15 @@ from taper_tpu_torch.ops import backend
 
 ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2}
 MODES = {"nt": 0, "nn": 1, "tn": 2}
+# K1's kernels (codes shared with csrc/gemm.cu) and the output and K tile
+# of each route that splits K (csrc/gemm_sm90.cu, csrc/gemm.cu)
+ROUTES = {"wgmma": 0, "wmma": 1, "decode": 2, "f32": 3}
+TILES = {"wgmma": (128, 128, 64), "f32": (64, 64, 16)}
+SMS = 132                  # the H100 SXM's streaming multiprocessors
+WAVE = 119                 # "about one wave": 90% of them
+MIN_SPLIT_K_TILES = 4      # K tiles of the shortest split
+WORKSPACE_CAP = 64 << 20   # bytes of f32 partials a split call may use
+DECODE_ROWS = 16           # the decode tile's M
 
 
 def activation_name(activation) -> str:
@@ -90,6 +108,86 @@ def linear_reference(x, w, b=None, activation: str = "none"):
     return apply_activation(y, activation)
 
 
+def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
+    """K1's kernel and K split for ``[m, n] = contract_k`` in ``mode``:
+    ``(route, splits)``, a pure function of its arguments, so one shape
+    always runs the same kernels in the same order (bit-for-bit
+    repeatable).  ``aligned``: both operands' contiguous dimension is a
+    multiple of 8 elements and their data 16-byte aligned (TMA's rules).
+
+    * bf16 nt at ``m <= 16``: ``decode`` (the skinny WMMA tile);
+    * bf16 at ``m > 16``, aligned: ``wgmma``; other bf16: ``wmma``;
+    * f32: ``f32``.
+
+    ``wgmma`` and ``f32`` split K when the output's tiles fill less than
+    about one wave of the SMs: the smallest count that brings the blocks
+    to ``WAVE``, each split at least ``MIN_SPLIT_K_TILES`` whole K tiles,
+    the f32 partials within ``WORKSPACE_CAP``, and no split empty (the
+    splits cover ``ceil(k_tiles / splits)`` tiles each)."""
+    if dtype == torch.bfloat16:
+        if mode == "nt" and m <= DECODE_ROWS:
+            return "decode", 1
+        if m <= DECODE_ROWS or not aligned:
+            return "wmma", 1
+        route = "wgmma"
+    elif dtype == torch.float32:
+        route = "f32"
+    else:
+        raise ValueError(f"K1 takes f32 or bf16 operands, got {dtype}")
+    bm, bn, bk = TILES[route]
+    tiles = -(-m // bm) * -(-n // bn)
+    k_tiles = -(-k // bk)
+    splits = min(-(-WAVE // tiles), k_tiles // MIN_SPLIT_K_TILES,
+                 WORKSPACE_CAP // (4 * m * n))
+    if splits <= 1:
+        return route, 1
+    per = -(-k_tiles // splits)
+    return route, -(-k_tiles // per)
+
+
+def split_ranges(k: int, splits: int, k_tile: int):
+    """The ``[lo, hi)`` K ranges of a call split ``splits`` ways over
+    ``k_tile``-wide tiles, in the order the kernels sum them."""
+    k_tiles = -(-k // k_tile)
+    per = -(-k_tiles // splits) * k_tile
+    return [(lo, min(k, lo + per)) for lo in range(0, k, per)]
+
+
+def _k_slice(t, lo, hi, k_major: bool):
+    return t[:, lo:hi] if k_major else t[lo:hi]
+
+
+def gemm_reference_split(a, b, mode: str, splits: int, k_tile: int):
+    """Plain version of a split-K call: the f32 products over
+    :func:`split_ranges`, summed in that order as the kernels' reduce
+    does."""
+    _, _, k = _dims(a, b, mode)
+    out = None
+    for lo, hi in split_ranges(k, splits, k_tile):
+        part = gemm_reference(_k_slice(a, lo, hi, mode != "tn"),
+                              _k_slice(b, lo, hi, mode == "nt"), mode)
+        out = part if out is None else out + part
+    return out
+
+
+def plan_for(a, b, mode: str):
+    """:func:`plan` for the operands ``a`` and ``b`` of ``mode`` as given
+    (their shapes, dtype and alignment)."""
+    m, n, k = _dims(a, b, mode)
+    aligned = all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+                  for t in (a, b))
+    return plan(m, n, k, a.dtype, mode, aligned)
+
+
+def _out_dtype(out_dtype, dtype):
+    if out_dtype in (None, torch.float32):
+        return torch.float32
+    if out_dtype != dtype:
+        raise ValueError(f"K1 writes f32 or its operands' dtype {dtype}, "
+                         f"not {out_dtype}")
+    return out_dtype
+
+
 def _dims(a, b, mode: str):
     """``(M, N, K)`` of ``contract_K(a, b)`` in ``mode``; raises on
     operands that do not contract."""
@@ -106,51 +204,57 @@ def _dims(a, b, mode: str):
     return m, n, k
 
 
-def _nt(x, w, b, activation):
+def _launch(a, b, bias, mode, activation, out_dtype):
+    """K1 on CUDA operands: the kernel :func:`plan` picks, one launch
+    count a call (a split call also launches its reduce)."""
+    m, n, k = _dims(a, b, mode)
+    name = "linear" if mode == "nt" else f"gemm {mode}"
+    if b.dtype != a.dtype or (bias is not None and bias.dtype != a.dtype):
+        raise ValueError(f"{name}: operands and bias must share one dtype")
+    backend.check_kernel_args(name, a, b, bias, dtypes=_build.DTYPES,
+                              aligned=False)
+    out_dtype = _out_dtype(out_dtype, a.dtype)
+    route, splits = plan_for(a, b, mode)
+    y = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
+    code = _build.library().taper_gemm(
+        a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
+        y.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
+        MODES[mode], _build.DTYPES[a.dtype], _build.DTYPES[out_dtype],
+        ACTIVATIONS[activation], ROUTES[route], splits, _build.stream(a))
+    _build.check(code, name)
+    backend.count_launch("linear" if mode == "nt" else f"gemm_{mode}")
+    backend.count_route(route, mode, splits)
+    return y
+
+
+def _nt(x, w, b, activation, out_dtype=None):
     """Mode nt with bias and epilogue: the kernel or the plain version."""
     if not backend.on_cuda(x, w, b):
-        return linear_reference(x, w, b, activation)
-    if w.dtype != x.dtype or (b is not None and b.dtype != x.dtype):
-        raise ValueError("linear: x, w and b must share one dtype")
-    backend.check_kernel_args("linear", x, w, b, dtypes=_build.DTYPES)
-    m, k = x.shape
-    n = w.shape[0]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    code = _build.library().taper_linear(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        y.data_ptr(), m, n, k, _build.DTYPES[x.dtype],
-        ACTIVATIONS[activation], _build.stream(x))
-    _build.check(code, "linear")
-    backend.count_launch("linear")
-    return y
+        y = linear_reference(x, w, b, activation)
+        return y.to(_out_dtype(out_dtype, x.dtype))
+    return _launch(x, w, b, "nt", activation, out_dtype)
 
 
-def gemm(a, b, mode: str):
-    """``contract_K(a, b)`` in ``mode`` (no bias, no epilogue), f32 out.
-    Not differentiable: the building block of the backward passes."""
-    m, n, k = _dims(a, b, mode)
+def gemm(a, b, mode: str, out_dtype=None):
+    """``contract_K(a, b)`` in ``mode`` (no bias, no epilogue), f32 out
+    (or ``out_dtype``, see the module docstring).  Not differentiable:
+    the building block of the backward passes."""
+    _dims(a, b, mode)
     if mode == "nt":
-        return _nt(a, b, None, "none")
+        return _nt(a, b, None, "none", out_dtype)
     if not backend.on_cuda(a, b):
-        return gemm_reference(a, b, mode)
-    if a.dtype != b.dtype:
-        raise ValueError(f"gemm {mode}: operands must share one dtype")
-    backend.check_kernel_args(f"gemm {mode}", a, b, dtypes=_build.DTYPES)
-    y = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    code = _build.library().taper_gemm(
-        a.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, MODES[mode],
-        _build.DTYPES[a.dtype], _build.stream(a))
-    _build.check(code, f"gemm {mode}")
-    backend.count_launch(f"gemm_{mode}")
-    return y
+        return gemm_reference(a, b, mode).to(_out_dtype(out_dtype, a.dtype))
+    return _launch(a, b, None, mode, "none", out_dtype)
 
 
 class _Linear(torch.autograd.Function):
     """``act(x @ w.T + b)`` with the VJP of ``gemm.py:255-272``."""
 
     @staticmethod
-    def forward(ctx, x, w, b, activation):
-        y = _nt(x, w, b, activation)
+    def forward(ctx, x, w, b, activation, out_dtype):
+        y = _nt(x, w, b, activation, out_dtype)
         ctx.activation = activation
         ctx.bias_dtype = None if b is None else b.dtype
         # the output is kept only where the epilogue's gradient reads it
@@ -161,13 +265,13 @@ class _Linear(torch.autograd.Function):
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
         g = activation_grad(g, y, ctx.activation)
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
-        # db sums the f32 cotangent before the cast to the operand dtype
-        db = g.sum(0).to(ctx.bias_dtype) if need_b else None
+        need_x, need_w, need_b, _, _ = ctx.needs_input_grad
+        # db sums the cotangent in f32 before the cast to the bias dtype
+        db = g.float().sum(0).to(ctx.bias_dtype) if need_b else None
         g = g.to(x.dtype).contiguous()
-        dx = gemm(g, w, "nn").to(x.dtype) if need_x else None
-        dw = gemm(g, x, "tn").to(w.dtype) if need_w else None
-        return dx, dw, db, None
+        dx = gemm(g, w, "nn", out_dtype=x.dtype) if need_x else None
+        dw = gemm(g, x, "tn", out_dtype=w.dtype) if need_w else None
+        return dx, dw, db, None, None
 
 
 class _Matmul(torch.autograd.Function):
@@ -183,23 +287,27 @@ class _Matmul(torch.autograd.Function):
         a, b = ctx.saved_tensors
         g = g.to(a.dtype).contiguous()
         need_a, need_b = ctx.needs_input_grad
-        da = gemm(g, b, "nt").to(a.dtype) if need_a else None   # g . b^T
-        db = gemm(a, g, "tn").to(b.dtype) if need_b else None   # a^T . g
+        da = gemm(g, b, "nt", out_dtype=a.dtype) if need_a else None
+        db = gemm(a, g, "tn", out_dtype=b.dtype) if need_b else None
         return da, db
 
 
-def linear(x, w, b=None, activation: str = "none"):
-    """``act(x @ w.T + b)`` in f32, differentiable; see the module
-    docstring."""
+def linear(x, w, b=None, activation: str = "none", *, out_dtype=None):
+    """``act(x @ w.T + b)`` in f32 (or ``out_dtype``), differentiable; see
+    the module docstring.  A bf16 ``out_dtype`` takes no activation: the
+    epilogue's gradient would read a rounded output."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
+    if out_dtype not in (None, torch.float32) and activation != "none":
+        raise ValueError(f"linear: out_dtype {out_dtype} takes activation "
+                         f"'none', got {activation!r}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"linear: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} are not [M, K] and [N, K]")
     if b is not None and tuple(b.shape) != (w.shape[0],):
         raise ValueError(f"linear: bias {tuple(b.shape)} is not "
                          f"[{w.shape[0]}]")
-    return _Linear.apply(x, w, b, activation)
+    return _Linear.apply(x, w, b, activation, out_dtype)
 
 
 def linear_nb(x, w, activation: str = "none"):

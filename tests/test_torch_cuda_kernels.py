@@ -1370,3 +1370,151 @@ def test_quantized_model_moves_to_the_card(dev):
     (ref, _), (out, counts) = outs
     assert counts["linear_q8"] == 12 and counts["linear"] == 0, counts
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4)
+
+
+# -- K1's routes (ops/gemm.py plan): wgmma, wmma, decode, f32, split-K ------
+
+_K1_CASES = [
+    # route, mode, M, N, K, dtype: M != N != K throughout
+    ("wgmma", "nt", 300, 264, 520), ("wgmma", "nn", 300, 264, 520),
+    ("wgmma", "tn", 296, 264, 520),
+    ("wgmma", "nt", 200, 262, 136),      # N of 262: direct stores
+    ("wgmma", "nt", 16384, 4096, 1024),  # the 170M (e, 4e) projection
+    ("wgmma", "nn", 16384, 1024, 4096),
+    ("wgmma", "tn", 4096, 1024, 16384),
+    ("wgmma", "tn", 1024, 1024, 16384),  # (e, e) dW: split in 2
+    ("wgmma", "nn", 384, 256, 4096),     # split
+    ("wmma", "nt", 33, 70, 130), ("wmma", "nn", 33, 70, 130),
+    ("wmma", "tn", 33, 70, 130), ("wmma", "nt", 300, 264, 1001),
+    ("decode", "nt", 16, 1024, 1024), ("decode", "nt", 5, 19, 37),
+    ("f32", "nt", 256, 128, 128), ("f32", "nn", 256, 64, 128),
+    ("f32", "tn", 128, 128, 256), ("f32", "tn", 128, 128, 8192),
+    ("f32", "tn", 32, 144, 65536), ("f32", "nn", 65536, 144, 32),
+    ("f32", "nt", 65536, 32, 144), ("f32", "tn", 10, 64, 256),
+    ("f32", "nt", 5, 19, 37),
+]
+
+
+def _k1_operands(dev, mode, m, n, k, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed + m + n + k)
+    a = _randn(gen, *((m, k) if mode != "tn" else (k, m)), dtype=dtype)
+    b = _randn(gen, *((n, k) if mode == "nt" else (k, n)), dtype=dtype,
+               scale=k ** -0.5)
+    return a.to(dev), b.to(dev)
+
+
+def _k1(a, b, mode, bias=None, activation="none", out_dtype=None):
+    if mode == "nt":
+        return G.linear(a, b, bias, activation, out_dtype=out_dtype)
+    return G.gemm(a, b, mode, out_dtype=out_dtype)
+
+
+@pytest.mark.parametrize("route,mode,m,n,k", _K1_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}x{c[3]}x{c[4]}"
+                              for c in _K1_CASES])
+def test_k1_route_matches_plain_and_writes_bf16_bits(dev, route, mode, m, n,
+                                                     k):
+    """Each route and mode against the plain product (f32: 1e-4; bf16
+    operands: 2e-4, exact products summed in another order), through the
+    route plan names; a bf16 output equals the f32 output cast to bf16,
+    bit for bit."""
+    dtype = _k1_dtype(route)
+    a, b = _k1_operands(dev, mode, m, n, k, dtype)
+    want, splits = G.plan_for(a, b, mode)
+    assert want == route
+    gen = torch.Generator().manual_seed(k)
+    bias = (_randn(gen, n, dtype=dtype).to(dev) if mode == "nt" else None)
+    backend.reset_launch_counts()
+    y = _k1(a, b, mode, bias)
+    torch.cuda.synchronize()
+    key = f"{route} {mode}" + (" split" if splits > 1 else "")
+    assert backend.route_counts() == {key: 1}
+    counter = "linear" if mode == "nt" else f"gemm_{mode}"
+    assert backend.launch_counts()[counter] == 1
+    assert y.dtype == torch.float32 and tuple(y.shape) == (m, n)
+    ref = G.gemm_reference(a, b, mode)
+    if bias is not None:
+        ref = ref + bias.float()
+    _close(y, ref, dtype, 2e-4)
+    if dtype == torch.bfloat16:
+        y16 = _k1(a, b, mode, bias, out_dtype=torch.bfloat16)
+        assert y16.dtype == torch.bfloat16
+        assert torch.equal(y16, y.to(torch.bfloat16))
+
+
+def _k1_dtype(route):
+    return torch.float32 if route == "f32" else torch.bfloat16
+
+
+@pytest.mark.parametrize("route,mode,m,n,k", [
+    c for c in _K1_CASES if c[0] in G.TILES
+    and G.plan(*c[2:], _k1_dtype(c[0]), c[1], True)[1] > 1])
+def test_k1_split_matches_unsplit(dev, monkeypatch, route, mode, m, n, k):
+    """A call split over K against the same call unsplit (plan forced to
+    one split): f32 sums in another order, 1e-4 (bf16 operands: 2e-4);
+    and against the plain split sum in the kernels' order."""
+    dtype = _k1_dtype(route)
+    a, b = _k1_operands(dev, mode, m, n, k, dtype, seed=1)
+    _, splits = G.plan_for(a, b, mode)
+    assert splits > 1
+    y = _k1(a, b, mode)
+    monkeypatch.setattr(G, "plan", lambda *args: (route, 1))
+    y1 = _k1(a, b, mode)
+    torch.cuda.synchronize()
+    _close(y, y1, dtype, 2e-4)
+    _close(y, G.gemm_reference_split(a, b, mode, splits,
+                                     G.TILES[route][2]), dtype, 2e-4)
+
+
+@pytest.mark.parametrize("mode,m,n,k,dtype", [
+    ("tn", 1024, 1024, 16384, torch.bfloat16),
+    ("nt", 300, 264, 520, torch.bfloat16),
+    ("tn", 128, 128, 8192, torch.float32),
+    ("tn", 32, 144, 65536, torch.float32),
+    ("nt", 256, 128, 128, torch.float32)])
+def test_k1_split_is_bitwise_repeatable(dev, mode, m, n, k, dtype):
+    """Split-K sums its splits in a fixed order without atomics: two calls
+    give the same bits (a resumed run stays bit-equal)."""
+    a, b = _k1_operands(dev, mode, m, n, k, dtype, seed=2)
+    assert G.plan_for(a, b, mode)[1] > 1
+    y0, y1 = _k1(a, b, mode), _k1(a, b, mode)
+    assert torch.equal(y0, y1)
+
+
+@pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
+def test_k1_misaligned_bf16_view_takes_wmma(dev, mode):
+    """A bf16 operand 2 bytes off a 16-byte boundary cannot go through
+    TMA: the wmma route takes it, and gives the plain product."""
+    m, n, k = 96, 80, 136
+    a, b = _k1_operands(dev, mode, m, n, k, torch.bfloat16, seed=3)
+    flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+    flat[1:] = a.reshape(-1)
+    a_off = flat[1:].view(a.shape)
+    assert a_off.data_ptr() % 16 and a_off.is_contiguous()
+    assert G.plan_for(a_off, b, mode) == ("wmma", 1)
+    backend.reset_launch_counts()
+    y = _k1(a_off, b, mode)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"wmma {mode}": 1}
+    _close(y, G.gemm_reference(a, b, mode), torch.bfloat16, 2e-4)
+
+
+def test_k1_bf16_projection_grads_on_card_match_the_cast(dev):
+    """``linear(..., out_dtype=bf16)`` on the card (the bf16 trunk's
+    projection): output and gradients equal those of the f32 output cast
+    to bf16, bit for bit."""
+    gen = torch.Generator().manual_seed(4)
+    x = _randn(gen, 512, 1024, dtype=torch.bfloat16).to(dev)
+    w = _randn(gen, 4096, 1024, dtype=torch.bfloat16, scale=0.03).to(dev)
+    b = _randn(gen, 4096, dtype=torch.bfloat16).to(dev)
+    ct = _randn(gen, 512, 4096).to(dev)
+    res = []
+    for fn in (lambda *t: G.linear(*t, out_dtype=torch.bfloat16),
+               lambda *t: G.linear(*t).to(torch.bfloat16)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        out = fn(*leaves)
+        (out.float() * ct).sum().backward()
+        res.append([out.detach()] + [t.grad for t in leaves])
+    for new, old in zip(*res):
+        assert new.dtype == old.dtype == torch.bfloat16
+        assert torch.equal(new, old)

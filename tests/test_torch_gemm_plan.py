@@ -1,0 +1,284 @@
+"""K1's routing (taper_tpu_torch/ops/gemm.py ``plan``), its split-K plain
+version, and the ``out_dtype`` epilogue, on the CPU.
+
+``plan`` is a pure function of the shape, dtype, mode and alignment: the
+tests pin the route and K split it gives at the shapes of every training
+and serving path, and the properties every split must have.  The split-K
+plain version sums the partial products in the kernels' fixed order; it
+is held to the unsplit plain version and to the JAX package's Pallas GEMM
+(interpreted on the CPU) within 1e-5, as f32 sums in different orders.
+``out_dtype=bfloat16`` must give the bits of the f32 result cast with
+``.to(bfloat16)``, forward and backward, so the bf16 trunk's numbers do
+not change.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from taper_tpu.ops.pallas import gemm as jg
+from taper_tpu_torch import ops
+from taper_tpu_torch.models import TinyGPT
+from taper_tpu_torch.nn import transformer as T
+from taper_tpu_torch.ops import backend
+from taper_tpu_torch.ops import gemm as G
+
+torch.set_num_threads(1)
+
+BF, F32 = torch.bfloat16, torch.float32
+E, TOKENS = 1024, 16384          # the 170M model's width and batch tokens
+SORT_T, SORT_E = 64 * 128, 128   # the sort task: batch 64 x 128, dim 128
+
+
+def _modes(t, k_in, n_out):
+    """``(mode, m, n, k)`` of a projection's forward, dX and dW."""
+    return (("nt", t, n_out, k_in), ("nn", t, k_in, n_out),
+            ("tn", n_out, k_in, t))
+
+
+# ResNet-8's patch GEMMs at batch 256: (tokens, K_in, N_out) of the two
+# stride-2 3x3 convolutions, the two 1x1 stride-2 projections and the head
+RESNET = ((65536, 144, 32), (65536, 16, 32), (16384, 288, 64),
+          (16384, 32, 64), (256, 64, 10))
+# the reference CNN's FC layers at batch 256
+CNN = ((256, 128, 128), (256, 128, 64), (256, 64, 10))
+
+PATH_CASES = (
+    # the 170M model, bf16: every projection through wgmma; only dW at
+    # (e, e) (an 8 x 8 grid of 128 x 128 tiles) splits K
+    [(f"170M ({k_in},{n_out}) {mode}", mode, m, n, k, BF,
+      ("wgmma", 2 if (mode, k_in, n_out) == ("tn", E, E) else 1))
+     for k_in, n_out in ((E, E), (E, 4 * E), (4 * E, E))
+     for mode, m, n, k in _modes(TOKENS, k_in, n_out)]
+    # the sort task, f32: dW [128..512, 128..512] over 8,192 tokens splits
+    + [(f"sort ({k_in},{n_out}) {mode}", mode, m, n, k, F32,
+        ("f32", {(SORT_E, SORT_E): 29}.get((k_in, n_out), 8)
+         if mode == "tn" else 1))
+       for k_in, n_out in ((SORT_E, SORT_E), (SORT_E, 4 * SORT_E),
+                           (4 * SORT_E, SORT_E))
+       for mode, m, n, k in _modes(SORT_T, k_in, n_out)]
+    # ResNet-8's patch-GEMM dW over 65,536 or 16,384 rows: a few tiles,
+    # many splits; their forward and dX fill the card
+    + [(f"resnet ({k_in},{n_out}) tn", "tn", n_out, k_in, t, F32,
+        ("f32", splits))
+       for (t, k_in, n_out), splits in zip(RESNET, (40, 118, 24, 114, 4))]
+    + [(f"resnet ({k_in},{n_out}) {mode}", mode, m, n, k, F32, ("f32", 1))
+       for t, k_in, n_out in RESNET[:4]
+       for mode, m, n, k in _modes(t, k_in, n_out)[:2]]
+    # the CNN's FC layers: K of 64 to 256 allows at most 1 to 4 splits of
+    # 4 tiles
+    + [(f"cnn ({k_in},{n_out}) {mode}", mode, m, n, k, F32, ("f32", splits))
+       for (t, k_in, n_out), per_mode in zip(CNN, ((2, 2, 4), (2, 1, 4),
+                                                   (1, 1, 4)))
+       for (mode, m, n, k), splits in zip(_modes(t, k_in, n_out), per_mode)]
+    # serving: decode at 16 slots, prefill at 512 rows
+    + [("decode M=16", "nt", 16, 1024, 1024, BF, ("decode", 1)),
+       ("decode M=8 up", "nt", 8, 8192, 2048, BF, ("decode", 1)),
+       ("prefill M=512", "nt", 512, 4096, 1024, BF, ("wgmma", 1))])
+
+
+@pytest.mark.parametrize("what,mode,m,n,k,dtype,want", PATH_CASES,
+                         ids=[c[0] for c in PATH_CASES])
+def test_plan_at_the_path_shapes(what, mode, m, n, k, dtype, want):
+    assert G.plan(m, n, k, dtype, mode, True) == want
+
+
+@pytest.mark.parametrize("mode,m,n,k,aligned,want", [
+    ("nt", 5, 19, 37, False, ("decode", 1)),     # ragged, skinny: decode
+    ("nn", 5, 19, 37, False, ("wmma", 1)),
+    ("tn", 33, 70, 130, False, ("wmma", 1)),     # ragged: no TMA
+    ("nt", 33, 72, 136, False, ("wmma", 1)),     # a misaligned view
+    ("nt", 33, 72, 136, True, ("wgmma", 1)),
+    ("nn", 16, 1024, 1024, True, ("wmma", 1)),   # M <= 16 off mode nt
+    ("tn", 17, 1024, 1024, True, ("wgmma", 4)),  # 8 tiles, 16 K tiles
+])
+def test_plan_routes_ragged_misaligned_and_skinny_bf16(mode, m, n, k,
+                                                       aligned, want):
+    assert G.plan(m, n, k, BF, mode, aligned) == want
+
+
+def test_plan_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        G.plan(64, 64, 64, torch.float16, "nt", True)
+
+
+def _shapes():
+    rng = np.random.default_rng(0)
+    dims = [1, 7, 16, 17, 64, 100, 128, 129, 300, 1024, 4096, 16384, 65536]
+    for _ in range(400):
+        yield tuple(int(rng.choice(dims)) for _ in range(3))
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
+def test_plan_splits_are_whole_nonempty_and_bounded(dtype, mode):
+    """Over 400 shapes: every split covers whole K tiles and none is empty
+    (the kernels' ceil(k_tiles / splits) per split), each has at least
+    MIN_SPLIT_K_TILES tiles, the f32 partials fit WORKSPACE_CAP, and a
+    grid of two waves or more is never split."""
+    for m, n, k in _shapes():
+        route, splits = G.plan(m, n, k, dtype, mode, True)
+        assert splits >= 1
+        if route not in G.TILES:
+            assert splits == 1
+            continue
+        bm, bn, bk = G.TILES[route]
+        tiles = -(-m // bm) * -(-n // bn)
+        k_tiles = -(-k // bk)
+        if tiles >= 2 * G.SMS:
+            assert splits == 1
+        if splits == 1:
+            continue
+        per = -(-k_tiles // splits)
+        assert (splits - 1) * per < k_tiles, (m, n, k, splits)
+        ranges = G.split_ranges(k, splits, bk)
+        assert len(ranges) == splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(lo % bk == 0 and hi > lo for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert per >= G.MIN_SPLIT_K_TILES
+        assert splits * m * n * 4 <= G.WORKSPACE_CAP
+        # no more than the smallest count that reaches about one wave
+        assert tiles * (splits - 1) < G.WAVE
+
+
+def test_plan_is_a_pure_function():
+    calls = [G.plan(m, n, k, F32, "tn", True) for m, n, k in _shapes()]
+    assert calls == [G.plan(m, n, k, F32, "tn", True)
+                     for m, n, k in _shapes()]
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("m,n,k,splits,k_tile", [
+    (32, 20, 4096, None, 16),    # ResNet-8's stride-2 dW, cut to 4,096 rows
+    (64, 36, 2048, None, 16),
+    (16, 16, 1024, None, 16),    # the sort task's dW, cut
+    (24, 40, 700, 3, 64),        # a ragged last split, wgmma's K tile
+])
+def test_split_reference_matches_unsplit_and_jax(mode, m, n, k, splits,
+                                                 k_tile):
+    """The split sum in the kernels' order (the splits plan gives f32 at
+    these shapes) against one f32 product and JAX's: 1e-5, f32 sums of
+    O(1) terms in different orders."""
+    if splits is None:
+        route, splits = G.plan(m, n, k, F32, mode, True)
+        assert route == "f32" and splits > 1
+    rng = np.random.default_rng(m + n + k + splits)
+    a = _rand(rng, *((m, k) if mode != "tn" else (k, m)))
+    b = _rand(rng, *((n, k) if mode == "nt" else (k, n))) / np.sqrt(k)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert len(G.split_ranges(k, splits, k_tile)) == splits
+    out = G.gemm_reference_split(at, bt, mode, splits, k_tile)
+    np.testing.assert_allclose(out.numpy(),
+                               G.gemm_reference(at, bt, mode).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    ref = np.asarray(jg._gemm(jnp.asarray(a), jnp.asarray(b), None,
+                              has_bias=False, mode=mode))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return torch.from_numpy(_rand(rng, *shape) * scale).to(BF)
+
+
+@pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
+def test_out_dtype_bf16_is_the_cast_f32_result(mode):
+    rng = np.random.default_rng(11)
+    m, n, k = 24, 40, 96
+    a = _bf16(rng, *((m, k) if mode != "tn" else (k, m)))
+    b = _bf16(rng, *((n, k) if mode == "nt" else (k, n)), scale=0.1)
+    y = G.gemm(a, b, mode, out_dtype=BF)
+    assert y.dtype == BF
+    assert torch.equal(y, G.gemm(a, b, mode).to(BF))
+    assert torch.equal(G.gemm(a, b, mode, out_dtype=F32), G.gemm(a, b, mode))
+
+
+def _backward(fn, leaves, ct):
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = fn(*leaves)
+    (out.float() * ct).sum().backward()
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_out_dtype_bf16_matches_the_cast_bitwise(bias):
+    """``linear(..., out_dtype=bf16)`` against ``linear(...).to(bf16)``,
+    the output and every gradient, bit for bit: the backward sums the
+    bias gradient in f32 and writes dX and dW in bf16 either way."""
+    rng = np.random.default_rng(12)
+    x, w, b = _bf16(rng, 24, 64), _bf16(rng, 48, 64, scale=0.2), \
+        _bf16(rng, 48)
+    ct = torch.from_numpy(_rand(rng, 24, 48))
+    leaves = [x, w, b] if bias else [x, w]
+    new = _backward(lambda x, w, b=None: G.linear(x, w, b, out_dtype=BF),
+                    leaves, ct)
+    old = _backward(lambda x, w, b=None: G.linear(x, w, b).to(BF),
+                    leaves, ct)
+    assert new[0].dtype == BF and torch.equal(new[0], old[0])
+    for g_new, g_old in zip(new[1], old[1]):
+        assert g_new.dtype == g_old.dtype == BF
+        assert torch.equal(g_new, g_old)
+
+
+def test_matmul_grads_in_bf16_are_the_cast_f32_products():
+    """``matmul``'s backward writes dA and dB in the operands' bf16: the
+    bits of the f32 products cast, as the JAX VJP's casts give them."""
+    rng = np.random.default_rng(13)
+    a, b = _bf16(rng, 12, 40), _bf16(rng, 40, 20, scale=0.2)
+    ct = torch.from_numpy(_rand(rng, 12, 20))
+    out, (da, db) = _backward(G.matmul, [a, b], ct)
+    g = ct.to(BF)
+    assert out.dtype == F32
+    assert torch.equal(da, G.gemm_reference(g, b, "nt").to(BF))
+    assert torch.equal(db, G.gemm_reference(a, g, "tn").to(BF))
+
+
+def _old_proj(x2, w, b):
+    """The projection as it was: f32 out of K1, cast back."""
+    return ops.linear(x2, w.to(x2.dtype), b.to(x2.dtype)).to(x2.dtype)
+
+
+def test_bf16_trunk_loss_and_grads_unchanged_bitwise(monkeypatch):
+    """A bf16 TinyGPT trunk on the CPU: the loss and every gradient with
+    K1 writing bf16 equal the f32-then-cast path's, bit for bit."""
+    cfg = dict(vocab_size=64, dim=64, depth=2, num_heads=2, max_seq=32,
+               rope=True)
+    gen = torch.Generator().manual_seed(0)
+    model = TinyGPT(**cfg, compute_dtype=BF)
+    model.reset_parameters(gen)
+    toks = torch.randint(0, 64, (2, 32), generator=gen)
+    tgts, mask = toks.roll(-1, 1), torch.ones(32)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(toks, tgts, mask)
+        loss.backward()
+        return loss.detach(), {k: p.grad.clone()
+                               for k, p in model.named_parameters()
+                               if p.grad is not None}
+
+    loss_new, g_new = run()
+    monkeypatch.setattr(T, "_proj", _old_proj)
+    loss_old, g_old = run()
+    assert torch.equal(loss_new, loss_old)
+    assert g_new.keys() == g_old.keys() and len(g_new) > 10
+    for k in g_new:
+        assert torch.equal(g_new[k], g_old[k]), k
+
+
+def test_out_dtype_refusals_and_no_route_counts_on_the_cpu():
+    x, w = torch.zeros(4, 8), torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="out_dtype"):
+        G.linear(x.to(BF), w.to(BF), None, "relu", out_dtype=BF)
+    with pytest.raises(ValueError, match="writes f32 or"):
+        G.linear(x, w, None, out_dtype=BF)
+    backend.reset_launch_counts()
+    G.linear(x.to(BF), w.to(BF), None, out_dtype=BF)
+    G.gemm(x, torch.zeros(8, 3), "nn")
+    assert backend.route_counts() == {}
+    assert not any(backend.launch_counts().values())

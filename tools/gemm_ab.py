@@ -1,0 +1,92 @@
+"""Times K1 (the GEMM of ``taper_tpu_torch/ops/gemm.py``) at the shapes of
+the port's paths, in one checkout, on an NVIDIA GPU:
+
+    python tools/gemm_ab.py [CHECKOUT]
+
+The shapes: the 170M model's projections (bf16, 16,384 tokens, (K_in,
+N_out) = (e, e), (e, 4e), (4e, e)), the sort task's (f32, 8,192 tokens),
+ResNet-8's patch GEMMs and head (f32, 65,536 / 16,384 / 256 rows), the
+reference CNN's FC layers (f32, batch 256), each in modes nt (forward,
+with bias), nn (dX) and tn (dW); serving's decode (M = 16) and prefill (M =
+512) projections (bf16, nt); and one bf16 product whose K_in of 1,001 is
+not a multiple of 8 (no TMA: the wmma route).  It calls only
+``linear(x, w, b)`` and ``gemm(a, b, mode)``, which every version of the
+port has.
+
+CHECKOUT (default: this one) is the root of a checkout of the repository
+(for example a parent commit unpacked with ``git archive`` into a
+directory that .gitignore lists); its kernels are built there on first
+use.  Each shape is timed three times with chip_smoke.cuda_ms over operand
+copies past the L2.  The last line of the output is one JSON object:
+``{"root", "device", "ms": {shape: [three times]}}``.  To compare two
+commits, run both in one machine in turns: parent, change, change,
+parent.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(sys.argv[1] if len(sys.argv) > 1 else
+            Path(__file__).resolve().parents[1]).resolve()
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as C  # noqa: E402
+from taper_tpu_torch.ops import _build  # noqa: E402
+from taper_tpu_torch.ops.gemm import gemm, linear  # noqa: E402
+
+BF, F32 = torch.bfloat16, torch.float32
+E, SORT_E = 1024, 128
+# (label, dtype, rows, K_in, N_out, modes)
+SHAPES = (
+    [(f"170M ({k},{n})", BF, 16384, k, n, "nt nn tn")
+     for k, n in ((E, E), (E, 4 * E), (4 * E, E))]
+    + [(f"sort ({k},{n})", F32, 8192, k, n, "nt nn tn")
+       for k, n in ((SORT_E, SORT_E), (SORT_E, 4 * SORT_E),
+                    (4 * SORT_E, SORT_E))]
+    + [(f"resnet ({k},{n})", F32, t, k, n, "nt nn tn")
+       for t, k, n in ((65536, 144, 32), (65536, 16, 32), (16384, 288, 64),
+                       (16384, 32, 64), (256, 64, 10))]
+    + [(f"cnn ({k},{n})", F32, 256, k, n, "nt nn tn")
+       for k, n in ((128, 128), (128, 64), (64, 10))]
+    + [(f"serve M={m} ({k},{n})", BF, m, k, n, "nt")
+       for m in (16, 512) for k, n in ((E, E), (E, 4 * E), (4 * E, E))]
+    + [("wmma K_in 1001 (1001,1000)", BF, 512, 1001, 1000, "nt nn tn")])
+
+
+def operands(dtype, t, k_in, n_out, mode, gen):
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    if mode == "nt":
+        return (randn(t, k_in), randn(n_out, k_in, scale=k_in ** -0.5),
+                randn(n_out, scale=0.1))
+    if mode == "nn":
+        return randn(t, n_out), randn(n_out, k_in, scale=n_out ** -0.5)
+    return randn(t, n_out, scale=t ** -0.5), randn(t, k_in)
+
+
+def main():
+    _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = {"nt": lambda x, w, b: linear(x, w, b),
+             "nn": lambda a, b: gemm(a, b, "nn"),
+             "tn": lambda a, b: gemm(a, b, "tn")}
+    ms = {}
+    for label, dtype, t, k_in, n_out, modes in SHAPES:
+        for mode in modes.split():
+            sets = C.cold_sets(*operands(dtype, t, k_in, n_out, mode, gen))
+            ms[f"{label} {mode}"] = [round(C.cuda_ms(calls[mode], sets), 4)
+                                     for _ in range(3)]
+            del sets
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": str(ROOT),
+                      "device": torch.cuda.get_device_name(0),
+                      "ms": ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
