@@ -21,7 +21,8 @@ non-zero):
   3. each serving kernel against its plain PyTorch version at the serving
      slice's shapes, with the max error beside the stated tolerance and
      CUDA-event times of the kernel, the plain version and the library
-     call;
+     call (K8 at prefill on the arm the device picks and on the exact
+     arm);
   4. the full-width serving model (random weights from a seed): prefill
      logits and one paged decode step on the card (bf16) against the same
      weights in f32 through the plain path on the CPU;
@@ -45,8 +46,11 @@ non-zero):
      at the
      three projection shapes of a layer, the flash forward K5 (with its
      lse) and K8 with its predicate forced to each arm, in both layouts,
-     and the flash backward K6 and K7; ``F.scaled_dot_product_attention``
-     forward and forward + backward are timed as the yardstick;
+     and the flash backward K6 and K7; K8 and K7 through the route
+     ``plan_fwd`` and ``plan_dkv`` give them (wgmma), K8 also timed
+     without its bound pre-pass, two K7 calls bit-equal;
+     ``F.scaled_dot_product_attention`` forward and forward + backward are
+     timed as the yardstick;
  10. one full-width 170M training step at batch 1 on the card against the
      same step on the CPU: in f32 (loss within 1e-5 relative, every
      gradient within 1e-4 relative L2), and with the card's trunk in bf16
@@ -54,7 +58,9 @@ non-zero):
  11. train the 170M model: batch 8 x 2048 tokens, Adam(1e-4), 2 warm-up
      and 10 timed steps; ms per step, tokens/s, the model-FLOP share of 989
      TFLOP/s, peak memory, the loss at every step (finite), the exact
-     launch counts per step, how many K8 launches took the bound arm; then
+     launch counts per step, K1's, K8's and K7's calls per step by route
+     against what ``plan``, ``plan_fwd`` and ``plan_dkv`` predict, how
+     many K8 launches took the bound arm; then
      2 profiled steps: device time by kernel and glue, wall against busy;
  12. the sort task at examples/train_tinylm.py's defaults in f32: its
      kernels against their plain versions at the task's shapes, then 600
@@ -125,16 +131,21 @@ non-zero):
      mask: K5/K6/K7 and K11 with a window of 512 at the windowed model's
      training shape (bf16, B 2, H 8, S 4096, D 128, [B, S, H*D]) and
      non-causal windowed in f32 at a small shape; K5/K6/K7 with
-     bench_packing's segment ids (bf16, 13 rows, H 8, S 1024, D 64); K10
-     at the 170M shape, raced against K6 + K7 and SDPA's backward;
+     bench_packing's segment ids (bf16, 13 rows, H 8, S 1024, D 64); K7
+     through its planned route, two calls bit-equal; K8 (both arms, also
+     timed without its bound pre-pass), K6 and K7 at the padded batch's
+     shape (bf16, 64 rows, H 8, S 1024, D 64, [B, H, S, D]), with SDPA
+     beside them; K10 at the 170M shape, raced against K6 + K7 and SDPA's
+     backward;
  25. packed training at benchmarks/bench_packing.py's configuration: one
      packed step card vs CPU, a packed row's documents against themselves
      alone (f32 on the card), then the padded (64 rows, K8) and the packed
      (~13 rows, K5 with segment ids) step: real tokens/s, their ratio,
-     exact launch counts;
+     exact launch counts, K8's and K7's calls by route against the plans;
  26. the windowed model (bench_serving.py:287-340, window 512) trained at
      2 x 4096: ms/step, tokens/s and MFU over the band's FLOPs, with K7
-     and with K11 (TAPER_ATTN_DKV_T=1), their gradients against each
+     (its calls by route against the plan) and with K11
+     (TAPER_ATTN_DKV_T=1), their gradients against each
      other, a profiled step against the full-causal model's, one step
      card vs CPU (depth cut to 2);
  27. windowed decode: a 1024-token prompt and 128 greedy steps at batch 8
@@ -144,8 +155,8 @@ non-zero):
      through the contiguous engine;
  28. (run right after phase 11, on its model) the 170M step with
      TAPER_ATTN_FUSED_BWD=1 and with the split backward, in turns: ms/step
-     each, 12 K10 calls and no K6/K7 a step, gradients against the split
-     backward's;
+     each, 12 K10 calls and no K6/K7 a step, K8's and K7's calls by route
+     in each, gradients against the split backward's;
  29. (run right after phase 9) K1 bit for bit: for each bf16 route
      (wgmma, wmma, decode) and mode, the kernel writing bf16 equals its
      own f32 result cast to bf16; split-K calls (bf16 wgmma, f32) give the
@@ -153,10 +164,14 @@ non-zero):
 Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
-step's K1 calls by route to what ``plan`` predicts for its shapes.
+step's K1 calls by route to what ``plan`` predicts for its shapes.  Every
+K8 and K7 row names the route ``plan_fwd`` or ``plan_dkv`` gives it and
+checks that the call took it; phases 11, 12, 25, 26 and 28 hold a step's
+K8 and K7 calls by route to the plans.
 The line before the last is the kernel report (JSON), one entry per
 kernel with its numbers per path under ``by_path``; K1's entries give
-their route and K split (``k1_route``, ``splits``), the top-level numbers
+their route and K split (``k1_route``, ``splits``), K8's and K7's their
+route (``flash_route``), the top-level numbers
 from the 170M model's (e, 4e) projection; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -289,6 +304,9 @@ OPT_T0, OPT_STEPS = 11, 3
 # K1's counters and their modes; a K1 row's source follows its route
 K1_MODES = {"linear": "nt", "gemm_nn": "nn", "gemm_tn": "tn"}
 K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu"}
+# K8's and K7's routes (ops.attention.plan_fwd / plan_dkv): a flash row's
+# source follows its route too
+FLASH_SOURCES = {"wgmma": "taper_tpu_torch/csrc/flash_sm90.cu"}
 
 
 def route_key(route, mode, splits):
@@ -305,7 +323,7 @@ SOURCES = {
                 "taper_tpu/ops/pallas/gemm.py:83"),
     "flash_fwd": ("taper_tpu_torch/csrc/flash_fwd.cu",
                   "taper_tpu/ops/pallas/attention.py:217"),
-    "flash_fwd_bound": ("taper_tpu_torch/csrc/flash_fwd.cu",
+    "flash_fwd_bound": ("taper_tpu_torch/csrc/flash_sm90.cu",
                         "taper_tpu/ops/pallas/attention.py:357"),
     "flash_dq": ("taper_tpu_torch/csrc/flash_bwd.cu",
                  "taper_tpu/ops/pallas/attention.py:487"),
@@ -479,7 +497,7 @@ def _tuple(x, n=None):
 
 def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
                  tol=None, how=None, library_fn=None, work=None,
-                 plain_ms=None, library_ms=None):
+                 plain_ms=None, library_ms=None, flash_route=None):
     """Holds ``kernel_fn`` against ``plain_fn`` on the first argument set
     (each may return a tuple of tensors; ``tol`` and ``how`` may be tuples
     to match, see :func:`within`) and times the kernel over all the sets,
@@ -487,18 +505,22 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     library call (or takes its time).  ``work`` is ``(flops, bytes,
     kind)`` for the bound.  A K1 row (``name`` in K1_MODES, operands
     first) records the route and K split ``plan`` gives its operands, and
-    checks that the call took them.  Returns the report row."""
+    checks that the call took them; a K8 or K7 row is given the route
+    ``plan_fwd`` or ``plan_dkv`` gives (``flash_route``) and checks it the
+    same way.  Returns the report row."""
     mode = K1_MODES.get(name)
     if mode is not None:
         route, splits = plan_for(*arg_sets[0][:2], mode)
-        before = backend.route_counts()
+    before = backend.route_counts()
     outs = _tuple(kernel_fn(*arg_sets[0]))
     torch.cuda.synchronize()
+    taken = {k: c - before.get(k, 0)
+             for k, c in backend.route_counts().items()
+             if c != before.get(k, 0)}
     if mode is not None:
-        taken = {k: c - before.get(k, 0)
-                 for k, c in backend.route_counts().items()
-                 if c != before.get(k, 0)}
         assert taken == {route_key(route, mode, splits): 1}, (name, taken)
+    elif flash_route is not None:
+        assert taken == {f"{flash_route} {name}": 1}, (name, taken)
     refs = _tuple(plain_fn(*arg_sets[0]))
     tols = _tuple(TOL[name] if tol is None else tol, len(outs))
     hows = _tuple(("max" if name in NORMWISE else "each") if how is None
@@ -520,6 +542,9 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     if mode is not None:
         row.update(k1_route=route, splits=splits)
         via = f" via {route} x{splits}"
+    elif flash_route is not None:
+        row.update(flash_route=flash_route)
+        via = f" via {flash_route}"
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     print(f"phase {phase}: {name} {shape}{via}: max_abs_err {err:.3e} "
           f"({held}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
@@ -563,6 +588,69 @@ def attn_work(b, h, hkv, s, d, kind, products, extra_bytes=0):
     return (products * 2 * b * h * d * s * (s + 1) // 2, extra_bytes, kind)
 
 
+def k8_alone(row, arg_sets, scale, heads, force, phase):
+    """K8's time without its bound pre-pass (``bound_predicate``, plain
+    PyTorch: norms of q and k and their maxima, several launches that
+    the wrapper runs before the kernel), into ``row["kernel_alone_ms"]``:
+    the C entry point called directly, each set's predicate computed
+    once (``force`` None: the device's arm).  Its output is first held
+    bit for bit to the wrapper's on the same inputs."""
+    lib = _build.library()
+    b, h, hkv, s, d = A._dims(*arg_sets[0], heads)
+    sets = []
+    for q, k, v in arg_sets:
+        kn, pred = A.bound_predicate(q, k, scale=scale, heads=heads)
+        if force is not None:
+            pred = torch.full_like(pred, int(force))
+        sets.append((q, k, v, torch.empty_like(q),
+                     torch.empty(b * h, s, dtype=torch.float32,
+                                 device=q.device), kn, pred))
+
+    def kernel(q, k, v, o, lse, kn, pred):
+        _build.check(lib.taper_flash_fwd_bound(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), kn.data_ptr(), pred.data_ptr(), None, b, h, hkv,
+            s, d, float(scale), A._layout(heads), _build.stream(q)),
+            "flash attention (bound)")
+
+    kernel(*sets[0])
+    o, lse = A.flash_fwd_bound(*arg_sets[0], scale=scale, heads=heads,
+                               force_bound=force)
+    assert torch.equal(sets[0][3], o) and torch.equal(sets[0][4], lse)
+    row["kernel_alone_ms"] = cuda_ms(kernel, sets)
+    print(f"phase {phase}: flash_fwd_bound {row['at']}: the kernel alone "
+          f"(its bound pre-pass computed once) {row['kernel_alone_ms']:.4f} "
+          f"ms, with the pre-pass {row['ms']:.4f} ms")
+
+
+def k7_repeats(args, kw, phase, label):
+    """Two K7 calls on the same inputs give the same bits (a fixed order
+    of sums, no atomics)."""
+    first = A.flash_dkv(*args, **kw)
+    again = A.flash_dkv(*args, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"phase {phase}: flash_dkv {label}: two calls bit-equal: {same}")
+    assert same, label
+
+
+def flash_routes(layers, dtype, mask, backward=True):
+    """K8's and K7's calls a step makes by route, as ``plan_fwd`` and
+    ``plan_dkv`` predict them: one forward and one dK/dV a layer; a
+    forward that ``plan_fwd`` sends to K5 has no route."""
+    want = {}
+    fwd = A.plan_fwd(dtype, mask)
+    if fwd != "exact":
+        want[f"{fwd} flash_fwd_bound"] = layers
+    if backward:
+        want[f"{A.plan_dkv(dtype)} flash_dkv"] = layers
+    return want
+
+
+def flash_only(routes):
+    """The K8 and K7 entries of a route tally."""
+    return {k: c for k, c in routes.items() if "flash" in k}
+
+
 def phase3_kernels(dev):
     gen = torch.Generator().manual_seed(SEED)
     bf = torch.bfloat16
@@ -595,7 +683,27 @@ def phase3_kernels(dev):
         library_fn=lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True),
         work=attn_work(1, 8, 8, 512, 128, "bf16", 2,
-                       4 * nbytes(q) + 4 * 8 * 512))
+                       4 * nbytes(q) + 4 * 8 * 512),
+        flash_route=A.plan_fwd(bf, "causal"))
+    k8_alone(report["flash_fwd_bound"], [(q, k, v)], 128 ** -0.5, None,
+             None, 3)
+    # the exact arm at the same shape, forced (the row above took the arm
+    # the device predicate picks for these inputs)
+    arm = int(A.bound_predicate(q, k, scale=128 ** -0.5)[1])
+    print(f"phase 3: flash_fwd_bound prefill: the device predicate picks "
+          f"the {'bound' if arm else 'exact'} arm")
+    exact = check_kernel(
+        "flash_fwd_bound", "bf16 B=1 H=8 S=512 D=128 causal exact arm",
+        lambda q, k, v: A.flash_fwd_bound(q, k, v, scale=128 ** -0.5,
+                                          force_bound=False),
+        lambda q, k, v: A.attention_lse_reference(q, k, v, causal=True),
+        [(q, k, v)], tol=(TOL["flash_fwd_bound"], LSE_TOL),
+        library_fn=lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True),
+        work=attn_work(1, 8, 8, 512, 128, "bf16", 2,
+                       4 * nbytes(q) + 4 * 8 * 512),
+        flash_route=A.plan_fwd(bf, "causal"))
+    k8_alone(exact, [(q, k, v)], 128 ** -0.5, None, False, 3)
 
     # paged decode: 16 slots at mixed lengths in the engine's pool
     bs, slots = ENGINE["block_size"], ENGINE["slots"]
@@ -1037,27 +1145,34 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
 
         args = tuple(lay(t) for t in (q, k, v))
         fwd_work = attn_work(b, h, h, s, d, kind, 2, 4 * io + rows_bytes)
+        fsets = cold_sets(*args)
         for arm in fwd_arms:
             if arm == "exact":
                 name, fn = "flash_fwd", lambda *a, heads=heads: \
                     A.flash_fwd_exact(*a, causal=True, scale=scale,
                                       heads=heads)
+                route = None
             else:
                 name = "flash_fwd_bound"
                 fn = lambda *a, heads=heads, arm=arm: A.flash_fwd_bound(
                     *a, scale=scale, heads=heads,
                     force_bound=arm == "bound")
+                route = A.plan_fwd(dtype, "causal")
             rows.setdefault(name, []).append(check_kernel(
                 name, f"{label} {layout} {arm} arm",
                 lambda *a, fn=fn, to4=to4: (lambda o, l: (to4(o), l))(
                     *fn(*a)),
                 lambda *a, to4=to4: plain_fwd(*(to4(t) for t in a),
                                               causal=True, scale=scale),
-                cold_sets(*args), phase=phase,
+                fsets, phase=phase,
                 tol=(FLASH_F32_TOL, LSE_F32_TOL) if f32
                 else (TOL[name], LSE_TOL),
                 library_fn=lambda *a, to4=to4: sdpa(*(to4(t) for t in a)),
-                work=fwd_work))
+                work=fwd_work, flash_route=route))
+            if route is not None:
+                k8_alone(rows[name][-1], fsets, scale, heads, arm == "bound",
+                         phase)
+        del fsets
         bsets = cold_sets(*args, lay(ref_o), ref_lse, lay(do))
         plain_bwd = lambda q_, k_, v_, o_, l_, do_, to4=to4: \
             A.flash_bwd_reference(*(to4(t) for t in (q_, k_, v_, o_)), l_,
@@ -1087,19 +1202,22 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
                            6 * io + 2 * rows_bytes)))
         _, delta = A.flash_dq(*bsets[0], causal=True, scale=scale,
                               heads=heads)
+        dsets = cold_sets(*args, ref_lse, delta, lay(do))
         rows.setdefault("flash_dkv", []).append(check_kernel(
             "flash_dkv", f"{label} {layout}",
             lambda q_, k_, v_, l_, de, do_, heads=heads, to4=to4:
                 tuple(to4(t) for t in A.flash_dkv(
                     q_, k_, v_, l_, de, do_, causal=True, scale=scale,
                     heads=heads)),
-            lambda *a: (ref[1], ref[2]),
-            cold_sets(*args, ref_lse, delta, lay(do)), phase=phase,
+            lambda *a: (ref[1], ref[2]), dsets, phase=phase,
             tol=(FLASH_F32_TOL if f32 else BWD_BF16_TOL,) * 2,
             how=(how,) * 2, plain_ms=plain_ms, library_ms=lib_bwd,
             work=attn_work(b, h, h, s, d, kind, 4,
-                           6 * io + 2 * rows_bytes)))
-        del bsets, delta
+                           6 * io + 2 * rows_bytes),
+            flash_route=A.plan_dkv(dtype)))
+        k7_repeats(dsets[0], dict(causal=True, scale=scale, heads=heads),
+                   phase, f"{label} {layout}")
+        del bsets, dsets, delta
     return rows
 
 
@@ -1260,10 +1378,14 @@ def phase10_lm_step(dev):
 K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_bf16_kernel"),
                ("K1 gemm", "gemm_f32"), ("K1 gemm", "splitk_reduce"))
 OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
+# the flash kernels by name: the WMMA ones of flash_fwd.cu/flash_bwd.cu
+# and the wgmma ones of flash_sm90.cu (namespace taper::flash::sm90)
 LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
                              ("K8/K5 flash fwd", "flash_fwd_kernel"),
+                             ("K8/K5 flash fwd", "sm90::fwd_bound_kernel"),
                              ("K6 flash dq", "flash_dq_kernel"),
-                             ("K7 flash dkv", "flash_dkv_kernel"))
+                             ("K7 flash dkv", "flash_dkv_kernel"),
+                             ("K7 flash dkv", "sm90::dkv_kernel"))
 CONV_FAMILIES = K1_FAMILIES + (("K3a conv fwd/dX", "conv_fwd"),
                  ("K3b conv dW", "conv_dw"), ("K3b conv dW", "split_sum"),
                  ("K4 pool", "pool_"), ("K2 elementwise", "ew_kernel"),
@@ -1372,12 +1494,15 @@ def phase11_lm_train(dev, smi):
           f"bound arm: {bound_taken} of {counts['flash_fwd_bound']}")
     assert all(math.isfinite(x) for x in losses), losses
     assert per_step(counts, LM_STEPS) == LM_PER_STEP, counts
-    # every projection through wgmma, dW at (e, e) split over K
+    # every projection through wgmma, dW at (e, e) split over K; K8 and K7
+    # through wgmma
     e = LM["dim"]
     want = {k: v * LM["depth"] for k, v in planned_routes(
         ((tokens, e, e),) * 4 + ((tokens, e, 4 * e), (tokens, 4 * e, e)),
         torch.bfloat16).items()}
-    print(f"phase 11: K1 calls per step by route {routes} (plan: {want})")
+    want.update(flash_routes(LM["depth"], torch.bfloat16, "causal"))
+    print(f"phase 11: K1, K8 and K7 calls per step by route {routes} "
+          f"(plan: {want})")
     assert routes == want, (routes, want)
     assert all(k.startswith("wgmma") for k in routes)
     assert routes.get("wgmma tn split"), routes
@@ -1419,7 +1544,7 @@ def phase12_sort_task(dev, smi):
     step = train_tinylm.make_step(model, opt, args,
                                   torch.Generator(device=dev).manual_seed(1))
     eval_gen = torch.Generator(device=dev).manual_seed(2)
-    totals, accs = {}, []
+    totals, routes, accs = {}, {}, []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps // args.eval_every):
@@ -1428,6 +1553,8 @@ def phase12_sort_task(dev, smi):
             loss, _ = step()
         for k, c in backend.launch_counts().items():
             totals[k] = totals.get(k, 0) + c
+        for k, c in flash_only(backend.route_counts()).items():
+            routes[k] = routes.get(k, 0) + c
         accs.append(float(train_tinylm.evaluate(model, args, eval_gen)))
     wall = time.perf_counter() - t0
     print(f"phase 12: sort task (TinyGPT dim {args.dim}, depth "
@@ -1438,8 +1565,11 @@ def phase12_sort_task(dev, smi):
           f"teacher-forced eval accuracy every {args.eval_every} steps "
           f"{accs} (gate {SORT_MIN_ACC} at the end); last loss "
           f"{float(loss):.4f}; launches per step "
-          f"{per_step(totals, args.steps)}; on {smi}")
+          f"{per_step(totals, args.steps)}; K8/K7 calls per step by route "
+          f"{per_step(routes, args.steps)}; on {smi}")
     assert per_step(totals, args.steps) == SORT_PER_STEP, totals
+    assert per_step(routes, args.steps) == flash_routes(
+        args.depth, torch.float32, "causal"), routes
     assert accs[-1] >= SORT_MIN_ACC, accs
     return totals, rows
 
@@ -2804,7 +2934,9 @@ def masked_flash_rows(label, q, k, v, do, *, heads, causal, window, seg,
         lambda *a: tuple(to4(t) for t in A.flash_dkv(*a, **kw)),
         lambda *a: (ref[1], ref[2]), dsets, phase=phase, tol=(gtol,) * 2,
         how=(how,) * 2, plain_ms=plain_ms, library_ms=lib_bwd,
-        work=(4 * 2 * d * h * pairs, 6 * io + 2 * rows_b, kind))]
+        work=(4 * 2 * d * h * pairs, 6 * io + 2 * rows_b, kind),
+        flash_route=A.plan_dkv(q.dtype))]
+    k7_repeats(dsets[0], kw, phase, label)
     if dkv_t:
         part = A.flash_bwd_reference(to4(q), to4(k), to4(v), ref_o, ref_lse,
                                      to4(do), causal, scale,
@@ -2875,6 +3007,15 @@ def phase24_masked_kernels(dev):
         f"bhsd", q, k, v, do, heads=None, causal=True, window=None, seg=seg,
         pairs=segment_pairs(packed["segment_ids"], True))
     del q, k, v, do
+    torch.cuda.empty_cache()
+    # the padded batch of the same documents (one a row, plain causal,
+    # [B, H, S, D] at D 64): K8 on both arms, K6 and K7 with SDPA beside
+    padded = lm_flash_rows(dev, len(packing_docs()[0]), h, s, d,
+                           torch.bfloat16, 24, gen, ("bhsd",),
+                           ("bound", "bound_off"))
+    for name, r in padded.items():
+        rows["train_packed"][name] = rows["train_packed"].get(name, []) + r
+    del padded
     torch.cuda.empty_cache()
 
     # K10 against K6 + K7 at the 170M shape: the race ROADMAP asks for
@@ -3045,16 +3186,22 @@ def phase25_packed_training(dev, smi):
         step_s, losses, counts = timed_steps(
             train_step(model, opt, *args, **extra), PACK["warmup"],
             PACK["steps"])
+        routes = per_step(flash_only(backend.route_counts()), PACK["steps"])
         out[name] = dict(step_ms=step_s * 1e3, real_tokens_s=real / step_s,
                          rows=args[0].shape[0], losses=losses,
-                         per_step=per_step(counts, PACK["steps"]))
+                         per_step=per_step(counts, PACK["steps"]),
+                         routes=routes)
         for k_, c in counts.items():
             counts_all[k_] = counts_all.get(k_, 0) + c
         print(f"phase 25: {name} step ({args[0].shape[0]} rows x {S}, "
               f"{real} real tokens): {step_s * 1e3:.2f} ms/step, "
               f"{real / step_s:.0f} real tokens/s; loss per step {losses}; "
-              f"launches per step {out[name]['per_step']}; on {smi}")
+              f"launches per step {out[name]['per_step']}; K8/K7 calls per "
+              f"step by route {routes}; on {smi}")
         assert out[name]["per_step"] == want, (name, counts)
+        assert routes == flash_routes(
+            cfg["depth"], torch.bfloat16,
+            "segments" if extra else "causal"), (name, routes)
     ratio = out["packed"]["real_tokens_s"] / out["padded"]["real_tokens_s"]
     print(f"phase 25: packed / padded real tokens/s: {ratio:.3f} (packing "
           f"efficiency {packing_efficiency(packed):.4f})")
@@ -3064,7 +3211,7 @@ def phase25_packed_training(dev, smi):
     return counts_all, out
 
 
-ATTN_FAMILIES = (("attention", "flash_"),) + K1_FAMILIES + (OPT_FAMILY,)
+ATTN_FAMILIES = (("attention", "flash"),) + K1_FAMILIES + (OPT_FAMILY,)
 
 
 def phase26_window_training(dev, smi):
@@ -3095,6 +3242,8 @@ def phase26_window_training(dev, smi):
         with env_flag(flag):
             step_s, losses, counts = timed_steps(step, WTRAIN["warmup"],
                                                  WTRAIN["steps"])
+        routes = per_step(flash_only(backend.route_counts()),
+                          WTRAIN["steps"])
         runs[name] = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s,
                           mfu=flops / step_s / PEAK_FLOPS["bf16"],
                           losses=losses)
@@ -3107,9 +3256,12 @@ def phase26_window_training(dev, smi):
               f"(3 (2 P T + depth 4 B pairs dim), {pairs} live pairs a row "
               f"of heads) = {runs[name]['mfu']:.4f} of 989 TFLOP/s; loss per "
               f"step {losses}; launches per step "
-              f"{per_step(counts, WTRAIN['steps'])}; on {smi}")
+              f"{per_step(counts, WTRAIN['steps'])}; K8/K7 calls per step by "
+              f"route {routes}; on {smi}")
         assert per_step(counts, WTRAIN["steps"]) == {
             k_: c for k_, c in want.items() if c}, counts
+        assert routes == ({} if flag else flash_routes(
+            WMODEL["depth"], torch.bfloat16, "window")), routes
     # the two backwards on the same weights (after both runs' updates)
     with env_flag("TAPER_ATTN_DKV_T"):
         g11 = lm_grads(model, *batch)[1]
@@ -3323,7 +3475,7 @@ def phase28_fused_backward(dev, smi, lm):
     model, step, batch = lm.pop("state")
     with env_flag("TAPER_ATTN_FUSED_BWD"):
         losses = [float(step()) for _ in range(LM_WARMUP)]
-    times, counts = {}, {}
+    times, counts, routes = {}, {}, {}
     for name, flag in (("K10", "TAPER_ATTN_FUSED_BWD"), ("K6 + K7", None),
                        ("K6 + K7", None), ("K10", "TAPER_ATTN_FUSED_BWD")):
         with env_flag(flag):
@@ -3331,6 +3483,9 @@ def phase28_fused_backward(dev, smi, lm):
         times.setdefault(name, []).append(step_s * 1e3)
         counts[name] = {k_: counts.get(name, {}).get(k_, 0) + n
                         for k_, n in c.items()}
+        r = routes.setdefault(name, {})
+        for k_, n in flash_only(backend.route_counts()).items():
+            r[k_] = r.get(k_, 0) + n
         losses += ls
     with env_flag("TAPER_ATTN_FUSED_BWD"):
         g10 = lm_grads(model, *batch)[1]
@@ -3348,6 +3503,12 @@ def phase28_fused_backward(dev, smi, lm):
           f"{BWD_BF16_TOL:.0e}); card clocks {card_clocks()}; on {smi}")
     assert per["K10"] == LM_FUSED_PER_STEP, counts
     assert per["K6 + K7"] == LM_PER_STEP, counts
+    want = {"K6 + K7": flash_routes(LM["depth"], torch.bfloat16, "causal"),
+            "K10": flash_routes(LM["depth"], torch.bfloat16, "causal",
+                                backward=False)}
+    got = {name: per_step(r, LM_STEPS) for name, r in routes.items()}
+    print(f"phase 28: K8/K7 calls per step by route {got} (plan: {want})")
+    assert got == want, (got, want)
     assert all(math.isfinite(x) for x in losses), losses
     assert rel <= BWD_BF16_TOL
     del model, step, batch
@@ -3370,9 +3531,13 @@ def kernel_report(paths, standalone, top=None):
                      standalone.get(k))
         extra = ({} if "k1_route" not in first else
                  dict(k1_route=first["k1_route"], splits=first["splits"]))
+        if "flash_route" in first:
+            extra["flash_route"] = first["flash_route"]
+        source = (K1_SOURCES.get(first.get("k1_route"))
+                  or FLASH_SOURCES.get(first.get("flash_route"))
+                  or SOURCES[k][0])
         kernels.append(dict(
-            name=k, route="cuda",
-            source=K1_SOURCES.get(first.get("k1_route"), SOURCES[k][0]),
+            name=k, route="cuda", source=source,
             replaces=SOURCES[k][1], path="+".join(by_path) or "none",
             launches=sum(r["launches"] for r in by_path.values()),
             max_abs_err=max([r["max_abs_err"] for r in by_path.values()
@@ -3529,10 +3694,12 @@ def main():
              "train_cnn": (cnn_counts, cnn_report),
              "serve": (serve_counts, serve_report)}
     # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
-    # largest
+    # largest; K8's: the 170M model's bound arm (train_packed also has a
+    # K8 row, at the padded batch's shape)
     kernels = kernel_report(paths, dict(
         new_rows, matmul_int8=headline(quant_rows["matmul_int8"])),
-        top=dict.fromkeys(K1_MODES, "train_lm"))
+        top=dict(dict.fromkeys(K1_MODES, "train_lm"),
+                 flash_fwd_bound="train_lm"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

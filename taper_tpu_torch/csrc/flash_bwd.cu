@@ -19,7 +19,10 @@
 //     Q's dtype, and dK is scaled once at the end.  The group's query heads
 //     sum into the same f32 accumulators before the one cast: no partials
 //     at query-head width, no atomics, and the result is the same bits on
-//     every run (JAX sums per-head partials after its kernel).
+//     every run (JAX sums per-head partials after its kernel).  This
+//     kernel is K7's in f32 (the sort task); bf16 runs the wgmma kernel of
+//     flash_sm90.cu, the same sweep on TMA rings with the softmax in
+//     registers.
 //   * flash_dkv_kernel<.., true> (K11, _dkv_kernel_t, opt-in under
 //     TAPER_ATTN_DKV_T=1 for non-causal or windowed masks without segment
 //     ids): the same transposed tile pair, but one block per (batch *
@@ -48,7 +51,7 @@
 // TFLOP/s.  With a window W the band holds ~S W pairs, not S^2 / 2.
 // Device memory traffic is O(S * D) per head (K10 adds the f32 dQ atomics:
 // D floats per query row and visited KV tile, served by L2).
-// What the simple design does about that:
+// What the design here does about that (K6, K10, K11, and K7 in f32):
 //   * the products are WMMA 16x16x16 tensor-core tiles out of shared
 //     memory for bf16 (FMA loops for f32), as in the forward;
 //   * dQ (K6) and dK/dV (K7, K10) stay in registers for the whole sweep,
@@ -61,8 +64,9 @@
 //     the kernel; masked pairs (another document) have p = 0 and add
 //     nothing to dS, and a tile pair whose segment-id ranges cannot meet
 //     is skipped whole.
-// mma.sync/wgmma fragments with the softmax in registers, and TMA are
-// later work.
+// K6 and K10 on flash_sm90.cu's building blocks (TMA rings, wgmma with A
+// from registers, the softmax in registers) are ROADMAP Queue 2's next
+// item.
 #include "flash_common.cuh"
 
 #include <algorithm>
@@ -536,23 +540,27 @@ struct Tag {
   using type = T;
 };
 
-// Dispatch over dtype, head dim and the mask's instantiation (see Mask):
-// f(Tag<T>, integral_constant<D>, bool_constant<MASKED>) is a generic
-// lambda that launches one instantiation.
-template <typename F>
-int dispatch(int dtype, int D, const Mask& m, F&& f) {
+// Dispatch over head dim and the mask's instantiation (see Mask) for one
+// element type T: f(Tag<T>, integral_constant<D>, bool_constant<MASKED>)
+// is a generic lambda that launches one instantiation.
+template <typename T, typename F>
+int dispatch_dim(int D, const Mask& m, F&& f) {
   using D64 = std::integral_constant<int, 64>;
   using D128 = std::integral_constant<int, 128>;
-  auto by_mask = [&](auto t, auto d) {
-    return masked(m) ? f(t, d, std::true_type{}) : f(t, d, std::false_type{});
+  auto by_mask = [&](auto d) {
+    return masked(m) ? f(Tag<T>{}, d, std::true_type{})
+                     : f(Tag<T>{}, d, std::false_type{});
   };
-  if (dtype == kBFloat16) {
-    if (D == 64) return by_mask(Tag<__nv_bfloat16>{}, D64{});
-    if (D == 128) return by_mask(Tag<__nv_bfloat16>{}, D128{});
-  } else if (dtype == kFloat32) {
-    if (D == 64) return by_mask(Tag<float>{}, D64{});
-    if (D == 128) return by_mask(Tag<float>{}, D128{});
-  }
+  if (D == 64) return by_mask(D64{});
+  if (D == 128) return by_mask(D128{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same over dtype too.
+template <typename F>
+int dispatch(int dtype, int D, const Mask& m, F&& f) {
+  if (dtype == kBFloat16) return dispatch_dim<__nv_bfloat16>(D, m, f);
+  if (dtype == kFloat32) return dispatch_dim<float>(D, m, f);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -585,7 +593,19 @@ extern "C" int taper_flash_dq(const void* q, const void* k, const void* v,
   });
 }
 
-// K7, after K6 on the same stream (it reads K6's delta).
+namespace taper {
+namespace flash {
+// csrc/flash_sm90.cu: K7 on TMA and wgmma (bf16)
+int flash_dkv_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
+                   int S, int D, float scale, int layout,
+                   cudaStream_t stream);
+}  // namespace flash
+}  // namespace taper
+
+// K7, after K6 on the same stream (it reads K6's delta): bf16 runs the
+// wgmma kernel of flash_sm90.cu, f32 the FMA kernel here.
 extern "C" int taper_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dk, void* dv,
@@ -594,7 +614,13 @@ extern "C" int taper_flash_dkv(const void* q, const void* k, const void* v,
                                int layout, int dtype, void* stream) {
   if (bad_dims(B, H, Hkv, S)) return (int)cudaErrorInvalidValue;
   const Mask m{causal, window, static_cast<const int*>(seg)};
-  return dispatch(dtype, D, m, [&](auto t, auto d, auto mk) {
+  if (dtype == kBFloat16)
+    return flash_dkv_sm90(q, k, v, dout, static_cast<const float*>(lse),
+                          static_cast<const float*>(delta), dk, dv, m, B, H,
+                          Hkv, S, D, scale, layout,
+                          static_cast<cudaStream_t>(stream));
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  return dispatch_dim<float>(D, m, [&](auto t, auto d, auto mk) {
     return launch_dkv<typename decltype(t)::type, decltype(d)::value, false,
                       decltype(mk)::value>(
         q, k, v, dout, static_cast<const float*>(lse),

@@ -1,25 +1,11 @@
 // Flash attention forward: o = softmax(scale * q k^T [+ causal mask]) v,
 // and the row logsumexp lse (natural log, f32) that the backward reads.
 //
-// Replaces two TPU kernels of taper_tpu/ops/pallas/attention.py, both
-// launched by _flash_fwd:
-//   * _fwd_kernel (K5), the exact online softmax: f32 and non-causal
-//     inputs, and every input with a sliding window or segment ids
-//     (flash_fwd_kernel<T, D, false>);
-//   * _fwd_kernel_bound (K8), the bound-max arm that JAX selects for bf16
-//     causal inputs (flash_fwd_kernel<bf16, D, true>).  Softmax is
-//     shift-invariant, so any per-row shift b >= max(s) gives the exact
-//     ratio; the Cauchy-Schwarz bound b = |q_row| * scale * log2(e) *
-//     max|k| (max over the KV head's positions) is known before the first
-//     KV tile, so the max-reduce, the exp2 of the correction and the
-//     rescale of the running output all go.  The exact arm is chosen per
-//     launch by a predicate that lies in device memory (pred[0] != 0: the
-//     bound arm), computed by the caller from max|q| * max|k| <= 60 in
-//     base 2, which keeps every row's largest weight above 2^-120 and so
-//     inside f32; reading it in the kernel costs no host sync.  The row
-//     sum is clamped at 1e-37, not 1e-30, for the same envelope, as
-//     _fwd_kernel_bound does.  A launch that takes the bound arm adds one
-//     to bound_count (when given), so a run can read back how often it did.
+// Replaces _fwd_kernel (K5) of taper_tpu/ops/pallas/attention.py, the
+// exact online softmax that _flash_fwd launches for f32 and non-causal
+// inputs and for every input with a sliding window or segment ids
+// (flash_fwd_kernel<T, D, MASKED>).  The bound-max arm that JAX selects
+// for bf16 causal inputs (_fwd_kernel_bound, K8) is flash_sm90.cu's.
 // Layouts: [B, H, S, D] for q and o with [B, Hkv, S, D] for k and v, or the
 // projections' [B, S, H*D] with [B, S, Hkv*D]; the kernel is given element
 // strides, so neither layout is copied.  GQA is read natively (query head h
@@ -29,8 +15,9 @@
 // (4 S^2 D per head, halved by causality); the softmax between them runs
 // on the CUDA cores and device memory traffic is O(S * D) per head.  At the
 // training shape (B 8, H 8, S 2048, D 128, bf16) the products set the
-// bound: 6.9e10 FLOP, ~69 us at 989 TFLOP/s.
-// What the simple design does about that:
+// bound: 6.9e10 FLOP, ~69 us at 989 TFLOP/s.  K5's shapes are small (the
+// sort task in f32) or masked (windows, packed documents).
+// What the design does about that:
 //   * one block per (batch * head, 64-row query tile), four warps of 16
 //     query rows each, the longest causal rows scheduled first; the loop
 //     over 64-row KV tiles runs inside the block, so nothing carries
@@ -38,8 +25,7 @@
 //   * bf16: both products use WMMA 16x16x16 tensor-core tiles out of
 //     shared memory; f32: the same schedule with FMA loops;
 //   * online softmax in f32 (base 2, log2(e) folded into the scale), the
-//     running output kept in shared memory in f32 and rescaled row by row
-//     (exact arm only);
+//     running output kept in shared memory in f32 and rescaled row by row;
 //   * causal tiles above the diagonal are skipped, and with a window the
 //     tiles behind it (the loop runs over the band of _kv_band_start, so
 //     the work scales with S * W, not S^2); ragged S is masked, the TPU's
@@ -50,8 +36,7 @@
 //     document) and a fully masked row are guarded with a finite stand-in
 //     for the running max, and the latter gets lse = -inf, as the TPU
 //     kernel does.
-// mma.sync/wgmma register-resident accumulators, TMA and a pipelined KV
-// loop are later work.
+// K5 on TMA and wgmma (its windowed and packed shapes) is ROADMAP Queue 2's.
 #include "flash_common.cuh"
 
 namespace taper {
@@ -74,15 +59,13 @@ struct FwdSmem {
   static constexpr size_t bytes = sk_off + L::rows;
 };
 
-template <typename T, int D, bool BOUND, bool MASKED>
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, const float* __restrict__ kn,
-                     const int* __restrict__ pred, int* bound_count,
-                     Layout lay, int causal, int window,
-                     const int* __restrict__ seg, int H, int Hkv, int S,
-                     float scale_log2) {
+                     float* __restrict__ lse, Layout lay, int causal,
+                     int window, const int* __restrict__ seg, int H,
+                     int Hkv, int S, float scale_log2) {
   const Mask mask{causal, window, seg};  // see Mask
   using L = Tiles<T, D>;
   using M = FwdSmem<T, D>;
@@ -107,30 +90,15 @@ __global__ void __launch_bounds__(kThreads)
   const T* qg = q + b * lay.qb + h * lay.qh;
   const T* kg = k + b * lay.kb + hk * lay.kh;
   const T* vg = v + b * lay.kb + hk * lay.kh;
-  // uniform over the grid: every block takes the same arm
-  bool fast = false;
-  if constexpr (BOUND) fast = pred[0] != 0;
 
   load_rows<T, D, L::LDT>(Qs, qg, lay.qs, q0, S);
   if (has_ids<MASKED>(mask)) load_ids(sq_s, mask, b, q0, S);
   for (int e = threadIdx.x; e < kTile * L::LDO; e += kThreads) Os[e] = 0.0f;
   __syncthreads();
-  // row statistics, each warp for its own rows: the running max starts at
-  // -inf (exact arm) or at the row's bound (bound arm)
-  for (int r = r0; r < r0 + 16; ++r) {
-    float m0 = -INFINITY;
-    if (fast) {
-      float ss = 0.0f;
-      for (int d = lane; d < D; d += 32) {
-        float x = to_f32(Qs[r * L::LDT + d]);
-        ss = fmaf(x, x, ss);
-      }
-      m0 = sqrtf(warp_sum(ss)) * scale_log2 * kn[b * Hkv + hk];
-    }
-    if (lane == 0) {
-      m_s[r] = m0;
-      l_s[r] = 0.0f;
-    }
+  // row statistics, each warp for its own rows
+  if (lane < 16) {
+    m_s[r0 + lane] = -INFINITY;
+    l_s[r0 + lane] = 0.0f;
   }
 
   // only the band of KV tiles the mask leaves; a row's first tiles may
@@ -161,41 +129,30 @@ __global__ void __launch_bounds__(kThreads)
                   (!has_ids<MASKED>(mask) || sq_s[r] == sk_s[c]);
         s[j] = ok ? Ss[r * L::LDS + c] * scale_log2 : -INFINITY;
       }
-      float p0, p1;
-      if (fast) {
-        // the shift is the row's bound: no max, no correction
-        p0 = exp2f(s[0] - m_s[r]);
-        p1 = exp2f(s[1] - m_s[r]);
-        float psum = warp_sum(p0 + p1);
-        if (lane == 0) l_s[r] += psum;
-      } else {
-        float m_prev = m_s[r];
-        float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
-        // fully masked so far: exp2 against 0 keeps p = corr = 0, not NaN
-        float m_safe = m_new == -INFINITY ? 0.0f : m_new;
-        p0 = exp2f(s[0] - m_safe);
-        p1 = exp2f(s[1] - m_safe);
-        float corr = exp2f(m_prev - m_safe);
-        float psum = warp_sum(p0 + p1);
-        if (lane == 0) {
-          l_s[r] = l_s[r] * corr + psum;
-          m_s[r] = m_new;
-          c_s[r] = corr;
-        }
+      float m_prev = m_s[r];
+      float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
+      // fully masked so far: exp2 against 0 keeps p = corr = 0, not NaN
+      float m_safe = m_new == -INFINITY ? 0.0f : m_new;
+      float p0 = exp2f(s[0] - m_safe);
+      float p1 = exp2f(s[1] - m_safe);
+      float corr = exp2f(m_prev - m_safe);
+      float psum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        l_s[r] = l_s[r] * corr + psum;
+        m_s[r] = m_new;
+        c_s[r] = corr;
       }
       Ps[r * L::LDP + lane] = from_f32<T>(p0);
       Ps[r * L::LDP + lane + 32] = from_f32<T>(p1);
     }
     __syncwarp();
 
-    // ---- rescale the running output (exact arm), then O += P V ----
-    if (!fast) {
-      for (int e = lane; e < 16 * D; e += 32) {
-        int r = r0 + e / D, d = e % D;
-        Os[r * L::LDO + d] *= c_s[r];
-      }
-      __syncwarp();
+    // ---- rescale the running output, then O += P V ----
+    for (int e = lane; e < 16 * D; e += 32) {
+      int r = r0 + e / D, d = e % D;
+      Os[r * L::LDO + d] *= c_s[r];
     }
+    __syncwarp();
     if constexpr (L::kTC) {
 #pragma unroll
       for (int n = 0; n < D / 16; ++n) {
@@ -247,53 +204,43 @@ __global__ void __launch_bounds__(kThreads)
       og[(q0 + r) * lay.qs + d] = from_f32<T>(val);
     }
   }
-  // natural-log lse: m is the base-2 running max or the row bound, the
-  // shift either way
+  // natural-log lse from the base-2 running max
   if (threadIdx.x < kTile && q0 + threadIdx.x < S) {
     float l = l_s[threadIdx.x];
     lse[(size_t)bh * S + q0 + threadIdx.x] =
         l > 0.0f ? m_s[threadIdx.x] * kLn2 + logf(fmaxf(l, 1e-37f))
                  : -INFINITY;
   }
-  if (BOUND && fast && bound_count != nullptr && threadIdx.x == 0 &&
-      blockIdx.x == 0 && blockIdx.y == 0)
-    atomicAdd(bound_count, 1);
 }
 
-template <typename T, int D, bool BOUND, bool MASKED>
+template <typename T, int D, bool MASKED>
 int launch_fwd_as(const void* q, const void* k, const void* v, void* o,
-                  float* lse, const float* kn, const int* pred,
-                  int* bound_count, int B, int H, int Hkv, int S,
-                  float scale, Mask mask, int layout, cudaStream_t stream) {
+                  float* lse, int B, int H, int Hkv, int S, float scale,
+                  Mask mask, int layout, cudaStream_t stream) {
   constexpr size_t bytes = FwdSmem<T, D>::bytes;
-  auto kernel = flash_fwd_kernel<T, D, BOUND, MASKED>;
+  auto kernel = flash_fwd_kernel<T, D, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, kn, pred,
-      bound_count, make_layout(layout, H, Hkv, S, D), mask.causal,
-      mask.window, mask.seg, H, Hkv, S,
-      scale * kLog2e);
+      static_cast<const T*>(v), static_cast<T*>(o), lse,
+      make_layout(layout, H, Hkv, S, D), mask.causal, mask.window, mask.seg,
+      H, Hkv, S, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool BOUND>
+template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, const float* kn, const int* pred,
-               int* bound_count, int B, int H, int Hkv, int S, float scale,
+               float* lse, int B, int H, int Hkv, int S, float scale,
                Mask mask, int layout, cudaStream_t stream) {
-  if constexpr (!BOUND) {
-    if (masked(mask))
-      return launch_fwd_as<T, D, false, true>(q, k, v, o, lse, kn, pred,
-                                              bound_count, B, H, Hkv, S,
-                                              scale, mask, layout, stream);
-  }
-  return launch_fwd_as<T, D, BOUND, false>(q, k, v, o, lse, kn, pred,
-                                           bound_count, B, H, Hkv, S, scale,
-                                           mask, layout, stream);
+  return masked(mask) ? launch_fwd_as<T, D, true>(q, k, v, o, lse, B, H, Hkv,
+                                                  S, scale, mask, layout,
+                                                  stream)
+                      : launch_fwd_as<T, D, false>(q, k, v, o, lse, B, H,
+                                                   Hkv, S, scale, mask,
+                                                   layout, stream);
 }
 
 }  // namespace flash
@@ -316,48 +263,18 @@ extern "C" int taper_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16) {
     if (D == 64)
-      return launch_fwd<__nv_bfloat16, 64, false>(
-          q, k, v, o, l, nullptr, nullptr, nullptr, B, H, Hkv, S, scale, m,
-          layout, s);
+      return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, l, B, H, Hkv, S, scale,
+                                           m, layout, s);
     if (D == 128)
-      return launch_fwd<__nv_bfloat16, 128, false>(
-          q, k, v, o, l, nullptr, nullptr, nullptr, B, H, Hkv, S, scale, m,
-          layout, s);
+      return launch_fwd<__nv_bfloat16, 128>(q, k, v, o, l, B, H, Hkv, S,
+                                            scale, m, layout, s);
   } else if (dtype == kFloat32) {
     if (D == 64)
-      return launch_fwd<float, 64, false>(q, k, v, o, l, nullptr, nullptr,
-                                          nullptr, B, H, Hkv, S, scale, m,
-                                          layout, s);
+      return launch_fwd<float, 64>(q, k, v, o, l, B, H, Hkv, S, scale, m,
+                                   layout, s);
     if (D == 128)
-      return launch_fwd<float, 128, false>(q, k, v, o, l, nullptr, nullptr,
-                                           nullptr, B, H, Hkv, S, scale, m,
-                                           layout, s);
+      return launch_fwd<float, 128>(q, k, v, o, l, B, H, Hkv, S, scale, m,
+                                    layout, s);
   }
-  return (int)cudaErrorInvalidValue;
-}
-
-// The bound-max kernel (K8): bf16, causal.  kn: [B*Hkv] f32, max |k| per
-// KV head; pred: one int32, the arm; bound_count: one int32 or null.
-extern "C" int taper_flash_fwd_bound(const void* q, const void* k,
-                                     const void* v, void* o, void* lse,
-                                     const void* kn, const void* pred,
-                                     void* bound_count, int B, int H,
-                                     int Hkv, int S, int D, float scale,
-                                     int layout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  auto knp = static_cast<const float*>(kn);
-  auto pp = static_cast<const int*>(pred);
-  auto cp = static_cast<int*>(bound_count);
-  const Mask m{1, 0, nullptr};
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
-    return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return launch_fwd<__nv_bfloat16, 64, true>(q, k, v, o, l, knp, pp, cp, B,
-                                               H, Hkv, S, scale, m, layout, s);
-  if (D == 128)
-    return launch_fwd<__nv_bfloat16, 128, true>(q, k, v, o, l, knp, pp, cp,
-                                                B, H, Hkv, S, scale, m,
-                                                layout, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels of
 // taper_tpu_torch: mbarriers, TMA tile loads and their descriptors,
 // wgmma shared-memory descriptors, instructions and fences, and register
-// rebalancing between warpgroups.  K1's wgmma GEMM (gemm_sm90.cu) is built
-// on them; they are written so that the flash kernels' redesign can use
-// them as they are.
+// rebalancing between warpgroups, wgmma with A from registers, and the
+// accumulator-fragment helpers (quad reductions, the f32 accumulator as a
+// bf16 A operand).  K1's wgmma GEMM (gemm_sm90.cu) and the flash kernels
+// K8 and K7 (flash_sm90.cu) are built on them.
 //
 // Conventions:
 //   * shared-memory addresses are 32-bit (``smem_u32``);
@@ -15,6 +16,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,6 +96,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// As tma_load_2d, at coordinates (c0, c1, c2) of a rank-3 ``map``: a
+// box past the middle dimension's end reads zeros, never the next index
+// of the outer one.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -191,12 +207,14 @@ __device__ __forceinline__ void fence_operand(float& r) {
 }
 
 // One wgmma m64n128k16 (bf16 in, f32 accumulate) on the warpgroup's 64 x
-// 128 accumulator fragment ``d`` (d += A . B, A from ``da``, B from
-// ``db``).  TA / TB: 0 if the operand is K-major in shared memory, 1 if it
-// is M- / N-major (the instruction's transpose bits).
+// 128 accumulator fragment ``d`` (d = A . B + (d if ``accumulate``), A
+// from ``da``, B from ``db``).  TA / TB: 0 if the operand is K-major in
+// shared memory, 1 if it is M- / N-major (the instruction's transpose
+// bits).
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -229,7 +247,188 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// One wgmma m64n64k16 with both operands in shared memory (bf16 in, f32
+// accumulate) on the warpgroup's 64 x 64 fragment ``d``: d = A . B + (d if
+// ``accumulate``).  TA / TB as in wgmma_m64n128k16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// One wgmma m64n64k16 with A from registers: ``a`` holds the thread's
+// four 32-bit registers of a 64 x 16 bf16 A fragment (acc_to_a gives
+// them), B in shared memory (TB as in wgmma_m64n128k16).  d = A . B + (d
+// if ``accumulate``).  The registers of ``a`` are read asynchronously:
+// they must not change before the wgmma group that holds it is waited
+// for.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+// One wgmma m64n128k16 with A from registers: ``a`` holds the thread's
+// four 32-bit registers of a 64 x 16 bf16 A fragment (acc_to_a gives
+// them), B in shared memory (TB as in wgmma_m64n128k16).  d = A . B + (d
+// if ``accumulate``).  The registers of ``a`` are read asynchronously:
+// they must not change before the wgmma group that holds it is waited
+// for.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+
+// -- accumulator fragments --
+//
+// A warpgroup's m64nN f32 accumulator: thread t of warp w holds rows
+// r = 16 w + (lane / 4) and r + 8 and, in each 8-column block j, columns
+// 8 j + 2 (lane % 4) and one more: element e sits at row offset
+// frag_row(e) and column frag_col(e, lane % 4).  The four threads of a
+// quad (lanes 4 i .. 4 i + 3) hold a row between them.
+
+__device__ __forceinline__ constexpr int frag_row(int e) {
+  return 8 * ((e >> 1) & 1);
+}
+__device__ __forceinline__ constexpr int frag_col(int e, int quad_lane) {
+  return 8 * (e >> 2) + 2 * quad_lane + (e & 1);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x by the special-function unit alone (ex2.approx.ftz: about 2 ulp,
+// a result below 2^-126 flushed to 0); exp2f adds a range fix-up to it.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats as one bf16x2 register, ``lo`` in the low half (rounded to
+// nearest even).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64nN f32 accumulator as the bf16 A operands of the N / 16 k16 slices
+// of a following product whose K dimension is this N.  For 16-bit types
+// the two layouts line up, so no shuffle is needed: the A fragment of
+// slice k holds (row g, cols 16 k + 2 q + {0, 1}), (row g + 8, the same),
+// (row g, + 8), (row g + 8, + 8) for quad lane q, which are accumulator
+// elements 8 k .. 8 k + 7 in order (PTX ISA, "Register Fragments and
+// Shared Memory Matrix Layouts" of wgmma: the A fragment of .bf16 and the
+// D fragment of .f32).  The card tests hold a product through it against
+// a plain one (taper_wgmma_frag_test).
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[N / 2],
+                                         uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[k][i] = pack_bf16x2(acc[8 * k + 2 * i], acc[8 * k + 2 * i + 1]);
+}
+
+// The byte offset of element (row, col) of a [rows, 64] bf16 box written
+// by TMA under the 128-byte swizzle (the 16-byte chunk index XOR row % 8),
+// the box starting on a 1024-byte boundary.
+__device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
 }
 
 // -- warpgroup register rebalancing --
@@ -308,6 +507,20 @@ inline int tma_desc_bf16(CUtensorMap* map, const void* ptr, uint64_t inner,
   const uint64_t dims[2] = {inner, outer};
   const uint32_t box[2] = {box_inner, box_outer};
   return tma_desc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, ptr, dims,
+                  box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A rank-3 operand descriptor: the dense bf16 tensor ``[outer, mid,
+// inner]`` in boxes of ``box_mid`` x ``box_inner`` (<= 64) elements under
+// the 128-byte swizzle.  Loads past ``mid`` read zeros and stores past it
+// are dropped, for each outer index alone (a 2-D ``[outer * mid, inner]``
+// descriptor would reach into the next outer index's rows).
+inline int tma_desc_bf16_3d(CUtensorMap* map, const void* ptr,
+                            uint64_t inner, uint64_t mid, uint64_t outer,
+                            uint32_t box_inner, uint32_t box_mid) {
+  const uint64_t dims[3] = {inner, mid, outer};
+  const uint32_t box[3] = {box_inner, box_mid, 1};
+  return tma_desc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, ptr, dims,
                   box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

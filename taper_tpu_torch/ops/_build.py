@@ -66,6 +66,9 @@ _SIGNATURES = {
     # q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, seg, B, H, Hkv, S, D,
     # scale, causal, window, layout, dtype, stream
     "taper_flash_bwd_fused": [_P] * 12 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    # a, b, c, out, row max, row sum, n, stream (a card test of the wgmma
+    # fragment helpers of csrc/hopper.cuh)
+    "taper_wgmma_frag_test": [_P] * 6 + [_I, _P],
     # q, k_pool, v_pool, tables, lengths, o, B, kvh, G, D, bs, mb, scale,
     # dtype, stream
     "taper_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -26,17 +26,22 @@ with ``S * W``.
 Both entry points are ``torch.autograd.Function``s.  CPU tensors run the
 plain versions (:func:`attention_lse_reference` forward,
 :func:`flash_bwd_reference` backward); CUDA tensors run the kernels of
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` at every shape they take
-(f32 or bf16, D of 64 or 128, any S), or raise.  The forward picks its
-kernel as JAX does (``attention.py:1155``): the bound-max K8 for bf16
-causal inputs with no window and no segments, its exact arm chosen on the
-device by :func:`bound_predicate`; the exact K5 for the rest.  The
-backward is K6 then K7, with JAX's two opt-in alternatives, read from the
-environment at each call as JAX reads them at trace time, and only on the
-card: ``TAPER_ATTN_FUSED_BWD=1`` runs K10 for plain causal attention (no
-window, no segments; JAX's further ``S * D * 4 <= 4 MiB`` condition is the
-TPU's VMEM capacity for its resident dQ, which K10 here keeps in device
-memory, so it is dropped), and ``TAPER_ATTN_DKV_T=1`` runs K11 in K7's
+``csrc/flash_sm90.cu``, ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+at every shape they take (f32 or bf16, D of 64 or 128, any S), or raise.
+The forward picks its kernel as JAX does (``attention.py:1155``): the
+bound-max K8 for bf16 causal inputs with no window and no segments, its
+exact arm chosen on the device by :func:`bound_predicate`; the exact K5
+for the rest.  :func:`plan_fwd` and :func:`plan_dkv` name K8's and K7's
+kernel before launch: the TMA + wgmma kernels of ``csrc/flash_sm90.cu``
+for bf16 (whose data ``backend.check_kernel_args`` holds to TMA's 16-byte
+alignment, or raises), K7's FMA kernel for f32; ``backend.route_counts()``
+counts the calls by route.  The backward is K6 then K7, with JAX's two
+opt-in alternatives, read from the environment at each call as JAX reads
+them at trace time, and only on the card: ``TAPER_ATTN_FUSED_BWD=1``
+runs K10 for plain causal attention (no window, no segments; JAX's
+further ``S * D * 4 <= 4 MiB`` condition is the TPU's VMEM capacity for
+its resident dQ, which K10 here keeps in device memory, so it is
+dropped), and ``TAPER_ATTN_DKV_T=1`` runs K11 in K7's
 place for non-causal or windowed attention without segments
 (``attention.py:1368-1371``, ``:1527``).  K10's dQ sums with atomics, so
 its low bits vary from run to run; the default path is deterministic.
@@ -61,6 +66,7 @@ from taper_tpu_torch.ops import backend
 
 HEAD_DIMS = (64, 128)
 LOG2E = math.log2(math.e)
+MASKS = ("none", "causal", "window", "segments")
 # max|q| * scale * log2(e) * max|k| at most this keeps the bound arm's
 # largest weight per row above 2^-120, inside f32 (attention.py:1208-1231)
 BOUND_LIMIT = 60.0
@@ -228,6 +234,38 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal, scale, window=None,
     return dq.reshape(b, h, s, d), dk, dv, delta.reshape(b * h, s)
 
 
+# -- routing ----------------------------------------------------------------
+
+def mask_kind(causal, window, segment_ids):
+    """The mask of a call as :func:`plan_fwd` and :func:`plan_dkv` take
+    it: ``"segments"``, ``"window"``, ``"causal"`` or ``"none"``."""
+    if segment_ids is not None:
+        return "segments"
+    if window is not None:
+        return "window"
+    return "causal" if causal else "none"
+
+
+def plan_fwd(dtype, mask: str) -> str:
+    """The forward's kernel, a pure function of its arguments (as
+    ``ops.gemm.plan``), decided before launch: ``"exact"`` (K5) for f32
+    inputs and for every mask but plain causal, as JAX's ``use_bound``
+    (``attention.py:1155``); ``"wgmma"`` (K8, ``csrc/flash_sm90.cu``) for
+    bf16 causal inputs."""
+    if mask not in MASKS:
+        raise ValueError(f"unknown mask kind {mask!r}")
+    if dtype != torch.bfloat16 or mask != "causal":
+        return "exact"
+    return "wgmma"
+
+
+def plan_dkv(dtype) -> str:
+    """K7's kernel, decided before launch by the dtype alone, under every
+    mask: ``"wgmma"`` (``csrc/flash_sm90.cu``) for bf16, ``"wmma"`` (the
+    kernel of ``csrc/flash_bwd.cu``, its FMA schedule) for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "wmma"
+
+
 # -- the kernels (CUDA tensors only) ---------------------------------------
 
 def _check_kernel(name, d, *tensors):
@@ -294,14 +332,16 @@ def bound_predicate(q, k, *, scale, heads=None):
 
 
 def flash_fwd_bound(q, k, v, *, scale, heads=None, force_bound=None):
-    """The bound-max kernel (K8) on bf16 causal CUDA tensors in either
-    layout: returns ``(o, lse)``.  ``force_bound`` (True: the bound arm,
-    False: the exact arm) overrides the device predicate; it exists for the
-    card tests and ``chip_smoke.py``, which must reach both arms."""
+    """The bound-max kernel (K8, route ``"wgmma"``) on bf16 causal CUDA
+    tensors in either layout: returns ``(o, lse)``.  ``force_bound``
+    (True: the bound arm, False: the exact arm) overrides the device
+    predicate; it exists for the card tests and ``chip_smoke.py``, which
+    must reach both arms."""
     b, h, hkv, s, d = _dims(q, k, v, heads)
     _check_kernel("flash forward (bound)", d, q, k, v)
     if q.dtype != torch.bfloat16:
         raise ValueError("flash forward (bound): the kernel takes bf16")
+    route = plan_fwd(q.dtype, "causal")
     kn, pred = bound_predicate(q, k, scale=scale, heads=heads)
     if force_bound is not None:
         pred = torch.full_like(pred, int(bool(force_bound)))
@@ -314,6 +354,7 @@ def flash_fwd_bound(q, k, v, *, scale, heads=None, force_bound=None):
         float(scale), _layout(heads), _build.stream(q))
     _build.check(code, "flash attention (bound)")
     backend.count_launch("flash_fwd_bound")
+    backend.count_route(route, "flash_fwd_bound", 1)
     return o, lse
 
 
@@ -352,10 +393,11 @@ def flash_dq(q, k, v, o, lse, do, *, causal, scale, heads=None,
 
 def flash_dkv(q, k, v, lse, delta, do, *, causal, scale, heads=None,
               window=None, segment_ids=None):
-    """K7 on CUDA tensors in either layout, after K6 (its ``delta``):
-    returns ``(dk, dv)``."""
+    """K7 on CUDA tensors in either layout, after K6 (its ``delta``),
+    through the route :func:`plan_dkv` gives: returns ``(dk, dv)``."""
     seg, args = _bwd_args("flash backward dK/dV", q, k, v, heads, causal,
                           scale, window, segment_ids, do, rows=(lse, delta))
+    route = plan_dkv(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _build.library().taper_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -363,6 +405,7 @@ def flash_dkv(q, k, v, lse, delta, do, *, causal, scale, heads=None,
         *args)
     _build.check(code, "flash backward dK/dV")
     backend.count_launch("flash_dkv")
+    backend.count_route(route, "flash_dkv", 1)
     return dk, dv
 
 
@@ -453,8 +496,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, scale, heads, window):
         if backend.on_cuda(q, k, v):
-            if (q.dtype == torch.bfloat16 and causal and window is None
-                    and segment_ids is None):
+            if plan_fwd(q.dtype,
+                        mask_kind(causal, window, segment_ids)) != "exact":
                 o, lse = flash_fwd_bound(q, k, v, scale=scale, heads=heads)
             else:
                 o, lse = flash_fwd_exact(q, k, v, causal=causal, scale=scale,

@@ -43,8 +43,10 @@ KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
            "paged_decode", "paged_decode_int8",
            "conv_fwd", "conv_dw", "pool") + EW_OPS + ("adam", "sgd") + QUANT_OPS
 _launches = dict.fromkeys(KERNELS, 0)
-# K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; a
-# tally of its own, so that the per-kernel counts stay one a call
+# K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; K8
+# and K7 calls by route (ops.attention.plan_fwd / plan_dkv): "wgmma
+# flash_fwd_bound", "wmma flash_dkv", ...; a tally of its own, so that the
+# per-kernel counts stay one a call
 _routes = {}
 # K8 launches that took the bound arm, counted by the kernel itself on the
 # device (the arm is decided there), one int32 counter per device
@@ -66,8 +68,8 @@ def count_route(route: str, mode: str, splits: int) -> None:
 
 
 def route_counts() -> dict:
-    """K1 calls by route and mode since the last
-    :func:`reset_launch_counts` (" split" marks a split-K call)."""
+    """K1 calls by route and mode, and K8 and K7 calls by route, since the
+    last :func:`reset_launch_counts` (" split" marks a split-K call)."""
     return dict(_routes)
 
 

@@ -466,43 +466,54 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, d, causal, dtype,
             assert _worst_tile(g, r) <= 1, (name, _worst_tile(g, r))
 
 
-# Faults planted in a copy of csrc/flash_bwd.cu: (what, the line as it
+# Faults planted in a copy of csrc: (what, the source file, the line as it
 # is, the line with the fault).  The first one drops work that only the
-# last rows see, whose gradient is far below the largest entries.
+# last rows see, whose gradient is far below the largest entries.  K7's
+# bf16 kernel is the wgmma one of flash_sm90.cu (ops.attention.plan_dkv).
 _FAULTS = [
-    ("K6 skips the last query tile's diagonal KV tile",
+    ("K6 skips the last query tile's diagonal KV tile", "flash_bwd.cu",
      "const int kv_hi = kv_end(mask, q0, S);",
      "const int kv_hi = min(S - kTile, kv_end(mask, q0, S));"),
-    ("K6 skips KV tile 0 below the diagonal",
+    ("K6 skips KV tile 0 below the diagonal", "flash_bwd.cu",
      "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {",
      "for (int kv0 = q0 > 0 ? kTile : 0; kv0 < kv_hi; kv0 += kTile) {"),
-    ("K7 skips the last query tile",
-     "for (int q0 = q_lo; q0 < q_hi; q0 += kTile)\n",
-     "for (int q0 = q_lo; q0 + kTile < q_hi; q0 += kTile)\n"),
-    ("K6 skips the diagonal KV tile",
+    ("K7 skips the last query tile", "flash_sm90.cu",
+     "const int total = group * n_q;",
+     "const int total = group * n_q - 1;"),
+    ("K6 skips the diagonal KV tile", "flash_bwd.cu",
      "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {",
      "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 + kTile < kv_hi; "
      "kv0 += kTile) {"),
+    ("K7 drops the diagonal of its causal mask", "flash_sm90.cu",
+     "return kv < S && qrow < S && keep<MASKED>(mask, qrow, kv) &&",
+     "return kv < S && qrow < S && kv < qrow &&"),
 ]
 
 
-@pytest.mark.parametrize("what,line,fault", _FAULTS,
-                         ids=[f[0] for f in _FAULTS])
-def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
-                                                 what, line, fault):
-    """The bf16 backward's per-tile check fails a K6 or K7 built with a
-    tile of its work left out, at the 170M model's attention shape (one
-    batch row): the kernels are rebuilt from a copy of csrc with the fault
-    in it.  The whole-tensor bound (2e-2 of the largest |entry|) that the
-    per-tile check replaced is printed beside it."""
+def _plant(tmp_path, monkeypatch, name, line, fault, what):
+    """Rebuilds the kernels from a copy of csrc with ``line`` of ``name``
+    replaced by ``fault``."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    src = (csrc / "flash_bwd.cu").read_text()
+    src = (csrc / name).read_text()
     assert src.count(line) == 1, what
-    (csrc / "flash_bwd.cu").write_text(src.replace(line, fault))
+    (csrc / name).write_text(src.replace(line, fault))
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_lib", None)
+
+
+@pytest.mark.parametrize("what,name,line,fault", _FAULTS,
+                         ids=[f[0] for f in _FAULTS])
+def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
+                                                 what, name, line, fault):
+    """The bf16 backward's per-tile check fails a K6 or K7 built with a
+    tile of its work left out (or, K7, with a wrong mask), at the 170M
+    model's attention shape (one batch row): the kernels are rebuilt from
+    a copy of csrc with the fault in it.  The whole-tensor bound (2e-2 of
+    the largest |entry|) that the per-tile check replaced is printed
+    beside it."""
+    _plant(tmp_path, monkeypatch, name, line, fault, what)
     q, k, v, o, lse, do, heads, scale = _bwd_case(
         dev, 1, 8, 8, 2048, 128, torch.bfloat16, "bshd", True)
     grads = A.flash_bwd(q, k, v, o, lse, do, causal=True, scale=scale,
@@ -520,6 +531,43 @@ def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
     assert max(t for t, _ in worst.values()) > 1, (what, worst)
 
 
+# Faults planted in flash_bwd.cu's K7 loop, which f32 (the sort task) still
+# runs: (what, the line as it is, the line with the fault).
+_F32_DKV_FAULTS = [
+    ("K7 skips the last query tile",
+     "for (int q0 = q_lo; q0 < q_hi; q0 += kTile)\n",
+     "for (int q0 = q_lo; q0 + kTile < q_hi; q0 += kTile)\n"),
+    ("K7 leaves dK unscaled",
+     "write_rows<OutT, D>(dkg, ld, Cs + r0 * L::LDO, kv0 + r0, S, scale);",
+     "write_rows<OutT, D>(dkg, ld, Cs + r0 * L::LDO, kv0 + r0, S, 1.0f);"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _F32_DKV_FAULTS,
+                         ids=[f[0] for f in _F32_DKV_FAULTS])
+def test_flash_dkv_f32_check_catches_a_planted_fault(dev, tmp_path,
+                                                     monkeypatch, what,
+                                                     line, fault):
+    """The f32 check of K7 (1e-4, as test_flash_bwd_kernels_match_plain
+    holds it) fails a kernel built with a fault in its loop, at the sort
+    task's shape (examples/train_tinylm.py's defaults: batch 64, 2 heads
+    of 64, S 128, causal)."""
+    _plant(tmp_path, monkeypatch, "flash_bwd.cu", line, fault, what)
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, 64, 2, 2, 128, 64, torch.float32, "bhsd", True)
+    refs = A.flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    backend.reset_launch_counts()
+    dk, dv = A.flash_dkv(q, k, v, lse, refs[3].contiguous(), do,
+                         causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wmma flash_dkv": 1}
+    errs = {name: float((g - r).abs().max())
+            for name, g, r in zip(("dk", "dv"), (dk, dv), refs[1:3])}
+    print(f"{what}: max error {errs} (the check's 1e-4)")
+    assert not all(torch.allclose(g, r, rtol=1e-4, atol=1e-4)
+                   for g, r in zip((dk, dv), refs[1:3])), (what, errs)
+
+
 def test_flash_dkv_is_deterministic(dev):
     """dK/dV sum each GQA group in a fixed order, without atomics: the
     same bits every run."""
@@ -530,6 +578,151 @@ def test_flash_dkv_is_deterministic(dev):
     again = A.flash_bwd(q, k, v, o, lse, do, causal=True, scale=scale,
                         heads=heads)
     assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+# -- K8 and K7 on their wgmma route (csrc/flash_sm90.cu) ----------------------
+
+# ragged S (in [B, S, H*D] a row past S is the next batch row's), GQA
+# groups 1, 2, 4 and 8, D 64 and 128
+_WGMMA_SHAPES = [(2, 8, 8, 1000, 128), (2, 8, 4, 2047, 64),
+                 (2, 8, 2, 1000, 64), (1, 8, 1, 2047, 128),
+                 (3, 4, 4, 129, 128), (1, 2, 1, 1, 64)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("force", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", _WGMMA_SHAPES)
+def test_k8_wgmma_matches_plain(dev, b, h, hkv, s, d, force, layout):
+    q, k, v, _ = _attn_inputs(dev, b, h, hkv, s, d, torch.bfloat16, layout,
+                              s + hkv)
+    heads = None if layout == "bhsd" else h
+    backend.reset_launch_counts()
+    o, lse = A.flash_fwd_bound(q, k, v, scale=d ** -0.5, heads=heads,
+                               force_bound=force)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wgmma flash_fwd_bound": 1}
+    assert backend.bound_arm_count() == force
+    ref_o, ref_lse = A.attention_lse_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v)), causal=True)
+    _close(_bhsd(o, layout, d), ref_o, torch.bfloat16, 2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", _WGMMA_SHAPES)
+def test_k7_wgmma_matches_plain(dev, b, h, hkv, s, d, causal, layout):
+    """K7 alone (delta from the plain backward), each 64-row tile of dK
+    and dV within 1e-2 of its own norm, and the same bits twice."""
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, b, h, hkv, s, d, torch.bfloat16, layout, causal)
+    refs = A.flash_bwd_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v, o)), lse,
+        _bhsd(do, layout, d), causal, scale)
+    delta = refs[3].contiguous()
+    backend.reset_launch_counts()
+    dk, dv = A.flash_dkv(q, k, v, lse, delta, do, causal=causal,
+                         scale=scale, heads=heads)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wgmma flash_dkv": 1}
+    _hold_grads([_bhsd(g, layout, d) for g in (dk, dv)], refs[1:3],
+                torch.bfloat16, ("dk", "dv"))
+    again = A.flash_dkv(q, k, v, lse, delta, do, causal=causal, scale=scale,
+                        heads=heads)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.parametrize("mask", [(True, 65, None), (False, 65, None),
+                                  (True, None, "docs"),
+                                  (True, None, "shuffled")],
+                         ids=["causal-w65", "full-w65", "seg-docs",
+                              "seg-shuffled"])
+def test_k7_wgmma_under_masks_is_bitwise_repeatable(dev, mask):
+    q, k, v, o, lse, do, kw = _masked_case(dev, 2, 8, 2, 700, 128,
+                                           torch.bfloat16, "bshd", mask)
+    refs = _masked_refs(q, k, v, o, lse, do, kw, "bshd", 128)
+    backend.reset_launch_counts()
+    first = A.flash_dkv(q, k, v, lse, refs[3].contiguous(), do, **kw)
+    again = A.flash_dkv(q, k, v, lse, refs[3].contiguous(), do, **kw)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wgmma flash_dkv": 2}
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _hold_grads([_bhsd(g, "bshd", 128) for g in first], refs[1:3],
+                torch.bfloat16, ("dk", "dv"))
+
+
+def test_k7_in_f32_keeps_the_wmma_route(dev):
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, 2, 4, 2, 70, 64, torch.float32, "bhsd", True)
+    _, delta = A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale)
+    backend.reset_launch_counts()
+    A.flash_dkv(q, k, v, lse, delta, do, causal=True, scale=scale)
+    assert backend.route_counts() == {"wmma flash_dkv": 1}
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_fragments_match_a_plain_tile(dev, n):
+    """hopper.cuh's fragment helpers on one warpgroup: s = a b^T by wgmma
+    from shared memory, its rows' max and sum by quad shuffles, and
+    bf16(s) c by wgmma with bf16(s) taken from the f32 accumulator as A
+    fragments without a shuffle (acc_to_a).  Small integers make every
+    value exact (|s| <= 256 is a bf16 integer, |out| <= 2^15 in f32), so
+    the kernel must give the plain results bit for bit: an element in the
+    wrong place of a fragment cannot hide under a tolerance, and no bf16
+    rounding of s can flip between the two sides."""
+    gen = torch.Generator().manual_seed(n)
+
+    def ints(*shape):
+        return torch.randint(-2, 3, shape, generator=gen).to(
+            torch.bfloat16).to(dev)
+
+    a, b, c = ints(64, 64), ints(64, 64), ints(64, n)
+    out = torch.empty(64, n, device=dev)
+    rmax, rsum = (torch.empty(64, device=dev) for _ in range(2))
+    _build.check(_build.library().taper_wgmma_frag_test(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
+        rmax.data_ptr(), rsum.data_ptr(), n, _build.stream(a)), "frag test")
+    torch.cuda.synchronize()
+    s = a.float() @ b.float().t()
+    assert torch.equal(s.to(torch.bfloat16).float(), s)
+    assert torch.equal(rmax, s.amax(1)) and torch.equal(rsum, s.sum(1))
+    assert torch.equal(out, s @ c.float())
+
+
+# Faults planted in a copy of csrc/flash_sm90.cu's K8: (what, the line as
+# it is, the line with the fault).
+_FWD_FAULTS = [
+    ("K8 drops the diagonal of its causal mask",
+     "[S](int r, int col) { return col <= r && col < S; });",
+     "[S](int r, int col) { return col < r && col < S; });"),
+    ("K8 skips the last KV tile of every block but the first",
+     "const int n_tiles = (min(S, q0 + P::BM) + P::BN - 1) / P::BN;",
+     "const int n_tiles = max(1, (min(S, q0 + P::BM) + P::BN - 1) / P::BN"
+     " - 1);"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _FWD_FAULTS,
+                         ids=[f[0] for f in _FWD_FAULTS])
+def test_flash_fwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
+                                                 what, line, fault):
+    """K8's check (2e-2 per entry, lse 1e-3) fails a kernel built with a
+    fault in it, at the 170M model's attention shape (one batch row), on
+    both arms."""
+    _plant(tmp_path, monkeypatch, "flash_sm90.cu", line, fault, what)
+    q, k, v, _ = _attn_inputs(dev, 1, 8, 8, 2048, 128, torch.bfloat16,
+                              "bshd", 3)
+    ref_o, ref_lse = A.attention_lse_reference(
+        *(_bhsd(t, "bshd", 128) for t in (q, k, v)), causal=True)
+    for force in (True, False):
+        o, lse = A.flash_fwd_bound(q, k, v, scale=128 ** -0.5, heads=8,
+                                   force_bound=force)
+        err = float(((_bhsd(o, "bshd", 128).float() - ref_o.float()).abs()
+                     / (1 + ref_o.float().abs())).max())
+        lerr = float((lse - ref_lse).abs().max())
+        print(f"{what}, bound arm {force}: o error {err:.3e} (tol 2e-2), "
+              f"lse error {lerr:.3e} (tol 1e-3)")
+        assert err > 2e-2 or lerr > 1e-3, (what, force, err, lerr)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
