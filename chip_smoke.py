@@ -46,9 +46,9 @@ non-zero):
      at the
      three projection shapes of a layer, the flash forward K5 (with its
      lse) and K8 with its predicate forced to each arm, in both layouts,
-     and the flash backward K6 and K7; K8 and K7 through the route
-     ``plan_fwd`` and ``plan_dkv`` give them (wgmma), K8 also timed
-     without its bound pre-pass, two K7 calls bit-equal;
+     and the flash backward K6 and K7; K8, K6 and K7 through the route
+     ``plan_fwd`` and ``plan_bwd`` give them (wgmma), K8 also
+     timed without its bound pre-pass, two K6 and two K7 calls bit-equal;
      ``F.scaled_dot_product_attention`` forward and forward + backward are
      timed as the yardstick;
  10. one full-width 170M training step at batch 1 on the card against the
@@ -58,8 +58,9 @@ non-zero):
  11. train the 170M model: batch 8 x 2048 tokens, Adam(1e-4), 2 warm-up
      and 10 timed steps; ms per step, tokens/s, the model-FLOP share of 989
      TFLOP/s, peak memory, the loss at every step (finite), the exact
-     launch counts per step, K1's, K8's and K7's calls per step by route
-     against what ``plan``, ``plan_fwd`` and ``plan_dkv`` predict, how
+     launch counts per step, K1's, K8's, K6's and K7's calls per step by
+     route against what ``plan``, ``plan_fwd`` and ``plan_bwd``
+     predict, how
      many K8 launches took the bound arm; then
      2 profiled steps: device time by kernel and glue, wall against busy;
  12. the sort task at examples/train_tinylm.py's defaults in f32: its
@@ -131,22 +132,24 @@ non-zero):
      mask: K5/K6/K7 and K11 with a window of 512 at the windowed model's
      training shape (bf16, B 2, H 8, S 4096, D 128, [B, S, H*D]) and
      non-causal windowed in f32 at a small shape; K5/K6/K7 with
-     bench_packing's segment ids (bf16, 13 rows, H 8, S 1024, D 64); K7
-     through its planned route, two calls bit-equal; K8 (both arms, also
-     timed without its bound pre-pass), K6 and K7 at the padded batch's
-     shape (bf16, 64 rows, H 8, S 1024, D 64, [B, H, S, D]), with SDPA
-     beside them; K10 at the 170M shape, raced against K6 + K7 and SDPA's
-     backward;
+     bench_packing's segment ids (bf16, 13 rows, H 8, S 1024, D 64); K6
+     and K7 through their planned routes, two calls of each bit-equal; K8
+     (both arms, also timed without its bound pre-pass), K6 and K7 at the
+     padded batch's shape (bf16, 64 rows, H 8, S 1024, D 64, [B, H, S,
+     D]), with SDPA beside them; K10 at the 170M shape through its planned
+     route, raced against K6 + K7 and SDPA's backward;
  25. packed training at benchmarks/bench_packing.py's configuration: one
      packed step card vs CPU, a packed row's documents against themselves
      alone (f32 on the card), then the padded (64 rows, K8) and the packed
      (~13 rows, K5 with segment ids) step: real tokens/s, their ratio,
-     exact launch counts, K8's and K7's calls by route against the plans;
+     exact launch counts, K8's, K6's and K7's calls by route against the
+     plans;
  26. the windowed model (bench_serving.py:287-340, window 512) trained at
      2 x 4096: ms/step, tokens/s and MFU over the band's FLOPs, with K7
-     (its calls by route against the plan) and with K11
-     (TAPER_ATTN_DKV_T=1), their gradients against each
-     other, a profiled step against the full-causal model's, one step
+     and with K11 (K6's and K7's calls by route against the plans)
+     under TAPER_ATTN_DKV_T=1, their gradients against each
+     other, a profiled step against the full-causal model's (the
+     windowed backward, K6 and K7 over the band, the cheaper), one step
      card vs CPU (depth cut to 2);
  27. windowed decode: a 1024-token prompt and 128 greedy steps at batch 8
      through the bf16 full cache, the bf16 ring, the int8 full cache and
@@ -155,8 +158,8 @@ non-zero):
      through the contiguous engine;
  28. (run right after phase 11, on its model) the 170M step with
      TAPER_ATTN_FUSED_BWD=1 and with the split backward, in turns: ms/step
-     each, 12 K10 calls and no K6/K7 a step, K8's and K7's calls by route
-     in each, gradients against the split backward's;
+     each, 12 K10 calls and no K6/K7 a step, K8's, K6's, K7's and K10's
+     calls by route in each, gradients against the split backward's;
  29. (run right after phase 9) K1 bit for bit: for each bf16 route
      (wgmma, wmma, decode) and mode, the kernel writing bf16 equals its
      own f32 result cast to bf16; split-K calls (bf16 wgmma, f32) give the
@@ -165,13 +168,14 @@ Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
 step's K1 calls by route to what ``plan`` predicts for its shapes.  Every
-K8 and K7 row names the route ``plan_fwd`` or ``plan_dkv`` gives it and
-checks that the call took it; phases 11, 12, 25, 26 and 28 hold a step's
-K8 and K7 calls by route to the plans.
+K8, K6, K7 and K10 row names the route ``plan_fwd`` or ``plan_bwd``
+gives it and checks that the call took it;
+phases 11, 12, 25, 26 and 28 hold a step's flash calls by route to the
+plans.
 The line before the last is the kernel report (JSON), one entry per
 kernel with its numbers per path under ``by_path``; K1's entries give
-their route and K split (``k1_route``, ``splits``), K8's and K7's their
-route (``flash_route``), the top-level numbers
+their route and K split (``k1_route``, ``splits``), K8's, K6's, K7's and
+K10's their route (``flash_route``), the top-level numbers
 from the 170M model's (e, 4e) projection; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -304,9 +308,14 @@ OPT_T0, OPT_STEPS = 11, 3
 # K1's counters and their modes; a K1 row's source follows its route
 K1_MODES = {"linear": "nt", "gemm_nn": "nn", "gemm_tn": "tn"}
 K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu"}
-# K8's and K7's routes (ops.attention.plan_fwd / plan_dkv): a flash row's
-# source follows its route too
-FLASH_SOURCES = {"wgmma": "taper_tpu_torch/csrc/flash_sm90.cu"}
+# The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
+# row's source follows its route too; "wmma" (f32) keeps SOURCES'
+# flash_bwd.cu
+FLASH_SOURCES = {
+    "wgmma": {"flash_fwd_bound": "taper_tpu_torch/csrc/flash_sm90.cu",
+              "flash_dq": "taper_tpu_torch/csrc/flash_bwd_sm90.cu",
+              "flash_dkv": "taper_tpu_torch/csrc/flash_sm90.cu",
+              "flash_bwd_fused": "taper_tpu_torch/csrc/flash_sm90.cu"}}
 
 
 def route_key(route, mode, splits):
@@ -505,9 +514,9 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     library call (or takes its time).  ``work`` is ``(flops, bytes,
     kind)`` for the bound.  A K1 row (``name`` in K1_MODES, operands
     first) records the route and K split ``plan`` gives its operands, and
-    checks that the call took them; a K8 or K7 row is given the route
-    ``plan_fwd`` or ``plan_dkv`` gives (``flash_route``) and checks it the
-    same way.  Returns the report row."""
+    checks that the call took them; a K8, K6, K7 or K10 row is given the
+    route ``plan_fwd`` or ``plan_bwd`` gives (``flash_route``) and checks
+    it the same way.  Returns the report row."""
     mode = K1_MODES.get(name)
     if mode is not None:
         route, splits = plan_for(*arg_sets[0][:2], mode)
@@ -623,31 +632,38 @@ def k8_alone(row, arg_sets, scale, heads, force, phase):
           f"ms, with the pre-pass {row['ms']:.4f} ms")
 
 
-def k7_repeats(args, kw, phase, label):
-    """Two K7 calls on the same inputs give the same bits (a fixed order
+def repeats(kernel, args, kw, phase, label):
+    """Two calls of K6 or K7 (``kernel`` ``"flash_dq"`` or
+    ``"flash_dkv"``) on the same inputs give the same bits (a fixed order
     of sums, no atomics)."""
-    first = A.flash_dkv(*args, **kw)
-    again = A.flash_dkv(*args, **kw)
+    first = getattr(A, kernel)(*args, **kw)
+    again = getattr(A, kernel)(*args, **kw)
     same = all(torch.equal(a, b) for a, b in zip(first, again))
-    print(f"phase {phase}: flash_dkv {label}: two calls bit-equal: {same}")
-    assert same, label
+    print(f"phase {phase}: {kernel} {label}: two calls bit-equal: {same}")
+    assert same, (kernel, label)
 
 
-def flash_routes(layers, dtype, mask, backward=True):
-    """K8's and K7's calls a step makes by route, as ``plan_fwd`` and
-    ``plan_dkv`` predict them: one forward and one dK/dV a layer; a
-    forward that ``plan_fwd`` sends to K5 has no route."""
+def flash_routes(layers, dtype, mask, backward="split"):
+    """The flash calls a step makes by route, as ``plan_fwd`` and
+    ``plan_bwd`` predict them: one forward
+    a layer (one that ``plan_fwd`` sends to K5 has no route) and one
+    backward: ``backward`` "split" K6 + K7, "dkv_t" K6 + K11 (K11 has no
+    route), "fused" K10, None none."""
     want = {}
     fwd = A.plan_fwd(dtype, mask)
     if fwd != "exact":
         want[f"{fwd} flash_fwd_bound"] = layers
-    if backward:
-        want[f"{A.plan_dkv(dtype)} flash_dkv"] = layers
+    if backward in ("split", "dkv_t"):
+        want[f"{A.plan_bwd(dtype)} flash_dq"] = layers
+    if backward == "split":
+        want[f"{A.plan_bwd(dtype)} flash_dkv"] = layers
+    if backward == "fused":
+        want[f"{A.plan_bwd(dtype)} flash_bwd_fused"] = layers
     return want
 
 
 def flash_only(routes):
-    """The K8 and K7 entries of a route tally."""
+    """The flash kernels' entries of a route tally."""
     return {k: c for k, c in routes.items() if "flash" in k}
 
 
@@ -1199,7 +1215,11 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
             tol=(FLASH_F32_TOL if f32 else BWD_BF16_TOL, DELTA_TOL),
             how=(how, "each"), plain_ms=plain_ms, library_ms=lib_bwd,
             work=attn_work(b, h, h, s, d, kind, 3,
-                           6 * io + 2 * rows_bytes)))
+                           6 * io + 2 * rows_bytes),
+            flash_route=A.plan_bwd(dtype)))
+        repeats("flash_dq", bsets[0], dict(causal=True, scale=scale,
+                                            heads=heads), phase,
+                f"{label} {layout}")
         _, delta = A.flash_dq(*bsets[0], causal=True, scale=scale,
                               heads=heads)
         dsets = cold_sets(*args, ref_lse, delta, lay(do))
@@ -1214,9 +1234,10 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
             how=(how,) * 2, plain_ms=plain_ms, library_ms=lib_bwd,
             work=attn_work(b, h, h, s, d, kind, 4,
                            6 * io + 2 * rows_bytes),
-            flash_route=A.plan_dkv(dtype)))
-        k7_repeats(dsets[0], dict(causal=True, scale=scale, heads=heads),
-                   phase, f"{label} {layout}")
+            flash_route=A.plan_bwd(dtype)))
+        repeats("flash_dkv", dsets[0], dict(causal=True, scale=scale,
+                                             heads=heads), phase,
+                f"{label} {layout}")
         del bsets, dsets, delta
     return rows
 
@@ -1378,12 +1399,14 @@ def phase10_lm_step(dev):
 K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_bf16_kernel"),
                ("K1 gemm", "gemm_f32"), ("K1 gemm", "splitk_reduce"))
 OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
-# the flash kernels by name: the WMMA ones of flash_fwd.cu/flash_bwd.cu
-# and the wgmma ones of flash_sm90.cu (namespace taper::flash::sm90)
+# the flash kernels by name: the WMMA/FMA ones of flash_fwd.cu and
+# flash_bwd.cu and the wgmma ones of flash_sm90.cu and flash_bwd_sm90.cu
+# (namespace taper::flash::sm90)
 LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
                              ("K8/K5 flash fwd", "flash_fwd_kernel"),
                              ("K8/K5 flash fwd", "sm90::fwd_bound_kernel"),
                              ("K6 flash dq", "flash_dq_kernel"),
+                             ("K6 flash dq", "sm90::dq_kernel"),
                              ("K7 flash dkv", "flash_dkv_kernel"),
                              ("K7 flash dkv", "sm90::dkv_kernel"))
 CONV_FAMILIES = K1_FAMILIES + (("K3a conv fwd/dX", "conv_fwd"),
@@ -1494,14 +1517,14 @@ def phase11_lm_train(dev, smi):
           f"bound arm: {bound_taken} of {counts['flash_fwd_bound']}")
     assert all(math.isfinite(x) for x in losses), losses
     assert per_step(counts, LM_STEPS) == LM_PER_STEP, counts
-    # every projection through wgmma, dW at (e, e) split over K; K8 and K7
-    # through wgmma
+    # every projection through wgmma, dW at (e, e) split over K; K8, K6 and
+    # K7 through wgmma
     e = LM["dim"]
     want = {k: v * LM["depth"] for k, v in planned_routes(
         ((tokens, e, e),) * 4 + ((tokens, e, 4 * e), (tokens, 4 * e, e)),
         torch.bfloat16).items()}
     want.update(flash_routes(LM["depth"], torch.bfloat16, "causal"))
-    print(f"phase 11: K1, K8 and K7 calls per step by route {routes} "
+    print(f"phase 11: K1, K8, K6 and K7 calls per step by route {routes} "
           f"(plan: {want})")
     assert routes == want, (routes, want)
     assert all(k.startswith("wgmma") for k in routes)
@@ -1565,7 +1588,7 @@ def phase12_sort_task(dev, smi):
           f"teacher-forced eval accuracy every {args.eval_every} steps "
           f"{accs} (gate {SORT_MIN_ACC} at the end); last loss "
           f"{float(loss):.4f}; launches per step "
-          f"{per_step(totals, args.steps)}; K8/K7 calls per step by route "
+          f"{per_step(totals, args.steps)}; flash calls per step by route "
           f"{per_step(routes, args.steps)}; on {smi}")
     assert per_step(totals, args.steps) == SORT_PER_STEP, totals
     assert per_step(routes, args.steps) == flash_routes(
@@ -2926,7 +2949,9 @@ def masked_flash_rows(label, q, k, v, do, *, heads, causal, window, seg,
         lambda *a: (ref[0], ref[3]), bsets, phase=phase,
         tol=(gtol, DELTA_TOL), how=(how, "each"), plain_ms=plain_ms,
         library_ms=lib_bwd,
-        work=(3 * 2 * d * h * pairs, 6 * io + 2 * rows_b, kind))]
+        work=(3 * 2 * d * h * pairs, 6 * io + 2 * rows_b, kind),
+        flash_route=A.plan_bwd(q.dtype))]
+    repeats("flash_dq", bsets[0], kw, phase, label)
     _, delta = A.flash_dq(*bsets[0], **kw)
     dsets = cold_sets(q, k, v, ref_lse, delta, do)
     rows["flash_dkv"] = [check_kernel(
@@ -2935,8 +2960,8 @@ def masked_flash_rows(label, q, k, v, do, *, heads, causal, window, seg,
         lambda *a: (ref[1], ref[2]), dsets, phase=phase, tol=(gtol,) * 2,
         how=(how,) * 2, plain_ms=plain_ms, library_ms=lib_bwd,
         work=(4 * 2 * d * h * pairs, 6 * io + 2 * rows_b, kind),
-        flash_route=A.plan_dkv(q.dtype))]
-    k7_repeats(dsets[0], kw, phase, label)
+        flash_route=A.plan_bwd(q.dtype))]
+    repeats("flash_dkv", dsets[0], kw, phase, label)
     if dkv_t:
         part = A.flash_bwd_reference(to4(q), to4(k), to4(v), ref_o, ref_lse,
                                      to4(do), causal, scale,
@@ -3058,7 +3083,7 @@ def phase24_masked_kernels(dev):
         how=("tiles",) * 3 + ("each",), phase=24, plain_ms=plain_ms,
         library_ms=lib_bwd,
         work=(5 * 2 * b * h * d * s * (s + 1) // 2, 8 * io + 2 * rows_b,
-              "bf16"))
+              "bf16"), flash_route=A.plan_bwd(bf))
     winner = "K10" if fused["ms"] < split_ms else "K6 + K7"
     print(f"phase 24: the race at the 170M shape (bf16 B={b} H={h} S={s} "
           f"D={d} causal bshd): K10 {fused['ms']:.4f} ms against K6 + K7 "
@@ -3196,7 +3221,7 @@ def phase25_packed_training(dev, smi):
         print(f"phase 25: {name} step ({args[0].shape[0]} rows x {S}, "
               f"{real} real tokens): {step_s * 1e3:.2f} ms/step, "
               f"{real / step_s:.0f} real tokens/s; loss per step {losses}; "
-              f"launches per step {out[name]['per_step']}; K8/K7 calls per "
+              f"launches per step {out[name]['per_step']}; flash calls per "
               f"step by route {routes}; on {smi}")
         assert out[name]["per_step"] == want, (name, counts)
         assert routes == flash_routes(
@@ -3211,7 +3236,12 @@ def phase25_packed_training(dev, smi):
     return counts_all, out
 
 
-ATTN_FAMILIES = (("attention", "flash"),) + K1_FAMILIES + (OPT_FAMILY,)
+# phase 26's profile: the flash forward (K5, K8) apart from the backward
+# (K6, K7, K11), whose kernels share one design in both models
+ATTN_FAMILIES = (("attention forward", "flash_fwd_kernel"),
+                 ("attention forward", "fwd_bound_kernel"),
+                 ("attention backward", "flash")) + K1_FAMILIES + (
+                     OPT_FAMILY,)
 
 
 def phase26_window_training(dev, smi):
@@ -3256,12 +3286,13 @@ def phase26_window_training(dev, smi):
               f"(3 (2 P T + depth 4 B pairs dim), {pairs} live pairs a row "
               f"of heads) = {runs[name]['mfu']:.4f} of 989 TFLOP/s; loss per "
               f"step {losses}; launches per step "
-              f"{per_step(counts, WTRAIN['steps'])}; K8/K7 calls per step by "
+              f"{per_step(counts, WTRAIN['steps'])}; flash calls per step by "
               f"route {routes}; on {smi}")
         assert per_step(counts, WTRAIN["steps"]) == {
             k_: c for k_, c in want.items() if c}, counts
-        assert routes == ({} if flag else flash_routes(
-            WMODEL["depth"], torch.bfloat16, "window")), routes
+        assert routes == flash_routes(
+            WMODEL["depth"], torch.bfloat16, "window",
+            "dkv_t" if flag else "split"), routes
     # the two backwards on the same weights (after both runs' updates)
     with env_flag("TAPER_ATTN_DKV_T"):
         g11 = lm_grads(model, *batch)[1]
@@ -3285,13 +3316,38 @@ def phase26_window_training(dev, smi):
     prof_f = profile_steps(fstep, 1, ATTN_FAMILIES)
     del full, fopt, fstep
     torch.cuda.empty_cache()
+    fam = ("attention forward", "attention backward")
     print(f"phase 26: one profiled step, windowed vs full causal at the same "
-          f"shape: attention kernels {prof_w['ms'].get('attention', 0):.2f} "
-          f"vs {prof_f['ms'].get('attention', 0):.2f} ms of device; busy "
-          f"{prof_w['busy_ms']:.1f} vs {prof_f['busy_ms']:.1f} ms of "
+          f"shape: attention kernels forward, backward "
+          f"{[round(prof_w['ms'].get(f, 0), 3) for f in fam]} vs "
+          f"{[round(prof_f['ms'].get(f, 0), 3) for f in fam]} ms of device; "
+          f"busy {prof_w['busy_ms']:.1f} vs {prof_f['busy_ms']:.1f} ms of "
           f"{prof_w['wall_ms']:.1f} vs {prof_f['wall_ms']:.1f} ms wall; by "
           f"family {prof_w['ms']} vs {prof_f['ms']}")
-    assert prof_w["ms"]["attention"] < prof_f["ms"]["attention"]
+    # the band: the windowed backward (K6 and K7 visit the window's tiles
+    # only) costs less than the full-causal one, both on their wgmma
+    # kernels
+    assert prof_w["ms"]["attention backward"] < prof_f["ms"][
+        "attention backward"]
+    # and the windowed forward less than a full-causal forward on the same
+    # kernel: the full-causal model's forward is K8, of another design, so
+    # K5 runs the whole triangle (no window) on the same inputs
+    h, d = WMODEL["num_heads"], WMODEL["dim"] // WMODEL["num_heads"]
+    fsets = cold_sets(*(torch.randn(b, s, h * d, generator=gen).to(
+        torch.bfloat16).to(dev) for _ in range(3)))
+    k5_ms = {}
+    for name, win in (("window", w), ("full causal", None)):
+        def k5(q_, k_, v_, win=win):
+            return A.flash_fwd_exact(q_, k_, v_, causal=True,
+                                     scale=d ** -0.5, heads=h, window=win)
+        k5_ms[name] = cuda_ms(k5, fsets)
+    del fsets
+    print(f"phase 26: K5 at batch {b} x {s}, window {w} against the full "
+          f"causal triangle, same inputs: {k5_ms['window']:.4f} vs "
+          f"{k5_ms['full causal']:.4f} ms ({pairs} vs "
+          f"{band_pairs(s, True, None)} live pairs a row of heads); on "
+          f"{smi}")
+    assert k5_ms["window"] < k5_ms["full causal"], k5_ms
 
     # one step at batch 1 against the CPU, depth cut to 2 (the CPU's time)
     cfg = dict(WMODEL, depth=WTRAIN["cpu_depth"])
@@ -3316,6 +3372,7 @@ def phase26_window_training(dev, smi):
           f"{LM_BF16_GRAD_TOL:.0e})")
     assert loss_rel <= LM_BF16_LOSS_TOL and rel <= LM_BF16_GRAD_TOL
     runs["profile"] = dict(window=prof_w, full=prof_f)
+    runs["k5_ms"] = k5_ms
     return counts_all, runs
 
 
@@ -3505,9 +3562,9 @@ def phase28_fused_backward(dev, smi, lm):
     assert per["K6 + K7"] == LM_PER_STEP, counts
     want = {"K6 + K7": flash_routes(LM["depth"], torch.bfloat16, "causal"),
             "K10": flash_routes(LM["depth"], torch.bfloat16, "causal",
-                                backward=False)}
+                                backward="fused")}
     got = {name: per_step(r, LM_STEPS) for name, r in routes.items()}
-    print(f"phase 28: K8/K7 calls per step by route {got} (plan: {want})")
+    print(f"phase 28: flash calls per step by route {got} (plan: {want})")
     assert got == want, (got, want)
     assert all(math.isfinite(x) for x in losses), losses
     assert rel <= BWD_BF16_TOL
@@ -3534,7 +3591,7 @@ def kernel_report(paths, standalone, top=None):
         if "flash_route" in first:
             extra["flash_route"] = first["flash_route"]
         source = (K1_SOURCES.get(first.get("k1_route"))
-                  or FLASH_SOURCES.get(first.get("flash_route"))
+                  or FLASH_SOURCES.get(first.get("flash_route"), {}).get(k)
                   or SOURCES[k][0])
         kernels.append(dict(
             name=k, route="cuda", source=source,
@@ -3695,11 +3752,13 @@ def main():
              "serve": (serve_counts, serve_report)}
     # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
     # largest; K8's: the 170M model's bound arm (train_packed also has a
-    # K8 row, at the padded batch's shape)
+    # K8 row, at the padded batch's shape); K6's and K7's: the 170M shape
+    # in [B, S, H*D]
     kernels = kernel_report(paths, dict(
         new_rows, matmul_int8=headline(quant_rows["matmul_int8"])),
         top=dict(dict.fromkeys(K1_MODES, "train_lm"),
-                 flash_fwd_bound="train_lm"))
+                 flash_fwd_bound="train_lm", flash_dq="train_lm",
+                 flash_dkv="train_lm"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

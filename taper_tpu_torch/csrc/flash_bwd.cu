@@ -1,72 +1,66 @@
 // Flash attention backward: dQ, dK and dV from q, k, v, the forward's
 // output o and row logsumexp lse, and the output's cotangent do, under a
 // causal mask, a sliding window and segment ids (flash_common.cuh, Mask).
+// This file holds the C entry points of the four backward kernels and the
+// kernels that bf16 no longer runs on Hopper's wgmma: every f32 launch (the
+// sort task) and K11.  bf16 K6 runs flash_bwd_sm90.cu's kernel, bf16 K7 and
+// K10's bf16 sweep flash_sm90.cu's (ops/attention.py's plan_bwd names the
+// route).
 //
 // Replaces the four backward TPU kernels of
 // taper_tpu/ops/pallas/attention.py, launched by _flash_bwd_impl:
-//   * flash_dq_kernel (K6, _dq_kernel): one block per (batch * head, 64-row
-//     query tile) loops over the band of KV tiles the mask leaves.  It
-//     first computes delta = rowsum(dO * O) for its rows and exports it (as
-//     _dq_kernel does; JAX also subtracts an lse cotangent there, which
-//     only its flash_attention_lse has), then per KV tile p = exp(s - lse),
-//     ds = p * (dO V^T - delta), dQ += ds K, with ds cast to the input
-//     dtype before its product; the scale is applied once at the end.
-//   * flash_dkv_kernel<.., false> (K7, _dkv_kernel): one block per (batch *
-//     KV head, 64-row KV tile) loops over the band of query tiles and over
-//     the query heads of its GQA group in a fixed order.  It works on
-//     transposed tiles, s^T = K Q^T, so that every product is a plain one:
-//     dV += p^T dO with p cast to dO's dtype, dK += ds^T Q with ds cast to
-//     Q's dtype, and dK is scaled once at the end.  The group's query heads
-//     sum into the same f32 accumulators before the one cast: no partials
-//     at query-head width, no atomics, and the result is the same bits on
-//     every run (JAX sums per-head partials after its kernel).  This
-//     kernel is K7's in f32 (the sort task); bf16 runs the wgmma kernel of
-//     flash_sm90.cu, the same sweep on TMA rings with the softmax in
-//     registers.
+//   * flash_dq_kernel (K6 in f32, _dq_kernel): one block per (batch *
+//     head, 64-row query tile) loops over the band of KV tiles the mask
+//     leaves.  It first computes delta = rowsum(dO * O) for its rows and
+//     exports it (as _dq_kernel does; JAX also subtracts an lse cotangent
+//     there, which only its flash_attention_lse has), then per KV tile p =
+//     exp(s - lse), ds = p * (dO V^T - delta), dQ += ds K; the scale is
+//     applied once at the end.
+//   * flash_dkv_kernel<.., false> (K7 in f32, _dkv_kernel): one block per
+//     (batch * KV head, 64-row KV tile) loops over the band of query tiles
+//     and over the query heads of its GQA group in a fixed order.  It works
+//     on transposed tiles, s^T = K Q^T, so that every product is a plain
+//     one: dV += p^T dO, dK += ds^T Q, and dK is scaled once at the end.
+//     The group's query heads sum into the same f32 accumulators before the
+//     one cast: no partials at query-head width, no atomics, and the result
+//     is the same bits on every run (JAX sums per-head partials after its
+//     kernel).
 //   * flash_dkv_kernel<.., true> (K11, _dkv_kernel_t, opt-in under
 //     TAPER_ATTN_DKV_T=1 for non-causal or windowed masks without segment
-//     ids): the same transposed tile pair, but one block per (batch *
-//     QUERY head, KV tile), which writes the head's dK and dV as f32
-//     partials [B, H, S, D]; the caller sums them over each group (JAX's
-//     kernel emits at query-head width too).  At GQA group G it puts G
-//     times the blocks on the card for a partial buffer and a reduction;
+//     ids), in bf16 and f32: the same transposed tile pair, but one block
+//     per (batch * QUERY head, KV tile), which writes the head's dK and dV
+//     as f32 partials [B, H, S, D]; the caller sums them over each group
+//     (JAX's kernel emits at query-head width too).  At GQA group G it puts
+//     G times the blocks on the card for a partial buffer and a reduction;
 //     at G = 1 it does K7's work.
-//   * flash_fused_kernel (K10, _bwd_fused_kernel, opt-in under
+//   * flash_fused_kernel (K10 in f32, _bwd_fused_kernel, opt-in under
 //     TAPER_ATTN_FUSED_BWD=1 for plain causal attention): one sweep of the
 //     band computes s, p and dp once per tile pair (5 products where K6 +
 //     K7 do 7) and feeds all three gradients.  JAX keeps the whole (S, D)
 //     f32 dQ in VMEM; at the 170M shape that is 1 MiB a head, far beyond
-//     an SM's 228 KB, so here dK and dV stay in registers as in K7 and
-//     each pair's ds K is added into a zeroed f32 dQ buffer with atomics
-//     (red.global.add.f32), after a delta pre-pass and before an epilogue
-//     that scales and casts dQ: three launches.  The atomics make dQ's low
-//     bits depend on the order of the adds.
+//     an SM's 228 KB, so dK and dV stay in registers as in K7 and each
+//     pair's ds K is added into a zeroed f32 dQ buffer with atomics, after
+//     a delta pre-pass (flash_delta_kernel, every dtype) and before an
+//     epilogue that scales and casts dQ: three launches.  The atomics make
+//     dQ's low bits depend on the order of the adds.
 // All read the forward's strides (Layout), so the projections' [B, S, H*D]
 // layout needs no copy in either direction.
 //
-// What bounds them on the H100: tensor-core work, 6 S^2 D (dQ: QK^T, dO V^T,
-// dS K) and 8 S^2 D (dK/dV: KQ^T, VdO^T, P^T dO, dS^T Q) per head, halved
-// by causality (K10: 10 S^2 D); at the training shape (B 8, H 8, S 2048,
-// D 128, bf16) about 1.0e11 and 1.4e11 FLOP, ~100 and ~140 us at 989
-// TFLOP/s.  With a window W the band holds ~S W pairs, not S^2 / 2.
-// Device memory traffic is O(S * D) per head (K10 adds the f32 dQ atomics:
-// D floats per query row and visited KV tile, served by L2).
-// What the design here does about that (K6, K10, K11, and K7 in f32):
-//   * the products are WMMA 16x16x16 tensor-core tiles out of shared
-//     memory for bf16 (FMA loops for f32), as in the forward;
-//   * dQ (K6) and dK/dV (K7, K10) stay in registers for the whole sweep,
-//     as WMMA accumulator fragments, so they cost no shared-memory round
-//     trip per tile; the scores and the weights go through shared memory,
-//     where their elementwise step reads them row by row;
+// What bounds them on the H100: at the f32 sort task's shape (B 64, H 2,
+// S 128, D 64) the FMA work, 6 S^2 D (dQ) and 8 S^2 D (dK/dV) a head,
+// halved by causality, at 67 TFLOP/s; K11 in bf16 (windowed): tensor-core
+// work over the band's S W pairs.  What the design here does about that:
+//   * FMA loops in which a lane owns columns for f32, 16 x 16 WMMA tiles
+//     out of shared memory for K11 in bf16;
+//   * dQ (K6) and dK/dV (K7, K10, K11) stay in registers for the whole
+//     sweep; the scores and the weights go through shared memory, where
+//     their elementwise step reads them row by row;
 //   * tiles outside the band (the far side of the diagonal, behind the
 //     window) are skipped, the longest query rows of K6 are scheduled
 //     first (K7's first KV tiles are its longest), ragged S is masked in
 //     the kernel; masked pairs (another document) have p = 0 and add
 //     nothing to dS, and a tile pair whose segment-id ranges cannot meet
 //     is skipped whole.
-// K6 and K10 on flash_sm90.cu's building blocks (TMA rings, wgmma with A
-// from registers, the softmax in registers) are ROADMAP Queue 2's next
-// item.
 #include "flash_common.cuh"
 
 #include <algorithm>
@@ -352,7 +346,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K10's pre-pass: delta = rowsum(dO * O), one warp a row, in the order of
-// K6's (so the two give the same bits).
+// K6's (row_delta: the two give the same bits).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -362,10 +356,7 @@ __global__ void __launch_bounds__(kThreads)
   if (w >= rows) return;  // whole warps leave together
   const int bh = w / S, row = w % S, b = bh / H, h = bh % H;
   const long long off = b * lay.qb + h * lay.qh + row * lay.qs;
-  float acc = 0.0f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_f32(dout[off + d]), to_f32(o[off + d]), acc);
-  acc = warp_sum(acc);
+  const float acc = row_delta<T, D>(dout + off, o + off);
   if (lane == 0) delta[w] = acc;
 }
 
@@ -503,6 +494,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch_delta(const void* o, const void* dout, float* delta, int B,
+                 int H, int Hkv, int S, int layout, cudaStream_t s) {
+  const int rows = B * H * S;
+  flash_delta_kernel<T, D><<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta,
+      make_layout(layout, H, Hkv, S, D), H, S, rows);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, bool MASKED>
 int launch_fused(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* delta,
@@ -511,14 +512,12 @@ int launch_fused(const void* q, const void* k, const void* v, const void* o,
                  cudaStream_t s) {
   const Layout lay = make_layout(layout, H, Hkv, S, D);
   const int rows = B * H * S;
-  flash_delta_kernel<T, D><<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, lay, H,
-      S, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int code = launch_delta<T, D>(o, dout, delta, B, H, Hkv, S, layout,
+                                      s);
+  if (code != 0) return code;
   constexpr size_t bytes = BwdSmem<T, D>::bytes;
   auto kernel = flash_fused_kernel<T, D, MASKED>;
-  err = allow_smem(kernel, bytes);
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTile - 1) / kTile, B * Hkv);
   kernel<<<grid, kThreads, bytes, s>>>(
@@ -574,7 +573,29 @@ inline bool bad_dims(int B, int H, int Hkv, int S) {
 using namespace taper;
 using namespace taper::flash;
 
-// K6.  lse, delta: [B*H, S] f32; seg: [B, S] int32 or null; window: > 0
+namespace taper {
+namespace flash {
+// csrc/flash_bwd_sm90.cu: K6 on TMA and wgmma (bf16)
+int flash_dq_sm90(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const float* lse, void* dq, float* delta,
+                  const Mask& m, int B, int H, int Hkv, int S, int D,
+                  float scale, int layout, cudaStream_t stream);
+// csrc/flash_sm90.cu: K7 and K10's sweep on TMA and wgmma (bf16)
+int flash_dkv_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
+                   int S, int D, float scale, int layout,
+                   cudaStream_t stream);
+int flash_fused_sm90(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     float* dq_acc, void* dq, void* dk, void* dv,
+                     const Mask& m, int B, int H, int Hkv, int S, int D,
+                     float scale, int layout, cudaStream_t stream);
+}  // namespace flash
+}  // namespace taper
+
+// K6: bf16 runs the wgmma kernel of flash_bwd_sm90.cu, f32 the FMA kernel
+// here.  lse, delta: [B*H, S] f32; seg: [B, S] int32 or null; window: > 0
 // keeps cols > row - window.
 extern "C" int taper_flash_dq(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
@@ -584,7 +605,12 @@ extern "C" int taper_flash_dq(const void* q, const void* k, const void* v,
                               int layout, int dtype, void* stream) {
   if (bad_dims(B, H, Hkv, S)) return (int)cudaErrorInvalidValue;
   const Mask m{causal, window, static_cast<const int*>(seg)};
-  return dispatch(dtype, D, m, [&](auto t, auto d, auto mk) {
+  if (dtype == kBFloat16)
+    return flash_dq_sm90(q, k, v, o, dout, static_cast<const float*>(lse),
+                         dq, static_cast<float*>(delta), m, B, H, Hkv, S, D,
+                         scale, layout, static_cast<cudaStream_t>(stream));
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  return dispatch_dim<float>(D, m, [&](auto t, auto d, auto mk) {
     return launch_dq<typename decltype(t)::type, decltype(d)::value,
                      decltype(mk)::value>(
         q, k, v, o, dout, static_cast<const float*>(lse), dq,
@@ -592,17 +618,6 @@ extern "C" int taper_flash_dq(const void* q, const void* k, const void* v,
         static_cast<cudaStream_t>(stream));
   });
 }
-
-namespace taper {
-namespace flash {
-// csrc/flash_sm90.cu: K7 on TMA and wgmma (bf16)
-int flash_dkv_sm90(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
-                   int S, int D, float scale, int layout,
-                   cudaStream_t stream);
-}  // namespace flash
-}  // namespace taper
 
 // K7, after K6 on the same stream (it reads K6's delta): bf16 runs the
 // wgmma kernel of flash_sm90.cu, f32 the FMA kernel here.
@@ -649,8 +664,10 @@ extern "C" int taper_flash_dkv_t(const void* q, const void* k, const void* v,
 }
 
 // K10: the delta pre-pass, the fused sweep and the dQ epilogue, three
-// launches in order.  dq_acc: [B, H, S, D] f32, zeroed by the caller;
-// delta: [B*H, S] f32, written.
+// launches in order; bf16 runs the wgmma sweep of flash_sm90.cu, f32 the
+// FMA kernel here.  dq_acc: B*H*ceil(S/64)*64*D f32, zeroed by the caller
+// (f32 uses its first B*H*S*D as [B, H, S, D]); delta: [B*H, S] f32,
+// written.
 extern "C" int taper_flash_bwd_fused(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
@@ -659,11 +676,27 @@ extern "C" int taper_flash_bwd_fused(
     void* stream) {
   if (bad_dims(B, H, Hkv, S)) return (int)cudaErrorInvalidValue;
   const Mask m{causal, window, static_cast<const int*>(seg)};
-  return dispatch(dtype, D, m, [&](auto t, auto d, auto mk) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) {
+    using T = __nv_bfloat16;
+    const int err =
+        D == 64    ? launch_delta<T, 64>(o, dout, static_cast<float*>(delta),
+                                         B, H, Hkv, S, layout, s)
+        : D == 128 ? launch_delta<T, 128>(o, dout, static_cast<float*>(delta),
+                                          B, H, Hkv, S, layout, s)
+                   : (int)cudaErrorInvalidValue;
+    if (err != 0) return err;
+    return flash_fused_sm90(q, k, v, dout, static_cast<const float*>(lse),
+                            static_cast<const float*>(delta),
+                            static_cast<float*>(dq_acc), dq, dk, dv, m, B, H,
+                            Hkv, S, D, scale, layout, s);
+  }
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  return dispatch_dim<float>(D, m, [&](auto t, auto d, auto mk) {
     return launch_fused<typename decltype(t)::type, decltype(d)::value,
                         decltype(mk)::value>(
         q, k, v, o, dout, static_cast<const float*>(lse),
         static_cast<float*>(delta), static_cast<float*>(dq_acc), dq, dk, dv,
-        B, H, Hkv, S, scale, m, layout, static_cast<cudaStream_t>(stream));
+        B, H, Hkv, S, scale, m, layout, s);
   });
 }

@@ -136,6 +136,39 @@ __device__ __forceinline__ bool ids_meet(const int* a, const int* b) {
   return alo <= bhi && blo <= ahi;
 }
 
+// delta = rowsum(dO * O) of one D-element row, by one warp: each lane's
+// terms (columns lane + 32 j) loaded first, so that a warp can have many
+// rows' loads in flight (K6 on wgmma, flash_bwd_sm90.cu, loads 8 rows at
+// a time), then summed in order and across the warp by a butterfly (every
+// lane gets the same bits).  K6 and K10's pre-pass (row_delta) both sum
+// through it, so the two give the same delta.
+template <typename T, int D>
+struct DeltaTerms {
+  float g[D / 32], o[D / 32];
+
+  __device__ __forceinline__ void load(const T* dout_row, const T* o_row) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      g[j] = to_f32(dout_row[lane + 32 * j]);
+      o[j] = to_f32(o_row[lane + 32 * j]);
+    }
+  }
+  __device__ __forceinline__ float sum() const {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) acc = fmaf(g[j], o[j], acc);
+    return warp_sum(acc);
+  }
+};
+
+template <typename T, int D>
+__device__ __forceinline__ float row_delta(const T* dout, const T* o) {
+  DeltaTerms<T, D> t;
+  t.load(dout, o);
+  return t.sum();
+}
+
 // Rows [row0, row0 + 64) of one head (row stride `ld` elements) into a
 // shared tile, zeros past S (zeros matter: 0 * garbage could be NaN).
 template <typename T, int D, int LD>
@@ -284,46 +317,26 @@ struct WarpAcc<T, D, false> {
 
 // C[16 x D] (f32, leading dimension LDO) = A[16 x 64] . B[64 x D] for one
 // warp, with A given transposed: At is a [64, 64] weight tile (LDP) whose
-// columns [c0, c0 + 16) are the warp's rows.  The fused backward forms
-// dQ's share of a tile pair this way from the ds^T tile it already holds.
+// columns [c0, c0 + 16) are the warp's rows.  The f32 fused backward (K10)
+// forms dQ's share of a tile pair this way from the ds^T tile it already
+// holds (bf16 K10 runs flash_sm90.cu's wgmma sweep).
 template <typename T, int D>
 __device__ __forceinline__ void warp_mma_t(const T* At, const T* B,
                                            float* C) {
+  static_assert(sizeof(T) == 4, "the FMA path: f32 tiles");
   using L = Tiles<T, D>;
-  if constexpr (L::kTC) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
+  for (int j = 0; j < D / 32; ++j) {
+    float acc[16] = {};
+    for (int c = 0; c < kTile; ++c) {
+      float bv = to_f32(B[c * L::LDT + lane + 32 * j]);
 #pragma unroll
-      for (int kk = 0; kk < kTile; kk += 16) {
-        // At stored [64, LDP] row-major is the 16 x 64 operand col-major
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major>
-            a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            b;
-        wmma::load_matrix_sync(a, At + kk * L::LDP, L::LDP);
-        wmma::load_matrix_sync(b, B + kk * L::LDT + n * 16, L::LDT);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(C + n * 16, acc, L::LDO, wmma::mem_row_major);
+      for (int r = 0; r < 16; ++r)
+        acc[r] = fmaf(to_f32(At[c * L::LDP + r]), bv, acc[r]);
     }
-  } else {
-    const int lane = threadIdx.x % 32;
 #pragma unroll
-    for (int j = 0; j < D / 32; ++j) {
-      float acc[16] = {};
-      for (int c = 0; c < kTile; ++c) {
-        float bv = to_f32(B[c * L::LDT + lane + 32 * j]);
-#pragma unroll
-        for (int r = 0; r < 16; ++r)
-          acc[r] = fmaf(to_f32(At[c * L::LDP + r]), bv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < 16; ++r) C[r * L::LDO + lane + 32 * j] = acc[r];
-    }
+    for (int r = 0; r < 16; ++r) C[r * L::LDO + lane + 32 * j] = acc[r];
   }
 }
 

@@ -1,10 +1,11 @@
-// Flash attention on Hopper: K8, the bound-max forward, and K7, the dK/dV
-// backward, in bf16 at D 64 or 128, on TMA rings and warpgroup MMA (wgmma)
-// with the softmax in registers.
+// Flash attention on Hopper: K8, the bound-max forward, K7, the dK/dV
+// backward, and K10's fused sweep (K7's with dQ's share added), in bf16 at
+// D 64 or 128, on TMA rings and warpgroup MMA (wgmma) with the softmax in
+// registers.  K6 (dQ) is flash_bwd_sm90.cu's.
 //
 // Replaces, for bf16 operands (16-byte aligned, as TMA needs and
-// ops/backend.py::check_kernel_args demands of every launch; K7 in f32
-// runs flash_bwd.cu's FMA kernel):
+// ops/backend.py::check_kernel_args demands of every launch; K7 and K10 in
+// f32 run flash_bwd.cu's FMA kernels):
 //   * taper_tpu/ops/pallas/attention.py::_fwd_kernel_bound (K8, launched
 //     by _flash_fwd): causal attention o = softmax(scale q k^T) v and the
 //     natural-log row logsumexp.  Softmax is shift-invariant, so any row
@@ -21,12 +22,22 @@
 //   * taper_tpu/ops/pallas/attention.py::_dkv_kernel (K7, launched by
 //     _flash_bwd_impl): dK and dV of one KV tile over the band of query
 //     tiles and the GQA group's query heads, under a causal mask, a
-//     sliding window or segment ids.
+//     sliding window or segment ids;
+//   * taper_tpu/ops/pallas/attention.py::_bwd_fused_kernel (K10, opt-in
+//     under TAPER_ATTN_FUSED_BWD=1): K7's sweep (dkv_kernel<.., FUSED>)
+//     that also adds each query tile's dS K into an f32 dQ buffer, between
+//     flash_bwd.cu's delta pre-pass and dq_share_epilogue's scale and
+//     cast.  JAX keeps the whole f32 dQ of a head in VMEM (1 MiB at the
+//     170M shape), far beyond an SM's 227 KB: here the shares of the
+//     blocks that see a query tile meet in device memory, added with
+//     16-byte vector reductions (a TMA bulk reduce would need 32 KB more
+//     shared memory for its staging than the 227 KB hold at D 128).
 //
 // What bounds them on the H100: tensor-core work.  At the 170M shape (B 8,
 // H 8, S 2048, D 128, causal) K8's two products are 6.9e10 FLOP (69 us at
-// 989 TFLOP/s) and K7's four 1.4e11 (139 us); device memory traffic is
-// O(S D) a head.  The tensor cores reach that rate only through wgmma fed
+// 989 TFLOP/s), K7's four 1.4e11 (139 us) and K10's five 1.7e11 (174
+// us); device memory traffic is O(S D) a head (K10 adds its dQ shares,
+// ~0.55 GB of f32 reductions at that shape, served by L2).  The tensor cores reach that rate only through wgmma fed
 // from swizzled shared memory with the operands' loads and the softmax off
 // their critical path.  The first WMMA designs (flash_fwd.cu,
 // flash_bwd.cu) ran at ~1/20 of it: 16 x 16 tiles, scores and weights
@@ -71,6 +82,7 @@
 // (PERF.md); both were left out.  A persistent grid, whose next tile's
 // loads would run under this one's epilogue, is the next step for short
 // rows.
+#include <algorithm>
 #include <climits>
 #include <type_traits>
 
@@ -94,11 +106,6 @@ struct FwdTiles {
   static constexpr int BAR_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
   static constexpr int SMEM = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
 
 // The softmax of one raw score tile in registers (the thread's two rows):
 // masks where the tile needs it, takes the shift (the bound, or the
@@ -373,27 +380,93 @@ struct DkvSlot {
   int lo, hi, skip, pad;
 };
 
-template <int D>
+// K10 (FUSED) adds two ds^T tiles of [128 KV rows, 64 query rows] bf16,
+// used in turns, and at D 128 gives up a stage for them (227 KB).
+template <int D, bool FUSED>
 struct DkvTiles {
   static constexpr int BKV = 128;                 // KV rows a block
   static constexpr int BQ = 64;                   // query rows a tile
   static constexpr int KV_BYTES = BKV * D * 2;    // K or V
   static constexpr int T_BYTES = BQ * D * 2;      // a Q or dO tile
-  static constexpr int STAGES = 4;
+  static constexpr int STAGES = FUSED && D == 128 ? 3 : 4;
   static constexpr int STAGE_BYTES = 2 * T_BYTES;
   static constexpr int STAGE_OFF = 2 * KV_BYTES;
-  static constexpr int SLOT_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr int DS_BYTES = BKV * BQ * 2;   // one ds^T tile
+  static constexpr int DS_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr int SLOT_OFF = DS_OFF + (FUSED ? 2 * DS_BYTES : 0);
   static constexpr int RANGE_OFF = SLOT_OFF + STAGES * (int)sizeof(DkvSlot);
   static constexpr int BAR_OFF = RANGE_OFF + 2 * 4 * 2 * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
+
+// K10: the ds^T fragment ``a`` (acc_to_a's registers: the thread's KV
+// rows ``r`` and ``r`` + 8 of a ds^T tile, 64 query columns) into the
+// swizzled [128, 64] bf16 tile at ``tile``.
+__device__ __forceinline__ void put_ds(unsigned char* tile,
+                                       const uint32_t (&a)[4][4], int r) {
+  const int quad = threadIdx.x % 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint32_t*>(
+          tile + sw128_offset(r + 8 * (i & 1), 16 * k + 8 * (i >> 1) +
+                                                   2 * quad)) = a[k][i];
+}
+
+// K10: issues warpgroup ``c``'s share of one query tile's dQ_part = dS K,
+// an m64n64 product: at D 128 columns [64 c, 64 c + 64) of D over the
+// block's 128 KV rows, at D 64 all 64 columns over the warpgroup's own 64
+// KV rows (so that both warpgroups issue the same instructions, with no
+// branch around a wgmma).  dS is read from the ds^T tile ``ds`` M-major
+// (the instruction's transpose bit), K N-major.
+template <int D, int BKV>
+__device__ __forceinline__ void issue_dq_share(float (&dqp)[32], uint32_t ds,
+                                               uint32_t ks, int c) {
+  constexpr int KK = D == 128 ? BKV / 16 : BKV / 32;  // k16 slices
+  const int kk0 = D == 128 ? 0 : KK * c;
+  const uint32_t kb = ks + (D == 128 ? c * BKV * 128 : 0);
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+    wgmma_m64n64k16<1, 1>(dqp, desc_n<BKV>(ds, kk0 + kk),
+                          desc_n<BKV>(kb, kk0 + kk), kk > 0);
+}
+
+// K10: adds the warpgroup's m64n64 share into its chunk of dq_acc with
+// 16-byte vector reductions (red.global.add.v4.f32), in fragment order:
+// element 4 j + i of thread t at float 4 (128 j + t) + i, so that a warp's
+// reduction covers 512 contiguous bytes (dq_share_epilogue reads it back).
+__device__ __forceinline__ void red_dq_share(float* chunk,
+                                             const float (&dqp)[32],
+                                             int tid) {
+  float4* dst = reinterpret_cast<float4*>(chunk) + tid;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    atomicAdd(dst + 128 * j, make_float4(dqp[4 * j], dqp[4 * j + 1],
+                                         dqp[4 * j + 2], dqp[4 * j + 3]));
+}
 
 // One block a (batch * KV head, 128-row KV tile); its first tiles see the
 // most query rows under causality.  The query tiles of the band are taken
 // head by head over the GQA group, in the same order on every run, and
 // summed into one set of f32 accumulators before one cast.  ``tq``/``tdo``:
 // boxes of 64 rows; ``tk``/``tv``: 128; ``tdk``/``tdv``: 64.
-template <int D, bool MASKED>
+//
+// FUSED (K10) adds each query tile's share of dQ: the two consumer
+// warpgroups put their ds^T halves into one shared tile (two tiles used in
+// turns), each announces its half on a named barrier without waiting
+// (bar.arrive) and issues dV and dK, then waits for the other's half,
+// computes its m64n64 part of dS K (issue_dq_share) and adds it into
+// ``dq_acc`` (red_dq_share; zeroed by the caller, [B*H, n_qt, D / 64, 64 *
+// 64] f32 with n_qt = ceil(S / 64)).  Waiting for the other half of tile
+// j also orders this warpgroup's writes of tile j + 2 after the other's
+// reads of tile j, and one warpgroup's softmax can run under the other's
+// products.  A warpgroup whose pair the mask empties still computes it
+// (its ds^T is 0 there): the other needs its half, and no wgmma sits
+// behind a branch (ptxas serialises the wgmma of a kernel that has one).
+// The order of the blocks' additions varies from run to run, and so do
+// dQ's low bits.
+template <int D, bool MASKED, bool FUSED>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -403,9 +476,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                const __grid_constant__ CUtensorMap tdv,
                const float* __restrict__ lse, const float* __restrict__ delta,
                int causal, int window, const int* __restrict__ seg, int H,
-               int Hkv, int S, int layout, float scale, float scale_log2) {
+               int Hkv, int S, int layout, float scale, float scale_log2,
+               float* __restrict__ dq_acc, int n_qt) {
   const Mask mask{causal, window, seg};  // see Mask
-  using P = DkvTiles<D>;
+  using P = DkvTiles<D, FUSED>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* Ks = smem;
@@ -542,19 +616,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     dk[e] = 0.0f;
     dv[e] = 0.0f;
   }
+  int xc = 0;  // K10: ds^T tiles exchanged so far (alike in both)
+  [[maybe_unused]] float dqp[FUSED ? 32 : 1];
+  // K10: the warpgroup's chunk of dq_acc for query tile q0 of query head
+  // g of the group
+  [[maybe_unused]] auto chunk = [&](int g, int q0) {
+    const size_t bh = (size_t)b * H + hk * group + g;
+    return dq_acc +
+           ((bh * n_qt + q0 / 64) * (D / 64) + (D == 128 ? c : 0)) * 4096;
+  };
   mbar_wait(kv_full, 0);
   for (int it = 0; it < total; ++it) {
-    const int q0 = q_lo + (it % n_q) * P::BQ;
+    const int g = it / n_q, q0 = q_lo + (it % n_q) * P::BQ;
     const int s = it % P::STAGES;
     mbar_wait(&full[s], (it / P::STAGES) & 1);
     const DkvSlot& sl = slots[s];
+    const bool block_skip = sl.skip;
     // the warpgroup's tile pair adds nothing: masked whole (the far side
     // of the diagonal, behind the window) or no shared document
-    bool skip = sl.skip || (causal && q0 + P::BQ - 1 < k0) ||
+    bool skip = block_skip || (causal && q0 + P::BQ - 1 < k0) ||
                 (MASKED && window > 0 && q0 - window >= k0 + 63);
     if (has_ids<MASKED>(mask) && !skip)
       skip = !(sl.lo <= whi && wlo <= sl.hi);
-    if (skip) {
+    // K10 skips only what the whole block skips (see above)
+    if (FUSED ? block_skip : skip) {
       if (lane == 0) mbar_arrive(&empty[s]);
       continue;
     }
@@ -603,12 +688,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[4][4], dsa[4][4];
     acc_to_a<64>(st, pa);
     acc_to_a<64>(dp, dsa);
+    [[maybe_unused]] unsigned char* dt =
+        smem + P::DS_OFF + (xc & 1) * P::DS_BYTES;
+    // K10: named barriers 4 + 2 w + t announce warpgroup w's half of ds^T
+    // tile t
+    if constexpr (FUSED) {
+      put_ds(dt + 64 * c * 128, dsa, r_lo);
+      fence_proxy_async_smem();
+      named_bar_arrive(4 + 2 * c + (xc & 1), 256);
+    }
 
-    // dV += p^T dO and dK += ds^T Q, dO and Q read N-major
+    // dV += p^T dO and dK += ds^T Q, dO and Q read N-major (K10: and the
+    // warpgroup's share of dS K)
     fence_frag(dv);
     fence_frag(dk);
     fence_frag(pa);
     fence_frag(dsa);
+    if constexpr (FUSED) fence_frag(dqp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < P::BQ / 16; ++kk) {
@@ -625,16 +721,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_m64n64k16_rs<1>(dk, dsa[kk], desc_n<P::BQ>(qs, kk), 1);
     }
     wgmma_commit();
+    if constexpr (FUSED) {
+      named_bar_sync(4 + 2 * (1 - c) + (xc & 1), 256);
+      wgmma_fence();
+      issue_dq_share<D, P::BKV>(dqp, smem_u32(dt), ks, c);
+      wgmma_commit();
+    }
     wgmma_wait<0>();
     fence_frag(dv);
     fence_frag(dk);
     fence_frag(pa);
     fence_frag(dsa);
     if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (FUSED) {
+      fence_frag(dqp);
+      red_dq_share(chunk(g, q0), dqp, tid);
+      ++xc;
+    }
   }
 
   // epilogue: dK (scaled once) and dV in bf16 over the warpgroup's own K
-  // and V rows (which only its wgmma read), then TMA stores of its 64 rows
+  // and V rows (which only its wgmma read; K10's dS K read all of K, so
+  // both warpgroups finish that first), then TMA stores of its 64 rows
+  if constexpr (FUSED) named_bar_sync(3, 256);
   named_bar_sync(1 + c, 128);
 #pragma unroll
   for (int e = 0; e < D / 2; e += 2) {
@@ -653,12 +762,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool FUSED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               const int* seg, int B, int H, int Hkv, int S, float scale,
-               int causal, int window, int layout, cudaStream_t stream) {
-  using P = DkvTiles<D>;
+               const float* lse, const float* delta, float* dq_acc, void* dk,
+               void* dv, const int* seg, int B, int H, int Hkv, int S,
+               float scale, int causal, int window, int layout,
+               cudaStream_t stream) {
+  using P = DkvTiles<D, FUSED>;
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
   int err = head_desc(&tq, q, layout, B, H, S, D, P::BQ);
   if (err == 0) err = head_desc(&tdo, dout, layout, B, H, S, D, P::BQ);
@@ -667,14 +777,62 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (err == 0) err = head_desc(&tdk, dk, layout, B, Hkv, S, D, 64);
   if (err == 0) err = head_desc(&tdv, dv, layout, B, Hkv, S, D, 64);
   if (err != 0) return err;
-  auto kernel = dkv_kernel<D, MASKED>;
+  auto kernel = dkv_kernel<D, MASKED, FUSED>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hkv, (S + P::BKV - 1) / P::BKV);
   kernel<<<grid, kThreads, P::SMEM, stream>>>(
       tq, tk, tv, tdo, tdk, tdv, lse, delta, causal, window, seg, H, Hkv, S,
-      layout, scale, scale * kLog2e);
+      layout, scale, scale * kLog2e, dq_acc, (S + 63) / 64);
+  return (int)cudaGetLastError();
+}
+
+// K10's epilogue: dq = dq_acc scale in bf16, in q's layout.  dq_acc holds
+// each (head, 64-row query tile, 64-column block of D) as red_dq_share
+// left it: one float4 a thread, rows r and r + 8, columns c and c + 1.
+template <int D>
+__global__ void dq_share_epilogue(const float4* __restrict__ acc,
+                                  __nv_bfloat16* __restrict__ dq, int H,
+                                  int S, int n_qt, int layout, float scale,
+                                  long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * blockDim.x) {
+    const int t = (int)(i % 128), j = (int)(i / 128 % 8);
+    const long long block = i / 1024;  // (bh, query tile, column block)
+    const int x = (int)(block % (D / 64));
+    const long long tile = block / (D / 64);
+    const int bh = (int)(tile / n_qt), b = bh / H, h = bh % H;
+    const int row = (int)(tile % n_qt) * 64 + (t / 32) * 16 + (t % 32) / 4;
+    const int col = 64 * x + 8 * j + 2 * (t % 4);
+    const float4 a = acc[i];
+    if (row < S)
+      *reinterpret_cast<uint32_t*>(dq + row_at(layout, b, H, h, S, D, row) +
+                                   col) = pack_bf16x2(a.x * scale,
+                                                      a.y * scale);
+    if (row + 8 < S)
+      *reinterpret_cast<uint32_t*>(
+          dq + row_at(layout, b, H, h, S, D, row + 8) + col) =
+          pack_bf16x2(a.z * scale, a.w * scale);
+  }
+}
+
+template <int D, bool MASKED>
+int launch_fused(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 float* dq_acc, void* dq, void* dk, void* dv, const int* seg,
+                 int B, int H, int Hkv, int S, float scale, int causal,
+                 int window, int layout, cudaStream_t stream) {
+  int err = launch_dkv<D, MASKED, true>(q, k, v, dout, lse, delta, dq_acc,
+                                        dk, dv, seg, B, H, Hkv, S, scale,
+                                        causal, window, layout, stream);
+  if (err != 0) return err;
+  const int n_qt = (S + 63) / 64;
+  const long long n4 = (long long)B * H * n_qt * 64 * D / 4;
+  const int blocks = (int)std::min<long long>((n4 + 255) / 256, 132 * 16);
+  dq_share_epilogue<D><<<blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(dq_acc),
+      static_cast<__nv_bfloat16*>(dq), H, S, n_qt, layout, scale, n4);
   return (int)cudaGetLastError();
 }
 
@@ -764,20 +922,23 @@ int flash_dkv_sm90(const void* q, const void* k, const void* v,
                    void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
                    int S, int D, float scale, int layout,
                    cudaStream_t stream) {
-  auto go = [&](auto d, auto masked) {
-    return sm90::launch_dkv<decltype(d)::value, decltype(masked)::value>(
-        q, k, v, dout, lse, delta, dk, dv, m.seg, B, H, Hkv, S, scale,
-        m.causal, m.window, layout, stream);
-  };
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  if (D == 64)
-    return masked(m) ? go(D64{}, std::true_type{})
-                     : go(D64{}, std::false_type{});
-  if (D == 128)
-    return masked(m) ? go(D128{}, std::true_type{})
-                     : go(D128{}, std::false_type{});
-  return (int)cudaErrorInvalidValue;
+  return sm90::by_dim_and_mask(D, m, [&](auto d, auto mk) {
+    return sm90::launch_dkv<decltype(d)::value, decltype(mk)::value, false>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, m.seg, B, H, Hkv, S,
+        scale, m.causal, m.window, layout, stream);
+  });
+}
+
+int flash_fused_sm90(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     float* dq_acc, void* dq, void* dk, void* dv,
+                     const Mask& m, int B, int H, int Hkv, int S, int D,
+                     float scale, int layout, cudaStream_t stream) {
+  return sm90::by_dim_and_mask(D, m, [&](auto d, auto mk) {
+    return sm90::launch_fused<decltype(d)::value, decltype(mk)::value>(
+        q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, m.seg, B, H, Hkv, S,
+        scale, m.causal, m.window, layout, stream);
+  });
 }
 
 }  // namespace flash

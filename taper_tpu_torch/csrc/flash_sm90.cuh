@@ -1,5 +1,6 @@
-// Building blocks of the Hopper flash kernels (flash_sm90.cu: K8's forward
-// and K7's dK/dV), on top of hopper.cuh and flash_common.cuh.
+// Building blocks of the Hopper flash kernels (flash_sm90.cu: K8's
+// forward, K7's dK/dV and K10's fused sweep; flash_bwd_sm90.cu: K6's dQ),
+// on top of hopper.cuh and flash_common.cuh.
 //
 // A head's rows are read and written by TMA through rank-3 descriptors, so
 // that a tile past S reads zeros and a store past S is dropped inside its
@@ -13,6 +14,8 @@
 // rows * 128 * x; it is read K-major (along D) or N-major (along the rows)
 // by the wgmma descriptors alone.
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -29,6 +32,13 @@ using namespace hopper;
 constexpr int kThreads = 384;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
+// The first 1024-byte boundary at or after ``p`` in shared memory (operand
+// tiles start on one: the 128-byte swizzle repeats every 1024 bytes).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
 // Where a head's rows start in its tensor's rank-3 descriptor: the column
 // of the head's first box and the outer index.
 struct HeadAt {
@@ -39,6 +49,15 @@ __host__ __device__ __forceinline__ HeadAt head_at(int layout, int b,
                                                    int heads, int head,
                                                    int D) {
   return layout ? HeadAt{head * D, b} : HeadAt{0, b * heads + head};
+}
+
+// The element offset of row ``row`` of one head in either layout (for the
+// plain loads beside TMA: K6's delta reads O and dO row by row).
+__host__ __device__ __forceinline__ size_t row_at(int layout, int b,
+                                                  int heads, int head,
+                                                  int S, int D, int row) {
+  return layout ? ((size_t)b * S + row) * heads * D + (size_t)head * D
+                : (((size_t)b * heads + head) * S + row) * D;
 }
 
 // The descriptor of a [B, S, heads*D] or [B, heads, S, D] bf16 tensor in
@@ -124,6 +143,21 @@ __device__ __forceinline__ void mask_frag(float (&f)[N / 2], int row0,
 #pragma unroll
   for (int e = 0; e < N / 2; ++e)
     if (!keep(row0 + frag_row(e), col0 + frag_col(e, q))) f[e] = masked;
+}
+
+// Launches ``f(integral_constant<D>, bool_constant<MASKED>)`` for the
+// head dim (64 or 128) and the mask's instantiation (see Mask).
+template <typename F>
+int by_dim_and_mask(int D, const Mask& m, F&& f) {
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (D == 64)
+    return masked(m) ? f(D64{}, std::true_type{})
+                     : f(D64{}, std::false_type{});
+  if (D == 128)
+    return masked(m) ? f(D128{}, std::true_type{})
+                     : f(D128{}, std::false_type{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

@@ -4,7 +4,8 @@
 // rebalancing between warpgroups, wgmma with A from registers, and the
 // accumulator-fragment helpers (quad reductions, the f32 accumulator as a
 // bf16 A operand).  K1's wgmma GEMM (gemm_sm90.cu) and the flash kernels
-// K8 and K7 (flash_sm90.cu) are built on them.
+// K8, K7 and K10 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on
+// them.
 //
 // Conventions:
 //   * shared-memory addresses are 32-bit (``smem_u32``);
@@ -162,6 +163,13 @@ __device__ __forceinline__ void fence_proxy_async_smem() {
 // Named barrier ``id`` (1..15; 0 is __syncthreads) over ``count`` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrives at named barrier ``id`` without waiting: the threads that wait
+// there (named_bar_sync, ``count`` threads in all) see this thread's
+// earlier shared-memory writes.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- wgmma --

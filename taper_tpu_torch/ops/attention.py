@@ -26,16 +26,19 @@ with ``S * W``.
 Both entry points are ``torch.autograd.Function``s.  CPU tensors run the
 plain versions (:func:`attention_lse_reference` forward,
 :func:`flash_bwd_reference` backward); CUDA tensors run the kernels of
-``csrc/flash_sm90.cu``, ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
-at every shape they take (f32 or bf16, D of 64 or 128, any S), or raise.
-The forward picks its kernel as JAX does (``attention.py:1155``): the
-bound-max K8 for bf16 causal inputs with no window and no segments, its
-exact arm chosen on the device by :func:`bound_predicate`; the exact K5
-for the rest.  :func:`plan_fwd` and :func:`plan_dkv` name K8's and K7's
-kernel before launch: the TMA + wgmma kernels of ``csrc/flash_sm90.cu``
-for bf16 (whose data ``backend.check_kernel_args`` holds to TMA's 16-byte
-alignment, or raises), K7's FMA kernel for f32; ``backend.route_counts()``
-counts the calls by route.  The backward is K6 then K7, with JAX's two
+``csrc/flash_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu`` at every shape they take (f32 or bf16, D of 64
+or 128, any S), or raise.  The forward picks its kernel as JAX does
+(``attention.py:1155``): the bound-max K8 for bf16 causal inputs with no
+window and no segments, its exact arm chosen on the device by
+:func:`bound_predicate`; the exact K5 for the rest.  :func:`plan_fwd`
+names K8's kernel and :func:`plan_bwd` K6's, K7's and K10's before
+launch: the TMA + wgmma kernels of ``csrc/flash_sm90.cu`` (K8, K7, K10)
+and ``csrc/flash_bwd_sm90.cu`` (K6) for bf16 (whose data
+``backend.check_kernel_args`` holds to TMA's 16-byte alignment, or
+raises), the FMA kernels of ``csrc/flash_bwd.cu`` for f32;
+``backend.route_counts()`` counts the calls by route.  The backward is K6
+then K7, with JAX's two
 opt-in alternatives, read from the environment at each call as JAX reads
 them at trace time, and only on the card: ``TAPER_ATTN_FUSED_BWD=1``
 runs K10 for plain causal attention (no window, no segments; JAX's
@@ -237,8 +240,8 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal, scale, window=None,
 # -- routing ----------------------------------------------------------------
 
 def mask_kind(causal, window, segment_ids):
-    """The mask of a call as :func:`plan_fwd` and :func:`plan_dkv` take
-    it: ``"segments"``, ``"window"``, ``"causal"`` or ``"none"``."""
+    """The mask of a call as :func:`plan_fwd` takes it: ``"segments"``,
+    ``"window"``, ``"causal"`` or ``"none"``."""
     if segment_ids is not None:
         return "segments"
     if window is not None:
@@ -259,10 +262,12 @@ def plan_fwd(dtype, mask: str) -> str:
     return "wgmma"
 
 
-def plan_dkv(dtype) -> str:
-    """K7's kernel, decided before launch by the dtype alone, under every
-    mask: ``"wgmma"`` (``csrc/flash_sm90.cu``) for bf16, ``"wmma"`` (the
-    kernel of ``csrc/flash_bwd.cu``, its FMA schedule) for f32."""
+def plan_bwd(dtype) -> str:
+    """The backward kernels' route (K6, K7 and K10 alike), decided before
+    launch by the dtype alone, under every mask: ``"wgmma"`` for bf16 (K6
+    in ``csrc/flash_bwd_sm90.cu``, K7 and K10's sweep in
+    ``csrc/flash_sm90.cu``), ``"wmma"`` for f32 (the FMA kernels of
+    ``csrc/flash_bwd.cu``)."""
     return "wgmma" if dtype == torch.bfloat16 else "wmma"
 
 
@@ -376,10 +381,12 @@ def _bwd_args(name, q, k, v, heads, causal, scale, window, segment_ids,
 
 def flash_dq(q, k, v, o, lse, do, *, causal, scale, heads=None,
              window=None, segment_ids=None):
-    """K6 on CUDA tensors in either layout (``o`` and ``do`` in ``q``'s):
-    returns ``(dq, delta)``, ``delta`` ``[B*H, S]`` f32 for K7/K11."""
+    """K6 on CUDA tensors in either layout (``o`` and ``do`` in ``q``'s),
+    through the route :func:`plan_bwd` gives: returns ``(dq, delta)``,
+    ``delta`` ``[B*H, S]`` f32 for K7/K11."""
     seg, args = _bwd_args("flash backward dQ", q, k, v, heads, causal,
                           scale, window, segment_ids, o, do, rows=(lse,))
+    route = plan_bwd(q.dtype)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     code = _build.library().taper_flash_dq(
@@ -388,16 +395,17 @@ def flash_dq(q, k, v, o, lse, do, *, causal, scale, heads=None,
         *args)
     _build.check(code, "flash backward dQ")
     backend.count_launch("flash_dq")
+    backend.count_route(route, "flash_dq", 1)
     return dq, delta
 
 
 def flash_dkv(q, k, v, lse, delta, do, *, causal, scale, heads=None,
               window=None, segment_ids=None):
     """K7 on CUDA tensors in either layout, after K6 (its ``delta``),
-    through the route :func:`plan_dkv` gives: returns ``(dk, dv)``."""
+    through the route :func:`plan_bwd` gives: returns ``(dk, dv)``."""
     seg, args = _bwd_args("flash backward dK/dV", q, k, v, heads, causal,
                           scale, window, segment_ids, do, rows=(lse, delta))
-    route = plan_dkv(q.dtype)
+    route = plan_bwd(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _build.library().taper_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -440,13 +448,18 @@ def group_sum(part, like, heads=None):
 
 def flash_bwd_fused(q, k, v, o, lse, do, *, causal, scale, heads=None,
                     window=None, segment_ids=None):
-    """K10 on CUDA tensors in either layout: its delta pre-pass, the fused
-    sweep and the dQ epilogue (three launches, one count).  Returns
-    ``(dq, dk, dv, delta)``."""
+    """K10 on CUDA tensors in either layout, through the route
+    :func:`plan_bwd` gives: its delta pre-pass, the fused sweep and the
+    dQ epilogue (three launches, one count).  Returns ``(dq, dk, dv,
+    delta)``."""
     seg, args = _bwd_args("flash backward (fused)", q, k, v, heads, causal,
                           scale, window, segment_ids, o, do, rows=(lse,))
+    route = plan_bwd(q.dtype)
     b, h, _, s, d = args[:5]
-    dq_acc = torch.zeros(b, h, s, d, dtype=torch.float32, device=q.device)
+    # the sweep's f32 dQ sums, each 64-row query tile in one block (the
+    # kernel's own order inside it)
+    dq_acc = torch.zeros(b * h * -(-s // 64) * 64 * d, dtype=torch.float32,
+                         device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     code = _build.library().taper_flash_bwd_fused(
@@ -455,6 +468,7 @@ def flash_bwd_fused(q, k, v, o, lse, do, *, causal, scale, heads=None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), seg, *args)
     _build.check(code, "flash backward (fused)")
     backend.count_launch("flash_bwd_fused")
+    backend.count_route(route, "flash_bwd_fused", 1)
     return dq, dk, dv, delta
 
 

@@ -43,8 +43,8 @@ KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
            "paged_decode", "paged_decode_int8",
            "conv_fwd", "conv_dw", "pool") + EW_OPS + ("adam", "sgd") + QUANT_OPS
 _launches = dict.fromkeys(KERNELS, 0)
-# K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; K8
-# and K7 calls by route (ops.attention.plan_fwd / plan_dkv): "wgmma
+# K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; the
+# flash calls by route (ops.attention.plan_fwd / plan_bwd): "wgmma
 # flash_fwd_bound", "wmma flash_dkv", ...; a tally of its own, so that the
 # per-kernel counts stay one a call
 _routes = {}

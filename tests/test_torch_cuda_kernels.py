@@ -468,25 +468,30 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, hkv, s, d, causal, dtype,
 
 # Faults planted in a copy of csrc: (what, the source file, the line as it
 # is, the line with the fault).  The first one drops work that only the
-# last rows see, whose gradient is far below the largest entries.  K7's
-# bf16 kernel is the wgmma one of flash_sm90.cu (ops.attention.plan_dkv).
+# last rows see, whose gradient is far below the largest entries.  The
+# bf16 kernels are the wgmma ones (ops.attention.plan_bwd): K6 in
+# flash_bwd_sm90.cu, K7 and K10's sweep in flash_sm90.cu.  A fault named
+# "K10" is held through flash_bwd_fused, the others through K6 + K7.
 _FAULTS = [
-    ("K6 skips the last query tile's diagonal KV tile", "flash_bwd.cu",
-     "const int kv_hi = kv_end(mask, q0, S);",
-     "const int kv_hi = min(S - kTile, kv_end(mask, q0, S));"),
-    ("K6 skips KV tile 0 below the diagonal", "flash_bwd.cu",
-     "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {",
-     "for (int kv0 = q0 > 0 ? kTile : 0; kv0 < kv_hi; kv0 += kTile) {"),
+    ("K6 skips the last query tile's diagonal KV tile", "flash_bwd_sm90.cu",
+     "const int kv_hi = causal ? min(S, q0 + P::BM) : S;",
+     "const int kv_hi = causal ? min(S - P::BN, q0 + P::BM) : S;"),
+    ("K6 skips KV tile 0 below the diagonal", "flash_bwd_sm90.cu",
+     "const int kv_lo = kv_begin<MASKED>(mask, q0);",
+     "const int kv_lo = q0 > 0 ? P::BN : kv_begin<MASKED>(mask, q0);"),
     ("K7 skips the last query tile", "flash_sm90.cu",
      "const int total = group * n_q;",
      "const int total = group * n_q - 1;"),
-    ("K6 skips the diagonal KV tile", "flash_bwd.cu",
-     "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {",
-     "for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 + kTile < kv_hi; "
-     "kv0 += kTile) {"),
+    ("K6 skips the diagonal KV tile", "flash_bwd_sm90.cu",
+     "bool skip = sl.skip || (causal && kv0 > qc + 63) ||",
+     "bool skip = sl.skip || (causal && kv0 + P::BN - 1 > qc) ||"),
     ("K7 drops the diagonal of its causal mask", "flash_sm90.cu",
      "return kv < S && qrow < S && keep<MASKED>(mask, qrow, kv) &&",
      "return kv < S && qrow < S && kv < qrow &&"),
+    ("K10 sums dQ's share over the first 64 KV rows of a block",
+     "flash_sm90.cu",
+     "constexpr int KK = D == 128 ? BKV / 16 : BKV / 32;  // k16 slices",
+     "constexpr int KK = D == 128 ? BKV / 32 : BKV / 64;  // k16 slices"),
 ]
 
 
@@ -507,8 +512,8 @@ def _plant(tmp_path, monkeypatch, name, line, fault, what):
                          ids=[f[0] for f in _FAULTS])
 def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
                                                  what, name, line, fault):
-    """The bf16 backward's per-tile check fails a K6 or K7 built with a
-    tile of its work left out (or, K7, with a wrong mask), at the 170M
+    """The bf16 backward's per-tile check fails a K6, K7 or K10 built with
+    a tile of its work left out (or, K7, with a wrong mask), at the 170M
     model's attention shape (one batch row): the kernels are rebuilt from
     a copy of csrc with the fault in it.  The whole-tensor bound (2e-2 of
     the largest |entry|) that the per-tile check replaced is printed
@@ -516,8 +521,8 @@ def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
     _plant(tmp_path, monkeypatch, name, line, fault, what)
     q, k, v, o, lse, do, heads, scale = _bwd_case(
         dev, 1, 8, 8, 2048, 128, torch.bfloat16, "bshd", True)
-    grads = A.flash_bwd(q, k, v, o, lse, do, causal=True, scale=scale,
-                        heads=heads)
+    bwd = A.flash_bwd_fused if what.startswith("K10") else A.flash_bwd
+    grads = bwd(q, k, v, o, lse, do, causal=True, scale=scale, heads=heads)
     refs = A.flash_bwd_reference(
         *(_bhsd(t, "bshd", 128) for t in (q, k, v, o)), lse,
         _bhsd(do, "bshd", 128), True, scale)
@@ -566,6 +571,41 @@ def test_flash_dkv_f32_check_catches_a_planted_fault(dev, tmp_path,
     print(f"{what}: max error {errs} (the check's 1e-4)")
     assert not all(torch.allclose(g, r, rtol=1e-4, atol=1e-4)
                    for g, r in zip((dk, dv), refs[1:3])), (what, errs)
+
+
+# Faults planted in flash_bwd.cu's K6 loop, which f32 (the sort task) still
+# runs: (what, the line as it is, the line with the fault).
+_F32_DQ_FAULTS = [
+    ("K6 skips its last KV tile",
+     "const int kv_hi = kv_end(mask, q0, S);",
+     "const int kv_hi = kv_end(mask, q0, S) - kTile;"),
+    ("K6 drops delta from dS",
+     "from_f32<T>(p * (dPs[r * L::LDS + c] - delta_s[r]));",
+     "from_f32<T>(p * dPs[r * L::LDS + c]);"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _F32_DQ_FAULTS,
+                         ids=[f[0] for f in _F32_DQ_FAULTS])
+def test_flash_dq_f32_check_catches_a_planted_fault(dev, tmp_path,
+                                                    monkeypatch, what, line,
+                                                    fault):
+    """The f32 check of K6 (1e-4, as test_flash_bwd_kernels_match_plain
+    holds it) fails a kernel built with a fault in its loop, at the sort
+    task's shape (examples/train_tinylm.py's defaults: batch 64, 2 heads
+    of 64, S 128, causal)."""
+    _plant(tmp_path, monkeypatch, "flash_bwd.cu", line, fault, what)
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, 64, 2, 2, 128, 64, torch.float32, "bhsd", True)
+    refs = A.flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    backend.reset_launch_counts()
+    dq, _ = A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wmma flash_dq": 1}
+    err = float((dq - refs[0]).abs().max())
+    print(f"{what}: max error of dq {err} (the check's 1e-4)")
+    assert not torch.allclose(dq, refs[0], rtol=1e-4, atol=1e-4), (what,
+                                                                   err)
 
 
 def test_flash_dkv_is_deterministic(dev):
@@ -1175,6 +1215,129 @@ def test_attention_masks_dispatch_on_card(dev, layout):
                                    atol=2e-2)
         for g, r in zip(outs[0][1:], outs[1][1:]):
             assert float((g - r).norm() / r.norm()) <= 2e-2
+
+
+# -- K6 and K10 on their wgmma route (csrc/flash_bwd_sm90.cu, flash_sm90.cu)
+
+# ragged S (1, 70, 129, 333, 2048), D 64 and 128, MHA, GQA and MQA
+_BWD_WGMMA_SHAPES = [(2, 8, 8, 70, 64), (2, 8, 2, 333, 128),
+                     (3, 4, 4, 129, 128), (1, 8, 1, 2048, 128),
+                     (1, 2, 1, 1, 64), (2, 8, 4, 2048, 64),
+                     (1, 4, 1, 333, 64)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", _BWD_WGMMA_SHAPES)
+def test_k6_wgmma_matches_plain(dev, b, h, hkv, s, d, causal, layout):
+    """K6 alone: each 64-row tile of dQ within 1e-2 of its own norm, delta
+    within 1e-4, the planned route counted, and the same bits twice."""
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, b, h, hkv, s, d, torch.bfloat16, layout, causal)
+    refs = A.flash_bwd_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v, o)), lse,
+        _bhsd(do, layout, d), causal, scale)
+    backend.reset_launch_counts()
+    dq, delta = A.flash_dq(q, k, v, o, lse, do, causal=causal, scale=scale,
+                           heads=heads)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"{A.plan_bwd(q.dtype)} flash_dq": 1}
+    assert A.plan_bwd(q.dtype) == "wgmma"
+    assert dq.dtype == q.dtype and dq.shape == q.shape
+    _hold_grads([_bhsd(dq, layout, d)], refs[:1], torch.bfloat16, ("dq",))
+    torch.testing.assert_close(delta, refs[3], rtol=1e-4, atol=1e-4)
+    again = A.flash_dq(q, k, v, o, lse, do, causal=causal, scale=scale,
+                       heads=heads)
+    assert torch.equal(dq, again[0]) and torch.equal(delta, again[1])
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("mask", _MASKS, ids=_MASK_IDS)
+def test_k6_wgmma_under_masks_is_bitwise_repeatable(dev, mask, layout):
+    """K6 under every mask (the MASKED instantiation: windows at the tile
+    edges and past them, documents, unsorted ids) against the plain
+    backward, through its planned route, the same bits twice."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, 2, 8, 2, 700, 128,
+                                           torch.bfloat16, layout, mask)
+    refs = _masked_refs(q, k, v, o, lse, do, kw, layout, 128)
+    backend.reset_launch_counts()
+    first = A.flash_dq(q, k, v, o, lse, do, **kw)
+    again = A.flash_dq(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wgmma flash_dq": 2}
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _hold_grads([_bhsd(first[0], layout, 128)], refs[:1], torch.bfloat16,
+                ("dq",))
+    torch.testing.assert_close(first[1], refs[3], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("b,h,hkv,s,d", [(2, 8, 2, 333, 128),
+                                         (2, 4, 4, 70, 64),
+                                         (1, 8, 8, 2048, 128)])
+def test_k6_delta_equals_k10_prepass(dev, b, h, hkv, s, d, layout):
+    """K6's delta and K10's pre-pass sum rowsum(dO O) in one order
+    (flash_common.cuh, row_delta): the same bits."""
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, b, h, hkv, s, d, torch.bfloat16, layout, True)
+    _, delta6 = A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale,
+                           heads=heads)
+    delta10 = A.flash_bwd_fused(q, k, v, o, lse, do, causal=True,
+                                scale=scale, heads=heads)[3]
+    assert torch.equal(delta6, delta10)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("b,h,hkv,s,d", _BWD_WGMMA_SHAPES)
+def test_k10_wgmma_matches_plain(dev, b, h, hkv, s, d, layout):
+    """K10 (causal) through its planned route: each 64-row tile of dQ, dK
+    and dV within 1e-2 of its own norm (dQ's low bits vary from run to
+    run: its shares are added with atomics), delta within 1e-4."""
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, b, h, hkv, s, d, torch.bfloat16, layout, True)
+    backend.reset_launch_counts()
+    grads = A.flash_bwd_fused(q, k, v, o, lse, do, causal=True, scale=scale,
+                              heads=heads)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {
+        f"{A.plan_bwd(q.dtype)} flash_bwd_fused": 1}
+    assert A.plan_bwd(q.dtype) == "wgmma"
+    assert backend.launch_counts()["flash_bwd_fused"] == 1
+    refs = A.flash_bwd_reference(
+        *(_bhsd(t, layout, d) for t in (q, k, v, o)), lse,
+        _bhsd(do, layout, d), True, scale)
+    for g, like in zip(grads, (q, k, v, lse)):
+        assert g.shape == like.shape and g.dtype == like.dtype
+    _hold_grads([_bhsd(g, layout, d) for g in grads[:3]], refs[:3],
+                torch.bfloat16)
+    torch.testing.assert_close(grads[3], refs[3], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mask", _MASKS, ids=_MASK_IDS)
+def test_k10_wgmma_takes_every_mask(dev, mask, d):
+    """K10's sweep under every mask (the dispatch sends it plain causal
+    attention only), GQA, through its planned route: a warpgroup whose
+    pair the mask empties still hands the other its zero half of ds^T."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, 2, 8, 2, 700, d,
+                                           torch.bfloat16, "bshd", mask)
+    backend.reset_launch_counts()
+    grads = A.flash_bwd_fused(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wgmma flash_bwd_fused": 1}
+    refs = _masked_refs(q, k, v, o, lse, do, kw, "bshd", d)
+    _hold_grads([_bhsd(g, "bshd", d) for g in grads[:3]], refs[:3],
+                torch.bfloat16)
+
+
+def test_k6_and_k10_in_f32_keep_the_wmma_route(dev):
+    q, k, v, o, lse, do, heads, scale = _bwd_case(
+        dev, 2, 4, 2, 70, 64, torch.float32, "bhsd", True)
+    backend.reset_launch_counts()
+    A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale)
+    A.flash_bwd_fused(q, k, v, o, lse, do, causal=True, scale=scale)
+    assert backend.route_counts() == {"wmma flash_dq": 1,
+                                      "wmma flash_bwd_fused": 1}
 
 
 # -- K2: the elementwise kernel -----------------------------------------------

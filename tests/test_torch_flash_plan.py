@@ -1,6 +1,7 @@
-"""K8's and K7's routing (taper_tpu_torch/ops/attention.py ``plan_fwd`` and
-``plan_dkv``) on the CPU, and the CPU path of the attention ops against
-the JAX package's flash kernels at the layouts the paths use.
+"""The flash kernels' routing (taper_tpu_torch/ops/attention.py
+``plan_fwd`` for K8, ``plan_bwd`` for K6, K7 and K10) on the CPU, and
+the CPU path of the attention ops
+against the JAX package's flash kernels at the layouts the paths use.
 
 The plans are pure functions of the dtype (and, for the forward, the
 mask): the tests pin the route of every path's attention (the 170M
@@ -47,7 +48,8 @@ def _layout(dim, heads):
     return d, ("bshd" if d % 128 == 0 else "bhsd")
 
 
-# (path, dtype, (dim, heads), mask, K8's route, K7's route); the forward of
+# (path, dtype, (dim, heads), mask, K8's route, the backward's route); the
+# forward of
 # a masked or f32 call is K5 ("exact"), serving runs no backward.  Serving
 # prefill calls ops.attention on [B, H, S, D] (nn/transformer.py
 # prefill), whatever the head dim.
@@ -69,24 +71,34 @@ def test_plan_pins_the_route_of_every_path(path, dtype, dims, mask, fwd,
     assert d in A.HEAD_DIMS
     assert A.plan_fwd(dtype, mask) == fwd
     if dkv is not None:
-        assert A.plan_dkv(dtype) == dkv
+        assert A.plan_bwd(dtype) == dkv
 
 
 @pytest.mark.parametrize("mask", A.MASKS)
 def test_every_bf16_launch_takes_wgmma(mask):
-    """K7 in bf16 runs the Hopper kernel under every mask; the forward
-    runs K8 (wgmma) for plain causal attention and K5 for the rest."""
-    assert A.plan_dkv(BF) == "wgmma"
+    """The backward in bf16 runs the Hopper kernels under every mask; the
+    forward runs K8 (wgmma) for plain causal attention and K5 for the
+    rest."""
+    assert A.plan_bwd(BF) == "wgmma"
     assert A.plan_fwd(BF, mask) == ("wgmma" if mask == "causal" else "exact")
 
 
 @pytest.mark.parametrize("mask", A.MASKS)
 def test_f32_keeps_k5_and_the_fma_k7(mask):
     """f32 (the sort task) has no Hopper kernel: the forward is K5 under
-    every mask and K7 its FMA kernel.  A pure function: the same
-    arguments, the same answer."""
+    every mask and the backward its FMA kernels.  A pure function: the
+    same arguments, the same answer."""
     assert [A.plan_fwd(F32, mask) for _ in range(3)] == ["exact"] * 3
-    assert [A.plan_dkv(F32) for _ in range(3)] == ["wmma"] * 3
+    assert [A.plan_bwd(F32) for _ in range(3)] == ["wmma"] * 3
+
+
+@pytest.mark.parametrize("dtype,route", [(BF, "wgmma"), (F32, "wmma")])
+@pytest.mark.parametrize("mask", A.MASKS)
+def test_backward_plans_depend_on_the_dtype_alone(mask, dtype, route):
+    """K6, K7 and K10 in bf16 run the Hopper kernels under every mask, in
+    f32 the FMA kernels; a pure function: the same argument, the same
+    answer."""
+    assert [A.plan_bwd(dtype) for _ in range(3)] == [route] * 3
 
 
 def test_plans_refuse_unknown_masks():
@@ -168,6 +180,100 @@ def test_wrappers_count_the_planned_route(recorder, layout):
                                       "wmma flash_dkv": 1}
     counts = backend.launch_counts()
     assert counts["flash_fwd_bound"] == 1 and counts["flash_dkv"] == 4
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_backward_wrappers_count_the_planned_route(recorder, layout,
+                                                   monkeypatch):
+    """K6 under each mask and K10, in bf16 and f32, count the route their
+    plan gives, one launch each; ``flash_bwd`` takes K10 under
+    TAPER_ATTN_FUSED_BWD=1 for plain causal attention and K6 + K7 else."""
+    heads = None if layout == "bhsd" else 4
+    q, k, v, do, lse, delta = _inputs(BF, layout=layout)
+    o = do.clone()
+    seg = torch.ones(2, 96, dtype=torch.int32)
+    kw = dict(scale=0.125, heads=heads)
+    for mask in (dict(causal=True), dict(causal=False),
+                 dict(causal=True, window=16),
+                 dict(causal=True, segment_ids=seg)):
+        A.flash_dq(q, k, v, o, lse, do, **kw, **mask)
+    A.flash_bwd_fused(q, k, v, o, lse, do, causal=True, **kw)
+    qf, kf, vf, dof, _, _ = _inputs(F32, layout=layout)
+    A.flash_dq(qf, kf, vf, dof, lse, dof, causal=True, **kw)
+    A.flash_bwd_fused(qf, kf, vf, dof, lse, dof, causal=True, **kw)
+    names = [name for name, _ in recorder.calls]
+    assert names == (["taper_flash_dq"] * 4 + ["taper_flash_bwd_fused"]
+                     + ["taper_flash_dq", "taper_flash_bwd_fused"])
+    for name, args in recorder.calls:
+        assert len(args) == len(_build._SIGNATURES[name]), name
+    dtypes = [args[-2] for _, args in recorder.calls]
+    assert dtypes == [_build.DTYPES[BF]] * 5 + [_build.DTYPES[F32]] * 2
+    assert backend.route_counts() == {"wgmma flash_dq": 4,
+                                      "wgmma flash_bwd_fused": 1,
+                                      "wmma flash_dq": 1,
+                                      "wmma flash_bwd_fused": 1}
+    counts = backend.launch_counts()
+    assert counts["flash_dq"] == 5 and counts["flash_bwd_fused"] == 2
+    # the dispatch: K10 only under the flag and only for plain causal
+    backend.reset_launch_counts()
+    monkeypatch.setenv("TAPER_ATTN_FUSED_BWD", "1")
+    A.flash_bwd(q, k, v, o, lse, do, causal=True, **kw)
+    A.flash_bwd(q, k, v, o, lse, do, causal=True, window=16, **kw)
+    monkeypatch.delenv("TAPER_ATTN_FUSED_BWD")
+    A.flash_bwd(q, k, v, o, lse, do, causal=True, **kw)
+    assert backend.route_counts() == {"wgmma flash_bwd_fused": 1,
+                                      "wgmma flash_dq": 2,
+                                      "wgmma flash_dkv": 2}
+
+
+TRAIN_PATHS = [p for p in PATHS if p[5] is not None]
+
+
+@pytest.mark.parametrize("path,dtype,dims,mask,fwd,route", TRAIN_PATHS,
+                         ids=[p[0] for p in TRAIN_PATHS])
+def test_every_training_path_counts_its_backward_route(
+        recorder, monkeypatch, path, dtype, dims, mask, fwd, route):
+    """Each training path's backward, at its dtype, head dim, layout and
+    mask, counts the route plan_bwd gives: K6 then K7 by default, K10
+    under TAPER_ATTN_FUSED_BWD=1 for plain causal attention only."""
+    d, layout = _layout(*dims)
+    heads = None if layout == "bhsd" else 4
+    q, k, v, do, lse, _ = _inputs(dtype, d=d, layout=layout)
+    kw = dict(causal=True, scale=d ** -0.5, heads=heads)
+    if mask == "window":
+        kw["window"] = 16
+    if mask == "segments":
+        kw["segment_ids"] = torch.ones(2, 96, dtype=torch.int32)
+    split = {f"{route} flash_dq": 1, f"{route} flash_dkv": 1}
+    A.flash_bwd(q, k, v, do.clone(), lse, do, **kw)
+    assert backend.route_counts() == split
+    backend.reset_launch_counts()
+    monkeypatch.setenv("TAPER_ATTN_FUSED_BWD", "1")
+    A.flash_bwd(q, k, v, do.clone(), lse, do, **kw)
+    assert backend.route_counts() == (
+        {f"{route} flash_bwd_fused": 1} if mask == "causal" else split)
+    for name, args in recorder.calls:
+        assert len(args) == len(_build._SIGNATURES[name]), name
+        assert args[-2] == _build.DTYPES[dtype], name
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "o", "do"])
+def test_a_misaligned_operand_of_k6_or_k10_raises(recorder, operand):
+    """TMA reads 16-byte aligned data: a view one element in raises in K6
+    and K10 before any launch, whichever operand it is, and counts no
+    route."""
+    q, k, v, do, lse, _ = _inputs(BF)
+    ops = dict(q=q, k=k, v=v, o=do.clone(), do=do)
+    buf = torch.empty(ops[operand].numel() + 1, dtype=BF)
+    shifted = buf[1:].view_as(ops[operand])
+    shifted.copy_(ops[operand])
+    ops[operand] = shifted
+    args = [ops[n] for n in ("q", "k", "v", "o")] + [lse, ops["do"]]
+    with pytest.raises(ValueError, match="aligned"):
+        A.flash_dq(*args, causal=True, scale=0.125)
+    with pytest.raises(ValueError, match="aligned"):
+        A.flash_bwd_fused(*args, causal=True, scale=0.125)
+    assert recorder.calls == [] and backend.route_counts() == {}
 
 
 @pytest.mark.parametrize("operand", ["q", "k", "v", "do"])

@@ -4,16 +4,17 @@ checkout, on an NVIDIA GPU:
     python tools/flash_ab.py [CHECKOUT]
 
 The shapes (bf16): the 170M model's attention (B 8, H 8, S 2048, D 128,
-[B, S, H*D]: K8 on both arms, K5, K6, K7), bench_packing's padded batch
-(B 64, H 8, S 1024, D 64, [B, H, S, D]: K8, K6, K7), serving prefill (B 1,
+[B, S, H*D]: K8 on both arms, K5, K6, K7, K10), bench_packing's padded
+batch (B 64, H 8, S 1024, D 64, [B, H, S, D]: K8, K6, K7), serving prefill (B 1,
 H 8, S 512, D 128, [B, H, S, D]: K8), the windowed model's training step
 (B 2, H 8, S 4096, D 128, window 512, [B, S, H*D]: K5, K6, K7) and
 bench_packing's packed batch (13 rows, H 8, S 1024, D 64, its segment ids:
 K5, K6, K7).  K8's times include its bound pre-pass (``bound_predicate``),
-as a caller sees them.  It calls only ``flash_fwd_bound``,
-``flash_fwd_exact``, ``flash_dq`` and ``flash_dkv`` (with their window and
-segment-id arguments), which every version of the port with packed and
-windowed training has.
+as a caller sees them, and K10's its delta pre-pass and dQ epilogue.  It
+calls only ``flash_fwd_bound``, ``flash_fwd_exact``, ``flash_dq``,
+``flash_dkv`` and ``flash_bwd_fused`` (with their window and segment-id
+arguments), which every version of the port with packed and windowed
+training has.
 
 CHECKOUT (default: this one) is the root of a checkout of the repository
 (for example a parent commit unpacked with ``git archive`` into a
@@ -45,7 +46,7 @@ A = importlib.import_module("taper_tpu_torch.ops.attention")
 # (label, B, H, S, D, layout, window, segment ids, kernels)
 SHAPES = (
     ("170M", 8, 8, 2048, 128, "bshd", None, False,
-     ("K8", "K8 exact arm", "K5", "K6", "K7")),
+     ("K8", "K8 exact arm", "K5", "K6", "K7", "K10")),
     ("padded", 64, 8, 1024, 64, "bhsd", None, False, ("K8", "K6", "K7")),
     ("prefill", 1, 8, 512, 128, "bhsd", None, False, ("K8",)),
     ("window", 2, 8, 4096, 128, "bshd", 512, False, ("K5", "K6", "K7")),
@@ -78,7 +79,8 @@ def shape_times(label, b, h, s, d, layout, window, segments, names):
             sets),
         "K5": (lambda *a: A.flash_fwd_exact(*a[:3], **kw), sets),
         "K6": (lambda *a: A.flash_dq(*a, **kw), sets),
-        "K7": (lambda *a: A.flash_dkv(*a, **kw), dsets)}
+        "K7": (lambda *a: A.flash_dkv(*a, **kw), dsets),
+        "K10": (lambda *a: A.flash_bwd_fused(*a, **kw), sets)}
     return {f"{label} {name}": [round(C.cuda_ms(*kernels[name]), 4)
                                 for _ in range(3)] for name in names}
 
