@@ -32,7 +32,9 @@ non-zero):
   6. each CNN training kernel (GEMM mode nt with bias and epilogue, modes
      nn/tn, direct convolution forward and input gradient, convolution
      weight gradient, pooling) against its plain version at the CNN's f32
-     shapes, batch 256;
+     shapes, batch 256, and the convolution kernels at ResNet-8's
+     stride-1 shapes (the input gradient reads the forward's weights
+     flipped, in the kernel);
   7. one CNN training step on the card against the same step on the CPU
      (loss within 1e-5 relative of an independent CPU run; every
      gradient within 1e-4 relative L2 of a CPU run whose backward sees the
@@ -40,7 +42,8 @@ non-zero):
      independent run);
   8. train the CNN with ``Trainer.fit_device`` for 2 epochs on the
      synthetic 60k/10k set: the best epoch's validation accuracy >= 0.95,
-     exact launch counts;
+     exact launch counts; then a profile of 3 steps (device busy time and
+     kernel time by family);
   9. the LM kernels against their plain versions at the 170M model's
      shapes in bf16 (batch 8 x 2048 tokens): K1 (wgmma) in modes nt/nn/tn
      at the
@@ -865,19 +868,40 @@ def phase5_serve(model, reqs, first_greedy, first_clear):
     return wall, gen_tokens, counts, st
 
 
+# The stride-1 3x3 convolutions (pad 1, batch 256) as (C, O, H): the
+# reference CNN's and ResNet-8's forward and weight gradient; their input
+# gradients as K3a runs them, (channels of g, channels of dX, H): every
+# layer's but each model's first, whose input is the data.
+CNN_CONVS = ((1, 32, 28), (32, 32, 28), (32, 64, 14), (64, 64, 14),
+             (64, 128, 7))
+CNN_DX = ((32, 32, 28), (64, 32, 14), (64, 64, 14), (128, 64, 7))
+RESNET_CONVS = ((3, 16, 32), (16, 16, 32), (32, 32, 16), (64, 64, 8))
+RESNET_DX = ((16, 16, 32), (32, 32, 16), (64, 64, 8))
+
+
+def conv_work(n, c, o, hw):
+    """Operations and bytes of one 3x3 convolution, forward, input or
+    weight gradient alike: each of the two activations and the weights
+    read or written once."""
+    return (2 * n * o * c * 9 * hw * hw,
+            4 * (n * c * hw * hw + o * c * 9 + n * o * hw * hw), "f32")
+
+
 def phase6_train_kernels(dev):
-    """The training kernels at the CNN's f32 shapes (batch 256)."""
+    """The training kernels at the CNN's f32 shapes (batch 256), and K3a
+    and K3b at ResNet-8's stride-1 shapes.  Returns the CNN's rows and
+    ResNet-8's convolution rows."""
     gen = torch.Generator().manual_seed(SEED)
-    rows = {}
+    rows, resnet = {}, {}
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
     def run(name, shape, kernel_fn, plain_fn, make, library_fn, work,
-            tol=None):
+            tol=None, into=rows):
         first = make()
         sets = [first] + [make() for _ in range(copies_for(*first) - 1)]
-        rows.setdefault(name, []).append(check_kernel(
+        into.setdefault(name, []).append(check_kernel(
             name, shape, kernel_fn, plain_fn, sets, phase=6, tol=tol,
             library_fn=library_fn, work=work))
 
@@ -906,38 +930,44 @@ def phase6_train_kernels(dev):
             lambda: (randn(n, nout), randn(n, k)),
             lambda a, b: torch.matmul(a.t(), b),
             gemm_work(nout, k, n, "f32"))
-    # conv forward (bias + relu) and the input gradients of layers 2-5
-    # (no bias, flipped weights), 3x3, pad 1
-    fwd = [(1, 32, 28), (32, 32, 28), (32, 64, 14), (64, 64, 14),
-           (64, 128, 7)]
-    dx = [(32, 32, 28), (64, 32, 14), (64, 64, 14), (128, 64, 7)]
-    for (c, o, hw), what in ([(f, "fwd") for f in fwd]
-                             + [(d, "dX") for d in dx]):
-        act = "relu" if what == "fwd" else "none"
+    # K3a: each forward (bias + relu), then each input gradient (no bias;
+    # the forward's weights [C_g, O, 3, 3] read flipped in the kernel),
+    # 3x3, pad 1; the CNN's shapes first, then ResNet-8's; K3b: each
+    # weight gradient
+    def make_fwd(c, o, hw):
+        return (randn(n, c, hw, hw), randn(o, c, 3, 3, scale=(9 * c) ** -0.5),
+                randn(o, scale=0.1))
 
-        def make(c=c, o=o, hw=hw, what=what):
-            b = randn(o, scale=0.1) if what == "fwd" else None
-            return (randn(n, c, hw, hw), randn(o, c, 3, 3,
-                                               scale=(9 * c) ** -0.5), b)
-        flops = 2 * n * o * c * 9 * hw * hw
-        run("conv_fwd", f"f32 {what} {c}->{o} {hw}x{hw}",
-            lambda x, w, b, act=act: CD.conv_fwd(x, w, b, (1, 1), act),
-            lambda x, w, b, act=act: CD.conv2d_reference(x, w, b, (1, 1),
-                                                         act),
-            make, lambda x, w, b: F.conv2d(x, w, b, padding=1),
-            (flops, 4 * (n * c * hw * hw + o * c * 9 + n * o * hw * hw),
-             "f32"))
-    # weight gradients of the 5 convs
-    for c, o, hw in fwd:
-        run("conv_dw", f"f32 {c}->{o} {hw}x{hw}",
-            lambda x, g: CD.conv_dw(x, g, (3, 3), (1, 1)),
-            lambda x, g: CD.conv_dw_reference(x, g, (3, 3), (1, 1)),
-            lambda c=c, o=o, hw=hw: (randn(n, c, hw, hw),
-                                     randn(n, o, hw, hw)),
-            lambda x, g, o=o, c=c: torch.nn.grad.conv2d_weight(
-                x, (o, c, 3, 3), g, padding=1),
-            (2 * n * o * c * 9 * hw * hw,
-             4 * (n * c * hw * hw + n * o * hw * hw + o * c * 9), "f32"))
+    def make_dx(c, o, hw):
+        return (randn(n, c, hw, hw), randn(c, o, 3, 3, scale=(9 * c) ** -0.5))
+
+    for convs, dxs, into in ((CNN_CONVS, CNN_DX, rows),
+                             (RESNET_CONVS, RESNET_DX, resnet)):
+        for c, o, hw in convs:
+            run("conv_fwd", f"f32 fwd {c}->{o} {hw}x{hw}",
+                lambda x, w, b: CD.conv_fwd(x, w, b, (1, 1), "relu"),
+                lambda x, w, b: CD.conv2d_reference(x, w, b, (1, 1), "relu"),
+                lambda c=c, o=o, hw=hw: make_fwd(c, o, hw),
+                lambda x, w, b: F.conv2d(x, w, b, padding=1),
+                conv_work(n, c, o, hw), into=into)
+        for c, o, hw in dxs:
+            run("conv_fwd", f"f32 dX {c}->{o} {hw}x{hw}",
+                lambda g, w: CD.conv_fwd(g, w, None, (1, 1), flipped=True),
+                lambda g, w: CD.conv2d_reference(g, CD.flip_weights(w), None,
+                                                 (1, 1)),
+                lambda c=c, o=o, hw=hw: make_dx(c, o, hw),
+                lambda g, w, o=o, hw=hw: torch.nn.grad.conv2d_input(
+                    (n, o, hw, hw), w, g, padding=1),
+                conv_work(n, c, o, hw), into=into)
+        for c, o, hw in convs:
+            run("conv_dw", f"f32 {c}->{o} {hw}x{hw}",
+                lambda x, g: CD.conv_dw(x, g, (3, 3), (1, 1)),
+                lambda x, g: CD.conv_dw_reference(x, g, (3, 3), (1, 1)),
+                lambda c=c, o=o, hw=hw: (randn(n, c, hw, hw),
+                                         randn(n, o, hw, hw)),
+                lambda x, g, o=o, c=c: torch.nn.grad.conv2d_weight(
+                    x, (o, c, 3, 3), g, padding=1),
+                conv_work(n, c, o, hw), into=into)
     # pools: max 2x2 at 28x28 and 14x14, global 7x7 average
     for shape, k, mode in (((n, 32, 28, 28), 2, "max"),
                            ((n, 64, 14, 14), 2, "max"),
@@ -956,7 +986,9 @@ def phase6_train_kernels(dev):
 
     heads = {"linear": 0, "gemm_nn": 0, "gemm_tn": 0, "conv_fwd": 1,
              "conv_dw": 1, "pool": 0}
-    return {name: headline(r, heads[name]) for name, r in rows.items()}
+    # ResNet-8's headlines: its widest stride-1 layer, 16->16 at 32x32
+    return ({name: headline(r, heads[name]) for name, r in rows.items()},
+            {name: headline(r, 1) for name, r in resnet.items()})
 
 
 def rel_l2(out, ref):
@@ -1085,6 +1117,15 @@ def phase8_train(dev, train, test, smi):
     assert max(m.val_acc) >= CNN["min_acc"], m.val_acc
     assert all(counts[k] > 0 for k in TRAIN_KERNELS), counts
     assert per_step == CNN_PER_STEP, per_step
+    xd = torch.as_tensor(train.images[:CNN["batch"]], device=dev)
+    yd = torch.as_tensor(train.labels[:CNN["batch"]], device=dev).long()
+    prof = profile_steps(lambda: trainer.train_step(xd, yd), 3,
+                         CONV_FAMILIES)
+    print(f"phase 8: profiled 3 CNN steps: {prof['wall_ms']:.2f} ms of wall "
+          f"per step (under the profiler) for {prof['busy_ms']:.2f} ms of "
+          f"device busy time, {prof['device_ops']:.0f} device ops per step; "
+          f"device ms per step by family {prof['ms']}; largest glue "
+          f"{prof['glue_top']}")
     return counts
 
 
@@ -3641,7 +3682,7 @@ def main():
     del card
     torch.cuda.empty_cache()
 
-    cnn_report = phase6_train_kernels(dev)
+    cnn_report, resnet_conv_report = phase6_train_kernels(dev)
     t0 = time.perf_counter()
     train, test = MNISTDataset(train=True), MNISTDataset(train=False)
     assert train.source == test.source == "synthetic"
@@ -3745,7 +3786,8 @@ def main():
              "ptq_example": (ptq_counts, dict(
                  linear_q8=headline(quant_rows["linear_q8"], 7))),
              "train_resnet": (resnet_counts,
-                              dict(relu=new_rows["relu"], **resnet_rows)),
+                              dict(relu=new_rows["relu"], **resnet_rows,
+                                   **resnet_conv_report)),
              "examples": (example_counts, dict(sgd=new_rows["sgd"])),
              "train_lm": (lm_launches, lm_report),
              "train_cnn": (cnn_counts, cnn_report),
@@ -3753,12 +3795,14 @@ def main():
     # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
     # largest; K8's: the 170M model's bound arm (train_packed also has a
     # K8 row, at the padded batch's shape); K6's and K7's: the 170M shape
-    # in [B, S, H*D]
+    # in [B, S, H*D]; K3a's and K3b's: the CNN's 32->32 28x28 (ResNet-8's
+    # rows stay under by_path)
     kernels = kernel_report(paths, dict(
         new_rows, matmul_int8=headline(quant_rows["matmul_int8"])),
         top=dict(dict.fromkeys(K1_MODES, "train_lm"),
                  flash_fwd_bound="train_lm", flash_dq="train_lm",
-                 flash_dkv="train_lm"))
+                 flash_dkv="train_lm", conv_fwd="train_cnn",
+                 conv_dw="train_cnn"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

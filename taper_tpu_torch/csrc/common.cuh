@@ -63,6 +63,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The card's SM count (the current device's, read once).
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms > 0 ? sms : 132;
+  }();
+  return n;
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Fused epilogues of the GEMM and convolution kernels; codes shared with

@@ -333,17 +333,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The card's SM count (one persistent block each).
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms > 0 ? sms : 132;
-  }();
-  return n;
-}
-
 template <bool A_K, bool B_K, typename OutT>
 int launch(const void* a, const void* b, const void* bias, void* y,
            float* ws, int M, int N, int K, int act, int splits,

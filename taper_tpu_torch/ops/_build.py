@@ -42,10 +42,10 @@ _SIGNATURES = {
     # a, b, bias, y, workspace, M, N, K, mode, dtype, out dtype, act,
     # route, splits, stream
     "taper_gemm": [_P] * 5 + [_I] * 9 + [_P],
-    # x, w, bias, y, N, C, H, W, O, kh, kw, ph, pw, act, stream
-    "taper_conv_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    # x, w, bias, y, N, C, H, W, O, kh, kw, ph, pw, act, flipped, stream
+    "taper_conv_fwd": [_P, _P, _P, _P] + [_I] * 11 + [_P],
     # x, g, part, dw, N, C, H, W, O, kh, kw, ph, pw, splits, stream
-    "taper_conv_dw": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    "taper_conv_dw": [_P, _P, _P, _P] + [_I] * 11 + [_P],
     # x, y, planes, H, W, kh, kw, mode, stream
     "taper_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, seg, B, H, Hkv, S, D, scale, causal, window, layout,

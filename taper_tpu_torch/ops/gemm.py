@@ -81,7 +81,10 @@ def apply_activation(y, activation: str):
 
 
 def activation_grad(g, y, activation: str):
-    """The cotangent through the epilogue, from the saved output ``y``."""
+    """The cotangent through the epilogue, from the saved output ``y``.
+    ReLU passes none where ``y`` is exactly 0, as the pallas backend's
+    ``_conv_direct_bwd`` (``jnp.where(y > 0, g, 0)``); the xla backend's
+    ``jnp.maximum(x, 0)`` passes half there."""
     if activation == "relu":
         return torch.where(y > 0, g, torch.zeros_like(g))
     if activation == "sigmoid":

@@ -17,6 +17,7 @@ import torch
 from taper_tpu import ops as jops
 from taper_tpu.ops.pallas import conv_direct as jcd
 from taper_tpu_torch import ops
+from taper_tpu_torch.ops import _build
 from taper_tpu_torch.ops import backend
 from taper_tpu_torch.ops import conv_direct as CD
 
@@ -130,11 +131,82 @@ def test_conv2d_relu_and_bias_free_route():
 
 
 def test_conv_dw_splits_depend_on_shapes_only():
-    # the CNN's layers: enough blocks for the card, never fewer pixels per
-    # block than the floor
-    assert CD.dw_splits(256 * 28 * 28, 5) == 53
-    assert CD.dw_splits(256 * 7 * 7, 18) == 15
-    assert CD.dw_splits(100, 1) == 1
+    # whole images a split, about 264 blocks over the channel groups: the
+    # CNN's 32->32 layer one image a block, its 64->64 layer two channel
+    # groups of two images, its 64->128 layer four groups of four images
+    assert CD.dw_splits(256, 32, 32) == 256
+    assert CD.dw_splits(256, 64, 64) == 128
+    assert CD.dw_splits(256, 64, 128) == 64
+    assert CD.dw_splits(100, 1, 1) == 100
+    assert CD.dw_splits(1, 3, 5) == 1
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each call, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("taper_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+# the weight gradients of the CNN and ResNet-8 (n, c, o, hw)
+_DW_PATH_SHAPES = [(256, 1, 32, 28), (256, 32, 32, 28), (256, 32, 64, 14),
+                   (256, 64, 64, 14), (256, 64, 128, 7), (256, 3, 16, 32),
+                   (256, 16, 16, 32), (256, 32, 32, 16), (256, 64, 64, 8)]
+
+
+@pytest.mark.parametrize("n,c,o,hw", _DW_PATH_SHAPES)
+def test_conv_dw_launch_takes_the_wrappers_channel_group(n, c, o, hw,
+                                                         monkeypatch):
+    """K3b's grid and plan use the channel group the wrapper splits by:
+    the launch passes ``dw_channel_group`` beside ``dw_splits``, within
+    the kernel's 256 threads at 8 output channels a thread, and the
+    scratch holds one partial a split."""
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "library", lambda: rec)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    monkeypatch.setattr(backend, "on_cuda", lambda *t: True)
+    backend.reset_launch_counts()
+    x, g = torch.zeros(n, c, hw, hw), torch.zeros(n, o, hw, hw)
+    dw = CD.conv_dw(x, g, (3, 3), (1, 1))
+    assert dw.shape == (o, c, 3, 3)
+    [(name, args)] = rec.calls
+    assert name == "taper_conv_dw"
+    assert len(args) == len(_build._SIGNATURES[name])
+    splits, cg = args[-3], args[-2]
+    assert splits == CD.dw_splits(n, c, o)
+    assert cg == CD.dw_channel_group(c, o)
+    assert 1 <= cg <= c and -(-o // 8) * cg <= 256
+    # the groups are balanced: none holds more than one channel over another
+    groups = -(-c // cg)
+    assert groups * cg - c < groups
+    assert backend.launch_counts()["conv_dw"] == 1
+    backend.reset_launch_counts()
+
+
+@pytest.mark.parametrize("c,o,k,pad", [(3, 4, (3, 3), (1, 1)),
+                                       (2, 5, (3, 3), (0, 2)),
+                                       (3, 2, (2, 3), (1, 0))])
+def test_conv_fwd_flipped_matches_jax_input_gradient_route(c, o, k, pad):
+    """``conv_fwd(g, w, flipped=True)``, the input gradient's convolution
+    without a flipped copy on CUDA, against JAX's route for it,
+    ``conv2d_direct(g, _flip_w(w))``."""
+    rng, _, wt, _ = _case(c + 10 * o, 2, c, o, 7, 6, k)
+    g = _rand(rng, 2, o, 9, 8)
+    out = CD.conv_fwd(torch.from_numpy(g), torch.from_numpy(wt), None, pad,
+                      flipped=True)
+    ref = jcd.conv2d_direct(jnp.asarray(g), jcd._flip_w(jnp.asarray(wt)),
+                            None, pad, "none")
+    assert out.shape == (2, c, *ref.shape[2:])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL,
+                               atol=TOL)
+    with pytest.raises(ValueError, match=r"\[C, O, kh, kw\]"):
+        CD.conv_fwd(torch.from_numpy(g[:, :1]), torch.from_numpy(wt), None,
+                    pad, flipped=True)
 
 
 def test_conv_cpu_path_counts_no_launch_and_rejects_bad_padding():

@@ -814,6 +814,16 @@ def test_linear_grads_on_card_match_plain(dev, activation):
         _close(g.cpu(), r, torch.float32, None)
 
 
+# The stride-1 3x3 convolutions (pad 1, batch 256) of the reference CNN
+# and of ResNet-8, as (C, O, H): each path's forward and weight gradient.
+_CNN_CONVS = [(1, 32, 28), (32, 32, 28), (32, 64, 14), (64, 64, 14),
+              (64, 128, 7)]
+_RESNET_CONVS = [(3, 16, 32), (16, 16, 32), (32, 32, 16), (64, 64, 8)]
+# Their input gradients, as K3a runs them: (channels of g, channels of dX,
+# H); the first layer of each model takes none (its input is the data).
+_DX_CONVS = [(32, 32, 28), (64, 32, 14), (64, 64, 14), (128, 64, 7),
+             (16, 16, 32), (32, 32, 16), (64, 64, 8)]
+
 _CONV_CASES = [
     # N, C, O, H, W, kh, kw, pad, bias, activation
     (256, 1, 32, 28, 28, 3, 3, 1, True, "relu"),
@@ -824,6 +834,26 @@ _CONV_CASES = [
     (2, 5, 40, 40, 37, 3, 3, 2, False, "none"),
     (4, 9, 33, 12, 13, 5, 2, (4, 1), True, "relu"),
     (1, 1, 1, 1, 1, 1, 1, 0, True, "none"),
+    # every other path shape
+    (256, 32, 64, 14, 14, 3, 3, 1, True, "relu"),
+    (256, 64, 64, 14, 14, 3, 3, 1, True, "relu"),
+    (256, 64, 32, 14, 14, 3, 3, 1, False, "none"),
+    (256, 3, 16, 32, 32, 3, 3, 1, False, "none"),
+    (256, 16, 16, 32, 32, 3, 3, 1, False, "none"),
+    (256, 32, 32, 16, 16, 3, 3, 1, False, "none"),
+    (256, 64, 64, 8, 8, 3, 3, 1, False, "none"),
+    # C not a multiple of the 8-channel chunk, O of the channel tile, W of
+    # the 4-pixel segment; tiles that cross images with a ragged last one
+    (5, 12, 10, 13, 11, 3, 3, 1, True, "relu"),
+    (3, 9, 33, 9, 30, 3, 3, 1, True, "sigmoid"),
+    # O above K3b's 128 (its other-size kernel), three K3a channel tiles
+    (2, 7, 130, 6, 5, 3, 3, 1, True, "none"),
+    # rows wider than one tile (column tiles), padding that changes H
+    (2, 4, 64, 3, 140, 3, 3, (2, 1), True, "relu"),
+    (2, 3, 6, 5, 6, 3, 3, 0, False, "none"),
+    # other filter sizes
+    (3, 6, 20, 10, 9, 5, 5, 2, True, "relu"),
+    (2, 3, 4, 8, 8, 1, 1, 0, False, "none"),
 ]
 
 
@@ -848,12 +878,39 @@ def test_conv_kernels_match_plain(dev, n, c, o, h, w, kh, kw, pad, bias,
     assert (dw - ref_dw).abs().max() <= 1e-4 * ref_dw.abs().max()
 
 
-def test_conv_dw_is_deterministic(dev):
+@pytest.mark.parametrize("c,o,hw", _CNN_CONVS + _RESNET_CONVS)
+def test_conv_dw_is_deterministic(dev, c, o, hw):
     gen = torch.Generator().manual_seed(11)
-    x = _randn(gen, 256, 32, 28, 28).to(dev)
-    g = _randn(gen, 256, 32, 28, 28).to(dev)
+    x = _randn(gen, 256, c, hw, hw).to(dev)
+    g = _randn(gen, 256, o, hw, hw).to(dev)
     first = CD.conv_dw(x, g, (3, 3), (1, 1))
     assert torch.equal(first, CD.conv_dw(x, g, (3, 3), (1, 1)))
+
+
+@pytest.mark.parametrize("n,c,o,hw,k,pad", [
+    (256, ci, co, hw, (3, 3), (1, 1)) for ci, co, hw in _DX_CONVS] + [
+    (3, 5, 10, 11, (3, 3), (0, 2)), (2, 6, 33, 9, (5, 2), (4, 1))])
+def test_conv_dx_reads_flipped_weights_in_the_kernel(dev, n, c, o, hw, k,
+                                                     pad):
+    """K3a's input gradient: ``conv_fwd(g, w, flipped=True)`` reads the
+    forward's ``w`` ``[C_g, O, kh, kw]`` as flipped, in/out-swapped weights
+    in the kernel (one launch, no copy), against the plain convolution
+    over ``flip_weights(w)``; and ``conv2d_direct``'s backward takes it."""
+    gen = torch.Generator().manual_seed(c * o + hw)
+    g = _randn(gen, n, c, hw, hw).to(dev)
+    w = _randn(gen, c, o, *k, scale=(c * k[0] * k[1]) ** -0.5).to(dev)
+    backend.reset_launch_counts()
+    dx = CD.conv_fwd(g, w, None, pad, flipped=True)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["conv_fwd"] == 1
+    ref = F.conv2d(g, CD.flip_weights(w), padding=pad)
+    assert dx.shape == ref.shape
+    assert ((dx - ref).abs() <= 1e-4 * (1 + ref.abs())).all()
+    if pad == (1, 1):
+        x = _randn(gen, n, o, hw, hw).to(dev).requires_grad_(True)
+        y = CD.conv2d_direct(x, w, None, (1, 1))
+        (y * g).sum().backward()
+        torch.testing.assert_close(x.grad, dx, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("stride,groups,k", [(1, 1, 3), (1, 1, 1),
