@@ -310,15 +310,18 @@ OPT_TOL = 1e-6
 OPT_T0, OPT_STEPS = 11, 3
 # K1's counters and their modes; a K1 row's source follows its route
 K1_MODES = {"linear": "nt", "gemm_nn": "nn", "gemm_tn": "tn"}
-K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu"}
+K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu",
+              "decode": "taper_tpu_torch/csrc/gemm_decode.cu"}
 # The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
 # row's source follows its route too; "wmma" (f32) keeps SOURCES'
-# flash_bwd.cu
+# flash_bwd.cu, and K5's "exact" (f32) is flash_fwd.cu's
 FLASH_SOURCES = {
-    "wgmma": {"flash_fwd_bound": "taper_tpu_torch/csrc/flash_sm90.cu",
+    "wgmma": {"flash_fwd": "taper_tpu_torch/csrc/flash_sm90.cu",
+              "flash_fwd_bound": "taper_tpu_torch/csrc/flash_sm90.cu",
               "flash_dq": "taper_tpu_torch/csrc/flash_bwd_sm90.cu",
               "flash_dkv": "taper_tpu_torch/csrc/flash_sm90.cu",
-              "flash_bwd_fused": "taper_tpu_torch/csrc/flash_sm90.cu"}}
+              "flash_bwd_fused": "taper_tpu_torch/csrc/flash_sm90.cu"},
+    "exact": {"flash_fwd": "taper_tpu_torch/csrc/flash_fwd.cu"}}
 
 
 def route_key(route, mode, splits):
@@ -333,7 +336,8 @@ SOURCES = {
                 "taper_tpu/ops/pallas/gemm.py:83"),
     "gemm_tn": ("taper_tpu_torch/csrc/gemm.cu",
                 "taper_tpu/ops/pallas/gemm.py:83"),
-    "flash_fwd": ("taper_tpu_torch/csrc/flash_fwd.cu",
+    # bf16 K5 (every path but the sort task's f32)
+    "flash_fwd": ("taper_tpu_torch/csrc/flash_sm90.cu",
                   "taper_tpu/ops/pallas/attention.py:217"),
     "flash_fwd_bound": ("taper_tpu_torch/csrc/flash_sm90.cu",
                         "taper_tpu/ops/pallas/attention.py:357"),
@@ -648,14 +652,11 @@ def repeats(kernel, args, kw, phase, label):
 
 def flash_routes(layers, dtype, mask, backward="split"):
     """The flash calls a step makes by route, as ``plan_fwd`` and
-    ``plan_bwd`` predict them: one forward
-    a layer (one that ``plan_fwd`` sends to K5 has no route) and one
-    backward: ``backward`` "split" K6 + K7, "dkv_t" K6 + K11 (K11 has no
-    route), "fused" K10, None none."""
-    want = {}
-    fwd = A.plan_fwd(dtype, mask)
-    if fwd != "exact":
-        want[f"{fwd} flash_fwd_bound"] = layers
+    ``plan_bwd`` predict them: one forward a layer (K8 where
+    ``uses_bound``, else K5) and one backward: ``backward`` "split" K6 +
+    K7, "dkv_t" K6 + K11 (K11 has no route), "fused" K10, None none."""
+    fwd = "flash_fwd_bound" if A.uses_bound(dtype, mask) else "flash_fwd"
+    want = {f"{A.plan_fwd(dtype, mask)} {fwd}": layers}
     if backward in ("split", "dkv_t"):
         want[f"{A.plan_bwd(dtype)} flash_dq"] = layers
     if backward == "split":
@@ -1204,17 +1205,16 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
         fwd_work = attn_work(b, h, h, s, d, kind, 2, 4 * io + rows_bytes)
         fsets = cold_sets(*args)
         for arm in fwd_arms:
+            route = A.plan_fwd(dtype, "causal")
             if arm == "exact":
                 name, fn = "flash_fwd", lambda *a, heads=heads: \
                     A.flash_fwd_exact(*a, causal=True, scale=scale,
                                       heads=heads)
-                route = None
             else:
                 name = "flash_fwd_bound"
                 fn = lambda *a, heads=heads, arm=arm: A.flash_fwd_bound(
                     *a, scale=scale, heads=heads,
                     force_bound=arm == "bound")
-                route = A.plan_fwd(dtype, "causal")
             rows.setdefault(name, []).append(check_kernel(
                 name, f"{label} {layout} {arm} arm",
                 lambda *a, fn=fn, to4=to4: (lambda o, l: (to4(o), l))(
@@ -1226,7 +1226,7 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
                 else (TOL[name], LSE_TOL),
                 library_fn=lambda *a, to4=to4: sdpa(*(to4(t) for t in a)),
                 work=fwd_work, flash_route=route))
-            if route is not None:
+            if name == "flash_fwd_bound":
                 k8_alone(rows[name][-1], fsets, scale, heads, arm == "bound",
                          phase)
         del fsets
@@ -1308,8 +1308,14 @@ K1_BIT_CASES = (("wgmma", "nt", 2048, 4096, 1024),
                 ("wgmma", "nt", 300, 262, 520),       # direct stores
                 ("wmma", "nt", 33, 70, 130), ("wmma", "nn", 33, 70, 130),
                 ("wmma", "tn", 33, 70, 130),
-                ("decode", "nt", 16, 1024, 1024))
+                ("decode", "nt", 16, 1024, 1024),     # no cluster
+                ("decode", "nt", 1, 4096, 1024), ("decode", "nt", 5, 19, 37),
+                ("decode", "nt", 8, 8192, 2048),
+                ("decode", "nt", 16, 1024, 4096),     # a cluster of 4
+                ("decode", "nt", 4, 1024, 8192))      # a cluster of 8
 K1_REPEAT_CASES = (("tn", 1024, 1024, 16384, torch.bfloat16),
+                   ("nt", 16, 1024, 4096, torch.bfloat16),    # decode x4
+                   ("nt", 5, 2048, 2048, torch.bfloat16),     # decode x2
                    ("tn", 128, 128, 8192, torch.float32),     # sort dW
                    ("tn", 32, 144, 65536, torch.float32))     # ResNet-8 dW
 
@@ -1327,13 +1333,69 @@ def k1_call(a, b, mode, out_dtype=None):
     return gemm(a, b, mode, out_dtype=out_dtype)
 
 
+# K1's decode route at every M it takes on the serving paths: the serving
+# model's (K_in, N_out) and the quantized-serving baseline's bf16 up
+# projection (M 8 N 8192 K 2048)
+DECODE_MS = (1, 5, 8, 16)
+DECODE_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024), (2048, 8192))
+
+
+def decode_rows(dev, gen):
+    """K1's decode route against its plain version at each M of
+    DECODE_MS and shape of DECODE_SHAPES, with a bias and each epilogue
+    in turn (2e-4: exact bf16 products summed in another order), its bf16
+    output the f32 output cast, bit for bit, and two calls bit-equal; the
+    route and cluster ``plan`` names are the ones taken.  Times the
+    baseline's shape at M 8 against its plain version and F.linear;
+    returns that row."""
+    worst, acts = 0.0, ("none", "relu", "sigmoid")
+    for i, (m, (k, n)) in enumerate((m, kn) for m in DECODE_MS
+                                    for kn in DECODE_SHAPES):
+        x = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
+        w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(
+            torch.bfloat16).to(dev)
+        b = (torch.randn(n, generator=gen) * 0.1).to(torch.bfloat16).to(dev)
+        act = acts[i % 3]
+        route, splits = plan_for(x, w, "nt")
+        assert route == "decode", (m, n, k, route)
+        before = backend.route_counts()
+        y = linear(x, w, b, act)
+        torch.cuda.synchronize()
+        taken = {key: c - before.get(key, 0)
+                 for key, c in backend.route_counts().items()
+                 if c != before.get(key, 0)}
+        assert taken == {route_key(route, "nt", splits): 1}, taken
+        _, stat, ok = within(y, linear_reference(x, w, b, act),
+                             BF16_GEMM_TOL)
+        y16 = linear(x, w, b, out_dtype=torch.bfloat16)
+        same = (torch.equal(y, linear(x, w, b, act)) and torch.equal(
+            y16, linear(x, w, b).to(torch.bfloat16)))
+        worst = max(worst, stat)
+        assert ok and same, (m, n, k, act, stat, same)
+    print(f"phase 29: K1 decode at M {DECODE_MS} x (K, N) {DECODE_SHAPES}, "
+          f"bias and {'/'.join(acts)} in turn: worst (err / (1 + |ref|)) "
+          f"{worst:.3e} (tol {BF16_GEMM_TOL:.0e}); bf16 out equals the f32 "
+          f"out cast and two calls are bit-equal at every one")
+    k, n = DECODE_SHAPES[-1]
+    x = torch.randn(8, k, generator=gen).to(torch.bfloat16).to(dev)
+    w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(
+        torch.bfloat16).to(dev)
+    b = (torch.randn(n, generator=gen) * 0.1).to(torch.bfloat16).to(dev)
+    return check_kernel(
+        "linear", f"bf16 M=8 K={k} N={n} (+bias; the quantized-serving "
+        f"baseline's up projection)", linear, linear_reference,
+        cold_sets(x, w, b), phase=29, tol=BF16_GEMM_TOL, library_fn=F.linear,
+        work=gemm_work(8, n, k, "bf16", bias=True))
+
+
 def phase29_k1_bits(dev):
     """K1 on the card, bit for bit: (a) for each bf16 route and mode, the
     kernel writing bf16 equals its own f32 result cast to bf16 (one
-    round-to-nearest-even of the same f32 value); (b) a split-K call
-    repeats its bits (the splits summed in a fixed order, no atomics).
-    Also times the wmma route against its plain version; returns its
-    rows."""
+    round-to-nearest-even of the same f32 value); (b) a split-K call (and
+    a decode call split over a cluster) repeats its bits (the splits
+    summed in a fixed order, no atomics).  Also times the wmma route
+    against its plain version, and holds the decode route at every M and
+    serving shape (:func:`decode_rows`); returns the timed rows."""
     gen = torch.Generator().manual_seed(SEED)
     for route, mode, m, n, k in K1_BIT_CASES:
         a, b = k1_operands(mode, m, n, k, torch.bfloat16, gen, dev)
@@ -1371,6 +1433,7 @@ def phase29_k1_bits(dev):
             library_fn=lambda a, b: torch.matmul(a.t(), b),
             work=gemm_work(n_out, k_in, t, "bf16")))
     assert all(r["k1_route"] == "wmma" for r in rows.values()), rows
+    rows["decode"] = decode_rows(dev, gen)
     for mode, m, n, k, dtype in K1_REPEAT_CASES:
         a, b = k1_operands(mode, m, n, k, dtype, gen, dev)
         route, splits = plan_for(a, b, mode)
@@ -1435,17 +1498,18 @@ def phase10_lm_step(dev):
     return results
 
 
-# every K1 kernel: the wgmma route, the WMMA tiles (wmma, decode), the f32
-# tile, and the split-K reduce of both
+# every K1 kernel: the wgmma route, the WMMA tile (wmma), the decode
+# route, the f32 tile, and the split-K reduce of wgmma and f32
 K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_bf16_kernel"),
-               ("K1 gemm", "gemm_f32"), ("K1 gemm", "splitk_reduce"))
+               ("K1 gemm", "gemm_decode"), ("K1 gemm", "gemm_f32"),
+               ("K1 gemm", "splitk_reduce"))
 OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
-# the flash kernels by name: the WMMA/FMA ones of flash_fwd.cu and
+# the flash kernels by name: the FMA ones of flash_fwd.cu and
 # flash_bwd.cu and the wgmma ones of flash_sm90.cu and flash_bwd_sm90.cu
-# (namespace taper::flash::sm90)
+# (namespace taper::flash::sm90; K8 and K5 are fwd_kernel<D, MASKED>)
 LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
                              ("K8/K5 flash fwd", "flash_fwd_kernel"),
-                             ("K8/K5 flash fwd", "sm90::fwd_bound_kernel"),
+                             ("K8/K5 flash fwd", "sm90::fwd_kernel"),
                              ("K6 flash dq", "flash_dq_kernel"),
                              ("K6 flash dq", "sm90::dq_kernel"),
                              ("K7 flash dkv", "flash_dkv_kernel"),
@@ -2973,7 +3037,8 @@ def masked_flash_rows(label, q, k, v, do, *, heads, causal, window, seg,
         tol=(FLASH_F32_TOL, LSE_F32_TOL) if f32 else (TOL["flash_fwd"],
                                                       LSE_TOL),
         library_fn=sdpa, work=(2 * 2 * d * h * pairs, 4 * io + rows_b,
-                               kind))]}
+                               kind),
+        flash_route=A.plan_fwd(q.dtype, A.mask_kind(causal, window, seg)))]}
     bsets = cold_sets(q, k, v, o, ref_lse, do)
     plain_ms = cuda_ms(lambda q_, k_, v_, o_, l_, do_: A.flash_bwd_reference(
         *(to4(t) for t in (q_, k_, v_, o_)), l_, to4(do_), causal, scale,
@@ -3035,9 +3100,10 @@ def packing_docs():
 def phase24_masked_kernels(dev):
     """This slice's kernels at its shapes against their plain versions:
     K5/K6/K7 and K11 windowed at the windowed model's training shape (and
-    non-causal windowed in f32 at a small one), K5/K6/K7 with segment ids
-    at bench_packing's packed batch, and K10 at the 170M shape raced
-    against K6 + K7 and SDPA's backward."""
+    non-causal windowed in f32 and bf16 at a small one), K5/K6/K7 in bf16
+    non-causal and at ragged S, K5/K6/K7 with segment ids at
+    bench_packing's packed batch, and K10 at the 170M shape raced against
+    K6 + K7 and SDPA's backward."""
     gen = torch.Generator().manual_seed(SEED)
     bf = torch.bfloat16
     rows = {}
@@ -3060,6 +3126,23 @@ def phase24_masked_kernels(dev):
         pairs=band_pairs(1024, False, 256), dkv_t=True)
     for name, r in small.items():
         win[name] += r
+    # K5 in bf16 (wgmma) without causality, windowed at the f32 row's
+    # shape and unmasked at an S that is not a multiple of 128, and under
+    # a window and causality at a ragged S in [B, S, H*D]
+    for label, shape, heads, causal, window in (
+            ("bf16 B=1 H=4 S=1024 D=64 non-causal window 256 bhsd",
+             (1, 4, 1024, 64), None, False, 256),
+            ("bf16 B=1 H=8 S=1000 D=128 non-causal bhsd", (1, 8, 1000, 128),
+             None, False, None),
+            ("bf16 B=2 H=8 S=1000 D=64 causal window 300 bshd",
+             (2, 1000, 512), 8, True, 300)):
+        q, k, v, do = (randn(*shape) for _ in range(4))
+        s_ = shape[2] if heads is None else shape[1]
+        extra = masked_flash_rows(
+            label, q, k, v, do, heads=heads, causal=causal, window=window,
+            seg=None, pairs=shape[0] * band_pairs(s_, causal, window))
+        for name, r in extra.items():
+            win[name] += r
     rows["train_window"] = win
 
     cfg = PACK["model"]
@@ -3280,7 +3363,7 @@ def phase25_packed_training(dev, smi):
 # phase 26's profile: the flash forward (K5, K8) apart from the backward
 # (K6, K7, K11), whose kernels share one design in both models
 ATTN_FAMILIES = (("attention forward", "flash_fwd_kernel"),
-                 ("attention forward", "fwd_bound_kernel"),
+                 ("attention forward", "sm90::fwd_kernel"),
                  ("attention backward", "flash")) + K1_FAMILIES + (
                      OPT_FAMILY,)
 
@@ -3365,14 +3448,20 @@ def phase26_window_training(dev, smi):
           f"busy {prof_w['busy_ms']:.1f} vs {prof_f['busy_ms']:.1f} ms of "
           f"{prof_w['wall_ms']:.1f} vs {prof_f['wall_ms']:.1f} ms wall; by "
           f"family {prof_w['ms']} vs {prof_f['ms']}")
-    # the band: the windowed backward (K6 and K7 visit the window's tiles
-    # only) costs less than the full-causal one, both on their wgmma
-    # kernels
+    # the band: the windowed attention, forward and backward, costs less
+    # device time than the full-causal model's at the same shape (K5 and
+    # K8 both on wgmma)
+    attn_w, attn_f = (sum(p["ms"].get(f, 0) for f in fam)
+                      for p in (prof_w, prof_f))
+    print(f"phase 26: attention forward + backward a step, windowed vs full "
+          f"causal: {attn_w:.3f} vs {attn_f:.3f} ms of device")
+    assert attn_w < attn_f, (attn_w, attn_f)
+    # the windowed backward (K6 and K7 visit the window's tiles only)
+    # costs less than the full-causal one, both on their wgmma kernels
     assert prof_w["ms"]["attention backward"] < prof_f["ms"][
         "attention backward"]
     # and the windowed forward less than a full-causal forward on the same
-    # kernel: the full-causal model's forward is K8, of another design, so
-    # K5 runs the whole triangle (no window) on the same inputs
+    # kernel: K5 runs the whole triangle (no window) on the same inputs
     h, d = WMODEL["num_heads"], WMODEL["dim"] // WMODEL["num_heads"]
     fsets = cold_sets(*(torch.randn(b, s, h * d, generator=gen).to(
         torch.bfloat16).to(dev) for _ in range(3)))

@@ -1,29 +1,31 @@
-// Flash attention forward: o = softmax(scale * q k^T [+ causal mask]) v,
-// and the row logsumexp lse (natural log, f32) that the backward reads.
+// Flash attention forward: o = softmax(scale * q k^T [+ mask]) v, and the
+// row logsumexp lse (natural log, f32) that the backward reads.
 //
 // Replaces _fwd_kernel (K5) of taper_tpu/ops/pallas/attention.py, the
 // exact online softmax that _flash_fwd launches for f32 and non-causal
-// inputs and for every input with a sliding window or segment ids
-// (flash_fwd_kernel<T, D, MASKED>).  The bound-max arm that JAX selects
-// for bf16 causal inputs (_fwd_kernel_bound, K8) is flash_sm90.cu's.
-// Layouts: [B, H, S, D] for q and o with [B, Hkv, S, D] for k and v, or the
-// projections' [B, S, H*D] with [B, S, Hkv*D]; the kernel is given element
-// strides, so neither layout is copied.  GQA is read natively (query head h
-// uses KV head h / (H / Hkv)); K/V are never repeated in device memory.
+// inputs and for every input with a sliding window or segment ids.  One C
+// entry point, taper_flash_fwd, picks the kernel by dtype: bf16 runs
+// flash_sm90.cu's TMA + wgmma kernel (fwd_kernel<D, MASKED = true>, K8's
+// design with the band, the masks and segment ids added); f32 runs
+// flash_fwd_kernel<float, D, MASKED> below.  The bound-max arm that JAX
+// selects for bf16 causal inputs (_fwd_kernel_bound, K8) is flash_sm90.cu's
+// too.  Layouts: [B, H, S, D] for q and o with [B, Hkv, S, D] for k and v,
+// or the projections' [B, S, H*D] with [B, S, Hkv*D]; the kernel is given
+// element strides, so neither layout is copied.  GQA is read natively
+// (query head h uses KV head h / (H / Hkv)); K/V are never repeated in
+// device memory.
 //
-// What bounds it on the H100: the two products are tensor-core work
-// (4 S^2 D per head, halved by causality); the softmax between them runs
-// on the CUDA cores and device memory traffic is O(S * D) per head.  At the
-// training shape (B 8, H 8, S 2048, D 128, bf16) the products set the
-// bound: 6.9e10 FLOP, ~69 us at 989 TFLOP/s.  K5's shapes are small (the
-// sort task in f32) or masked (windows, packed documents).
+// What bounds it on the H100: in f32 (the sort task, B 64, H 2, S 128, D
+// 64, causal, and small windowed tests) both products run on the CUDA
+// cores (the port keeps TF32 off by policy): 4 S^2 D FMA-issued flops per
+// head, halved by causality, against 67 TFLOP/s; the softmax between them
+// and device memory traffic (O(S * D) per head) are smaller.
 // What the design does about that:
 //   * one block per (batch * head, 64-row query tile), four warps of 16
 //     query rows each, the longest causal rows scheduled first; the loop
 //     over 64-row KV tiles runs inside the block, so nothing carries
 //     between blocks (the TPU grid's sequential KV axis becomes this loop);
-//   * bf16: both products use WMMA 16x16x16 tensor-core tiles out of
-//     shared memory; f32: the same schedule with FMA loops;
+//   * both products as FMA loops in which a lane owns columns lane + 32 j;
 //   * online softmax in f32 (base 2, log2(e) folded into the scale), the
 //     running output kept in shared memory in f32 and rescaled row by row;
 //   * causal tiles above the diagonal are skipped, and with a window the
@@ -36,11 +38,15 @@
 //     document) and a fully masked row are guarded with a finite stand-in
 //     for the running max, and the latter gets lse = -inf, as the TPU
 //     kernel does.
-// K5 on TMA and wgmma (its windowed and packed shapes) is ROADMAP Queue 2's.
 #include "flash_common.cuh"
 
 namespace taper {
 namespace flash {
+
+// csrc/flash_sm90.cu: K5 in bf16 on TMA and wgmma
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const Mask& m, int B, int H, int Hkv, int S,
+                   int D, float scale, int layout, cudaStream_t stream);
 
 template <typename T, int D>
 struct FwdSmem {
@@ -66,6 +72,7 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, Layout lay, int causal,
                      int window, const int* __restrict__ seg, int H,
                      int Hkv, int S, float scale_log2) {
+  static_assert(sizeof(T) == 4, "f32: bf16 runs flash_sm90.cu's K5");
   const Mask mask{causal, window, seg};  // see Mask
   using L = Tiles<T, D>;
   using M = FwdSmem<T, D>;
@@ -153,43 +160,20 @@ __global__ void __launch_bounds__(kThreads)
       Os[r * L::LDO + d] *= c_s[r];
     }
     __syncwarp();
-    if constexpr (L::kTC) {
+    // lane owns output columns lane + 32 * j for all 16 rows
+    for (int j = 0; j < D / 32; ++j) {
+      const int d = lane + 32 * j;
+      float acc[16];
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, Os + r0 * L::LDO + n * 16, L::LDO,
-                               wmma::mem_row_major);
+      for (int r = 0; r < 16; ++r) acc[r] = Os[(r0 + r) * L::LDO + d];
+      for (int c = 0; c < kTile; ++c) {
+        float vv = to_f32(Vs[c * L::LDT + d]);
 #pragma unroll
-        for (int kk = 0; kk < kTile; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bv;
-          wmma::load_matrix_sync(a, Ps + r0 * L::LDP + kk, L::LDP);
-          wmma::load_matrix_sync(bv, Vs + kk * L::LDT + n * 16, L::LDT);
-          wmma::mma_sync(acc, a, bv, acc);
-        }
-        wmma::store_matrix_sync(Os + r0 * L::LDO + n * 16, acc, L::LDO,
-                                wmma::mem_row_major);
+        for (int r = 0; r < 16; ++r)
+          acc[r] = fmaf(to_f32(Ps[(r0 + r) * L::LDP + c]), vv, acc[r]);
       }
-    } else {
-      // lane owns output columns lane + 32 * j for all 16 rows
-      for (int j = 0; j < D / 32; ++j) {
-        const int d = lane + 32 * j;
-        float acc[16];
 #pragma unroll
-        for (int r = 0; r < 16; ++r) acc[r] = Os[(r0 + r) * L::LDO + d];
-        for (int c = 0; c < kTile; ++c) {
-          float vv = to_f32(Vs[c * L::LDT + d]);
-#pragma unroll
-          for (int r = 0; r < 16; ++r)
-            acc[r] = fmaf(to_f32(Ps[(r0 + r) * L::LDP + c]), vv, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < 16; ++r) Os[(r0 + r) * L::LDO + d] = acc[r];
-      }
+      for (int r = 0; r < 16; ++r) Os[(r0 + r) * L::LDO + d] = acc[r];
     }
     __syncwarp();
   }
@@ -249,8 +233,9 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 using namespace taper;
 using namespace taper::flash;
 
-// The exact kernel (K5).  lse: [B*H, S] f32; seg: [B, S] int32 segment
-// ids or null; window: > 0 keeps cols > row - window.
+// The exact kernel (K5): bf16 on flash_sm90.cu's, f32 on
+// flash_fwd_kernel.  lse: [B*H, S] f32; seg: [B, S] int32 segment ids or
+// null; window: > 0 keeps cols > row - window.
 extern "C" int taper_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, const void* seg, int B,
                                int H, int Hkv, int S, int D, float scale,
@@ -261,14 +246,10 @@ extern "C" int taper_flash_fwd(const void* q, const void* k, const void* v,
   const Mask m{causal, window, static_cast<const int*>(seg)};
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == kBFloat16) {
-    if (D == 64)
-      return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, l, B, H, Hkv, S, scale,
-                                           m, layout, s);
-    if (D == 128)
-      return launch_fwd<__nv_bfloat16, 128>(q, k, v, o, l, B, H, Hkv, S,
-                                            scale, m, layout, s);
-  } else if (dtype == kFloat32) {
+  if (dtype == kBFloat16)
+    return flash_fwd_sm90(q, k, v, o, l, m, B, H, Hkv, S, D, scale, layout,
+                          s);
+  if (dtype == kFloat32) {
     if (D == 64)
       return launch_fwd<float, 64>(q, k, v, o, l, B, H, Hkv, S, scale, m,
                                    layout, s);

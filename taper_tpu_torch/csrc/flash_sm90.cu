@@ -94,7 +94,18 @@ namespace sm90 {
 
 // ---- K8: the bound-max forward ------------------------------------------
 
-template <int D>
+// What a stage holds beside its K and V tiles in K5 (MASKED), written by
+// the producer warp: the tile's 128 KV rows' segment ids (-1 past S), and
+// whether the block skips the tile (no id of it meets the block's query
+// rows'; its loads are then not issued).
+struct FwdIds {
+  int ids[128];
+  int skip, pad[3];
+};
+
+// K5 (MASKED) adds a FwdIds a stage: 1.5 KB at D 128, which the 227 KB
+// still hold beside three stages.
+template <int D, bool MASKED>
 struct FwdTiles {
   static constexpr int BM = 128;                  // query rows a block
   static constexpr int BN = 128;                  // KV rows a tile
@@ -104,23 +115,24 @@ struct FwdTiles {
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int STAGE_OFF = Q_BYTES;
   static constexpr int BAR_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
-  static constexpr int SMEM = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
+  static constexpr int IDS_OFF = BAR_OFF + (1 + 3 * STAGES) * 8;
+  static constexpr int SMEM =
+      IDS_OFF + (MASKED ? STAGES * (int)sizeof(FwdIds) : 0) + 1024;
 };
 
 // The softmax of one raw score tile in registers (the thread's two rows):
-// masks where the tile needs it, takes the shift (the bound, or the
-// running max, whose correction of the earlier tiles it returns in
-// ``corr``) and turns the scores into weights exp2(s scale log2(e) -
-// shift), summing the thread's share of each row into ``l``.
-template <int BN>
+// masks where the tile needs it (``edge``: the pairs ``keep`` refuses),
+// takes the shift (the bound, or the running max, whose correction of the
+// earlier tiles it returns in ``corr``) and turns the scores into weights
+// exp2(s scale log2(e) - shift), summing the thread's share of each row
+// into ``l``.
+template <int BN, typename Keep>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2], bool fast,
                                              bool edge, int row0, int kv0,
-                                             int S, float scale_log2) {
-  if (edge)
-    mask_frag<BN>(sc, row0, kv0, -INFINITY,
-                  [S](int r, int col) { return col <= r && col < S; });
+                                             float scale_log2, Keep keep) {
+  if (edge) mask_frag<BN>(sc, row0, kv0, -INFINITY, keep);
   float shift[2];
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
@@ -171,20 +183,103 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_commit();
 }
 
+// K5's producer warp: Q once, then for each KV tile of the band the
+// tile's segment ids and whether the block skips it (its ids' range
+// cannot meet the block's query rows'), written into the stage's FwdIds
+// before the warp arrives on k_full (the lanes' arrivals release them);
+// lane 0 issues the TMA loads of the tiles it does not skip.
+template <int D>
+__device__ __forceinline__ void fwd_produce_masked(
+    unsigned char* smem, uint64_t* q_full, uint64_t* k_full,
+    uint64_t* v_full, uint64_t* empty, FwdIds* kv_ids,
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    HeadAt qat, HeadAt kat, const int* __restrict__ seg, int b, int q0,
+    int j_lo, int j_hi, int S) {
+  using P = FwdTiles<D, true>;
+  const int lane = threadIdx.x;
+  // the ids' range of the block's query rows
+  int qlo = INT_MAX, qhi = INT_MIN;
+  if (seg != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + lane + 32 * i;
+      if (r < S) {
+        const int id = seg[(size_t)b * S + r];
+        qlo = min(qlo, id);
+        qhi = max(qhi, id);
+      }
+    }
+    qlo = __reduce_min_sync(0xffffffffu, qlo);
+    qhi = __reduce_max_sync(0xffffffffu, qhi);
+  }
+  if (lane == 0) {
+    tma_prefetch_desc(tq);
+    tma_prefetch_desc(tk);
+    tma_prefetch_desc(tv);
+    mbar_expect_tx(q_full, P::Q_BYTES);
+    load_tile<D, P::BM>(smem, tq, q_full, qat, q0);
+  }
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int it = j - j_lo, s = it % P::STAGES, kv0 = j * P::BN;
+    if (it >= P::STAGES) mbar_wait(&empty[s], (it / P::STAGES - 1) & 1);
+    bool skip = false;
+    if (seg != nullptr) {
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = kv0 + lane + 32 * i;
+        const int id = r < S ? seg[(size_t)b * S + r] : -1;
+        kv_ids[s].ids[lane + 32 * i] = id;
+        if (r < S) {
+          lo = min(lo, id);
+          hi = max(hi, id);
+        }
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      skip = !(lo <= qhi && qlo <= hi);
+    }
+    if (lane == 0) kv_ids[s].skip = skip;
+    if (lane == 0 && !skip) {
+      unsigned char* ks = smem + P::STAGE_OFF + s * P::STAGE_BYTES;
+      mbar_expect_tx(&k_full[s], P::KV_BYTES);
+      load_tile<D, P::BN>(ks, tk, &k_full[s], kat, kv0);
+      mbar_expect_tx(&v_full[s], P::KV_BYTES);
+      load_tile<D, P::BN>(ks + P::KV_BYTES, tv, &v_full[s], kat, kv0);
+    } else {
+      mbar_arrive(&k_full[s]);
+      if (lane == 0) mbar_arrive(&v_full[s]);
+    }
+  }
+}
+
 // One block a (batch * head, 128-row query tile), the longest rows first.
 // ``to``: o's descriptor in boxes of 64 rows; ``tq``: q's in 128.  A
 // stage's K and V have a barrier each, so that s = Q K^T starts before V
 // has landed.
-template <int D>
+//
+// MASKED = false is K8: causal, the bound arm or the exact one (pred[0]).
+// MASKED = true is K5, the exact arm under every mask its last three
+// parameters give (see Mask): the loop runs over the band of 128-row KV
+// tiles the block's rows keep (kv_begin of its first row to kv_end of its
+// last), the mask is applied to the tiles that need it (a window's edges,
+// the diagonal, ragged S, segment ids), and a tile whose ids cannot meet
+// the block's is skipped by producer and consumers alike (the consumers
+// still wait for its stage and release it).  A fully masked row gets o = 0
+// and lse = -inf.  The parameters K5 adds come last, so that K8 compiles
+// as it did without them.
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 1)
-    fwd_bound_kernel(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv,
-                     const __grid_constant__ CUtensorMap to,
-                     float* __restrict__ lse, const float* __restrict__ kn,
-                     const int* __restrict__ pred, int* bound_count, int H,
-                     int Hkv, int S, int layout, float scale_log2) {
-  using P = FwdTiles<D>;
+    fwd_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to,
+               float* __restrict__ lse, const float* __restrict__ kn,
+               const int* __restrict__ pred, int* bound_count, int H,
+               int Hkv, int S, int layout, float scale_log2, int causal,
+               int window, const int* __restrict__ seg) {
+  using P = FwdTiles<D, MASKED>;
+  [[maybe_unused]] const Mask mask{causal, window, seg};  // K5's
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* Qs = smem;
@@ -192,6 +287,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + P::STAGES;
   uint64_t* empty = v_full + P::STAGES;
+  [[maybe_unused]] FwdIds* kv_ids =
+      reinterpret_cast<FwdIds*>(smem + P::IDS_OFF);
 
   // heads fastest, so that every head's longest rows go first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -200,6 +297,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the causal band: KV tiles up to the block's last row (kv_end of its
   // second 64-row half)
   const int n_tiles = (min(S, q0 + P::BM) + P::BN - 1) / P::BN;
+  // K5's band: from the tile of the first column its first row keeps
+  // (kv_begin) to the causal band's end, or to S without causality
+  const int j_lo =
+      MASKED && window > 0 ? max(0, q0 - window + 1) / P::BN : 0;
+  const int j_hi = MASKED && !causal ? (S + P::BN - 1) / P::BN : n_tiles;
   const HeadAt qat = head_at(layout, b, H, h, D);
   const HeadAt kat = head_at(layout, b, Hkv, hk, D);
   const int wg = threadIdx.x / 128;
@@ -207,7 +309,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < P::STAGES; ++s) {
-      mbar_init(&k_full[s], 1);
+      // K5: the producer warp's lanes (lane 0's expect_tx among them)
+      mbar_init(&k_full[s], MASKED ? 32 : 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
@@ -217,7 +320,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == 0) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
+    if constexpr (MASKED) {
+      if (threadIdx.x < 32)
+        fwd_produce_masked<D>(smem, q_full, k_full, v_full, empty, kv_ids,
+                              &tq, &tk, &tv, qat, kat, seg, b, q0, j_lo,
+                              j_hi, S);
+    } else if (threadIdx.x == 0) {
       tma_prefetch_desc(&tq);
       tma_prefetch_desc(&tk);
       tma_prefetch_desc(&tv);
@@ -242,9 +350,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x % 128, lane = tid % 32, quad = lane % 4;
   const int r_lo = (tid / 32) * 16 + lane / 4;  // the thread's rows:
   const int row0 = q0 + 64 * c + r_lo;          // row0 and row0 + 8
-  const bool fast = pred[0] != 0;  // uniform over the grid
+  const bool fast = !MASKED && pred[0] != 0;  // uniform over the grid
   const uint32_t qs = smem_u32(Qs);
   const uint32_t stages = smem_u32(smem + P::STAGE_OFF);
+  // K5: the segment ids of the thread's two rows (-1 past S)
+  int qid0 = -1, qid1 = -1;
+  if (has_ids<MASKED>(mask)) {
+    if (row0 < S) qid0 = seg[(size_t)b * S + row0];
+    if (row0 + 8 < S) qid1 = seg[(size_t)b * S + row0 + 8];
+  }
 
   mbar_wait(q_full, 0);
   // the shift of each of the thread's two rows: the Cauchy-Schwarz bound
@@ -278,10 +392,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
   float sc[P::BN / 2], corr[2];
   uint32_t pa[P::BN / 16][4];
-  for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % P::STAGES, kv0 = j * P::BN;
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int it = j - j_lo;  // ring position
+    const int s = it % P::STAGES, kv0 = j * P::BN;
     const uint32_t ks = stages + s * P::STAGE_BYTES;
-    mbar_wait(&k_full[s], (j / P::STAGES) & 1);
+    mbar_wait(&k_full[s], (it / P::STAGES) & 1);
+    if (MASKED && kv_ids[s].skip) {  // no shared document: nothing loaded
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
@@ -290,15 +409,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_frag(sc);
-    softmax_tile<P::BN>(sc, m, l, corr, fast,
-                        kv0 + P::BN - 1 > q0 + 64 * c || kv0 + P::BN > S,
-                        row0, kv0, S, scale_log2);
+    if constexpr (MASKED) {
+      // K5: the tiles that cross the window's lower edge, the diagonal or
+      // S, and every tile under segment ids
+      const int first = q0 + 64 * c;  // the warpgroup's first row
+      const int* ids = kv_ids[s].ids;
+      softmax_tile<P::BN>(
+          sc, m, l, corr, false,
+          kv0 + P::BN > S || (causal && kv0 + P::BN - 1 > first) ||
+              (window > 0 && kv0 <= first + 63 - window) || seg != nullptr,
+          row0, kv0, scale_log2, [&](int r, int col) {
+            return col < S && keep<true>(mask, r, col) &&
+                   (seg == nullptr ||
+                    (r < row0 + 8 ? qid0 : qid1) == ids[col - kv0]);
+          });
+    } else {
+      softmax_tile<P::BN>(sc, m, l, corr, fast,
+                          kv0 + P::BN - 1 > q0 + 64 * c || kv0 + P::BN > S,
+                          row0, kv0, scale_log2,
+                          [S](int r, int col) { return col <= r && col < S; });
+    }
     if (!fast) {
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) o[e] *= corr[frag_row(e) / 8];
     }
     acc_to_a<P::BN>(sc, pa);
-    mbar_wait(&v_full[s], (j / P::STAGES) & 1);
+    mbar_wait(&v_full[s], (it / P::STAGES) & 1);
     issue_pv<D, P::BN>(o, pa, ks + P::KV_BYTES);
     wgmma_wait<0>();
     fence_frag(o);
@@ -342,26 +478,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     atomicAdd(bound_count, 1);
 }
 
-template <int D>
-int launch_fwd_bound(const void* q, const void* k, const void* v, void* o,
-                     float* lse, const float* kn, const int* pred,
-                     int* bound_count, int B, int H, int Hkv, int S,
-                     float scale, int layout, cudaStream_t stream) {
-  using P = FwdTiles<D>;
+// K8 (MASKED = false: kn, pred and bound_count) or K5 (MASKED = true:
+// the mask ``m``).
+template <int D, bool MASKED>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, const float* kn, const int* pred,
+               int* bound_count, const Mask& m, int B, int H, int Hkv,
+               int S, float scale, int layout, cudaStream_t stream) {
+  using P = FwdTiles<D, MASKED>;
   CUtensorMap tq, tk, tv, to;
   int err = head_desc(&tq, q, layout, B, H, S, D, P::BM);
   if (err == 0) err = head_desc(&tk, k, layout, B, Hkv, S, D, P::BN);
   if (err == 0) err = head_desc(&tv, v, layout, B, Hkv, S, D, P::BN);
   if (err == 0) err = head_desc(&to, o, layout, B, H, S, D, 64);
   if (err != 0) return err;
-  auto kernel = fwd_bound_kernel<D>;
+  auto kernel = fwd_kernel<D, MASKED>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + P::BM - 1) / P::BM);
-  kernel<<<grid, kThreads, P::SMEM, stream>>>(tq, tk, tv, to, lse, kn, pred,
-                                              bound_count, H, Hkv, S, layout,
-                                              scale * kLog2e);
+  kernel<<<grid, kThreads, P::SMEM, stream>>>(
+      tq, tk, tv, to, lse, kn, pred, bound_count, H, Hkv, S, layout,
+      scale * kLog2e, m.causal, m.window, m.seg);
   return (int)cudaGetLastError();
 }
 
@@ -929,6 +1067,19 @@ int flash_dkv_sm90(const void* q, const void* k, const void* v,
   });
 }
 
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const Mask& m, int B, int H, int Hkv, int S,
+                   int D, float scale, int layout, cudaStream_t stream) {
+  auto go = [&](auto d) {
+    return sm90::launch_fwd<decltype(d)::value, true>(
+        q, k, v, o, lse, nullptr, nullptr, nullptr, m, B, H, Hkv, S, scale,
+        layout, stream);
+  };
+  if (D == 64) return go(std::integral_constant<int, 64>{});
+  if (D == 128) return go(std::integral_constant<int, 128>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 int flash_fused_sm90(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      float* dq_acc, void* dq, void* dk, void* dv,
@@ -955,11 +1106,12 @@ extern "C" int taper_flash_fwd_bound(const void* q, const void* k,
   using namespace taper::flash::sm90;
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
+  const taper::flash::Mask causal{1, 0, nullptr};
   auto go = [&](auto d) {
-    return launch_fwd_bound<decltype(d)::value>(
+    return launch_fwd<decltype(d)::value, false>(
         q, k, v, o, static_cast<float*>(lse),
         static_cast<const float*>(kn), static_cast<const int*>(pred),
-        static_cast<int*>(bound_count), B, H, Hkv, S, scale, layout,
+        static_cast<int*>(bound_count), causal, B, H, Hkv, S, scale, layout,
         static_cast<cudaStream_t>(stream));
   };
   if (D == 64) return go(std::integral_constant<int, 64>{});

@@ -14,11 +14,11 @@
 // One C entry point, taper_gemm, runs the kernel that ops/gemm.py::plan
 // chose (its route) with its K split:
 //   * wgmma (bf16, M > 16, TMA-aligned): csrc/gemm_sm90.cu;
-//   * wmma (other bf16) and decode (bf16 nt at M <= 16): the WMMA tile
-//     kernel below, 16x16x16 fragments out of a cp.async ring, 128x128
-//     (8 warps) where that gives two waves of blocks, 64x64 below, and
-//     BM=16, BN=32, BK=128 for decode, whose every weight byte is read
-//     once per step (memory bound);
+//   * decode (bf16 nt at M <= 16): csrc/gemm_decode.cu, its K split over a
+//     thread-block cluster;
+//   * wmma (other bf16): the WMMA tile kernel below, 16x16x16 fragments
+//     out of a cp.async ring, 128x128 (8 warps) where that gives two waves
+//     of blocks, 64x64 below;
 //   * f32: the FMA tile kernel below.  The port keeps TF32 off, so f32
 //     stays on the CUDA cores; its path shapes are latency bound, not
 //     FLOP bound: a long-K product with a small output (the sort task's
@@ -48,6 +48,11 @@ namespace taper {
 int gemm_wgmma(const void* a, const void* b, const void* bias, void* y,
                void* ws, int M, int N, int K, int mode, int out_dtype,
                int act, int splits, cudaStream_t s);
+
+// csrc/gemm_decode.cu
+int gemm_decode(const void* x, const void* w, const void* bias, void* y,
+                int M, int N, int K, int out_dtype, int act, int splits,
+                cudaStream_t s);
 
 // The split-K reduce (below): y = act(sum of the splits + bias)
 int splitk_reduce(const float* ws, const void* bias, int bias_dtype, void* y,
@@ -245,18 +250,12 @@ int launch_gemm_bf16(const void* a, const void* b, const void* bias, void* y,
   return (int)cudaGetLastError();
 }
 
-// The WMMA tile for an M x N output (see the header); decode is the
-// skinny tile of mode nt.
+// The WMMA tile for an M x N output (see the header).
 template <bool A_MK, bool B_NK, typename OutT>
 int gemm_bf16(const void* a, const void* b, const void* bias, void* y, int M,
-              int N, int K, int act, bool decode, cudaStream_t s) {
+              int N, int K, int act, cudaStream_t s) {
   const long long big_tiles =
       (long long)((M + 127) / 128) * ((N + 127) / 128);
-  if constexpr (A_MK && B_NK) {
-    if (decode)
-      return launch_gemm_bf16<16, 32, 128, 1, 2, 3, A_MK, B_NK, OutT>(
-          a, b, bias, y, M, N, K, act, s);
-  }
   if (big_tiles >= 2 * 132)
     return launch_gemm_bf16<128, 128, 32, 2, 4, 4, A_MK, B_NK, OutT>(
         a, b, bias, y, M, N, K, act, s);
@@ -266,15 +265,14 @@ int gemm_bf16(const void* a, const void* b, const void* bias, void* y, int M,
 
 template <typename OutT>
 int gemm_wmma(const void* a, const void* b, const void* bias, void* y, int M,
-              int N, int K, int mode, int act, bool decode, cudaStream_t s) {
+              int N, int K, int mode, int act, cudaStream_t s) {
   if (mode == 0)
-    return gemm_bf16<true, true, OutT>(a, b, bias, y, M, N, K, act, decode,
-                                       s);
+    return gemm_bf16<true, true, OutT>(a, b, bias, y, M, N, K, act, s);
   if (mode == 1)
     return gemm_bf16<true, false, OutT>(a, b, nullptr, y, M, N, K, kNone,
-                                        false, s);
+                                        s);
   return gemm_bf16<false, false, OutT>(a, b, nullptr, y, M, N, K, kNone,
-                                       false, s);
+                                       s);
 }
 
 // ---------------------------------------------------------------------------
@@ -470,15 +468,16 @@ using namespace taper;
 // K1 in ``mode`` (0 nt, 1 nn, 2 tn; codes shared with MODES in
 // taper_tpu_torch/ops/gemm.py) on the route ops/gemm.py::plan chose, split
 // ``splits`` ways over K (``ws``: splits * M * N f32 of workspace when
-// splits > 1).  ``bias`` and ``act`` in mode nt only; ``out_dtype`` f32,
-// or bf16 for bf16 operands.
+// splits > 1, except on the decode route, whose splits are a cluster's
+// blocks).  ``bias`` and ``act`` in mode nt only; ``out_dtype`` f32, or
+// bf16 for bf16 operands.
 extern "C" int taper_gemm(const void* a, const void* b, const void* bias,
                           void* y, void* ws, int M, int N, int K, int mode,
                           int dtype, int out_dtype, int act, int route,
                           int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || mode < 0 || mode > 2 || splits < 1 ||
-      (splits > 1 && ws == nullptr) ||
+      (splits > 1 && ws == nullptr && route != kDecode) ||
       (mode != 0 && (bias != nullptr || act != kNone)))
     return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32) {
@@ -499,14 +498,14 @@ extern "C" int taper_gemm(const void* a, const void* b, const void* bias,
   if (route == kWgmma)
     return gemm_wgmma(a, b, bias, y, ws, M, N, K, mode, out_dtype, act,
                       splits, s);
-  if (splits != 1 || (route != kWmma && route != kDecode) ||
-      (route == kDecode && mode != 0))
-    return (int)cudaErrorInvalidValue;
-  const bool decode = route == kDecode;
+  if (route == kDecode) {
+    if (mode != 0) return (int)cudaErrorInvalidValue;
+    return gemm_decode(a, b, bias, y, M, N, K, out_dtype, act, splits, s);
+  }
+  if (splits != 1 || route != kWmma) return (int)cudaErrorInvalidValue;
   if (out_dtype == kBFloat16)
-    return gemm_wmma<__nv_bfloat16>(a, b, bias, y, M, N, K, mode, act,
-                                    decode, s);
-  return gemm_wmma<float>(a, b, bias, y, M, N, K, mode, act, decode, s);
+    return gemm_wmma<__nv_bfloat16>(a, b, bias, y, M, N, K, mode, act, s);
+  return gemm_wmma<float>(a, b, bias, y, M, N, K, mode, act, s);
 }
 
 extern "C" const char* taper_error_string(int code) {

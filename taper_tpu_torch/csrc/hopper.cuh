@@ -3,9 +3,10 @@
 // wgmma shared-memory descriptors, instructions and fences, and register
 // rebalancing between warpgroups, wgmma with A from registers, and the
 // accumulator-fragment helpers (quad reductions, the f32 accumulator as a
-// bf16 A operand).  K1's wgmma GEMM (gemm_sm90.cu) and the flash kernels
-// K8, K7 and K10 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on
-// them.
+// bf16 A operand), and the cluster barrier and distributed shared-memory
+// stores.  K1's wgmma GEMM (gemm_sm90.cu) and decode product
+// (gemm_decode.cu) and the flash kernels K8, K5, K7 and K10
+// (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on them.
 //
 // Conventions:
 //   * shared-memory addresses are 32-bit (``smem_u32``);
@@ -437,6 +438,46 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[N / 2],
 // the box starting on a 1024-byte boundary.
 __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// -- thread-block clusters --
+
+// This block's rank in its cluster (0 outside a cluster launch).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in its two halves, each executed by every thread of
+// every block: ``cluster_arrive`` (``release``: this thread's earlier
+// shared-memory writes, remote ones included, are visible to the threads
+// that wait on this phase) and ``cluster_wait`` (until every thread of
+// the cluster that has not exited has arrived).  A thread alternates the
+// two.  The first phase of a kernel that touches another block's shared
+// memory tells it that every block of the cluster has started.
+template <bool RELEASE>
+__device__ __forceinline__ void cluster_arrive() {
+  if constexpr (RELEASE)
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  else
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Stores ``v`` at this block's shared address ``addr`` in the shared
+// memory of block ``rank`` of the cluster (distributed shared memory).
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, uint32_t rank,
+                                               float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
+               : "memory");
 }
 
 // -- warpgroup register rebalancing --

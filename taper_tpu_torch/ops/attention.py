@@ -29,16 +29,16 @@ plain versions (:func:`attention_lse_reference` forward,
 ``csrc/flash_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_fwd.cu``
 and ``csrc/flash_bwd.cu`` at every shape they take (f32 or bf16, D of 64
 or 128, any S), or raise.  The forward picks its kernel as JAX does
-(``attention.py:1155``): the bound-max K8 for bf16 causal inputs with no
-window and no segments, its exact arm chosen on the device by
-:func:`bound_predicate`; the exact K5 for the rest.  :func:`plan_fwd`
-names K8's kernel and :func:`plan_bwd` K6's, K7's and K10's before
-launch: the TMA + wgmma kernels of ``csrc/flash_sm90.cu`` (K8, K7, K10)
-and ``csrc/flash_bwd_sm90.cu`` (K6) for bf16 (whose data
-``backend.check_kernel_args`` holds to TMA's 16-byte alignment, or
-raises), the FMA kernels of ``csrc/flash_bwd.cu`` for f32;
-``backend.route_counts()`` counts the calls by route.  The backward is K6
-then K7, with JAX's two
+(``attention.py:1155``, :func:`uses_bound`): the bound-max K8 for bf16
+causal inputs with no window and no segments, its exact arm chosen on the
+device by :func:`bound_predicate`; the exact K5 for the rest.
+:func:`plan_fwd` names K8's and K5's kernel and :func:`plan_bwd` K6's,
+K7's and K10's before launch: the TMA + wgmma kernels of
+``csrc/flash_sm90.cu`` (K8, K5, K7, K10) and ``csrc/flash_bwd_sm90.cu``
+(K6) for bf16 (whose data ``backend.check_kernel_args`` holds to TMA's
+16-byte alignment, or raises), the FMA kernels of ``csrc/flash_fwd.cu``
+(K5) and ``csrc/flash_bwd.cu`` for f32; ``backend.route_counts()`` counts
+the calls by route.  The backward is K6 then K7, with JAX's two
 opt-in alternatives, read from the environment at each call as JAX reads
 them at trace time, and only on the card: ``TAPER_ATTN_FUSED_BWD=1``
 runs K10 for plain causal attention (no window, no segments; JAX's
@@ -249,17 +249,21 @@ def mask_kind(causal, window, segment_ids):
     return "causal" if causal else "none"
 
 
+def uses_bound(dtype, mask: str) -> bool:
+    """Whether the forward is K8 (bf16 inputs under a plain causal mask,
+    JAX's ``use_bound``, ``attention.py:1155``) rather than K5."""
+    return dtype == torch.bfloat16 and mask == "causal"
+
+
 def plan_fwd(dtype, mask: str) -> str:
-    """The forward's kernel, a pure function of its arguments (as
-    ``ops.gemm.plan``), decided before launch: ``"exact"`` (K5) for f32
-    inputs and for every mask but plain causal, as JAX's ``use_bound``
-    (``attention.py:1155``); ``"wgmma"`` (K8, ``csrc/flash_sm90.cu``) for
-    bf16 causal inputs."""
+    """The forward's route, a pure function of its arguments (as
+    ``ops.gemm.plan``), decided before launch: ``"wgmma"`` for bf16
+    inputs under every mask (K8 or K5, as :func:`uses_bound` picks, both
+    on ``csrc/flash_sm90.cu``'s TMA + wgmma kernel); ``"exact"`` for f32
+    (K5's FMA kernel, ``csrc/flash_fwd.cu``)."""
     if mask not in MASKS:
         raise ValueError(f"unknown mask kind {mask!r}")
-    if dtype != torch.bfloat16 or mask != "causal":
-        return "exact"
-    return "wgmma"
+    return "wgmma" if dtype == torch.bfloat16 else "exact"
 
 
 def plan_bwd(dtype) -> str:
@@ -304,10 +308,12 @@ def _mask_args(name, q, k, heads, window, segment_ids):
 def flash_fwd_exact(q, k, v, *, causal, scale, heads=None, window=None,
                     segment_ids=None):
     """The exact kernel (K5) on CUDA tensors in either layout, with an
-    optional window or int32 segment ids: returns ``(o, lse)``."""
+    optional window or int32 segment ids, through the route
+    :func:`plan_fwd` gives: returns ``(o, lse)``."""
     b, h, hkv, s, d = _dims(q, k, v, heads)
     _check_kernel("flash forward", d, q, k, v)
     seg, win = _mask_args("flash forward", q, k, heads, window, segment_ids)
+    route = plan_fwd(q.dtype, mask_kind(causal, window, segment_ids))
     o = torch.empty_like(q)
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
     code = _build.library().taper_flash_fwd(
@@ -317,6 +323,7 @@ def flash_fwd_exact(q, k, v, *, causal, scale, heads=None, window=None,
         _build.stream(q))
     _build.check(code, "flash attention")
     backend.count_launch("flash_fwd")
+    backend.count_route(route, "flash_fwd", 1)
     return o, lse
 
 
@@ -510,8 +517,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, scale, heads, window):
         if backend.on_cuda(q, k, v):
-            if plan_fwd(q.dtype,
-                        mask_kind(causal, window, segment_ids)) != "exact":
+            if uses_bound(q.dtype, mask_kind(causal, window, segment_ids)):
                 o, lse = flash_fwd_bound(q, k, v, scale=scale, heads=heads)
             else:
                 o, lse = flash_fwd_exact(q, k, v, causal=causal, scale=scale,

@@ -29,10 +29,12 @@ CPU tensors run the plain versions (:func:`linear_reference`,
 :func:`gemm_reference`); CUDA tensors run K1's kernels, chosen by
 :func:`plan` from the shape, dtype and alignment alone: ``wgmma``
 (``csrc/gemm_sm90.cu``, bf16 through TMA and Hopper's warpgroup MMA),
-``wmma`` and ``decode`` (bf16 WMMA tiles, ``csrc/gemm.cu``) and ``f32``
-(the FMA tile kernel, ``csrc/gemm.cu``); ``wgmma`` and ``f32`` split a
-long K over blocks when the output's tiles are too few to fill the card,
-and sum the splits in a fixed order.
+``decode`` (``csrc/gemm_decode.cu``, bf16 mode nt at M <= 16: weights
+streamed into mma.sync fragments, K split over a thread-block cluster),
+``wmma`` (the bf16 WMMA tile, ``csrc/gemm.cu``) and ``f32`` (the FMA tile
+kernel, ``csrc/gemm.cu``); ``wgmma`` and ``f32`` split a long K over
+blocks when the output's tiles are too few to fill the card, and sum the
+splits in a fixed order.
 """
 
 from __future__ import annotations
@@ -52,7 +54,12 @@ SMS = 132                  # the H100 SXM's streaming multiprocessors
 WAVE = 119                 # "about one wave": 90% of them
 MIN_SPLIT_K_TILES = 4      # K tiles of the shortest split
 WORKSPACE_CAP = 64 << 20   # bytes of f32 partials a split call may use
-DECODE_ROWS = 16           # the decode tile's M
+DECODE_ROWS = 16           # the decode route's largest M
+# csrc/gemm_decode.cu: the weight rows of a block, the least K a cluster
+# rank takes (four 32-deep steps for each of 8 warps), and the largest
+# cluster its K split takes
+DECODE_TILE = (32, 1024)
+DECODE_CLUSTER = 8
 
 
 def activation_name(activation) -> str:
@@ -118,7 +125,8 @@ def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
     repeatable).  ``aligned``: both operands' contiguous dimension is a
     multiple of 8 elements and their data 16-byte aligned (TMA's rules).
 
-    * bf16 nt at ``m <= 16``: ``decode`` (the skinny WMMA tile);
+    * bf16 nt at ``m <= 16``: ``decode``, its K split over a cluster of
+      :func:`decode_splits` blocks;
     * bf16 at ``m > 16``, aligned: ``wgmma``; other bf16: ``wmma``;
     * f32: ``f32``.
 
@@ -129,7 +137,7 @@ def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
     splits cover ``ceil(k_tiles / splits)`` tiles each)."""
     if dtype == torch.bfloat16:
         if mode == "nt" and m <= DECODE_ROWS:
-            return "decode", 1
+            return "decode", decode_splits(n, k)
         if m <= DECODE_ROWS or not aligned:
             return "wmma", 1
         route = "wgmma"
@@ -146,6 +154,21 @@ def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
         return route, 1
     per = -(-k_tiles // splits)
     return route, -(-k_tiles // per)
+
+
+def decode_splits(n: int, k: int) -> int:
+    """The decode route's cluster size: the most blocks a tile of
+    ``DECODE_TILE[0]`` weight rows, a power of two up to
+    ``DECODE_CLUSTER``, that leave each cluster rank at least
+    ``DECODE_TILE[1]`` of K and the grid within two blocks an SM (on an
+    H100 at M = 8 and 16, a larger split ran slower and a smaller one
+    left SMs idle; PERF.md)."""
+    rows, k_min = DECODE_TILE
+    tiles, splits = -(-n // rows), 1
+    while (splits < DECODE_CLUSTER and k >= 2 * splits * k_min
+           and tiles * 2 * splits <= 2 * SMS):
+        splits *= 2
+    return splits
 
 
 def split_ranges(k: int, splits: int, k_tile: int):
@@ -209,7 +232,8 @@ def _dims(a, b, mode: str):
 
 def _launch(a, b, bias, mode, activation, out_dtype):
     """K1 on CUDA operands: the kernel :func:`plan` picks, one launch
-    count a call (a split call also launches its reduce)."""
+    count a call (a split call also launches its reduce, except on the
+    decode route, whose splits meet inside one cluster launch)."""
     m, n, k = _dims(a, b, mode)
     name = "linear" if mode == "nt" else f"gemm {mode}"
     if b.dtype != a.dtype or (bias is not None and bias.dtype != a.dtype):
@@ -220,7 +244,7 @@ def _launch(a, b, bias, mode, activation, out_dtype):
     route, splits = plan_for(a, b, mode)
     y = torch.empty((m, n), dtype=out_dtype, device=a.device)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
+          if splits > 1 and route != "decode" else None)
     code = _build.library().taper_gemm(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         y.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,

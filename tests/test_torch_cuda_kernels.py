@@ -1274,6 +1274,48 @@ def test_attention_masks_dispatch_on_card(dev, layout):
             assert float((g - r).norm() / r.norm()) <= 2e-2
 
 
+# -- K5 in bf16 on its wgmma route (csrc/flash_sm90.cu, fwd_kernel<D, true>)
+
+_K5_MASKS = [(False, None, None), (True, None, None), (True, 128, None),
+             (True, 300, None), (False, 300, None), (True, None, "docs"),
+             (False, None, "docs"), (True, None, "shuffled")]
+_K5_MASK_IDS = [f"{'causal' if c else 'full'}-"
+                + (f"w{w}" if w else f"seg-{g}" if g else "none")
+                for c, w, g in _K5_MASKS]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("b,h,hkv,s,d", [(2, 8, 2, 1000, 128),
+                                         (1, 4, 1, 257, 64)])
+@pytest.mark.parametrize("mask", _K5_MASKS, ids=_K5_MASK_IDS)
+def test_k5_wgmma_matches_plain(dev, mask, b, h, hkv, s, d, layout):
+    """bf16 K5 under each mask (none, causal, a window with and without
+    causality, segment ids with padding id 0 sorted or shuffled), at S
+    not a multiple of the 128-row tiles, D 64 and 128, GQA, both layouts:
+    the output within 2e-2 and lse within 1e-3 of the plain version, one
+    launch counted on the wgmma route, and a second call bit-equal.  A
+    row whose first KV tiles are all masked (behind a window, another
+    document) stays finite: its running max starts at -inf, the guard a
+    fully masked row also takes (no row is fully masked through the
+    entry points: every row keeps its own position)."""
+    q, k, v, o_ref, lse_ref, _, kw = _masked_case(dev, b, h, hkv, s, d,
+                                                  torch.bfloat16, layout,
+                                                  mask)
+    args = {n: kw[n] for n in ("causal", "scale", "heads", "window",
+                               "segment_ids")}
+    backend.reset_launch_counts()
+    o, lse = A.flash_fwd_exact(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["flash_fwd"] == 1
+    assert backend.route_counts() == {"wgmma flash_fwd": 1}
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    _close(_bhsd(o, layout, d), _bhsd(o_ref, layout, d), torch.bfloat16,
+           2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+    o2, lse2 = A.flash_fwd_exact(q, k, v, **args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
 # -- K6 and K10 on their wgmma route (csrc/flash_bwd_sm90.cu, flash_sm90.cu)
 
 # ragged S (1, 70, 129, 333, 2048), D 64 and 128, MHA, GQA and MQA
@@ -1800,6 +1842,10 @@ _K1_CASES = [
     ("wmma", "nt", 33, 70, 130), ("wmma", "nn", 33, 70, 130),
     ("wmma", "tn", 33, 70, 130), ("wmma", "nt", 300, 264, 1001),
     ("decode", "nt", 16, 1024, 1024), ("decode", "nt", 5, 19, 37),
+    ("decode", "nt", 16, 1024, 4096),    # a cluster of 4 blocks
+    ("decode", "nt", 4, 1024, 8192),     # a cluster of 8
+    ("decode", "nt", 8, 8192, 2048), ("decode", "nt", 1, 4096, 1024),
+    ("decode", "nt", 12, 1000, 1001),    # K % 8 != 0: element loads
     ("f32", "nt", 256, 128, 128), ("f32", "nn", 256, 64, 128),
     ("f32", "tn", 128, 128, 256), ("f32", "tn", 128, 128, 8192),
     ("f32", "tn", 32, 144, 65536), ("f32", "nn", 65536, 144, 32),
@@ -1857,6 +1903,37 @@ def test_k1_route_matches_plain_and_writes_bf16_bits(dev, route, mode, m, n,
 
 def _k1_dtype(route):
     return torch.float32 if route == "f32" else torch.bfloat16
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_k1_decode_at_every_m(dev, m):
+    """The decode route at each M it takes (1 to 16: one or two n8 tiles
+    of rows, rows past M masked), at a ragged N and K (N not a multiple
+    of the block's 32 weight rows; K a multiple of 8 but not of the 32 of
+    a step, and K % 8 != 0, which takes element loads), through each
+    epilogue with a bias, against the plain version (2e-4); the bf16
+    output equals the f32 output cast, bit for bit, and a second call
+    repeats the bits (its K split over a cluster sums in a fixed order)."""
+    acts = ("none", "relu", "sigmoid")
+    for i, (n, k) in enumerate(((1000 + m, 1032), (77, 2050), (4096, 1024),
+                                (1024, 4096))):
+        a, b = _k1_operands(dev, "nt", m, n, k, torch.bfloat16, seed=i)
+        gen = torch.Generator().manual_seed(n)
+        bias = _randn(gen, n, dtype=torch.bfloat16).to(dev)
+        route, splits = G.plan_for(a, b, "nt")
+        assert route == "decode"
+        act = acts[(m + i) % 3]
+        backend.reset_launch_counts()
+        y = _k1(a, b, "nt", bias, act)
+        torch.cuda.synchronize()
+        assert backend.route_counts() == {
+            "decode nt" + (" split" if splits > 1 else ""): 1}
+        assert backend.launch_counts()["linear"] == 1
+        ref = G.linear_reference(a, b, bias, act)
+        _close(y, ref, torch.bfloat16, 2e-4)
+        assert torch.equal(y, _k1(a, b, "nt", bias, act))
+        y16 = _k1(a, b, "nt", bias, out_dtype=torch.bfloat16)
+        assert torch.equal(y16, _k1(a, b, "nt", bias).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("route,mode,m,n,k", [

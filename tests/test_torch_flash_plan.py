@@ -1,5 +1,5 @@
 """The flash kernels' routing (taper_tpu_torch/ops/attention.py
-``plan_fwd`` for K8, ``plan_bwd`` for K6, K7 and K10) on the CPU, and
+``plan_fwd`` for K8 and K5, ``plan_bwd`` for K6, K7 and K10) on the CPU, and
 the CPU path of the attention ops
 against the JAX package's flash kernels at the layouts the paths use.
 
@@ -48,17 +48,17 @@ def _layout(dim, heads):
     return d, ("bshd" if d % 128 == 0 else "bhsd")
 
 
-# (path, dtype, (dim, heads), mask, K8's route, the backward's route); the
-# forward of
-# a masked or f32 call is K5 ("exact"), serving runs no backward.  Serving
-# prefill calls ops.attention on [B, H, S, D] (nn/transformer.py
-# prefill), whatever the head dim.
+# (path, dtype, (dim, heads), mask, the forward's route, the backward's
+# route); the forward of a masked bf16 call is K5 on wgmma, of an f32 call
+# K5's FMA kernel ("exact"); serving runs no backward.  Serving prefill
+# calls ops.attention on [B, H, S, D] (nn/transformer.py prefill),
+# whatever the head dim.
 PATHS = [
     ("170M (bench.py:141)", BF, (1024, 8), "causal", "wgmma", "wgmma"),
     ("padded (bench_packing)", BF, (512, 8), "causal", "wgmma", "wgmma"),
     ("serving prefill", BF, (1024, 8), "causal", "wgmma", None),
-    ("windowed (W 512)", BF, (1024, 8), "window", "exact", "wgmma"),
-    ("packed (segment ids)", BF, (512, 8), "segments", "exact", "wgmma"),
+    ("windowed (W 512)", BF, (1024, 8), "window", "wgmma", "wgmma"),
+    ("packed (segment ids)", BF, (512, 8), "segments", "wgmma", "wgmma"),
     ("sort task (f32)", F32, (128, 2), "causal", "exact", "wmma"),
 ]
 
@@ -76,11 +76,12 @@ def test_plan_pins_the_route_of_every_path(path, dtype, dims, mask, fwd,
 
 @pytest.mark.parametrize("mask", A.MASKS)
 def test_every_bf16_launch_takes_wgmma(mask):
-    """The backward in bf16 runs the Hopper kernels under every mask; the
-    forward runs K8 (wgmma) for plain causal attention and K5 for the
-    rest."""
+    """The backward in bf16 runs the Hopper kernels under every mask, and
+    so does the forward: K8 for plain causal attention and K5 for the
+    rest, both on wgmma."""
     assert A.plan_bwd(BF) == "wgmma"
-    assert A.plan_fwd(BF, mask) == ("wgmma" if mask == "causal" else "exact")
+    assert A.plan_fwd(BF, mask) == "wgmma"
+    assert A.uses_bound(BF, mask) == (mask == "causal")
 
 
 @pytest.mark.parametrize("mask", A.MASKS)
@@ -90,6 +91,7 @@ def test_f32_keeps_k5_and_the_fma_k7(mask):
     same arguments, the same answer."""
     assert [A.plan_fwd(F32, mask) for _ in range(3)] == ["exact"] * 3
     assert [A.plan_bwd(F32) for _ in range(3)] == ["wmma"] * 3
+    assert not A.uses_bound(F32, mask)
 
 
 @pytest.mark.parametrize("dtype,route", [(BF, "wgmma"), (F32, "wmma")])

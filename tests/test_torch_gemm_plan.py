@@ -72,8 +72,12 @@ PATH_CASES = (
        for (t, k_in, n_out), per_mode in zip(CNN, ((2, 2, 4), (2, 1, 4),
                                                    (1, 1, 4)))
        for (mode, m, n, k), splits in zip(_modes(t, k_in, n_out), per_mode)]
-    # serving: decode at 16 slots, prefill at 512 rows
+    # serving: decode at 16 slots ((e, e): a K of 1,024, too short to
+    # split), the (4e, e) down projection (K split over a cluster of 4
+    # blocks of 32 weight rows), the quantized-serving baseline's bf16 up
+    # projection (256 blocks: no split), prefill at 512 rows
     + [("decode M=16", "nt", 16, 1024, 1024, BF, ("decode", 1)),
+       ("decode M=16 down", "nt", 16, 1024, 4096, BF, ("decode", 4)),
        ("decode M=8 up", "nt", 8, 8192, 2048, BF, ("decode", 1)),
        ("prefill M=512", "nt", 512, 4096, 1024, BF, ("wgmma", 1))])
 
@@ -120,6 +124,15 @@ def test_plan_splits_are_whole_nonempty_and_bounded(dtype, mode):
     for m, n, k in _shapes():
         route, splits = G.plan(m, n, k, dtype, mode, True)
         assert splits >= 1
+        if route == "decode":
+            # a cluster: a power of two up to DECODE_CLUSTER, each rank
+            # at least DECODE_TILE[1] of K, two blocks an SM at most
+            rows, k_min = G.DECODE_TILE
+            assert splits & (splits - 1) == 0
+            assert splits <= G.DECODE_CLUSTER and splits * k_min <= max(
+                k, k_min)
+            assert -(-n // rows) * splits <= 2 * G.SMS or splits == 1
+            continue
         if route not in G.TILES:
             assert splits == 1
             continue

@@ -1,17 +1,20 @@
 """Times K1 (the GEMM of ``taper_tpu_torch/ops/gemm.py``) at the shapes of
 the port's paths, in one checkout, on an NVIDIA GPU:
 
-    python tools/gemm_ab.py [CHECKOUT]
+    python tools/gemm_ab.py [CHECKOUT] [--only LABEL ...]
 
 The shapes: the 170M model's projections (bf16, 16,384 tokens, (K_in,
 N_out) = (e, e), (e, 4e), (4e, e)), the sort task's (f32, 8,192 tokens),
 ResNet-8's patch GEMMs and head (f32, 65,536 / 16,384 / 256 rows), the
 reference CNN's FC layers (f32, batch 256), each in modes nt (forward,
-with bias), nn (dX) and tn (dW); serving's decode (M = 16) and prefill (M =
-512) projections (bf16, nt); and one bf16 product whose K_in of 1,001 is
-not a multiple of 8 (no TMA: the wmma route).  It calls only
-``linear(x, w, b)`` and ``gemm(a, b, mode)``, which every version of the
-port has.
+with bias), nn (dX) and tn (dW); serving's decode (M = 1, 8 and 16) and
+prefill (M = 512) projections and the quantized-serving baseline's bf16
+up projection (M = 8, K_in 2,048, N_out 8,192) (bf16, nt); and one bf16
+product whose K_in of 1,001 is not a multiple of 8 (no TMA: the wmma
+route).  It calls only ``linear(x, w, b)`` and ``gemm(a, b, mode)``,
+which every version of the port has.  ``--only`` keeps the shapes whose
+label starts with one of the given words (``--only serve`` times the
+serving shapes alone).
 
 CHECKOUT (default: this one) is the root of a checkout of the repository
 (for example a parent commit unpacked with ``git archive`` into a
@@ -23,12 +26,17 @@ commits, run both in one machine in turns: parent, change, change,
 parent.
 """
 
+import argparse
 import json
 import sys
 from pathlib import Path
 
-ROOT = Path(sys.argv[1] if len(sys.argv) > 1 else
-            Path(__file__).resolve().parents[1]).resolve()
+ARGS = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+ARGS.add_argument("checkout", nargs="?",
+                  default=str(Path(__file__).resolve().parents[1]))
+ARGS.add_argument("--only", nargs="+", default=None)
+OPTS = ARGS.parse_args()
+ROOT = Path(OPTS.checkout).resolve()
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
@@ -52,7 +60,8 @@ SHAPES = (
     + [(f"cnn ({k},{n})", F32, 256, k, n, "nt nn tn")
        for k, n in ((128, 128), (128, 64), (64, 10))]
     + [(f"serve M={m} ({k},{n})", BF, m, k, n, "nt")
-       for m in (16, 512) for k, n in ((E, E), (E, 4 * E), (4 * E, E))]
+       for m in (1, 8, 16, 512) for k, n in ((E, E), (E, 4 * E), (4 * E, E))]
+    + [("serve M=8 baseline (2048,8192)", BF, 8, 2048, 8192, "nt")]
     + [("wmma K_in 1001 (1001,1000)", BF, 512, 1001, 1000, "nt nn tn")])
 
 
@@ -77,6 +86,8 @@ def main():
              "tn": lambda a, b: gemm(a, b, "tn")}
     ms = {}
     for label, dtype, t, k_in, n_out, modes in SHAPES:
+        if OPTS.only and not any(label.startswith(w) for w in OPTS.only):
+            continue
         for mode in modes.split():
             sets = C.cold_sets(*operands(dtype, t, k_in, n_out, mode, gen))
             ms[f"{label} {mode}"] = [round(C.cuda_ms(calls[mode], sets), 4)
