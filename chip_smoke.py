@@ -211,7 +211,8 @@ from taper_tpu_torch.ops import optim_kernels as OK
 from taper_tpu_torch.ops import pool as PL
 from taper_tpu_torch.ops import quant as Q
 from taper_tpu_torch.ops.gemm import (
-    gemm, gemm_reference, linear, linear_reference, plan, plan_for)
+    gemm, gemm_reference, linear, linear_reference, plan, plan_for,
+    tile_shape)
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_reference)
 from taper_tpu_torch.quantization import (
@@ -558,6 +559,13 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     if mode is not None:
         row.update(k1_route=route, splits=splits)
         via = f" via {route} x{splits}"
+        if route == "f32":   # the tile plan sized to the output
+            a, b = arg_sets[0][:2]
+            m, n, k = (a.shape[1 if mode == "tn" else 0],
+                       b.shape[0 if mode == "nt" else 1],
+                       a.shape[0 if mode == "tn" else 1])
+            row["k1_tile"] = "x".join(map(str, tile_shape(route, m, n, k)))
+            via += f" on a {row['k1_tile']} tile"
     elif flash_route is not None:
         row.update(flash_route=flash_route)
         via = f" via {flash_route}"
@@ -1495,7 +1503,35 @@ def phase10_lm_step(dev):
         assert all(torch.isfinite(x).all() for x in g.values())
         assert loss_rel <= loss_tol, f"{trunk} step loss disagrees"
         assert rel[worst] <= grad_tol, f"{trunk} {worst} grad disagrees"
-    return results
+    return results, k5_f32_row(dev, gen)
+
+
+def k5_f32_row(dev, gen, phase=10):
+    """K5 in f32 at the f32 step's attention shape (batch 1, the 170M
+    model's 8 heads of 128 over 2,048 positions, causal, [B, S, H*D])
+    against its plain version, SDPA timed as the library call."""
+    b, h, s = 1, LM["num_heads"], LM["max_seq"]
+    d = LM["dim"] // h
+    q, k, v = (torch.randn(b, s, h * d, generator=gen).to(dev)
+               for _ in range(3))
+    scale = d ** -0.5
+
+    def to4(t):
+        return A._to_bhsd(t, h, d)
+
+    return check_kernel(
+        "flash_fwd", f"f32 B={b} H={h} S={s} D={d} causal bshd exact arm "
+        f"(the f32 step's attention)",
+        lambda *a: (lambda o, l: (to4(o), l))(*A.flash_fwd_exact(
+            *a, causal=True, scale=scale, heads=h)),
+        lambda *a: A.attention_lse_reference(*(to4(t) for t in a),
+                                             causal=True, scale=scale),
+        cold_sets(q, k, v), phase=phase, tol=(FLASH_F32_TOL, LSE_F32_TOL),
+        library_fn=lambda *a: F.scaled_dot_product_attention(
+            *(to4(t) for t in a), is_causal=True),
+        work=attn_work(b, h, h, s, d, "f32", 2,
+                       4 * nbytes(q) + 4 * b * h * s),
+        flash_route=A.plan_fwd(torch.float32, "causal"))
 
 
 # every K1 kernel: the wgmma route, the WMMA tile (wmma), the decode
@@ -1508,7 +1544,7 @@ OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
 # flash_bwd.cu and the wgmma ones of flash_sm90.cu and flash_bwd_sm90.cu
 # (namespace taper::flash::sm90; K8 and K5 are fwd_kernel<D, MASKED>)
 LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
-                             ("K8/K5 flash fwd", "flash_fwd_kernel"),
+                             ("K8/K5 flash fwd", "flash_fwd_f32"),
                              ("K8/K5 flash fwd", "sm90::fwd_kernel"),
                              ("K6 flash dq", "flash_dq_kernel"),
                              ("K6 flash dq", "sm90::dq_kernel"),
@@ -3362,7 +3398,7 @@ def phase25_packed_training(dev, smi):
 
 # phase 26's profile: the flash forward (K5, K8) apart from the backward
 # (K6, K7, K11), whose kernels share one design in both models
-ATTN_FAMILIES = (("attention forward", "flash_fwd_kernel"),
+ATTN_FAMILIES = (("attention forward", "flash_fwd_f32"),
                  ("attention forward", "sm90::fwd_kernel"),
                  ("attention backward", "flash")) + K1_FAMILIES + (
                      OPT_FAMILY,)
@@ -3708,7 +3744,8 @@ def kernel_report(paths, standalone, top=None):
     launched it or measured it (``by_path``); the top-level numbers come
     from the path ``top`` names for it, else the first path with a row
     for it, else from ``standalone``.  K1's rows also give the route and
-    K split their call took (``k1_route``, ``splits``)."""
+    K split their call took (``k1_route``, ``splits``; the f32 route's
+    tile, ``k1_tile``)."""
     kernels = []
     for k in backend.KERNELS:
         by_path = {p: dict(launches=c[k], **rep.get(k, {}))
@@ -3716,8 +3753,8 @@ def kernel_report(paths, standalone, top=None):
         first = next((dict(rep[k]) for p, (_, rep) in paths.items()
                       if k in rep and p == (top or {}).get(k, p)),
                      standalone.get(k))
-        extra = ({} if "k1_route" not in first else
-                 dict(k1_route=first["k1_route"], splits=first["splits"]))
+        extra = {key: first[key] for key in ("k1_route", "splits", "k1_tile")
+                 if key in first}
         if "flash_route" in first:
             extra["flash_route"] = first["flash_route"]
         source = (K1_SOURCES.get(first.get("k1_route"))
@@ -3783,7 +3820,7 @@ def main():
 
     lm_rows = phase9_lm_kernels(dev)
     phase29_k1_bits(dev)
-    phase10_lm_step(dev)
+    _, k5_f32_170m = phase10_lm_step(dev)
     lm_counts, lm_stats = phase11_lm_train(dev, smi)
     fused_counts, _ = phase28_fused_backward(dev, smi, lm_stats)
     torch.cuda.empty_cache()
@@ -3822,7 +3859,7 @@ def main():
     # and K5 at the sort task's f32 shapes, which launches it
     lm_report = {k: headline(r, {"flash_fwd_bound": 2}.get(k, 1))
                  for k, r in lm_rows.items() if k != "flash_fwd"}
-    lm_report["flash_fwd"] = headline(sort_rows["flash_fwd"])
+    lm_report["flash_fwd"] = headline(sort_rows["flash_fwd"] + [k5_f32_170m])
     lm_report["adam"] = lm_stats["adam"]
     lm_launches = {k: lm_counts.get(k, 0) + sort_counts.get(k, 0)
                    for k in backend.KERNELS}

@@ -54,6 +54,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
+// 4-byte global->shared copy that zero-fills when `in` is false (src must
+// still be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  int bytes = in ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

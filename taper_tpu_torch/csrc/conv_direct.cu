@@ -97,16 +97,6 @@ __device__ __forceinline__ int fdiv(int n, FastDiv f) {
       (static_cast<unsigned long long>(__umulhi(un, f.m)) + un) >> f.s);
 }
 
-// 4-byte global->shared copy that zero-fills when `in` is false (src must
-// still be a valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  int bytes = in ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
 __device__ __forceinline__ void cp_async8(float* dst, const float* src,
                                           bool in) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -53,9 +53,8 @@
 namespace taper {
 
 // csrc/gemm.cu: y = act(sum of the splits + bias), in split order
-int splitk_reduce(const float* ws, const void* bias, int bias_dtype, void* y,
-                  int out_dtype, int M, int N, int splits, int act,
-                  cudaStream_t s);
+int splitk_reduce(const float* ws, const void* bias, void* y, int out_dtype,
+                  int M, int N, int splits, int act, cudaStream_t s);
 
 namespace {
 
@@ -379,8 +378,8 @@ int launch(const void* a, const void* b, const void* bias, void* y,
       splits, tma_out);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  return splitk_reduce(ws, bias, kBFloat16, y, sizeof(OutT) == 4
-                       ? kFloat32 : kBFloat16, M, N, splits, act, s);
+  return splitk_reduce(ws, bias, y, sizeof(OutT) == 4 ? kFloat32 : kBFloat16,
+                       M, N, splits, act, s);
 }
 
 template <typename OutT>

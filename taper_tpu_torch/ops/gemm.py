@@ -32,9 +32,10 @@ CPU tensors run the plain versions (:func:`linear_reference`,
 ``decode`` (``csrc/gemm_decode.cu``, bf16 mode nt at M <= 16: weights
 streamed into mma.sync fragments, K split over a thread-block cluster),
 ``wmma`` (the bf16 WMMA tile, ``csrc/gemm.cu``) and ``f32`` (the FMA tile
-kernel, ``csrc/gemm.cu``); ``wgmma`` and ``f32`` split a long K over
-blocks when the output's tiles are too few to fill the card, and sum the
-splits in a fixed order.
+kernel, ``csrc/gemm.cu``, on a tile sized to the output by
+:func:`f32_plan`); ``wgmma`` and ``f32`` split a long K over blocks when
+the output's tiles are too few to fill the card, and sum the splits in a
+fixed order (``f32`` in the same launch).
 """
 
 from __future__ import annotations
@@ -46,13 +47,26 @@ from taper_tpu_torch.ops import backend
 
 ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2}
 MODES = {"nt": 0, "nn": 1, "tn": 2}
-# K1's kernels (codes shared with csrc/gemm.cu) and the output and K tile
-# of each route that splits K (csrc/gemm_sm90.cu, csrc/gemm.cu)
+# K1's kernels (codes shared with csrc/gemm.cu), and the output and K tile
+# of the wgmma route, which splits K (csrc/gemm_sm90.cu)
 ROUTES = {"wgmma": 0, "wmma": 1, "decode": 2, "f32": 3}
-TILES = {"wgmma": (128, 128, 64), "f32": (64, 64, 16)}
+TILES = {"wgmma": (128, 128, 64)}
+# The f32 route's tiles (BM, BN, BK, KG: the thread groups that split
+# each K tile inside a block), codes shared with gemm_f32 in csrc/gemm.cu
+# (in that order).  The two 32 x 32 tiles 64 deep differ in KG alone: 2
+# where the call splits K over blocks, 4 where it does not
+F32_TILES = ((128, 32, 16, 1), (64, 64, 32, 1), (32, 32, 64, 2),
+             (64, 32, 32, 1), (32, 32, 16, 1), (32, 32, 64, 4))
+F32_SHORT_K = 64           # a shorter K takes the tiles 16 deep
+F32_WHOLE = {2: 5}         # the split 32 x 32 tile -> its unsplit twin
 SMS = 132                  # the H100 SXM's streaming multiprocessors
-WAVE = 119                 # "about one wave": 90% of them
-MIN_SPLIT_K_TILES = 4      # K tiles of the shortest split
+# A split call's target blocks and the K tiles of its shortest split, by
+# route: wgmma aims at about one wave (90% of the SMs) of persistent
+# blocks; f32, whose output then has fewer tiles than SMs (so its tile is
+# a 32 x 32 one, four of which fit an SM), at four blocks an SM, all
+# resident at once (its splits meet at a grid barrier)
+WAVE = {"wgmma": 119, "f32": 4 * SMS}
+MIN_SPLIT_K_TILES = {"wgmma": 4, "f32": 4}
 WORKSPACE_CAP = 64 << 20   # bytes of f32 partials a split call may use
 DECODE_ROWS = 16           # the decode route's largest M
 # csrc/gemm_decode.cu: the weight rows of a block, the least K a cluster
@@ -128,11 +142,11 @@ def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
     * bf16 nt at ``m <= 16``: ``decode``, its K split over a cluster of
       :func:`decode_splits` blocks;
     * bf16 at ``m > 16``, aligned: ``wgmma``; other bf16: ``wmma``;
-    * f32: ``f32``.
+    * f32: ``f32``, on the tile and split :func:`f32_plan` picks.
 
-    ``wgmma`` and ``f32`` split K when the output's tiles fill less than
-    about one wave of the SMs: the smallest count that brings the blocks
-    to ``WAVE``, each split at least ``MIN_SPLIT_K_TILES`` whole K tiles,
+    ``wgmma`` and ``f32`` split K when the output's tiles are fewer than
+    the route's ``WAVE`` of blocks: the smallest count that brings the
+    blocks to it, each split at least ``MIN_SPLIT_K_TILES`` whole K tiles,
     the f32 partials within ``WORKSPACE_CAP``, and no split empty (the
     splits cover ``ceil(k_tiles / splits)`` tiles each)."""
     if dtype == torch.bfloat16:
@@ -145,15 +159,62 @@ def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
         route = "f32"
     else:
         raise ValueError(f"K1 takes f32 or bf16 operands, got {dtype}")
-    bm, bn, bk = TILES[route]
+    if route == "f32":
+        return route, f32_plan(m, n, k)[0]
+    return route, _splits(route, m, n, k, *TILES[route])
+
+
+def _splits(route, m, n, k, bm, bn, bk):
+    """The K split of a ``route`` call on ``bm x bn x bk`` tiles (see
+    :func:`plan`)."""
     tiles = -(-m // bm) * -(-n // bn)
     k_tiles = -(-k // bk)
-    splits = min(-(-WAVE // tiles), k_tiles // MIN_SPLIT_K_TILES,
+    wave = (-(-WAVE[route] // tiles) if route == "wgmma"
+            else WAVE[route] // tiles if tiles < SMS else 1)
+    splits = min(wave, k_tiles // MIN_SPLIT_K_TILES[route],
                  WORKSPACE_CAP // (4 * m * n))
     if splits <= 1:
-        return route, 1
+        return 1
     per = -(-k_tiles // splits)
-    return route, -(-k_tiles // per)
+    return -(-k_tiles // per)
+
+
+def f32_plan(m: int, n: int, k: int):
+    """The f32 route's ``(splits, tile)`` for an ``[m, n]`` output over
+    ``k``, the tile a code of :data:`F32_TILES`.  Among the tiles of its K
+    depth (16 below ``F32_SHORT_K``, else the deeper ones; 128 x 32 at
+    either), the one that pads the output least (the paths' outputs are
+    skinny: N of 10 to 512 over long M, or M of 10 to 512 in the weight
+    gradients); among those, the largest that still gives a block to
+    every SM (more FMAs for each operand load), else the smallest (more
+    blocks); squarer first on a tie.  A 32 x 32 call that does not split
+    takes the twin with more K groups (more threads on a short chain)."""
+    def cost(code):
+        bm, bn, _, _ = F32_TILES[code]
+        tiles = -(-m // bm) * -(-n // bn)
+        fills = tiles >= SMS
+        return (tiles * bm * bn, not fills, -bm * bn if fills else bm * bn,
+                1 / bm + 1 / bn)
+    short = k < F32_SHORT_K
+    codes = [c for c, (_, _, bk, _) in enumerate(F32_TILES)
+             if c not in F32_WHOLE.values()
+             and (c == 0 or (bk == 16) == short)]
+    code = min(codes, key=cost)
+    splits = _splits("f32", m, n, k, *F32_TILES[code][:3])
+    return splits, F32_WHOLE.get(code, code) if splits == 1 else code
+
+
+def f32_tile(m: int, n: int, k: int) -> int:
+    """The tile code of :func:`f32_plan`."""
+    return f32_plan(m, n, k)[1]
+
+
+def tile_shape(route: str, m: int, n: int, k: int):
+    """``(BM, BN, BK)``: the output and K tile of a route that splits K
+    (``wgmma``, ``f32``) for an ``[m, n]`` output over ``k``."""
+    if route == "f32":
+        return F32_TILES[f32_tile(m, n, k)][:3]
+    return TILES[route]
 
 
 def decode_splits(n: int, k: int) -> int:
@@ -183,17 +244,32 @@ def _k_slice(t, lo, hi, k_major: bool):
     return t[:, lo:hi] if k_major else t[lo:hi]
 
 
-def gemm_reference_split(a, b, mode: str, splits: int, k_tile: int):
+def gemm_reference_split(a, b, mode: str, splits: int, k_tile: int,
+                         route: str = "wgmma"):
     """Plain version of a split-K call: the f32 products over
-    :func:`split_ranges`, summed in that order as the kernels' reduce
-    does."""
+    :func:`split_ranges`, summed as the route's kernels sum them: wgmma's
+    reduce adds them in order; f32 adds, for each of G lanes (the splits'
+    count rounded up to a power of two, at most 32), the splits l, l + G,
+    ... in order (from 0), then the lanes in a butterfly, and takes lane
+    0's sum."""
     _, _, k = _dims(a, b, mode)
-    out = None
-    for lo, hi in split_ranges(k, splits, k_tile):
-        part = gemm_reference(_k_slice(a, lo, hi, mode != "tn"),
-                              _k_slice(b, lo, hi, mode == "nt"), mode)
-        out = part if out is None else out + part
-    return out
+    parts = [gemm_reference(_k_slice(a, lo, hi, mode != "tn"),
+                            _k_slice(b, lo, hi, mode == "nt"), mode)
+             for lo, hi in split_ranges(k, splits, k_tile)]
+    if route != "f32":
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+    g = min(32, 1 << (len(parts) - 1).bit_length())
+    lanes = [torch.zeros_like(parts[0]) for _ in range(g)]
+    for z, part in enumerate(parts):
+        lanes[z % g] = lanes[z % g] + part
+    off = g // 2
+    while off:
+        lanes = [lanes[lane] + lanes[lane ^ off] for lane in range(g)]
+        off //= 2
+    return lanes[0]
 
 
 def plan_for(a, b, mode: str):
@@ -230,10 +306,24 @@ def _dims(a, b, mode: str):
     return m, n, k
 
 
+_GRID_SYNC = {}
+
+
+def _grid_sync(device, stream):
+    """The f32 split's grid-barrier state for one stream: two int32
+    zeros, which each split call leaves as it found them (calls on one
+    stream run in order; another stream gets its own)."""
+    key = (device, stream)
+    if key not in _GRID_SYNC:
+        _GRID_SYNC[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _GRID_SYNC[key]
+
+
 def _launch(a, b, bias, mode, activation, out_dtype):
     """K1 on CUDA operands: the kernel :func:`plan` picks, one launch
-    count a call (a split call also launches its reduce, except on the
-    decode route, whose splits meet inside one cluster launch)."""
+    count a call (a wgmma split call also launches its reduce; the f32
+    route sums its splits in the same launch, the decode route inside one
+    cluster)."""
     m, n, k = _dims(a, b, mode)
     name = "linear" if mode == "nt" else f"gemm {mode}"
     if b.dtype != a.dtype or (bias is not None and bias.dtype != a.dtype):
@@ -245,11 +335,15 @@ def _launch(a, b, bias, mode, activation, out_dtype):
     y = torch.empty((m, n), dtype=out_dtype, device=a.device)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
           if splits > 1 and route != "decode" else None)
+    stream = _build.stream(a)
+    sync = (_grid_sync(a.device, stream).data_ptr()
+            if splits > 1 and route == "f32" else None)
+    tile = f32_tile(m, n, k) if route == "f32" else 0
     code = _build.library().taper_gemm(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
+        y.data_ptr(), None if ws is None else ws.data_ptr(), sync, m, n, k,
         MODES[mode], _build.DTYPES[a.dtype], _build.DTYPES[out_dtype],
-        ACTIVATIONS[activation], ROUTES[route], splits, _build.stream(a))
+        ACTIVATIONS[activation], ROUTES[route], splits, tile, stream)
     _build.check(code, name)
     backend.count_launch("linear" if mode == "nt" else f"gemm_{mode}")
     backend.count_route(route, mode, splits)

@@ -608,6 +608,91 @@ def test_flash_dq_f32_check_catches_a_planted_fault(dev, tmp_path,
                                                                    err)
 
 
+# Faults planted in csrc/gemm.cu's f32 route: (what, the line as it is,
+# the line with the fault, the (mode, M, N, K) it is checked at).  The
+# split shapes are ResNet-8's and the sort task's weight gradients; the
+# K-tile fault is also checked unsplit, at ResNet-8's patch GEMM.
+_K1_F32_SPLIT_SHAPES = (("tn", 32, 144, 65536), ("tn", 128, 128, 8192))
+_K1_F32_FAULTS = [
+    ("K1 f32 drops the last split's partial",
+     "    for (int z = gl; z < splits; z += G) {",
+     "    for (int z = gl; z < splits - 1; z += G) {",
+     _K1_F32_SPLIT_SHAPES),
+    ("K1 f32 sums one split twice",
+     "      const float* p = ws + z * MN;",
+     "      const float* p = ws + (z == 1 ? 0 : z) * MN;",
+     _K1_F32_SPLIT_SHAPES),
+    ("K1 f32 drops the last K tile of a split",
+     "  const int nk = min(k_tiles, kt0 + k_per_split) - kt0;",
+     "  const int nk = min(k_tiles, kt0 + k_per_split) - kt0 - 1;",
+     _K1_F32_SPLIT_SHAPES + (("nt", 65536, 32, 144),)),
+]
+
+
+@pytest.mark.parametrize("what,line,fault,shapes", _K1_F32_FAULTS,
+                         ids=[f[0] for f in _K1_F32_FAULTS])
+def test_k1_f32_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
+                                              what, line, fault, shapes):
+    """chip_smoke.py's check of K1 in f32 (1e-4 (1 + |ref|)) fails a
+    kernel built with a fault in its split reduce or its K loop, at the
+    paths' shapes, through the route and split plan gives them."""
+    _plant(tmp_path, monkeypatch, "gemm.cu", line, fault, what)
+    for mode, m, n, k in shapes:
+        a, b = _k1_operands(dev, mode, m, n, k, torch.float32)
+        route, splits = G.plan_for(a, b, mode)
+        assert route == "f32" and (splits > 1) == (mode == "tn")
+        y = _k1(a, b, mode)
+        ref = G.gemm_reference(a, b, mode)
+        err = float(((y - ref).abs() / (1 + ref.abs())).max())
+        print(f"{what}, {mode} [{m},{n},{k}] x{splits}: max error / (1 + "
+              f"|ref|) {err:.3e} (the check's 1e-4)")
+        assert not err <= 1e-4, (what, mode, m, n, k, err)
+
+
+# Faults planted in csrc/flash_fwd.cu's f32 K5: (what, the line as it is,
+# the line with the fault).
+_K5_F32_FAULTS = [
+    ("K5 f32 skips the last KV tile of the band",
+     "  const int n_tiles = (hi - lo + BKV - 1) / BKV;",
+     "  const int n_tiles = (hi - lo + BKV - 1) / BKV - 1;"),
+    ("K5 f32 drops the causal diagonal",
+     "              !edge || (col < S && keep<MASKED>(mask, row, col) &&",
+     "              !edge || (col < S && keep<MASKED>(mask, row, col) &&"
+     " col != row &&"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _K5_F32_FAULTS,
+                         ids=[f[0] for f in _K5_F32_FAULTS])
+def test_flash_fwd_f32_check_catches_a_planted_fault(dev, tmp_path,
+                                                     monkeypatch, what,
+                                                     line, fault):
+    """chip_smoke.py's check of K5 in f32 (o within 1e-4 (1 + |ref|), lse
+    within 1e-4) fails a kernel built with a fault in its band or its
+    mask, at the sort task's shape (batch 64, 2 heads of 64, S 128,
+    causal) and at the f32 170M step's (8 heads of 128, S 2048, causal,
+    [B, S, H*D])."""
+    _plant(tmp_path, monkeypatch, "flash_fwd.cu", line, fault, what)
+    for b, h, s, d, layout in ((64, 2, 128, 64, "bhsd"),
+                               (1, 8, 2048, 128, "bshd")):
+        q, k, v, _ = _attn_inputs(dev, b, h, h, s, d, torch.float32, layout,
+                                  5)
+        heads = None if layout == "bhsd" else h
+        backend.reset_launch_counts()
+        o, lse = A.flash_fwd_exact(q, k, v, causal=True, scale=d ** -0.5,
+                                   heads=heads)
+        torch.cuda.synchronize()
+        assert backend.route_counts() == {"exact flash_fwd": 1}
+        ref_o, ref_lse = A.attention_lse_reference(
+            *(_bhsd(t, layout, d) for t in (q, k, v)), causal=True)
+        o = _bhsd(o, layout, d)
+        err = float(((o - ref_o).abs() / (1 + ref_o.abs())).max())
+        lerr = float((lse - ref_lse).abs().max())
+        print(f"{what}, B={b} H={h} S={s} D={d} {layout}: o error "
+              f"{err:.3e} (tol 1e-4), lse error {lerr:.3e} (tol 1e-4)")
+        assert not (err <= 1e-4 and lerr <= 1e-4), (what, b, s, err, lerr)
+
+
 def test_flash_dkv_is_deterministic(dev):
     """dK/dV sum each GQA group in a fixed order, without atomics: the
     same bits every run."""
@@ -1851,6 +1936,10 @@ _K1_CASES = [
     ("f32", "tn", 32, 144, 65536), ("f32", "nn", 65536, 144, 32),
     ("f32", "nt", 65536, 32, 144), ("f32", "tn", 10, 64, 256),
     ("f32", "nt", 5, 19, 37),
+    # f32 splits over 32 x 32 tiles (a grid barrier, then the lanes' sums)
+    ("f32", "nt", 64, 96, 8192), ("f32", "nn", 48, 40, 4096),
+    ("f32", "tn", 10, 64, 4096), ("f32", "tn", 64, 288, 16384),
+    ("f32", "tn", 64, 32, 16384), ("f32", "nn", 16384, 32, 64),
 ]
 
 
@@ -1937,7 +2026,7 @@ def test_k1_decode_at_every_m(dev, m):
 
 
 @pytest.mark.parametrize("route,mode,m,n,k", [
-    c for c in _K1_CASES if c[0] in G.TILES
+    c for c in _K1_CASES if c[0] in G.WAVE
     and G.plan(*c[2:], _k1_dtype(c[0]), c[1], True)[1] > 1])
 def test_k1_split_matches_unsplit(dev, monkeypatch, route, mode, m, n, k):
     """A call split over K against the same call unsplit (plan forced to
@@ -1952,8 +2041,9 @@ def test_k1_split_matches_unsplit(dev, monkeypatch, route, mode, m, n, k):
     y1 = _k1(a, b, mode)
     torch.cuda.synchronize()
     _close(y, y1, dtype, 2e-4)
-    _close(y, G.gemm_reference_split(a, b, mode, splits,
-                                     G.TILES[route][2]), dtype, 2e-4)
+    _close(y, G.gemm_reference_split(
+        a, b, mode, splits, G.tile_shape(route, m, n, k)[2], route), dtype,
+        2e-4)
 
 
 @pytest.mark.parametrize("mode,m,n,k,dtype", [
@@ -1961,7 +2051,7 @@ def test_k1_split_matches_unsplit(dev, monkeypatch, route, mode, m, n, k):
     ("nt", 300, 264, 520, torch.bfloat16),
     ("tn", 128, 128, 8192, torch.float32),
     ("tn", 32, 144, 65536, torch.float32),
-    ("nt", 256, 128, 128, torch.float32)])
+    ("nt", 64, 96, 8192, torch.float32)])
 def test_k1_split_is_bitwise_repeatable(dev, mode, m, n, k, dtype):
     """Split-K sums its splits in a fixed order without atomics: two calls
     give the same bits (a resumed run stays bit-equal)."""

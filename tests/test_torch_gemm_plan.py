@@ -44,6 +44,14 @@ RESNET = ((65536, 144, 32), (65536, 16, 32), (16384, 288, 64),
 # the reference CNN's FC layers at batch 256
 CNN = ((256, 128, 128), (256, 128, 64), (256, 64, 10))
 
+# The f32 route's tiles, as (BM, BN, BK, KG): 128 x 32 for N <= 32 over
+# long M (and for K under 64), 64 x 64 for wider outputs that fill the
+# SMs, 64 x 32 for N = 32 over 16,384 rows, and 32 x 32 for the weight
+# gradients and the batch-256 layers: the only tile that splits (two K
+# groups a block), four K groups where it does not, 16 deep for K under 64
+T128x32, T64, T64x32 = (128, 32, 16, 1), (64, 64, 32, 1), (64, 32, 32, 1)
+T32, T32W, T32K16 = (32, 32, 64, 2), (32, 32, 64, 4), (32, 32, 16, 1)
+
 PATH_CASES = (
     # the 170M model, bf16: every projection through wgmma; only dW at
     # (e, e) (an 8 x 8 grid of 128 x 128 tiles) splits K
@@ -52,26 +60,34 @@ PATH_CASES = (
      for k_in, n_out in ((E, E), (E, 4 * E), (4 * E, E))
      for mode, m, n, k in _modes(TOKENS, k_in, n_out)]
     # the sort task, f32: dW [128..512, 128..512] over 8,192 tokens splits
+    # over 32 x 32 tiles to four blocks an SM; the rest fill the card
     + [(f"sort ({k_in},{n_out}) {mode}", mode, m, n, k, F32,
-        ("f32", {(SORT_E, SORT_E): 29}.get((k_in, n_out), 8)
-         if mode == "tn" else 1))
+        ("f32", {(SORT_E, SORT_E): 32}.get((k_in, n_out), 8), T32)
+        if mode == "tn" else ("f32", 1, T64))
        for k_in, n_out in ((SORT_E, SORT_E), (SORT_E, 4 * SORT_E),
                            (4 * SORT_E, SORT_E))
        for mode, m, n, k in _modes(SORT_T, k_in, n_out)]
     # ResNet-8's patch-GEMM dW over 65,536 or 16,384 rows: a few tiles,
-    # many splits; their forward and dX fill the card
+    # many splits (the head's K of 256 is too short to split); their
+    # forward and dX fill the card
     + [(f"resnet ({k_in},{n_out}) tn", "tn", n_out, k_in, t, F32,
-        ("f32", splits))
-       for (t, k_in, n_out), splits in zip(RESNET, (40, 118, 24, 114, 4))]
-    + [(f"resnet ({k_in},{n_out}) {mode}", mode, m, n, k, F32, ("f32", 1))
-       for t, k_in, n_out in RESNET[:4]
-       for mode, m, n, k in _modes(t, k_in, n_out)[:2]]
-    # the CNN's FC layers: K of 64 to 256 allows at most 1 to 4 splits of
-    # 4 tiles
-    + [(f"cnn ({k_in},{n_out}) {mode}", mode, m, n, k, F32, ("f32", splits))
-       for (t, k_in, n_out), per_mode in zip(CNN, ((2, 2, 4), (2, 1, 4),
-                                                   (1, 1, 4)))
-       for (mode, m, n, k), splits in zip(_modes(t, k_in, n_out), per_mode)]
+        ("f32", splits, T32))
+       for (t, k_in, n_out), splits in zip(RESNET, (103, 256, 29, 64, 1))
+       if splits > 1]
+    + [("resnet (64,10) tn", "tn", 10, 64, 256, F32, ("f32", 1, T32W))]
+    + [(f"resnet ({k_in},{n_out}) {mode}", mode, m, n, k, F32,
+        ("f32", 1, tile))
+       for (t, k_in, n_out), tiles in zip(RESNET[:4], (
+           (T128x32, T128x32), (T128x32, T128x32), (T64, T128x32),
+           (T128x32, T64x32)))
+       for (mode, m, n, k), tile in zip(_modes(t, k_in, n_out)[:2], tiles)]
+    # the CNN's FC layers at batch 256: 32 x 32 tiles with four K groups
+    # (16 deep, one group, for the head's dX, K = 10), K of 10 to 256 too
+    # short to split
+    + [(f"cnn ({k_in},{n_out}) {mode}", mode, m, n, k, F32,
+        ("f32", 1, T32K16 if k < 64 else T32W))
+       for t, k_in, n_out in CNN
+       for mode, m, n, k in _modes(t, k_in, n_out)]
     # serving: decode at 16 slots ((e, e): a K of 1,024, too short to
     # split), the (4e, e) down projection (K split over a cluster of 4
     # blocks of 32 weight rows), the quantized-serving baseline's bf16 up
@@ -85,7 +101,10 @@ PATH_CASES = (
 @pytest.mark.parametrize("what,mode,m,n,k,dtype,want", PATH_CASES,
                          ids=[c[0] for c in PATH_CASES])
 def test_plan_at_the_path_shapes(what, mode, m, n, k, dtype, want):
-    assert G.plan(m, n, k, dtype, mode, True) == want
+    got = G.plan(m, n, k, dtype, mode, True)
+    if got[0] == "f32":
+        got = (*got, G.F32_TILES[G.f32_tile(m, n, k)])
+    assert got == want
 
 
 @pytest.mark.parametrize("mode,m,n,k,aligned,want", [
@@ -119,8 +138,10 @@ def _shapes():
 def test_plan_splits_are_whole_nonempty_and_bounded(dtype, mode):
     """Over 400 shapes: every split covers whole K tiles and none is empty
     (the kernels' ceil(k_tiles / splits) per split), each has at least
-    MIN_SPLIT_K_TILES tiles, the f32 partials fit WORKSPACE_CAP, and a
-    grid of two waves or more is never split."""
+    MIN_SPLIT_K_TILES tiles, the f32 partials fit WORKSPACE_CAP, a grid of
+    two waves or more is never split, and an f32 split grid (resident at
+    once) has the 32 x 32 tile, fewer tiles than SMs and at most WAVE
+    blocks."""
     for m, n, k in _shapes():
         route, splits = G.plan(m, n, k, dtype, mode, True)
         assert splits >= 1
@@ -133,10 +154,10 @@ def test_plan_splits_are_whole_nonempty_and_bounded(dtype, mode):
                 k, k_min)
             assert -(-n // rows) * splits <= 2 * G.SMS or splits == 1
             continue
-        if route not in G.TILES:
+        if route not in G.WAVE:
             assert splits == 1
             continue
-        bm, bn, bk = G.TILES[route]
+        bm, bn, bk = G.tile_shape(route, m, n, k)
         tiles = -(-m // bm) * -(-n // bn)
         k_tiles = -(-k // bk)
         if tiles >= 2 * G.SMS:
@@ -150,10 +171,13 @@ def test_plan_splits_are_whole_nonempty_and_bounded(dtype, mode):
         assert ranges[0][0] == 0 and ranges[-1][1] == k
         assert all(lo % bk == 0 and hi > lo for lo, hi in ranges)
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-        assert per >= G.MIN_SPLIT_K_TILES
+        assert per >= G.MIN_SPLIT_K_TILES[route]
         assert splits * m * n * 4 <= G.WORKSPACE_CAP
         # no more than the smallest count that reaches about one wave
-        assert tiles * (splits - 1) < G.WAVE
+        assert tiles * (splits - 1) < G.WAVE[route]
+        if route == "f32":
+            assert G.F32_TILES[G.f32_tile(m, n, k)] == (32, 32, 64, 2)
+            assert tiles < G.SMS and tiles * splits <= G.WAVE["f32"]
 
 
 def test_plan_is_a_pure_function():
@@ -168,25 +192,28 @@ def _rand(rng, *shape):
 
 @pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
 @pytest.mark.parametrize("m,n,k,splits,k_tile", [
-    (32, 20, 4096, None, 16),    # ResNet-8's stride-2 dW, cut to 4,096 rows
-    (64, 36, 2048, None, 16),
-    (16, 16, 1024, None, 16),    # the sort task's dW, cut
+    (32, 20, 4096, None, 64),    # ResNet-8's stride-2 dW, cut to 4,096 rows
+    (64, 36, 2048, None, 64),
+    (16, 16, 1024, None, 64),    # the sort task's dW, cut
     (24, 40, 700, 3, 64),        # a ragged last split, wgmma's K tile
 ])
 def test_split_reference_matches_unsplit_and_jax(mode, m, n, k, splits,
                                                  k_tile):
     """The split sum in the kernels' order (the splits plan gives f32 at
-    these shapes) against one f32 product and JAX's: 1e-5, f32 sums of
+    these shapes, summed in the f32 route's lanes and butterfly; wgmma's
+    in split order) against one f32 product and JAX's: 1e-5, f32 sums of
     O(1) terms in different orders."""
+    route = "wgmma"
     if splits is None:
         route, splits = G.plan(m, n, k, F32, mode, True)
         assert route == "f32" and splits > 1
+        assert G.tile_shape(route, m, n, k)[2] == k_tile
     rng = np.random.default_rng(m + n + k + splits)
     a = _rand(rng, *((m, k) if mode != "tn" else (k, m)))
     b = _rand(rng, *((n, k) if mode == "nt" else (k, n))) / np.sqrt(k)
     at, bt = torch.from_numpy(a), torch.from_numpy(b)
     assert len(G.split_ranges(k, splits, k_tile)) == splits
-    out = G.gemm_reference_split(at, bt, mode, splits, k_tile)
+    out = G.gemm_reference_split(at, bt, mode, splits, k_tile, route)
     np.testing.assert_allclose(out.numpy(),
                                G.gemm_reference(at, bt, mode).numpy(),
                                rtol=1e-5, atol=1e-5)
