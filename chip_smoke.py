@@ -58,6 +58,10 @@ non-zero):
      same step on the CPU: in f32 (loss within 1e-5 relative, every
      gradient within 1e-4 relative L2), and with the card's trunk in bf16
      (within LM_BF16_LOSS_TOL and LM_BF16_GRAD_TOL of the f32 CPU step);
+     then K5, K6 and K7 in f32 at the f32 step's attention shape (B 1, H
+     8, S 2048, D 128, causal, [B, S, H*D]) against their plain versions,
+     K6 and K7 twice each for the same bits, SDPA timed as the library
+     call;
  11. train the 170M model: batch 8 x 2048 tokens, Adam(1e-4), 2 warm-up
      and 10 timed steps; ms per step, tokens/s, the model-FLOP share of 989
      TFLOP/s, peak memory, the loss at every step (finite), the exact
@@ -314,7 +318,7 @@ K1_MODES = {"linear": "nt", "gemm_nn": "nn", "gemm_tn": "tn"}
 K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu",
               "decode": "taper_tpu_torch/csrc/gemm_decode.cu"}
 # The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
-# row's source follows its route too; "wmma" (f32) keeps SOURCES'
+# row's source follows its route too; K10's "f32" keeps SOURCES'
 # flash_bwd.cu, and K5's "exact" (f32) is flash_fwd.cu's
 FLASH_SOURCES = {
     "wgmma": {"flash_fwd": "taper_tpu_torch/csrc/flash_sm90.cu",
@@ -322,7 +326,9 @@ FLASH_SOURCES = {
               "flash_dq": "taper_tpu_torch/csrc/flash_bwd_sm90.cu",
               "flash_dkv": "taper_tpu_torch/csrc/flash_sm90.cu",
               "flash_bwd_fused": "taper_tpu_torch/csrc/flash_sm90.cu"},
-    "exact": {"flash_fwd": "taper_tpu_torch/csrc/flash_fwd.cu"}}
+    "exact": {"flash_fwd": "taper_tpu_torch/csrc/flash_fwd.cu"},
+    "f32": {"flash_dq": "taper_tpu_torch/csrc/flash_bwd_f32.cu",
+            "flash_dkv": "taper_tpu_torch/csrc/flash_bwd_f32.cu"}}
 
 
 def route_key(route, mode, splits):
@@ -342,9 +348,9 @@ SOURCES = {
                   "taper_tpu/ops/pallas/attention.py:217"),
     "flash_fwd_bound": ("taper_tpu_torch/csrc/flash_sm90.cu",
                         "taper_tpu/ops/pallas/attention.py:357"),
-    "flash_dq": ("taper_tpu_torch/csrc/flash_bwd.cu",
+    "flash_dq": ("taper_tpu_torch/csrc/flash_bwd_f32.cu",
                  "taper_tpu/ops/pallas/attention.py:487"),
-    "flash_dkv": ("taper_tpu_torch/csrc/flash_bwd.cu",
+    "flash_dkv": ("taper_tpu_torch/csrc/flash_bwd_f32.cu",
                   "taper_tpu/ops/pallas/attention.py:687"),
     "flash_dkv_t": ("taper_tpu_torch/csrc/flash_bwd.cu",
                     "taper_tpu/ops/pallas/attention.py:611"),
@@ -1503,35 +1509,11 @@ def phase10_lm_step(dev):
         assert all(torch.isfinite(x).all() for x in g.values())
         assert loss_rel <= loss_tol, f"{trunk} step loss disagrees"
         assert rel[worst] <= grad_tol, f"{trunk} {worst} grad disagrees"
-    return results, k5_f32_row(dev, gen)
-
-
-def k5_f32_row(dev, gen, phase=10):
-    """K5 in f32 at the f32 step's attention shape (batch 1, the 170M
-    model's 8 heads of 128 over 2,048 positions, causal, [B, S, H*D])
-    against its plain version, SDPA timed as the library call."""
-    b, h, s = 1, LM["num_heads"], LM["max_seq"]
-    d = LM["dim"] // h
-    q, k, v = (torch.randn(b, s, h * d, generator=gen).to(dev)
-               for _ in range(3))
-    scale = d ** -0.5
-
-    def to4(t):
-        return A._to_bhsd(t, h, d)
-
-    return check_kernel(
-        "flash_fwd", f"f32 B={b} H={h} S={s} D={d} causal bshd exact arm "
-        f"(the f32 step's attention)",
-        lambda *a: (lambda o, l: (to4(o), l))(*A.flash_fwd_exact(
-            *a, causal=True, scale=scale, heads=h)),
-        lambda *a: A.attention_lse_reference(*(to4(t) for t in a),
-                                             causal=True, scale=scale),
-        cold_sets(q, k, v), phase=phase, tol=(FLASH_F32_TOL, LSE_F32_TOL),
-        library_fn=lambda *a: F.scaled_dot_product_attention(
-            *(to4(t) for t in a), is_causal=True),
-        work=attn_work(b, h, h, s, d, "f32", 2,
-                       4 * nbytes(q) + 4 * b * h * s),
-        flash_route=A.plan_fwd(torch.float32, "causal"))
+    # K5, K6 and K7 in f32 at the f32 step's attention shape
+    h = LM["num_heads"]
+    return results, lm_flash_rows(dev, 1, h, LM["max_seq"], LM["dim"] // h,
+                                  torch.float32, 10, gen, ("bshd",),
+                                  ("exact",))
 
 
 # every K1 kernel: the wgmma route, the WMMA tile (wmma), the decode
@@ -1540,14 +1522,16 @@ K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_bf16_kernel"),
                ("K1 gemm", "gemm_decode"), ("K1 gemm", "gemm_f32"),
                ("K1 gemm", "splitk_reduce"))
 OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
-# the flash kernels by name: the FMA ones of flash_fwd.cu and
-# flash_bwd.cu and the wgmma ones of flash_sm90.cu and flash_bwd_sm90.cu
-# (namespace taper::flash::sm90; K8 and K5 are fwd_kernel<D, MASKED>)
+# the flash kernels by name: the FMA ones of flash_fwd.cu,
+# flash_bwd_f32.cu and flash_bwd.cu (K11's flash_dkv_kernel) and the wgmma
+# ones of flash_sm90.cu and flash_bwd_sm90.cu (namespace
+# taper::flash::sm90; K8 and K5 are fwd_kernel<D, MASKED>)
 LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
                              ("K8/K5 flash fwd", "flash_fwd_f32"),
                              ("K8/K5 flash fwd", "sm90::fwd_kernel"),
-                             ("K6 flash dq", "flash_dq_kernel"),
+                             ("K6 flash dq", "dq_f32_kernel"),
                              ("K6 flash dq", "sm90::dq_kernel"),
+                             ("K7 flash dkv", "dkv_f32_kernel"),
                              ("K7 flash dkv", "flash_dkv_kernel"),
                              ("K7 flash dkv", "sm90::dkv_kernel"))
 CONV_FAMILIES = K1_FAMILIES + (("K3a conv fwd/dX", "conv_fwd"),
@@ -3820,7 +3804,7 @@ def main():
 
     lm_rows = phase9_lm_kernels(dev)
     phase29_k1_bits(dev)
-    _, k5_f32_170m = phase10_lm_step(dev)
+    _, f32_170m = phase10_lm_step(dev)
     lm_counts, lm_stats = phase11_lm_train(dev, smi)
     fused_counts, _ = phase28_fused_backward(dev, smi, lm_stats)
     torch.cuda.empty_cache()
@@ -3859,7 +3843,13 @@ def main():
     # and K5 at the sort task's f32 shapes, which launches it
     lm_report = {k: headline(r, {"flash_fwd_bound": 2}.get(k, 1))
                  for k, r in lm_rows.items() if k != "flash_fwd"}
-    lm_report["flash_fwd"] = headline(sort_rows["flash_fwd"] + [k5_f32_170m])
+    lm_report["flash_fwd"] = headline(sort_rows["flash_fwd"]
+                                      + f32_170m["flash_fwd"])
+    # K6's and K7's numbers: the bf16 170M rows; their f32 rows (the sort
+    # task's, the f32 step's D 128) listed beside them
+    for k in ("flash_dq", "flash_dkv"):
+        f32_rows = sort_rows[k] + f32_170m[k]
+        lm_report[k] = dict(headline(lm_rows[k] + f32_rows, 1), f32=f32_rows)
     lm_report["adam"] = lm_stats["adam"]
     lm_launches = {k: lm_counts.get(k, 0) + sort_counts.get(k, 0)
                    for k in backend.KERNELS}

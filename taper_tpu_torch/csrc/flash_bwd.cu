@@ -2,65 +2,48 @@
 // output o and row logsumexp lse, and the output's cotangent do, under a
 // causal mask, a sliding window and segment ids (flash_common.cuh, Mask).
 // This file holds the C entry points of the four backward kernels and the
-// kernels that bf16 no longer runs on Hopper's wgmma: every f32 launch (the
-// sort task) and K11.  bf16 K6 runs flash_bwd_sm90.cu's kernel, bf16 K7 and
-// K10's bf16 sweep flash_sm90.cu's (ops/attention.py's plan_bwd names the
-// route).
+// kernels that no redesign has taken yet: K11 and the f32 K10.  bf16 K6
+// runs flash_bwd_sm90.cu's kernel, bf16 K7 and K10's bf16 sweep
+// flash_sm90.cu's, f32 K6 and K7 flash_bwd_f32.cu's (ops/attention.py's
+// plan_bwd names the route).
 //
-// Replaces the four backward TPU kernels of
-// taper_tpu/ops/pallas/attention.py, launched by _flash_bwd_impl:
-//   * flash_dq_kernel (K6 in f32, _dq_kernel): one block per (batch *
-//     head, 64-row query tile) loops over the band of KV tiles the mask
-//     leaves.  It first computes delta = rowsum(dO * O) for its rows and
-//     exports it (as _dq_kernel does; JAX also subtracts an lse cotangent
-//     there, which only its flash_attention_lse has), then per KV tile p =
-//     exp(s - lse), ds = p * (dO V^T - delta), dQ += ds K; the scale is
-//     applied once at the end.
-//   * flash_dkv_kernel<.., false> (K7 in f32, _dkv_kernel): one block per
-//     (batch * KV head, 64-row KV tile) loops over the band of query tiles
-//     and over the query heads of its GQA group in a fixed order.  It works
-//     on transposed tiles, s^T = K Q^T, so that every product is a plain
-//     one: dV += p^T dO, dK += ds^T Q, and dK is scaled once at the end.
-//     The group's query heads sum into the same f32 accumulators before the
-//     one cast: no partials at query-head width, no atomics, and the result
-//     is the same bits on every run (JAX sums per-head partials after its
-//     kernel).
-//   * flash_dkv_kernel<.., true> (K11, _dkv_kernel_t, opt-in under
-//     TAPER_ATTN_DKV_T=1 for non-causal or windowed masks without segment
-//     ids), in bf16 and f32: the same transposed tile pair, but one block
-//     per (batch * QUERY head, KV tile), which writes the head's dK and dV
-//     as f32 partials [B, H, S, D]; the caller sums them over each group
-//     (JAX's kernel emits at query-head width too).  At GQA group G it puts
-//     G times the blocks on the card for a partial buffer and a reduction;
-//     at G = 1 it does K7's work.
+// Replaces two backward TPU kernels of taper_tpu/ops/pallas/attention.py,
+// launched by _flash_bwd_impl:
+//   * flash_dkv_kernel (K11, _dkv_kernel_t, opt-in under TAPER_ATTN_DKV_T=1
+//     for non-causal or windowed masks without segment ids), in bf16 and
+//     f32: one block per (batch * QUERY head, 64-row KV tile) loops over the
+//     band of query tiles on transposed tiles, s^T = K Q^T, so that every
+//     product is a plain one: dV += p^T dO, dK += ds^T Q, dK scaled once at
+//     the end; it writes the head's dK and dV as f32 partials [B, H, S, D],
+//     which the caller sums over each group (JAX's kernel emits at
+//     query-head width too).  At GQA group G it puts G times the blocks on
+//     the card for a partial buffer and a reduction.
 //   * flash_fused_kernel (K10 in f32, _bwd_fused_kernel, opt-in under
 //     TAPER_ATTN_FUSED_BWD=1 for plain causal attention): one sweep of the
 //     band computes s, p and dp once per tile pair (5 products where K6 +
 //     K7 do 7) and feeds all three gradients.  JAX keeps the whole (S, D)
 //     f32 dQ in VMEM; at the 170M shape that is 1 MiB a head, far beyond
-//     an SM's 228 KB, so dK and dV stay in registers as in K7 and each
-//     pair's ds K is added into a zeroed f32 dQ buffer with atomics, after
-//     a delta pre-pass (flash_delta_kernel, every dtype) and before an
-//     epilogue that scales and casts dQ: three launches.  The atomics make
-//     dQ's low bits depend on the order of the adds.
+//     an SM's 228 KB, so dK and dV stay in registers and each pair's ds K
+//     is added into a zeroed f32 dQ buffer with atomics, after a delta
+//     pre-pass (flash_delta_kernel, every dtype) and before an epilogue
+//     that scales and casts dQ: three launches.  The atomics make dQ's low
+//     bits depend on the order of the adds.
 // All read the forward's strides (Layout), so the projections' [B, S, H*D]
 // layout needs no copy in either direction.
 //
-// What bounds them on the H100: at the f32 sort task's shape (B 64, H 2,
-// S 128, D 64) the FMA work, 6 S^2 D (dQ) and 8 S^2 D (dK/dV) a head,
-// halved by causality, at 67 TFLOP/s; K11 in bf16 (windowed): tensor-core
-// work over the band's S W pairs.  What the design here does about that:
+// What bounds them on the H100: the FMA work in f32 (8 S^2 D flops a head
+// for K11's dK/dV, halved by causality, at 67 TFLOP/s), tensor-core work
+// over the band's S W pairs for K11 in bf16.  What the design here does
+// about that:
 //   * FMA loops in which a lane owns columns for f32, 16 x 16 WMMA tiles
 //     out of shared memory for K11 in bf16;
-//   * dQ (K6) and dK/dV (K7, K10, K11) stay in registers for the whole
-//     sweep; the scores and the weights go through shared memory, where
-//     their elementwise step reads them row by row;
+//   * dK/dV stay in registers for the whole sweep; the scores and the
+//     weights go through shared memory, where their elementwise step reads
+//     them row by row;
 //   * tiles outside the band (the far side of the diagonal, behind the
-//     window) are skipped, the longest query rows of K6 are scheduled
-//     first (K7's first KV tiles are its longest), ragged S is masked in
-//     the kernel; masked pairs (another document) have p = 0 and add
-//     nothing to dS, and a tile pair whose segment-id ranges cannot meet
-//     is skipped whole.
+//     window) are skipped, ragged S is masked in the kernel; masked pairs
+//     (another document) have p = 0 and add nothing to dS, and a tile pair
+//     whose segment-id ranges cannot meet is skipped whole.
 #include "flash_common.cuh"
 
 #include <algorithm>
@@ -91,105 +74,8 @@ struct BwdSmem {
   static_assert(L::out <= 2 * L::scores, "staging fits the score tiles");
 };
 
-template <typename T, int D, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ delta,
-                    Layout lay, int causal, int window,
-                    const int* __restrict__ seg, int H, int Hkv, int S,
-                    float scale, float scale_log2) {
-  const Mask mask{causal, window, seg};  // see Mask
-  using L = Tiles<T, D>;
-  using M = BwdSmem<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + M::t0);
-  T* dOs = reinterpret_cast<T*>(smem + M::t1);
-  T* Ks = reinterpret_cast<T*>(smem + M::t2);
-  T* Vs = reinterpret_cast<T*>(smem + M::t3);
-  float* Ss = reinterpret_cast<float*>(smem + M::s0);
-  float* dPs = reinterpret_cast<float*>(smem + M::s1);
-  T* DSs = reinterpret_cast<T*>(smem + M::w_off);
-  float* lse2_s = reinterpret_cast<float*>(smem + M::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + M::delta_off);
-  int* sq_s = reinterpret_cast<int*>(smem + M::sa_off);
-  int* sk_s = reinterpret_cast<int*>(smem + M::sb_off);
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const long long qoff = b * lay.qb + h * lay.qh;
-  const T* kg = k + b * lay.kb + hk * lay.kh;
-  const T* vg = v + b * lay.kb + hk * lay.kh;
-
-  load_rows<T, D, L::LDT>(Qs, q + qoff, lay.qs, q0, S);
-  load_rows<T, D, L::LDT>(dOs, dout + qoff, lay.qs, q0, S);
-  if (has_ids<MASKED>(mask)) load_ids(sq_s, mask, b, q0, S);
-  __syncthreads();
-  // delta = rowsum(dO * O), once per row, exported for K7; lse in
-  // base 2 (a fully masked row's -inf becomes a finite stand-in: its
-  // weights are masked to 0 anyway)
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int row = q0 + r;
-    float acc = 0.0f;
-    if (row < S)
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(to_f32(dOs[r * L::LDT + d]),
-                   to_f32(o[qoff + row * lay.qs + d]), acc);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      float l = row < S ? lse[(size_t)bh * S + row] : 0.0f;
-      delta_s[r] = acc;
-      lse2_s[r] = isfinite(l) ? l * kLog2e : 0.0f;
-      if (row < S) delta[(size_t)bh * S + row] = acc;
-    }
-  }
-  __syncwarp();
-
-  WarpAcc<T, D> acc;
-  acc.zero();
-  const int kv_hi = kv_end(mask, q0, S);
-  for (int kv0 = kv_begin<MASKED>(mask, q0); kv0 < kv_hi; kv0 += kTile) {
-    __syncthreads();  // previous K/V tiles fully consumed
-    load_rows<T, D, L::LDT>(Ks, kg, lay.ks, kv0, S);
-    load_rows<T, D, L::LDT>(Vs, vg, lay.ks, kv0, S);
-    if (has_ids<MASKED>(mask)) load_ids(sk_s, mask, b, kv0, S);
-    __syncthreads();
-    if (has_ids<MASKED>(mask) && !ids_meet(sq_s, sk_s))
-      continue;  // no shared document
-    warp_scores<T, D>(Qs + r0 * L::LDT, Ks, Ss + r0 * L::LDS);     // Q K^T
-    warp_scores<T, D>(dOs + r0 * L::LDT, Vs, dPs + r0 * L::LDS);   // dO V^T
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j, col = kv0 + c;
-        // a masked pair (the far side of the diagonal or of the window,
-        // another document) has p = 0, so it adds nothing to dS
-        bool ok = row < S && col < S && keep<MASKED>(mask, row, col) &&
-                  (!has_ids<MASKED>(mask) || sq_s[r] == sk_s[c]);
-        float p = ok ? exp2f(Ss[r * L::LDS + c] * scale_log2 - lse2_s[r])
-                     : 0.0f;
-        DSs[r * L::LDP + c] =
-            from_f32<T>(p * (dPs[r * L::LDS + c] - delta_s[r]));
-      }
-    }
-    __syncwarp();
-    acc.mma(DSs + r0 * L::LDP, Ks);  // dQ += dS K
-  }
-  __syncthreads();  // every warp is done with the K/V tiles
-  float* Cs = reinterpret_cast<float*>(smem + M::t2);  // over K/V tiles
-  acc.store(Cs + r0 * L::LDO);
-  __syncwarp();
-  write_rows<T, D>(dq + qoff, lay.qs, Cs + r0 * L::LDO, q0 + r0, S, scale);
-}
-
 // One (KV tile, query tile) pair of the transposed backward, shared by
-// K7, K11 and K10: s^T = K Q^T, p^T, dV += p^T dO, dp^T = V dO^T,
+// K11 and K10: s^T = K Q^T, p^T, dV += p^T dO, dp^T = V dO^T,
 // ds^T = p^T (dp^T - delta), dK += ds^T Q.  Loads the query tile of head
 // `bh` (its Q, dO, lse, delta and, with segments, ids); leaves ds^T in Wt
 // for all 64 KV rows only after the caller's __syncthreads.  Returns
@@ -263,19 +149,16 @@ __device__ __forceinline__ bool dkv_pair(
   return true;
 }
 
-// K7 (PER_HEAD false): one block per (batch * KV head, KV tile), the GQA
-// group summed in registers, dK/dV written in the input dtype and layout.
-// K11 (PER_HEAD true): one block per (batch * query head, KV tile), the
-// head's dK/dV written as f32 partials [B, H, S, D], which the caller sums
-// over each group.
-template <typename T, int D, bool PER_HEAD, bool MASKED>
+// K11: one block per (batch * query head, KV tile), the head's dK/dV
+// written as f32 partials [B, H, S, D], which the caller sums over each
+// group.
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     std::conditional_t<PER_HEAD, float, T>* __restrict__ dk,
-                     std::conditional_t<PER_HEAD, float, T>* __restrict__ dv,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      Layout lay, int causal, int window,
                      const int* __restrict__ seg, int H, int Hkv, int S,
                      float scale, float scale_log2) {
@@ -286,20 +169,8 @@ __global__ void __launch_bounds__(kThreads)
   T* Ks = reinterpret_cast<T*>(smem + M::t0);
   T* Vs = reinterpret_cast<T*>(smem + M::t1);
 
-  const int group = H / Hkv;
-  int b, hk, g0, g1;
-  if constexpr (PER_HEAD) {
-    b = blockIdx.y / H;
-    const int h = blockIdx.y % H;
-    hk = h / group;
-    g0 = h % group;
-    g1 = g0 + 1;
-  } else {
-    b = blockIdx.y / Hkv;
-    hk = blockIdx.y % Hkv;
-    g0 = 0;
-    g1 = group;
-  }
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int hk = h / (H / Hkv);
   const int kv0 = blockIdx.x * kTile;  // under causality the first tiles
                                        // see the most query rows
   const int warp = threadIdx.x / 32;
@@ -315,38 +186,27 @@ __global__ void __launch_bounds__(kThreads)
   dv_acc.zero();
 
   const int q_lo = q_begin(mask, kv0), q_hi = q_end<MASKED>(mask, kv0, S);
-  for (int g = g0; g < g1; ++g) {  // the query heads of this KV head
-    const int h = hk * group + g, bh = b * H + h;
-    const long long qoff = b * lay.qb + h * lay.qh;
-    for (int q0 = q_lo; q0 < q_hi; q0 += kTile)
-      dkv_pair<T, D, MASKED>(q, dout, lse, delta, smem, lay, mask, b, bh,
-                             qoff, kv0, q0, S, scale_log2, dk_acc, dv_acc);
-  }
+  const long long qoff = b * lay.qb + h * lay.qh;
+  for (int q0 = q_lo; q0 < q_hi; q0 += kTile)
+    dkv_pair<T, D, MASKED>(q, dout, lse, delta, smem, lay, mask, b,
+                           blockIdx.y, qoff, kv0, q0, S, scale_log2, dk_acc,
+                           dv_acc);
   __syncthreads();  // every warp is done with the Q/dO tiles
   float* Cs = reinterpret_cast<float*>(smem + M::t2);  // over Q/dO tiles
-  using OutT = std::conditional_t<PER_HEAD, float, T>;
-  OutT *dkg, *dvg;
-  long long ld;
-  if constexpr (PER_HEAD) {
-    dkg = dk + (size_t)blockIdx.y * S * D;
-    dvg = dv + (size_t)blockIdx.y * S * D;
-    ld = D;
-  } else {
-    dkg = dk + koff;
-    dvg = dv + koff;
-    ld = lay.ks;
-  }
+  float* dkg = dk + (size_t)blockIdx.y * S * D;
+  float* dvg = dv + (size_t)blockIdx.y * S * D;
   dk_acc.store(Cs + r0 * L::LDO);
   __syncwarp();
-  write_rows<OutT, D>(dkg, ld, Cs + r0 * L::LDO, kv0 + r0, S, scale);
+  write_rows<float, D>(dkg, D, Cs + r0 * L::LDO, kv0 + r0, S, scale);
   __syncwarp();
   dv_acc.store(Cs + r0 * L::LDO);
   __syncwarp();
-  write_rows<OutT, D>(dvg, ld, Cs + r0 * L::LDO, kv0 + r0, S, 1.0f);
+  write_rows<float, D>(dvg, D, Cs + r0 * L::LDO, kv0 + r0, S, 1.0f);
 }
 
 // K10's pre-pass: delta = rowsum(dO * O), one warp a row, in the order of
-// K6's (row_delta: the two give the same bits).
+// K6 on wgmma (row_delta: the two give the same bits in bf16; f32 K6 sums
+// its rows 16 bytes a lane, flash_bwd_f32.cu).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -456,39 +316,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 template <typename T, int D, bool MASKED>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const float* lse, void* dq, float* delta,
-              int B, int H, int Hkv, int S, float scale, Mask mask,
-              int layout, cudaStream_t s) {
+int launch_dkv_t(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dk, void* dv, int B, int H, int Hkv, int S,
+                 float scale, Mask mask, int layout, cudaStream_t s) {
   constexpr size_t bytes = BwdSmem<T, D>::bytes;
-  auto kernel = flash_dq_kernel<T, D, MASKED>;
+  auto kernel = flash_dkv_kernel<T, D, MASKED>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq), delta,
-      make_layout(layout, H, Hkv, S, D), mask.causal, mask.window, mask.seg,
-      H, Hkv, S, scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D, bool PER_HEAD, bool MASKED>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int B, int H, int Hkv, int S, float scale, Mask mask,
-               int layout, cudaStream_t s) {
-  using OutT = std::conditional_t<PER_HEAD, float, T>;
-  constexpr size_t bytes = BwdSmem<T, D>::bytes;
-  auto kernel = flash_dkv_kernel<T, D, PER_HEAD, MASKED>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTile - 1) / kTile, B * (PER_HEAD ? H : Hkv));
-  kernel<<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<OutT*>(dk), static_cast<OutT*>(dv),
+      static_cast<float*>(dk), static_cast<float*>(dv),
       make_layout(layout, H, Hkv, S, D), mask.causal, mask.window, mask.seg,
       H, Hkv, S, scale, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -591,12 +431,22 @@ int flash_fused_sm90(const void* q, const void* k, const void* v,
                      float* dq_acc, void* dq, void* dk, void* dv,
                      const Mask& m, int B, int H, int Hkv, int S, int D,
                      float scale, int layout, cudaStream_t stream);
+// csrc/flash_bwd_f32.cu: K6 and K7 in f32 on the CUDA cores
+int flash_dq_f32(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* dq, float* delta,
+                 const Mask& m, int B, int H, int Hkv, int S, int D,
+                 float scale, int layout, cudaStream_t stream);
+int flash_dkv_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
+                  int S, int D, float scale, int layout,
+                  cudaStream_t stream);
 }  // namespace flash
 }  // namespace taper
 
 // K6: bf16 runs the wgmma kernel of flash_bwd_sm90.cu, f32 the FMA kernel
-// here.  lse, delta: [B*H, S] f32; seg: [B, S] int32 or null; window: > 0
-// keeps cols > row - window.
+// of flash_bwd_f32.cu.  lse, delta: [B*H, S] f32; seg: [B, S] int32 or
+// null; window: > 0 keeps cols > row - window.
 extern "C" int taper_flash_dq(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* dq, void* delta,
@@ -610,17 +460,13 @@ extern "C" int taper_flash_dq(const void* q, const void* k, const void* v,
                          dq, static_cast<float*>(delta), m, B, H, Hkv, S, D,
                          scale, layout, static_cast<cudaStream_t>(stream));
   if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
-  return dispatch_dim<float>(D, m, [&](auto t, auto d, auto mk) {
-    return launch_dq<typename decltype(t)::type, decltype(d)::value,
-                     decltype(mk)::value>(
-        q, k, v, o, dout, static_cast<const float*>(lse), dq,
-        static_cast<float*>(delta), B, H, Hkv, S, scale, m, layout,
-        static_cast<cudaStream_t>(stream));
-  });
+  return flash_dq_f32(q, k, v, o, dout, static_cast<const float*>(lse), dq,
+                      static_cast<float*>(delta), m, B, H, Hkv, S, D, scale,
+                      layout, static_cast<cudaStream_t>(stream));
 }
 
 // K7, after K6 on the same stream (it reads K6's delta): bf16 runs the
-// wgmma kernel of flash_sm90.cu, f32 the FMA kernel here.
+// wgmma kernel of flash_sm90.cu, f32 the FMA kernel of flash_bwd_f32.cu.
 extern "C" int taper_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dk, void* dv,
@@ -635,13 +481,9 @@ extern "C" int taper_flash_dkv(const void* q, const void* k, const void* v,
                           Hkv, S, D, scale, layout,
                           static_cast<cudaStream_t>(stream));
   if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
-  return dispatch_dim<float>(D, m, [&](auto t, auto d, auto mk) {
-    return launch_dkv<typename decltype(t)::type, decltype(d)::value, false,
-                      decltype(mk)::value>(
-        q, k, v, dout, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), dk, dv, B, H, Hkv, S, scale, m,
-        layout, static_cast<cudaStream_t>(stream));
-  });
+  return flash_dkv_f32(q, k, v, dout, static_cast<const float*>(lse),
+                       static_cast<const float*>(delta), dk, dv, m, B, H, Hkv,
+                       S, D, scale, layout, static_cast<cudaStream_t>(stream));
 }
 
 // K11, after K6 (its delta): dK/dV per query head as f32 partials
@@ -655,8 +497,8 @@ extern "C" int taper_flash_dkv_t(const void* q, const void* k, const void* v,
   if (bad_dims(B, H, Hkv, S)) return (int)cudaErrorInvalidValue;
   const Mask m{causal, window, nullptr};
   return dispatch(dtype, D, m, [&](auto t, auto d, auto mk) {
-    return launch_dkv<typename decltype(t)::type, decltype(d)::value, true,
-                      decltype(mk)::value>(
+    return launch_dkv_t<typename decltype(t)::type, decltype(d)::value,
+                        decltype(mk)::value>(
         q, k, v, dout, static_cast<const float*>(lse),
         static_cast<const float*>(delta), dk_part, dv_part, B, H, Hkv, S,
         scale, m, layout, static_cast<cudaStream_t>(stream));

@@ -140,8 +140,8 @@ __device__ __forceinline__ bool ids_meet(const int* a, const int* b) {
 // terms (columns lane + 32 j) loaded first, so that a warp can have many
 // rows' loads in flight (K6 on wgmma, flash_bwd_sm90.cu, loads 8 rows at
 // a time), then summed in order and across the warp by a butterfly (every
-// lane gets the same bits).  K6 and K10's pre-pass (row_delta) both sum
-// through it, so the two give the same delta.
+// lane gets the same bits).  K6 on wgmma and K10's pre-pass (row_delta)
+// both sum through it, so the two give the same delta.
 template <typename T, int D>
 struct DeltaTerms {
   float g[D / 32], o[D / 32];
@@ -167,6 +167,41 @@ __device__ __forceinline__ float row_delta(const T* dout, const T* o) {
   DeltaTerms<T, D> t;
   t.load(dout, o);
   return t.sum();
+}
+
+// Starts the copy of rows [row0, row0 + R) of one head (row stride `ld`)
+// into a shared tile of row length LD, in 16-byte pieces, zeros past S,
+// by NTH threads of which this is thread `tid`.
+template <int R, int D, int LD, int NTH>
+__device__ __forceinline__ void rows_async(float* sm, const float* g,
+                                           long long ld, int row0, int S,
+                                           int tid) {
+  constexpr int CPR = D / 4;
+  for (int c = tid; c < R * CPR; c += NTH) {
+    const int r = c / CPR, d = (c % CPR) * 4;
+    const bool in = row0 + r < S;
+    cp_async16(sm + r * LD + d, in ? g + (row0 + r) * ld + d : g, in);
+  }
+}
+
+// The [lo, hi] range of n segment ids in shared memory (n % 4 == 0).
+__device__ __forceinline__ int2 id_range(const int* ids, int n) {
+  int lo = ids[0], hi = ids[0];
+  for (int i = 0; i < n; i += 4) {
+    const int4 v = *reinterpret_cast<const int4*>(ids + i);
+    lo = min(min(lo, v.x), min(v.y, min(v.z, v.w)));
+    hi = max(max(hi, v.x), max(v.y, max(v.z, v.w)));
+  }
+  return make_int2(lo, hi);
+}
+
+// The KV group `gi`'s 128 threads meet here (all of them when KVG is 1).
+template <int KVG>
+__device__ __forceinline__ void group_sync(int gi) {
+  if constexpr (KVG == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gi), "r"(kThreads));
 }
 
 // Rows [row0, row0 + 64) of one head (row stride `ld` elements) into a

@@ -84,41 +84,6 @@ struct FwdF32 {
   static_assert(sizeof(float) * RT * (DT + 2) * kThreads <= 2 * stage, "");
 };
 
-// Starts the copy of rows [row0, row0 + R) of one head (row stride `ld`)
-// into a shared tile of row length LD, in 16-byte pieces, zeros past S,
-// by NTH threads of which this is thread `tid`.
-template <int R, int D, int LD, int NTH>
-__device__ __forceinline__ void rows_async(float* sm, const float* g,
-                                           long long ld, int row0, int S,
-                                           int tid) {
-  constexpr int CPR = D / 4;
-  for (int c = tid; c < R * CPR; c += NTH) {
-    const int r = c / CPR, d = (c % CPR) * 4;
-    const bool in = row0 + r < S;
-    cp_async16(sm + r * LD + d, in ? g + (row0 + r) * ld + d : g, in);
-  }
-}
-
-// The [lo, hi] range of n segment ids in shared memory (n % 4 == 0).
-__device__ __forceinline__ int2 id_range(const int* ids, int n) {
-  int lo = ids[0], hi = ids[0];
-  for (int i = 0; i < n; i += 4) {
-    const int4 v = *reinterpret_cast<const int4*>(ids + i);
-    lo = min(min(lo, v.x), min(v.y, min(v.z, v.w)));
-    hi = max(max(hi, v.x), max(v.y, max(v.z, v.w)));
-  }
-  return make_int2(lo, hi);
-}
-
-// The KV group `gi`'s 128 threads meet here (all of them when KVG is 1).
-template <int KVG>
-__device__ __forceinline__ void group_sync(int gi) {
-  if constexpr (KVG == 1)
-    __syncthreads();
-  else
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gi), "r"(kThreads));
-}
-
 // K5 in f32.  Block (x, y): batch-head x, query tile y (reversed under a
 // causal mask, so that the longest rows start first; a window without
 // causality has its longest rows first already).  The loop runs over the

@@ -26,26 +26,27 @@ with ``S * W``.
 Both entry points are ``torch.autograd.Function``s.  CPU tensors run the
 plain versions (:func:`attention_lse_reference` forward,
 :func:`flash_bwd_reference` backward); CUDA tensors run the kernels of
-``csrc/flash_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_fwd.cu``
-and ``csrc/flash_bwd.cu`` at every shape they take (f32 or bf16, D of 64
-or 128, any S), or raise.  The forward picks its kernel as JAX does
-(``attention.py:1155``, :func:`uses_bound`): the bound-max K8 for bf16
-causal inputs with no window and no segments, its exact arm chosen on the
-device by :func:`bound_predicate`; the exact K5 for the rest.
-:func:`plan_fwd` names K8's and K5's kernel and :func:`plan_bwd` K6's,
-K7's and K10's before launch: the TMA + wgmma kernels of
-``csrc/flash_sm90.cu`` (K8, K5, K7, K10) and ``csrc/flash_bwd_sm90.cu``
-(K6) for bf16 (whose data ``backend.check_kernel_args`` holds to TMA's
-16-byte alignment, or raises), the FMA kernels of ``csrc/flash_fwd.cu``
-(K5) and ``csrc/flash_bwd.cu`` for f32; ``backend.route_counts()`` counts
-the calls by route.  The backward is K6 then K7, with JAX's two
-opt-in alternatives, read from the environment at each call as JAX reads
-them at trace time, and only on the card: ``TAPER_ATTN_FUSED_BWD=1``
-runs K10 for plain causal attention (no window, no segments; JAX's
-further ``S * D * 4 <= 4 MiB`` condition is the TPU's VMEM capacity for
-its resident dQ, which K10 here keeps in device memory, so it is
-dropped), and ``TAPER_ATTN_DKV_T=1`` runs K11 in K7's
-place for non-causal or windowed attention without segments
+``csrc/flash_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_f32.cu`` and ``csrc/flash_bwd.cu`` at every shape they
+take (f32 or bf16, D of 64 or 128, any S), or raise.  The forward picks its
+kernel as JAX does (``attention.py:1155``, :func:`uses_bound`): the
+bound-max K8 for bf16 causal inputs with no window and no segments, its
+exact arm chosen on the device by :func:`bound_predicate`; the exact K5
+for the rest.  :func:`plan_fwd` names K8's and K5's kernel and
+:func:`plan_bwd` K6's, K7's and K10's before launch: the TMA + wgmma
+kernels of ``csrc/flash_sm90.cu`` (K8, K5, K7, K10) and
+``csrc/flash_bwd_sm90.cu`` (K6) for bf16 (whose data
+``backend.check_kernel_args`` holds to TMA's 16-byte alignment, or
+raises), the FMA kernels of ``csrc/flash_fwd.cu`` (K5),
+``csrc/flash_bwd_f32.cu`` (K6, K7) and ``csrc/flash_bwd.cu`` (K10) for
+f32; ``backend.route_counts()`` counts the calls by route.  The backward is
+K6 then K7, with JAX's two opt-in alternatives, read from the environment
+at each call as JAX reads them at trace time, and only on the card:
+``TAPER_ATTN_FUSED_BWD=1`` runs K10 for plain causal attention (no window,
+no segments; JAX's further ``S * D * 4 <= 4 MiB`` condition is the TPU's
+VMEM capacity for its resident dQ, which K10 here keeps in device memory,
+so it is dropped), and ``TAPER_ATTN_DKV_T=1`` runs K11 in K7's place for
+non-causal or windowed attention without segments
 (``attention.py:1368-1371``, ``:1527``).  K10's dQ sums with atomics, so
 its low bits vary from run to run; the default path is deterministic.
 
@@ -270,9 +271,10 @@ def plan_bwd(dtype) -> str:
     """The backward kernels' route (K6, K7 and K10 alike), decided before
     launch by the dtype alone, under every mask: ``"wgmma"`` for bf16 (K6
     in ``csrc/flash_bwd_sm90.cu``, K7 and K10's sweep in
-    ``csrc/flash_sm90.cu``), ``"wmma"`` for f32 (the FMA kernels of
-    ``csrc/flash_bwd.cu``)."""
-    return "wgmma" if dtype == torch.bfloat16 else "wmma"
+    ``csrc/flash_sm90.cu``), ``"f32"`` for f32 (the FMA kernels of
+    ``csrc/flash_bwd_f32.cu`` for K6 and K7, of ``csrc/flash_bwd.cu`` for
+    K10)."""
+    return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
 # -- the kernels (CUDA tensors only) ---------------------------------------

@@ -45,7 +45,7 @@ KERNELS = ("linear", "gemm_nn", "gemm_tn", "flash_fwd", "flash_fwd_bound",
 _launches = dict.fromkeys(KERNELS, 0)
 # K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; the
 # flash calls by route (ops.attention.plan_fwd / plan_bwd): "wgmma
-# flash_fwd_bound", "wmma flash_dkv", ...; a tally of its own, so that the
+# flash_fwd_bound", "f32 flash_dkv", ...; a tally of its own, so that the
 # per-kernel counts stay one a call
 _routes = {}
 # K8 launches that took the bound arm, counted by the kernel itself on the

@@ -536,36 +536,54 @@ def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
     assert max(t for t, _ in worst.values()) > 1, (what, worst)
 
 
-# Faults planted in flash_bwd.cu's K7 loop, which f32 (the sort task) still
-# runs: (what, the line as it is, the line with the fault).
+# The cases the f32 faults are checked at: (B, H, Hkv, S, D, causal,
+# window).  "sort" is the sort task's shape (examples/train_tinylm.py's
+# defaults: batch 64, 2 heads of 64, S 128, causal); "gqa" a GQA group of
+# 2 at ragged S, where K7 runs two thread groups; "window" phase 24's
+# non-causal window of 256, where K6 runs 32-row tiles and two groups.
+_F32_CASES = {"sort": (64, 2, 2, 128, 64, True, None),
+              "gqa": (2, 4, 2, 70, 64, True, None),
+              "window": (1, 4, 4, 1024, 64, False, 256)}
+
+
+def _f32_fault_case(dev, case):
+    b, h, hkv, s, d, causal, window = _F32_CASES[case]
+    q, k, v, o, lse, do, kw = _masked_case(dev, b, h, hkv, s, d,
+                                           torch.float32, "bhsd",
+                                           (causal, window, None))
+    refs = _masked_refs(q, k, v, o, lse, do, kw, "bhsd", d)
+    return q, k, v, o, lse, do, kw, refs
+
+
+# Faults planted in flash_bwd_f32.cu's K7 (every f32 K7 launch): (what,
+# the line as it is, the line with the fault, the case).
 _F32_DKV_FAULTS = [
     ("K7 skips the last query tile",
-     "for (int q0 = q_lo; q0 < q_hi; q0 += kTile)\n",
-     "for (int q0 = q_lo; q0 + kTile < q_hi; q0 += kTile)\n"),
+     "const int n_q = (q_hi - q_lo + BQ - 1) / BQ;",
+     "const int n_q = (q_hi - q_lo + BQ - 1) / BQ - 1;", "sort"),
     ("K7 leaves dK unscaled",
-     "write_rows<OutT, D>(dkg, ld, Cs + r0 * L::LDO, kv0 + r0, S, scale);",
-     "write_rows<OutT, D>(dkg, ld, Cs + r0 * L::LDO, kv0 + r0, S, 1.0f);"),
+     "store_block(dk + koff, lay.ks, dka, kv0, S, scale, ty, tx);",
+     "store_block(dk + koff, lay.ks, dka, kv0, S, 1.0f, ty, tx);", "sort"),
+    ("K7 drops the last query head of a GQA group",
+     "const int total = group * n_q;",
+     "const int total = (group - 1) * n_q;", "gqa"),
 ]
 
 
-@pytest.mark.parametrize("what,line,fault", _F32_DKV_FAULTS,
+@pytest.mark.parametrize("what,line,fault,case", _F32_DKV_FAULTS,
                          ids=[f[0] for f in _F32_DKV_FAULTS])
 def test_flash_dkv_f32_check_catches_a_planted_fault(dev, tmp_path,
                                                      monkeypatch, what,
-                                                     line, fault):
+                                                     line, fault, case):
     """The f32 check of K7 (1e-4, as test_flash_bwd_kernels_match_plain
-    holds it) fails a kernel built with a fault in its loop, at the sort
-    task's shape (examples/train_tinylm.py's defaults: batch 64, 2 heads
-    of 64, S 128, causal)."""
-    _plant(tmp_path, monkeypatch, "flash_bwd.cu", line, fault, what)
-    q, k, v, o, lse, do, heads, scale = _bwd_case(
-        dev, 64, 2, 2, 128, 64, torch.float32, "bhsd", True)
-    refs = A.flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    holds it) fails a kernel built with a fault in its sweep, at the case
+    the fault names (_F32_CASES)."""
+    _plant(tmp_path, monkeypatch, "flash_bwd_f32.cu", line, fault, what)
+    q, k, v, o, lse, do, kw, refs = _f32_fault_case(dev, case)
     backend.reset_launch_counts()
-    dk, dv = A.flash_dkv(q, k, v, lse, refs[3].contiguous(), do,
-                         causal=True, scale=scale)
+    dk, dv = A.flash_dkv(q, k, v, lse, refs[3].contiguous(), do, **kw)
     torch.cuda.synchronize()
-    assert backend.route_counts() == {"wmma flash_dkv": 1}
+    assert backend.route_counts() == {"f32 flash_dkv": 1}
     errs = {name: float((g - r).abs().max())
             for name, g, r in zip(("dk", "dv"), (dk, dv), refs[1:3])}
     print(f"{what}: max error {errs} (the check's 1e-4)")
@@ -573,35 +591,37 @@ def test_flash_dkv_f32_check_catches_a_planted_fault(dev, tmp_path,
                    for g, r in zip((dk, dv), refs[1:3])), (what, errs)
 
 
-# Faults planted in flash_bwd.cu's K6 loop, which f32 (the sort task) still
-# runs: (what, the line as it is, the line with the fault).
+# Faults planted in flash_bwd_f32.cu's K6 (every f32 K6 launch): (what,
+# the line as it is, the line with the fault, the case).
 _F32_DQ_FAULTS = [
     ("K6 skips its last KV tile",
-     "const int kv_hi = kv_end(mask, q0, S);",
-     "const int kv_hi = kv_end(mask, q0, S) - kTile;"),
+     "const int n_tiles = (hi - lo + BKV - 1) / BKV;",
+     "const int n_tiles = (hi - lo + BKV - 1) / BKV - 1;", "sort"),
     ("K6 drops delta from dS",
-     "from_f32<T>(p * (dPs[r * L::LDS + c] - delta_s[r]));",
-     "from_f32<T>(p * dPs[r * L::LDS + c]);"),
+     "dSs[(ty + 16 * i) * LDS + c] = p * (dp[i][j] - dl[i]);",
+     "dSs[(ty + 16 * i) * LDS + c] = p * dp[i][j];", "sort"),
+    ("K6 under a window skips the band's first KV tile",
+     "const int lo = MASKED && window > 0 ? max(0, q0 - window + 1) / BKV"
+     " * BKV",
+     "const int lo = MASKED && window > 0 ? max(0, q0 - window + 1) / BKV"
+     " * BKV + BKV", "window"),
 ]
 
 
-@pytest.mark.parametrize("what,line,fault", _F32_DQ_FAULTS,
+@pytest.mark.parametrize("what,line,fault,case", _F32_DQ_FAULTS,
                          ids=[f[0] for f in _F32_DQ_FAULTS])
 def test_flash_dq_f32_check_catches_a_planted_fault(dev, tmp_path,
                                                     monkeypatch, what, line,
-                                                    fault):
+                                                    fault, case):
     """The f32 check of K6 (1e-4, as test_flash_bwd_kernels_match_plain
-    holds it) fails a kernel built with a fault in its loop, at the sort
-    task's shape (examples/train_tinylm.py's defaults: batch 64, 2 heads
-    of 64, S 128, causal)."""
-    _plant(tmp_path, monkeypatch, "flash_bwd.cu", line, fault, what)
-    q, k, v, o, lse, do, heads, scale = _bwd_case(
-        dev, 64, 2, 2, 128, 64, torch.float32, "bhsd", True)
-    refs = A.flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    holds it) fails a kernel built with a fault in its sweep, at the case
+    the fault names (_F32_CASES)."""
+    _plant(tmp_path, monkeypatch, "flash_bwd_f32.cu", line, fault, what)
+    q, k, v, o, lse, do, kw, refs = _f32_fault_case(dev, case)
     backend.reset_launch_counts()
-    dq, _ = A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale)
+    dq, _ = A.flash_dq(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert backend.route_counts() == {"wmma flash_dq": 1}
+    assert backend.route_counts() == {"f32 flash_dq": 1}
     err = float((dq - refs[0]).abs().max())
     print(f"{what}: max error of dq {err} (the check's 1e-4)")
     assert not torch.allclose(dq, refs[0], rtol=1e-4, atol=1e-4), (what,
@@ -782,7 +802,7 @@ def test_k7_in_f32_keeps_the_wmma_route(dev):
     _, delta = A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale)
     backend.reset_launch_counts()
     A.flash_dkv(q, k, v, lse, delta, do, causal=True, scale=scale)
-    assert backend.route_counts() == {"wmma flash_dkv": 1}
+    assert backend.route_counts() == {"f32 flash_dkv": 1}
 
 
 @pytest.mark.parametrize("n", [64, 128])
@@ -1520,8 +1540,8 @@ def test_k6_and_k10_in_f32_keep_the_wmma_route(dev):
     backend.reset_launch_counts()
     A.flash_dq(q, k, v, o, lse, do, causal=True, scale=scale)
     A.flash_bwd_fused(q, k, v, o, lse, do, causal=True, scale=scale)
-    assert backend.route_counts() == {"wmma flash_dq": 1,
-                                      "wmma flash_bwd_fused": 1}
+    assert backend.route_counts() == {"f32 flash_dq": 1,
+                                      "f32 flash_bwd_fused": 1}
 
 
 # -- K2: the elementwise kernel -----------------------------------------------

@@ -59,7 +59,7 @@ PATHS = [
     ("serving prefill", BF, (1024, 8), "causal", "wgmma", None),
     ("windowed (W 512)", BF, (1024, 8), "window", "wgmma", "wgmma"),
     ("packed (segment ids)", BF, (512, 8), "segments", "wgmma", "wgmma"),
-    ("sort task (f32)", F32, (128, 2), "causal", "exact", "wmma"),
+    ("sort task (f32)", F32, (128, 2), "causal", "exact", "f32"),
 ]
 
 
@@ -90,11 +90,11 @@ def test_f32_keeps_k5_and_the_fma_k7(mask):
     every mask and the backward its FMA kernels.  A pure function: the
     same arguments, the same answer."""
     assert [A.plan_fwd(F32, mask) for _ in range(3)] == ["exact"] * 3
-    assert [A.plan_bwd(F32) for _ in range(3)] == ["wmma"] * 3
+    assert [A.plan_bwd(F32) for _ in range(3)] == ["f32"] * 3
     assert not A.uses_bound(F32, mask)
 
 
-@pytest.mark.parametrize("dtype,route", [(BF, "wgmma"), (F32, "wmma")])
+@pytest.mark.parametrize("dtype,route", [(BF, "wgmma"), (F32, "f32")])
 @pytest.mark.parametrize("mask", A.MASKS)
 def test_backward_plans_depend_on_the_dtype_alone(mask, dtype, route):
     """K6, K7 and K10 in bf16 run the Hopper kernels under every mask, in
@@ -179,7 +179,7 @@ def test_wrappers_count_the_planned_route(recorder, layout):
     assert dtypes == [_build.DTYPES[BF]] * 3 + [_build.DTYPES[F32]]
     assert backend.route_counts() == {"wgmma flash_fwd_bound": 1,
                                       "wgmma flash_dkv": 3,
-                                      "wmma flash_dkv": 1}
+                                      "f32 flash_dkv": 1}
     counts = backend.launch_counts()
     assert counts["flash_fwd_bound"] == 1 and counts["flash_dkv"] == 4
 
@@ -212,8 +212,8 @@ def test_backward_wrappers_count_the_planned_route(recorder, layout,
     assert dtypes == [_build.DTYPES[BF]] * 5 + [_build.DTYPES[F32]] * 2
     assert backend.route_counts() == {"wgmma flash_dq": 4,
                                       "wgmma flash_bwd_fused": 1,
-                                      "wmma flash_dq": 1,
-                                      "wmma flash_bwd_fused": 1}
+                                      "f32 flash_dq": 1,
+                                      "f32 flash_bwd_fused": 1}
     counts = backend.launch_counts()
     assert counts["flash_dq"] == 5 and counts["flash_bwd_fused"] == 2
     # the dispatch: K10 only under the flag and only for plain causal

@@ -8,17 +8,19 @@ The shapes (bf16): the 170M model's attention (B 8, H 8, S 2048, D 128,
 batch (B 64, H 8, S 1024, D 64, [B, H, S, D]: K8, K6, K7), serving
 prefill (B 1, H 8, S 512, D 128, [B, H, S, D]: K8), the windowed model's
 training step (B 2, H 8, S 4096, D 128, window 512, [B, S, H*D]: K5, K6,
-K7) and bench_packing's packed batch (13 rows, H 8, S 1024, D 64, its
-segment ids: K5, K6, K7); and K5 in f32 at the f32 paths' shapes: the sort task (B 64,
-H 2, S 128, D 64, causal, [B, H, S, D]), a non-causal window of 256 (B 1,
-H 4, S 1024, D 64, [B, H, S, D]) and the f32 170M step (B 1, H 8, S 2048,
-D 128, causal, [B, S, H*D]).  K8's times include its bound pre-pass
-(``bound_predicate``), as a caller sees them, and K10's its delta pre-pass
-and dQ epilogue.  It calls only ``flash_fwd_bound``, ``flash_fwd_exact``,
-``flash_dq``, ``flash_dkv`` and ``flash_bwd_fused`` (with their window and
+K7, K11) and bench_packing's packed batch (13 rows, H 8, S 1024, D 64, its
+segment ids: K5, K6, K7); and K5, K6 and K7 in f32 at the f32 paths'
+shapes: the sort task (B 64, H 2, S 128, D 64, causal, [B, H, S, D]), a
+non-causal window of 256 (B 1, H 4, S 1024, D 64, [B, H, S, D]; K11 too)
+and the f32 170M step (B 1, H 8, S 2048, D 128, causal, [B, S, H*D]).
+K11 (the opt-in per-head dK/dV) is timed without its group sum.  K8's
+times include its bound pre-pass (``bound_predicate``), as a caller sees
+them, and K10's its delta pre-pass and dQ epilogue.  It calls only
+``flash_fwd_bound``, ``flash_fwd_exact``, ``flash_dq``, ``flash_dkv``,
+``flash_dkv_t`` and ``flash_bwd_fused`` (with their window and
 segment-id arguments), which every version of the port with packed and
 windowed training has.  ``--only`` keeps the shapes whose label starts
-with one of the given words (``--only f32`` times K5 in f32 alone).
+with one of the given words (``--only f32`` times the f32 kernels alone).
 
 CHECKOUT (default: this one) is the root of a checkout of the repository
 (for example a parent commit unpacked with ``git archive`` into a
@@ -60,13 +62,16 @@ SHAPES = (
     ("padded", 64, 8, 1024, 64, "bhsd", None, False, ("K8", "K6", "K7"), BF,
      True),
     ("prefill", 1, 8, 512, 128, "bhsd", None, False, ("K8",), BF, True),
-    ("window", 2, 8, 4096, 128, "bshd", 512, False, ("K5", "K6", "K7"), BF,
-     True),
+    ("window", 2, 8, 4096, 128, "bshd", 512, False,
+     ("K5", "K6", "K7", "K11"), BF, True),
     ("packed", None, 8, 1024, 64, "bhsd", None, True, ("K5", "K6", "K7"), BF,
      True),
-    ("f32 sort", 64, 2, 128, 64, "bhsd", None, False, ("K5",), F32, True),
-    ("f32 window", 1, 4, 1024, 64, "bhsd", 256, False, ("K5",), F32, False),
-    ("f32 170M", 1, 8, 2048, 128, "bshd", None, False, ("K5",), F32, True),
+    ("f32 sort", 64, 2, 128, 64, "bhsd", None, False, ("K5", "K6", "K7"),
+     F32, True),
+    ("f32 window", 1, 4, 1024, 64, "bhsd", 256, False,
+     ("K5", "K6", "K7", "K11"), F32, False),
+    ("f32 170M", 1, 8, 2048, 128, "bshd", None, False, ("K5", "K6", "K7"),
+     F32, True),
 )
 
 
@@ -97,10 +102,13 @@ def shape_times(label, b, h, s, d, layout, window, segments, names, dtype,
     ms = {}
     for name in names:
         arg_sets = sets
-        if name == "K7":
+        if name in ("K7", "K11"):
             _, delta = A.flash_dq(*sets[0], **kw)
             arg_sets = C.cold_sets(q, k, v, lse, delta, do)
             kernels["K7"] = lambda *a: A.flash_dkv(*a, **kw)
+            kernels["K11"] = lambda *a: A.flash_dkv_t(
+                *a, causal=causal, scale=kw["scale"], heads=heads,
+                window=window)
         ms[f"{label} {name}"] = [round(C.cuda_ms(kernels[name], arg_sets), 4)
                                  for _ in range(3)]
     return ms
