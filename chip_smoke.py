@@ -99,8 +99,9 @@ non-zero):
      phases 17-19: K12/K13 (``linear_q8``/``linear_q4``) at decode (M=8)
      and K12 at M=4096 and at the CNN's FC layers (M=2000), within 2e-4;
      K14 (``quantize_rows``), K15b (``matmul_int8``) and K15a
-     (``matmul_int8_scaled``) exactly; ``torch._int_mm`` is K15b's
-     library call, the others have none;
+     (``matmul_int8_scaled``) exactly, K15 at the three W8A8 shapes on
+     the route ``ops.quant.plan`` names (checked taken); ``torch._int_mm``
+     is K15b's library call, the others have none;
  17. PTQ serving of benchmarks/bench_serving.py:39-52's model (dim 2048,
      depth 6, 273M parameters, f32) with int8 and int4 weights in the
      paged engine (the bench's contiguous cache runs in phase 21): prefill
@@ -111,7 +112,8 @@ non-zero):
  18. bench.py:273-301's W8A8 prefill (dim 2048, depth 4, bf16, every 2-D
      leaf int8, 4 x 1024 tokens): TAPER_W8A8=1 runs 24 K14 and 24 K15a,
      the same weights through K12, the bf16 dense model through K1;
-     W8A8 logits against K12's, ms for each;
+     W8A8 logits against K12's, ms for each, and the W8A8 forward's
+     device time by kernel family (a profile of two forwards);
  19. examples/ptq_quantize.py through its entry point with --epochs 1:
      int8 accuracy within 0.01 of f32, float16 within 0.001, three K12
      launches per eval batch of 2000;
@@ -168,9 +170,11 @@ non-zero):
      each, 12 K10 calls and no K6/K7 a step, K8's, K6's, K7's and K10's
      calls by route in each, gradients against the split backward's;
  29. (run right after phase 9) K1 bit for bit: for each bf16 route
-     (wgmma, wmma, decode) and mode, the kernel writing bf16 equals its
+     (wgmma, realign, decode) and mode, the kernel writing bf16 equals its
      own f32 result cast to bf16; split-K calls (bf16 wgmma, f32) give the
-     same bits twice; the wmma route timed at a K of 1,001 (no TMA).
+     same bits twice; the realign route timed at a K of 1,001 (no TMA) in
+     each mode and at a view 2 bytes off an aligned base, F.linear beside
+     it.
 Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
@@ -216,7 +220,7 @@ from taper_tpu_torch.ops import pool as PL
 from taper_tpu_torch.ops import quant as Q
 from taper_tpu_torch.ops.gemm import (
     gemm, gemm_reference, linear, linear_reference, plan, plan_for,
-    tile_shape)
+    streams, tile_shape)
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_reference)
 from taper_tpu_torch.quantization import (
@@ -316,7 +320,12 @@ OPT_T0, OPT_STEPS = 11, 3
 # K1's counters and their modes; a K1 row's source follows its route
 K1_MODES = {"linear": "nt", "gemm_nn": "nn", "gemm_tn": "tn"}
 K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu",
-              "decode": "taper_tpu_torch/csrc/gemm_decode.cu"}
+              "decode": "taper_tpu_torch/csrc/gemm_decode.cu",
+              "realign": "taper_tpu_torch/csrc/gemm_realign.cu"}
+# K15's routes (ops.quant.plan): a K15 row's source follows its route
+I8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
+              "mma": "taper_tpu_torch/csrc/quant.cu"}
+I8_NAMES = ("matmul_int8", "matmul_int8_scaled")
 # The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
 # row's source follows its route too; K10's "f32" keeps SOURCES'
 # flash_bwd.cu, and K5's "exact" (f32) is flash_fwd.cu's
@@ -528,12 +537,15 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     library call (or takes its time).  ``work`` is ``(flops, bytes,
     kind)`` for the bound.  A K1 row (``name`` in K1_MODES, operands
     first) records the route and K split ``plan`` gives its operands, and
-    checks that the call took them; a K8, K6, K7 or K10 row is given the
+    checks that the call took them, as a K15 row does with
+    ``ops.quant.plan``'s route; a K8, K6, K7 or K10 row is given the
     route ``plan_fwd`` or ``plan_bwd`` gives (``flash_route``) and checks
     it the same way.  Returns the report row."""
     mode = K1_MODES.get(name)
     if mode is not None:
         route, splits = plan_for(*arg_sets[0][:2], mode)
+    elif name in I8_NAMES:
+        route = Q.plan_for(*arg_sets[0][:2])
     before = backend.route_counts()
     outs = _tuple(kernel_fn(*arg_sets[0]))
     torch.cuda.synchronize()
@@ -542,6 +554,8 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
              if c != before.get(k, 0)}
     if mode is not None:
         assert taken == {route_key(route, mode, splits): 1}, (name, taken)
+    elif name in I8_NAMES:
+        assert taken == {f"{route} {name}": 1}, (name, taken)
     elif flash_route is not None:
         assert taken == {f"{flash_route} {name}": 1}, (name, taken)
     refs = _tuple(plain_fn(*arg_sets[0]))
@@ -572,6 +586,14 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
                        a.shape[0 if mode == "tn" else 1])
             row["k1_tile"] = "x".join(map(str, tile_shape(route, m, n, k)))
             via += f" on a {row['k1_tile']} tile"
+        if route == "realign":  # each operand's staging
+            a, b = arg_sets[0][:2]
+            row["k1_staging"] = " ".join(
+                "stream" if streams(t) else "windows" for t in (a, b))
+            via += f" (a, b: {row['k1_staging']})"
+    elif name in I8_NAMES:
+        row.update(i8_route=route)
+        via = f" via {route}"
     elif flash_route is not None:
         row.update(flash_route=flash_route)
         via = f" via {flash_route}"
@@ -1320,8 +1342,10 @@ K1_BIT_CASES = (("wgmma", "nt", 2048, 4096, 1024),
                 ("wgmma", "tn", 1024, 1024, 16384),   # split in 2
                 ("wgmma", "nt", 300, 264, 520),       # ragged, split
                 ("wgmma", "nt", 300, 262, 520),       # direct stores
-                ("wmma", "nt", 33, 70, 130), ("wmma", "nn", 33, 70, 130),
-                ("wmma", "tn", 33, 70, 130),
+                ("realign", "nt", 33, 70, 130),
+                ("realign", "nn", 33, 70, 130),
+                ("realign", "tn", 33, 70, 130),
+                ("realign", "tn", 9, 40, 264),        # M <= 16, streamed
                 ("decode", "nt", 16, 1024, 1024),     # no cluster
                 ("decode", "nt", 1, 4096, 1024), ("decode", "nt", 5, 19, 37),
                 ("decode", "nt", 8, 8192, 2048),
@@ -1402,14 +1426,24 @@ def decode_rows(dev, gen):
         work=gemm_work(8, n, k, "bf16", bias=True))
 
 
+def misaligned(t, offset=1):
+    """A copy of ``t`` as a contiguous view ``offset`` elements into a
+    buffer of its own (2 bytes off the 16-byte grid for bf16)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:].copy_(t.reshape(-1))
+    return buf[offset:].view(t.shape)
+
+
 def phase29_k1_bits(dev):
     """K1 on the card, bit for bit: (a) for each bf16 route and mode, the
     kernel writing bf16 equals its own f32 result cast to bf16 (one
     round-to-nearest-even of the same f32 value); (b) a split-K call (and
     a decode call split over a cluster) repeats its bits (the splits
-    summed in a fixed order, no atomics).  Also times the wmma route
-    against its plain version, and holds the decode route at every M and
-    serving shape (:func:`decode_rows`); returns the timed rows."""
+    summed in a fixed order, no atomics).  Also times the realign route
+    against its plain version and the library call (K_in 1,001 in each
+    mode, and the serving prefill's (e, e) projection with x 2 bytes off
+    its allocation's 16-byte grid), and holds the decode route at every M
+    and serving shape (:func:`decode_rows`); returns the timed rows."""
     gen = torch.Generator().manual_seed(SEED)
     for route, mode, m, n, k in K1_BIT_CASES:
         a, b = k1_operands(mode, m, n, k, torch.bfloat16, gen, dev)
@@ -1421,8 +1455,8 @@ def phase29_k1_bits(dev):
         print(f"phase 29: K1 {route} x{splits} {mode} M={m} N={n} K={k}: "
               f"bf16 out equals the f32 out cast: {same}")
         assert y16.dtype == torch.bfloat16 and same, (route, mode)
-    # the wmma route's time (no path shape takes it: every path's operands
-    # are TMA-aligned): K_in of 1,001
+    # the realign route's time (no path shape takes it: every path's
+    # operands are TMA-aligned): K_in of 1,001
     t, k_in, n_out = 512, 1001, 1000
     x, w = k1_operands("nt", t, n_out, k_in, torch.bfloat16, gen, dev)
     g = k1_operands("nn", t, k_in, n_out, torch.bfloat16, gen, dev)[0]
@@ -1446,7 +1480,22 @@ def phase29_k1_bits(dev):
             phase=29, tol=BF16_GEMM_TOL,
             library_fn=lambda a, b: torch.matmul(a.t(), b),
             work=gemm_work(n_out, k_in, t, "bf16")))
-    assert all(r["k1_route"] == "wmma" for r in rows.values()), rows
+    # a misaligned view of an aligned shape: x [512, 1024] 2 bytes off
+    # (every copy a view of its own), the weight and bias aligned
+    e = MODEL["dim"]
+    x = torch.randn(t, e, generator=gen).to(torch.bfloat16).to(dev)
+    w = (torch.randn(e, e, generator=gen) * e ** -0.5).to(
+        torch.bfloat16).to(dev)
+    bias = torch.randn(e, generator=gen).to(torch.bfloat16).to(dev)
+    sets = [(misaligned(x), w, bias)]
+    sets += [(misaligned(x), w.clone(), bias.clone())
+             for _ in range(copies_for(x, w, bias) - 1)]
+    rows["linear_view"] = check_kernel(
+        "linear", f"bf16 [{t},{e}] 2 bytes off.[{e},{e}]^T + b", linear,
+        linear_reference, sets, phase=29, tol=BF16_GEMM_TOL,
+        library_fn=F.linear, work=gemm_work(t, e, e, "bf16", True))
+    assert all(r["k1_route"] == "realign" for r in rows.values()), rows
+    assert rows["linear_view"]["k1_staging"] == "windows stream", rows
     rows["decode"] = decode_rows(dev, gen)
     for mode, m, n, k, dtype in K1_REPEAT_CASES:
         a, b = k1_operands(mode, m, n, k, dtype, gen, dev)
@@ -1516,10 +1565,11 @@ def phase10_lm_step(dev):
                                   ("exact",))
 
 
-# every K1 kernel: the wgmma route, the WMMA tile (wmma), the decode
-# route, the f32 tile, and the split-K reduce of wgmma and f32
-K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_bf16_kernel"),
-               ("K1 gemm", "gemm_decode"), ("K1 gemm", "gemm_f32"),
+# every K1 kernel: the wgmma route, the realign route, the decode route,
+# the f32 tile, and the split-K reduce of wgmma and f32 (by symbol:
+# cuBLAS's f32 kernels are named "...gemm_f32f32...")
+K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_realign"),
+               ("K1 gemm", "gemm_decode"), ("K1 gemm", "gemm_f32_kernel"),
                ("K1 gemm", "splitk_reduce"))
 OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
 # the flash kernels by name: the FMA ones of flash_fwd.cu,
@@ -2156,7 +2206,9 @@ QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_kernel"),
                   ("K16 paged decode", "paged_decode")) + K1_FAMILIES + (
                   ("head sgemm", "gemm"),
                   ("K14 quantize_rows", "quantize_rows"),
-                  ("K15 int8 mma", "matmul_int8"))
+                  ("K15 int8 product", "i8_wgmma"),
+                  ("K15 int8 product", "matmul_int8"))
+W8A8_FAMILIES = QUANT_FAMILIES + (("K8 flash fwd", "sm90::fwd_kernel"),)
 
 
 def qweight(gen, n, k, bits, dev):
@@ -2176,7 +2228,8 @@ def qlinear_work(m, n, k, bits):
 
 def phase16_quant_kernels(dev):
     """K12, K13, K14, K15a/b against their plain versions at the shapes of
-    phases 17-19, with the bound and the library call where one exists."""
+    phases 17-19, and K15a/b on their mma route, with the bound and the
+    library call where one exists."""
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
 
@@ -2249,21 +2302,36 @@ def phase16_quant_kernels(dev):
             work=(4 * pm * k, pm * k * 3 + 8 * pm, "f32"))
 
     # K15b and K15a at the W8A8 prefill's shapes, and K15a at decode's M
-    # beside K12 (ROADMAP Queue 3 records W8A8's engage rule)
-    for m, n, k in ([(pm, n, k) for n, k in prefill]
-                    + [(QSERVE_REQUESTS, pd, pd)]):
+    # beside K12 (ROADMAP Queue 3 records W8A8's engage rule); then both on
+    # the mma route, which no path takes: K 2,050 (rows not whole 16-byte
+    # units) and codes xq 1 byte off their allocation's 16-byte grid (every
+    # copy a view of its own)
+    for m, n, k, off in ([(pm, n, k, 0) for n, k in prefill]
+                         + [(QSERVE_REQUESTS, pd, pd, 0), (pm, pd, pd + 2, 0),
+                            (pm, pd, pd, 1)]):
         xq = torch.randint(-127, 128, (m, k), generator=gen,
                            dtype=torch.int8).to(dev)
         q = torch.randint(-128, 128, (n, k), generator=gen,
                           dtype=torch.int8).to(dev)
+        at = f"M={m} N={n} K={k}" + (f" xq {off} byte off" if off else "")
+
+        def sets(*args):
+            """Cold copies, xq ``off`` bytes off the grid in each."""
+            got = cold_sets(*args)
+            return [(misaligned(a[0], off),) + a[1:] for a in got] if off \
+                else got
+        if off:
+            xq = misaligned(xq, off)
         if m > 16:
             assert torch.equal(Q.matmul_int8(xq, q),
                                Q.matmul_int8_reference(xq, q)), \
                 "K15b is not exact"
-            add("matmul_int8", f"M={m} N={n} K={k}", Q.matmul_int8,
-                Q.matmul_int8_reference, cold_sets(xq, q),
-                # [K, N] in column-major: cuBLASLt's int8 layout
-                library_fn=lambda xq, q: torch._int_mm(xq, q.t()),
+            add("matmul_int8", at, Q.matmul_int8,
+                Q.matmul_int8_reference, sets(xq, q),
+                # [K, N] in column-major: cuBLASLt's int8 layout; _int_mm
+                # refuses K % 8 != 0, and is not timed on the view
+                library_fn=(None if k % 8 or off else
+                            lambda xq, q: torch._int_mm(xq, q.t())),
                 work=(2 * m * n * k, m * k + n * k + 4 * m * n, "int8"))
         sx = torch.rand(m, generator=gen).to(dev) * 0.01
         corr = xq.float().sum(1)
@@ -2280,10 +2348,13 @@ def phase16_quant_kernels(dev):
                 *a, out_dtype=torch.bfloat16)
         assert torch.equal(k15a(*args), k15a_plain(*args)), \
             "K15a is not exact"
-        add("matmul_int8_scaled", f"M={m} N={n} K={k} bf16 (+bias)", k15a,
-            k15a_plain, cold_sets(*args),
+        add("matmul_int8_scaled", f"{at} bf16 (+bias)", k15a,
+            k15a_plain, sets(*args),
             work=(2 * m * n * k, m * k + n * k + 8 * m + 12 * n
                   + 2 * m * n, "int8"))
+    for name in I8_NAMES:
+        got = [r["i8_route"] for r in rows[name]]
+        assert got.count("mma") == 2 and "wgmma" in got, (name, got)
     return rows
 
 
@@ -2436,7 +2507,7 @@ def w8a8_forward(model, toks, iters=W8A8_ITERS):
 def phase18_w8a8(dev, smi):
     """bench.py:273-301's W8A8 prefill: the int8 model under TAPER_W8A8=1
     (K14 + K15a), the same weights through K12, and the bf16 dense model
-    through K1."""
+    through K1; then a profile of the W8A8 forward by kernel family."""
     gen = torch.Generator().manual_seed(SEED)
     dense = TinyGPT(**W8A8, compute_dtype=torch.bfloat16)
     dense.reset_parameters(gen)
@@ -2480,6 +2551,20 @@ def phase18_w8a8(dev, smi):
           f"{runs['int8 K12']['ms']:.2f} ms, bf16 dense "
           f"{runs['bf16 dense']['ms']:.2f} ms; on {smi}")
     assert rel <= W8A8_REL_TOL, rel
+    # where the W8A8 forward's device time goes
+    os.environ["TAPER_W8A8"] = "1"
+    try:
+        def forward():
+            with torch.no_grad():
+                qmodel(toks)
+        prof = profile_steps(forward, 2, W8A8_FAMILIES)
+    finally:
+        os.environ.pop("TAPER_W8A8")
+    print(f"phase 18: profiled 2 W8A8 forwards: {prof['wall_ms']:.2f} ms of "
+          f"wall each (under the profiler) for {prof['busy_ms']:.3f} ms of "
+          f"device busy time; device ms by family "
+          f"{ {k: round(v, 4) for k, v in prof['ms'].items()} }; largest "
+          f"glue {prof['glue_top']}")
     counts = dict.fromkeys(backend.KERNELS, 0)
     for r in runs.values():
         for k, c in r["counts"].items():
@@ -3723,13 +3808,14 @@ def phase28_fused_backward(dev, smi, lm):
     return counts["K10"], dict(step_ms=ms, winner=winner)
 
 
-def kernel_report(paths, standalone, top=None):
+def kernel_report(paths, standalone, top=None, routes=None):
     """One entry per kernel: its launches and numbers on each path that
     launched it or measured it (``by_path``); the top-level numbers come
     from the path ``top`` names for it, else the first path with a row
     for it, else from ``standalone``.  K1's rows also give the route and
     K split their call took (``k1_route``, ``splits``; the f32 route's
-    tile, ``k1_tile``)."""
+    tile, ``k1_tile``).  ``routes`` maps a kernel to the rows of routes no
+    path takes, by route, measured alone (``routes`` in its entry)."""
     kernels = []
     for k in backend.KERNELS:
         by_path = {p: dict(launches=c[k], **rep.get(k, {}))
@@ -3737,11 +3823,13 @@ def kernel_report(paths, standalone, top=None):
         first = next((dict(rep[k]) for p, (_, rep) in paths.items()
                       if k in rep and p == (top or {}).get(k, p)),
                      standalone.get(k))
-        extra = {key: first[key] for key in ("k1_route", "splits", "k1_tile")
+        extra = {key: first[key] for key in ("k1_route", "splits", "k1_tile",
+                                             "k1_staging", "i8_route")
                  if key in first}
         if "flash_route" in first:
             extra["flash_route"] = first["flash_route"]
         source = (K1_SOURCES.get(first.get("k1_route"))
+                  or I8_SOURCES.get(first.get("i8_route"))
                   or FLASH_SOURCES.get(first.get("flash_route"), {}).get(k)
                   or SOURCES[k][0])
         kernels.append(dict(
@@ -3754,7 +3842,8 @@ def kernel_report(paths, standalone, top=None):
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"], at=first["at"], **extra,
-            by_path=by_path))
+            by_path=by_path, **({"routes": routes[k]}
+                                if k in (routes or {}) else {})))
     return kernels
 
 
@@ -3803,7 +3892,7 @@ def main():
     del train, test
 
     lm_rows = phase9_lm_kernels(dev)
-    phase29_k1_bits(dev)
+    realign_rows = phase29_k1_bits(dev)
     _, f32_170m = phase10_lm_step(dev)
     lm_counts, lm_stats = phase11_lm_train(dev, smi)
     fused_counts, _ = phase28_fused_backward(dev, smi, lm_stats)
@@ -3898,7 +3987,8 @@ def main():
                  linear_q8=headline(quant_rows["linear_q8"], 5),
                  quantize_rows=headline(quant_rows["quantize_rows"]),
                  matmul_int8_scaled=headline(
-                     quant_rows["matmul_int8_scaled"]))),
+                     [r for r in quant_rows["matmul_int8_scaled"]
+                      if r["i8_route"] == "wgmma"]))),
              "ptq_example": (ptq_counts, dict(
                  linear_q8=headline(quant_rows["linear_q8"], 7))),
              "train_resnet": (resnet_counts,
@@ -3908,17 +3998,26 @@ def main():
              "train_lm": (lm_launches, lm_report),
              "train_cnn": (cnn_counts, cnn_report),
              "serve": (serve_counts, serve_report)}
+    # routes no path takes, measured alone: K1's realign (phase 29) and
+    # K15's mma (phase 16)
+    off_path = {k: {"realign": realign_rows[k]} for k in K1_MODES}
+    off_path["linear"]["realign view"] = realign_rows["linear_view"]
+    off_path.update({k: {"mma": headline(
+        [r for r in quant_rows[k] if r["i8_route"] == "mma"])}
+        for k in I8_NAMES})
     # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
     # largest; K8's: the 170M model's bound arm (train_packed also has a
     # K8 row, at the padded batch's shape); K6's and K7's: the 170M shape
     # in [B, S, H*D]; K3a's and K3b's: the CNN's 32->32 28x28 (ResNet-8's
     # rows stay under by_path)
     kernels = kernel_report(paths, dict(
-        new_rows, matmul_int8=headline(quant_rows["matmul_int8"])),
+        new_rows, matmul_int8=headline(
+            [r for r in quant_rows["matmul_int8"]
+             if r["i8_route"] == "wgmma"])),
         top=dict(dict.fromkeys(K1_MODES, "train_lm"),
                  flash_fwd_bound="train_lm", flash_dq="train_lm",
                  flash_dkv="train_lm", conv_fwd="train_cnn",
-                 conv_dw="train_cnn"))
+                 conv_dw="train_cnn"), routes=off_path)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -16,9 +16,9 @@
 //   * wgmma (bf16, M > 16, TMA-aligned): csrc/gemm_sm90.cu;
 //   * decode (bf16 nt at M <= 16): csrc/gemm_decode.cu, its K split over a
 //     thread-block cluster;
-//   * wmma (other bf16): the WMMA tile kernel below, 16x16x16 fragments
-//     out of a cp.async ring, 128x128 (8 warps) where that gives two waves
-//     of blocks, 64x64 below;
+//   * realign (other bf16: operands TMA cannot take, and modes nn and tn
+//     at M <= 16): csrc/gemm_realign.cu, 16-byte windows realigned on
+//     chip;
 //   * f32: the FMA tile kernel below.  The port keeps TF32 off, so f32
 //     stays on the CUDA cores.  Its path shapes are skinny: long-M
 //     products with N of 10 to 512 (the forward and dX of the sort task,
@@ -49,14 +49,9 @@
 // Ragged M/N/K edges are masked in the kernels (zero-filled loads); nothing
 // is padded in device memory.  Split-K sums in a fixed order and adds no
 // partial by atomics, so each call gives the same bits.
-#include <mma.h>
-
 #include <algorithm>
-#include <type_traits>
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace taper {
 
@@ -70,226 +65,18 @@ int gemm_decode(const void* x, const void* w, const void* bias, void* y,
                 int M, int N, int K, int out_dtype, int act, int splits,
                 cudaStream_t s);
 
+// csrc/gemm_realign.cu
+int gemm_realign(const void* a, const void* b, const void* bias, void* y,
+                 int M, int N, int K, int lda, int ldb, int mode,
+                 int out_dtype, int act, int windows, cudaStream_t s);
+
 // The wgmma route's split-K reduce (below): y = act(sum of the splits +
 // bias)
 int splitk_reduce(const float* ws, const void* bias, void* y, int out_dtype,
                   int M, int N, int splits, int act, cudaStream_t s);
 
 // route codes shared with ROUTES in taper_tpu_torch/ops/gemm.py
-enum Route : int { kWgmma = 0, kWmma = 1, kDecode = 2, kF32 = 3 };
-
-// ---------------------------------------------------------------------------
-// bf16 tensor-core tile kernel, all three modes
-// ---------------------------------------------------------------------------
-
-// Starts loading the [ROWS, COLS] tile at (r0, c0) of a row-major
-// [rows, cols] bf16 matrix into shared memory (leading dimension LD),
-// zero-filling past the ragged edges.  `vec` (cols % 8 == 0, 16-byte
-// aligned base) copies asynchronously in 16-byte chunks, each all in or
-// all out; otherwise element by element.
-template <int ROWS, int COLS, int LD, int NT>
-__device__ __forceinline__ void load_tile_bf16(
-    __nv_bfloat16* sm, const __nv_bfloat16* g, int r0, int rows, int c0,
-    int cols, bool vec) {
-  constexpr int CPR = COLS / 8;  // 16-byte chunks per tile row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
-    int r = c / CPR, cc = (c % CPR) * 8;
-    int gr = r0 + r, gc = c0 + cc;
-    __nv_bfloat16* dst = sm + r * LD + cc;
-    if (vec) {
-      bool in = gr < rows && gc < cols;
-      cp_async16(dst, in ? g + (size_t)gr * cols + gc : g, in);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        bool in = gr < rows && gc + e < cols;
-        dst[e] = in ? g[(size_t)gr * cols + gc + e] : __float2bfloat16(0.0f);
-      }
-    }
-  }
-}
-
-// Shared-memory layout of one pipeline stage: the A tile then the B tile,
-// each in its operand's own layout.  A_MK: a is [M, K] (modes nt, nn),
-// else [K, M] (tn).  B_NK: b is [N, K] (nt), else [K, N] (nn, tn).
-template <int BM, int BN, int BK, bool A_MK, bool B_NK>
-struct GemmTiles {
-  static constexpr int A_ROWS = A_MK ? BM : BK, A_COLS = A_MK ? BK : BM;
-  static constexpr int B_ROWS = B_NK ? BN : BK, B_COLS = B_NK ? BK : BN;
-  // +8 bf16 per row keeps WMMA's 32-byte rule and spreads the banks
-  static constexpr int LDA = A_COLS + 8, LDB = B_COLS + 8;
-  static constexpr int A_ELEMS = A_ROWS * LDA;
-  static constexpr int STAGE = A_ELEMS + B_ROWS * LDB;  // bf16 elements
-  static constexpr int LDC = BN + 4;                    // f32 output tile
-};
-
-template <int BM, int BN, int BK, int STAGES, bool A_MK, bool B_NK>
-constexpr size_t gemm_smem_bytes() {
-  using L = GemmTiles<BM, BN, BK, A_MK, B_NK>;
-  size_t pipe = (size_t)STAGES * L::STAGE * 2;
-  size_t out = (size_t)BM * L::LDC * 4;
-  return pipe > out ? pipe : out;
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES,
-          bool A_MK, bool B_NK, typename OutT>
-__global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
-    gemm_bf16_kernel(const __nv_bfloat16* __restrict__ a,
-                     const __nv_bfloat16* __restrict__ b,
-                     const __nv_bfloat16* __restrict__ bias,
-                     OutT* __restrict__ y, int M, int N, int K, int act,
-                     bool vec_a, bool vec_b) {
-  using L = GemmTiles<BM, BN, BK, A_MK, B_NK>;
-  using LayoutA =
-      typename std::conditional<A_MK, wmma::row_major, wmma::col_major>::type;
-  using LayoutB =
-      typename std::conditional<B_NK, wmma::col_major, wmma::row_major>::type;
-  constexpr int NT = WARPS_M * WARPS_N * 32;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int FM = WM / 16, FN = WN / 16;
-  // the pipeline's stages, reused for the f32 output tile at the end
-  extern __shared__ __align__(128) unsigned char gemm_smem[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(gemm_smem);
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int KT = (K + BK - 1) / BK;
-
-  auto load_stage = [&](int kt) {
-    __nv_bfloat16* As = smem + (kt % STAGES) * L::STAGE;
-    __nv_bfloat16* Bs = As + L::A_ELEMS;
-    const int k0 = kt * BK;
-    if constexpr (A_MK)
-      load_tile_bf16<BM, BK, L::LDA, NT>(As, a, m0, M, k0, K, vec_a);
-    else
-      load_tile_bf16<BK, BM, L::LDA, NT>(As, a, k0, K, m0, M, vec_a);
-    if constexpr (B_NK)
-      load_tile_bf16<BN, BK, L::LDB, NT>(Bs, b, n0, N, k0, K, vec_b);
-    else
-      load_tile_bf16<BK, BN, L::LDB, NT>(Bs, b, k0, K, n0, N, vec_b);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s);
-    cp_async_commit();  // one group per stage, empty ones included
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed
-    __syncthreads();              // ... for every thread; stage kt-1 free
-    if (kt + STAGES - 1 < KT) load_stage(kt + STAGES - 1);
-    cp_async_commit();
-    const __nv_bfloat16* As = smem + (kt % STAGES) * L::STAGE;
-    const __nv_bfloat16* Bs = As + L::A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA>
-          af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB>
-          bf[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int row = wm * WM + i * 16;  // M index within the tile
-        wmma::load_matrix_sync(
-            af[i], A_MK ? As + row * L::LDA + kk : As + kk * L::LDA + row,
-            L::LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int col = wn * WN + j * 16;  // N index within the tile
-        // [N, K] row-major is the K x N operand in column-major
-        wmma::load_matrix_sync(
-            bf[j], B_NK ? Bs + col * L::LDB + kk : Bs + kk * L::LDB + col,
-            L::LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the stages
-
-  float* Cs = reinterpret_cast<float*>(gemm_smem);
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(
-          Cs + (wm * WM + i * 16) * L::LDC + wn * WN + j * 16, acc[i][j],
-          L::LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < BM * BN; e += NT) {
-    int r = e / BN, c = e % BN;
-    int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) {
-      float v = Cs[r * L::LDC + c];
-      if (bias != nullptr) v += __bfloat162float(bias[gn]);
-      y[(size_t)gm * N + gn] = from_f32<OutT>(epilogue(v, act));
-    }
-  }
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES,
-          bool A_MK, bool B_NK, typename OutT>
-int launch_gemm_bf16(const void* a, const void* b, const void* bias, void* y,
-                     int M, int N, int K, int act, cudaStream_t s) {
-  constexpr size_t bytes =
-      gemm_smem_bytes<BM, BN, BK, STAGES, A_MK, B_NK>();
-  auto kernel = gemm_bf16_kernel<BM, BN, BK, WARPS_M, WARPS_N, STAGES, A_MK,
-                                 B_NK, OutT>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // 16-byte chunks need rows of whole chunks and an aligned base
-  const int a_cols = A_MK ? K : M, b_cols = B_NK ? K : N;
-  bool vec_a = a_cols % 8 == 0 && (uintptr_t)a % 16 == 0;
-  bool vec_b = b_cols % 8 == 0 && (uintptr_t)b % 16 == 0;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, WARPS_M * WARPS_N * 32, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<OutT*>(y), M, N,
-      K, act, vec_a, vec_b);
-  return (int)cudaGetLastError();
-}
-
-// The WMMA tile for an M x N output (see the header).
-template <bool A_MK, bool B_NK, typename OutT>
-int gemm_bf16(const void* a, const void* b, const void* bias, void* y, int M,
-              int N, int K, int act, cudaStream_t s) {
-  const long long big_tiles =
-      (long long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= 2 * 132)
-    return launch_gemm_bf16<128, 128, 32, 2, 4, 4, A_MK, B_NK, OutT>(
-        a, b, bias, y, M, N, K, act, s);
-  return launch_gemm_bf16<64, 64, 32, 2, 2, 4, A_MK, B_NK, OutT>(
-      a, b, bias, y, M, N, K, act, s);
-}
-
-template <typename OutT>
-int gemm_wmma(const void* a, const void* b, const void* bias, void* y, int M,
-              int N, int K, int mode, int act, cudaStream_t s) {
-  if (mode == 0)
-    return gemm_bf16<true, true, OutT>(a, b, bias, y, M, N, K, act, s);
-  if (mode == 1)
-    return gemm_bf16<true, false, OutT>(a, b, nullptr, y, M, N, K, kNone,
-                                        s);
-  return gemm_bf16<false, false, OutT>(a, b, nullptr, y, M, N, K, kNone,
-                                       s);
-}
+enum Route : int { kWgmma = 0, kRealign = 1, kDecode = 2, kF32 = 3 };
 
 // ---------------------------------------------------------------------------
 // f32 FMA tile kernel, all modes, split-K summed in the same launch
@@ -699,18 +486,25 @@ using namespace taper;
 // taper_tpu_torch/ops/gemm.py) on the route ops/gemm.py::plan chose, split
 // ``splits`` ways over K (``ws``: splits * M * N f32 of workspace when
 // splits > 1, except on the decode route, whose splits are a cluster's
-// blocks).  The f32 route takes its tile shape (``tile``, a code of
-// F32_TILES) and, split, ``sync``: two int32 of grid-barrier state, zero
-// before the call and zero again after it.  ``bias`` and ``act`` in mode
-// nt only; ``out_dtype`` f32, or bf16 for bf16 operands.
+// blocks).  ``lda``, ``ldb``: the operands' row strides in elements, their
+// row widths except on the realign route.  The f32 route takes its tile
+// shape (``tile``, a code of F32_TILES) and, split, ``sync``: two int32 of
+// grid-barrier state, zero before the call and zero again after it; the
+// realign route takes its operands' staging in ``tile`` (bit 0: a through
+// windows, bit 1: b).  ``bias`` and ``act`` in mode nt only; ``out_dtype``
+// f32, or bf16 for bf16 operands.
 extern "C" int taper_gemm(const void* a, const void* b, const void* bias,
                           void* y, void* ws, void* sync, int M, int N,
-                          int K, int mode, int dtype, int out_dtype, int act,
-                          int route, int splits, int tile, void* stream) {
+                          int K, int lda, int ldb, int mode, int dtype,
+                          int out_dtype, int act, int route, int splits,
+                          int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || mode < 0 || mode > 2 || splits < 1 ||
       (splits > 1 && ws == nullptr && route != kDecode) ||
       (mode != 0 && (bias != nullptr || act != kNone)))
+    return (int)cudaErrorInvalidValue;
+  const bool dense = lda == (mode == 2 ? M : K) && ldb == (mode == 0 ? K : N);
+  if (!dense && (route != kRealign || dtype != kBFloat16))
     return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     if (route != kF32 || out_dtype != kFloat32)
@@ -735,10 +529,9 @@ extern "C" int taper_gemm(const void* a, const void* b, const void* bias,
     if (mode != 0) return (int)cudaErrorInvalidValue;
     return gemm_decode(a, b, bias, y, M, N, K, out_dtype, act, splits, s);
   }
-  if (splits != 1 || route != kWmma) return (int)cudaErrorInvalidValue;
-  if (out_dtype == kBFloat16)
-    return gemm_wmma<__nv_bfloat16>(a, b, bias, y, M, N, K, mode, act, s);
-  return gemm_wmma<float>(a, b, bias, y, M, N, K, mode, act, s);
+  if (splits != 1 || route != kRealign) return (int)cudaErrorInvalidValue;
+  return gemm_realign(a, b, bias, y, M, N, K, lda, ldb, mode, out_dtype, act,
+                      tile, s);
 }
 
 extern "C" const char* taper_error_string(int code) {

@@ -8,7 +8,7 @@
 // Replaces the TPU kernel taper_tpu/ops/pallas/gemm.py::_linear_kernel
 // (launched by _gemm_jit) for bf16 operands at M > 16 whose contiguous
 // dimension is a multiple of 8 and whose data is 16-byte aligned (TMA's
-// rules; ops/gemm.py::plan routes the rest to csrc/gemm.cu): f32
+// rules; ops/gemm.py::plan routes the rest to gemm_realign.cu): f32
 // accumulation, the bf16 bias added in f32 after the last K step, then the
 // none/relu/sigmoid epilogue, written as f32 or bf16.
 //

@@ -5,8 +5,9 @@
 // accumulator-fragment helpers (quad reductions, the f32 accumulator as a
 // bf16 A operand), and the cluster barrier and distributed shared-memory
 // stores.  K1's wgmma GEMM (gemm_sm90.cu) and decode product
-// (gemm_decode.cu) and the flash kernels K8, K5, K7 and K10
-// (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on them.
+// (gemm_decode.cu), the int8 product K15 (quant_sm90.cu) and the flash
+// kernels K8, K5, K7 and K10 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu)
+// are built on them.
 //
 // Conventions:
 //   * shared-memory addresses are 32-bit (``smem_u32``);
@@ -373,6 +374,54 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(TB));
 }
 
+// As fence_operand, for an s32 accumulator register.
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// One wgmma m64n128k32 on int8 (s8 x s8, s32 accumulate, exact) with both
+// operands K-major in shared memory: d = A . B + (d if ``accumulate``).
+// The integer form has no transpose bits and no scale immediates, so A
+// [M, K] and B [N, K] are read as they lie.  The s32 fragment has the f32
+// one's layout (frag_row, frag_col).
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 
 // -- accumulator fragments --
 //
@@ -557,6 +606,18 @@ inline int tma_desc_bf16(CUtensorMap* map, const void* ptr, uint64_t inner,
   const uint32_t box[2] = {box_inner, box_outer};
   return tma_desc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, ptr, dims,
                   box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An int8 operand tile's descriptor: the row-major int8 matrix ``[outer,
+// inner]`` (``inner`` a multiple of 16) in boxes of ``box_outer`` rows of
+// 128 bytes under the 128-byte swizzle (TMA has no signed byte type; a
+// copy of unsigned bytes moves the same bits, and zero-fills with 0).
+inline int tma_desc_i8(CUtensorMap* map, const void* ptr, uint64_t inner,
+                       uint64_t outer, uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {128, box_outer};
+  return tma_desc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, ptr, dims, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A rank-3 operand descriptor: the dense bf16 tensor ``[outer, mid,

@@ -48,13 +48,16 @@
 //     registers, before the rounding, with a fixed-order reduction;
 //   * K14 is one block per row: an absmax pass, then a quantize pass that
 //     re-reads the row (from L1/L2), 16-byte vectors where aligned;
-//   * K15 runs mma.sync m16n8k32 s8 on 128x128x64 tiles (8 warps of
-//     64x32) fed by a 3-stage cp.async pipeline, the epilogue applied to
-//     the int32 accumulators in registers.  (WMMA's s8 fragments need
-//     32-byte aligned addresses, which 16-byte K steps of int8 cannot
-//     give; the PTX fragments load 4 bytes a register.)
-// wgmma, TMA, split-K across blocks for decode and a persistent schedule
-// are later work.
+//   * K15 has two routes (ops/quant.py::plan): "wgmma" (quant_sm90.cu:
+//     int8 wgmma fed by TMA, persistent, for K % 16 == 0 from 16-byte
+//     aligned operands, every path's shapes) and "mma", the kernel below,
+//     for the rest: mma.sync m16n8k32 s8 on 128x128x64 tiles (8 warps of
+//     64x32) fed by a 3-stage cp.async pipeline (byte loads where the rows
+//     are not whole 16-byte chunks from aligned bases), the epilogue
+//     applied to the int32 accumulators in registers.  (WMMA's s8
+//     fragments need 32-byte aligned addresses, which 16-byte K steps of
+//     int8 cannot give; the PTX fragments load 4 bytes a register.)
+// Split-K across blocks for K12/K13 at decode is later work.
 #include <mma.h>
 
 #include "common.cuh"
@@ -456,7 +459,7 @@ constexpr size_t I8_SMEM = (size_t)I8_STAGES * I8_STAGE;
 
 // Starts loading the [ROWS, I8_BK] int8 tile at (r0, k0) of a row-major
 // [rows, K] matrix: 16-byte cp.async chunks zero-filled past the edges
-// when `vec` (K % 16 == 0), else byte by byte.
+// when `vec` (K % 16 == 0 and 16-byte aligned bases), else byte by byte.
 template <int ROWS>
 __device__ __forceinline__ void load_tile_i8(int8_t* sm, const int8_t* g,
                                              int r0, int rows, int k0, int K,
@@ -601,9 +604,19 @@ int launch_matmul_int8(const void* xq, const void* q, const void* sx,
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(q),
       static_cast<const float*>(sx), static_cast<const float*>(corr),
       static_cast<const float*>(sw), static_cast<const float*>(zw),
-      static_cast<const float*>(bias), y, M, N, K, relu, K % 16 == 0);
+      static_cast<const float*>(bias), y, M, N, K, relu,
+      K % 16 == 0 && (uintptr_t)xq % 16 == 0 && (uintptr_t)q % 16 == 0);
   return (int)cudaGetLastError();
 }
+
+// quant_sm90.cu: K15 on the wgmma route
+int matmul_int8_wgmma(const void* xq, const void* q, const void* sx,
+                      const void* corr, const void* sw, const void* zw,
+                      const void* bias, void* y, int M, int N, int K,
+                      int relu, int out, cudaStream_t s);
+
+// K15's route codes, shared with I8_ROUTES in ops/quant.py
+enum I8Route : int { kI8Wgmma = 0, kI8Mma = 1 };
 
 }  // namespace taper
 
@@ -649,20 +662,30 @@ extern "C" int taper_quantize_rows(const void* x, void* xq, void* sx,
 }
 
 // K15a (out dtype f32 or bf16, with sx/corr/sw/zw) and K15b (out dtype
-// int32, the vectors null).
+// int32, the vectors null) on the route ops/quant.py::plan chose (the
+// wgmma route needs K % 16 == 0 and 16-byte aligned xq and q).
 extern "C" int taper_matmul_int8(const void* xq, const void* q,
                                  const void* sx, const void* corr,
                                  const void* sw, const void* zw,
                                  const void* bias, void* y, int M, int N,
-                                 int K, int relu, int out_dtype,
+                                 int K, int relu, int out_dtype, int route,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || out_dtype < kOutF32 ||
+      out_dtype > kOutI32 ||
+      (out_dtype != kOutI32 &&
+       (sx == nullptr || corr == nullptr || sw == nullptr || zw == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (route == kI8Wgmma) {
+    if (K % 16 || (uintptr_t)xq % 16 || (uintptr_t)q % 16)
+      return (int)cudaErrorInvalidValue;
+    return matmul_int8_wgmma(xq, q, sx, corr, sw, zw, bias, y, M, N, K, relu,
+                             out_dtype, s);
+  }
+  if (route != kI8Mma) return (int)cudaErrorInvalidValue;
   if (out_dtype == kOutI32)
     return launch_matmul_int8<kOutI32>(xq, q, sx, corr, sw, zw, bias, y, M,
                                        N, K, relu, s);
-  if (sx == nullptr || corr == nullptr || sw == nullptr || zw == nullptr)
-    return (int)cudaErrorInvalidValue;
   if (out_dtype == kOutBF16)
     return launch_matmul_int8<kOutBF16>(xq, q, sx, corr, sw, zw, bias, y, M,
                                         N, K, relu, s);

@@ -39,9 +39,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # a, b, bias, y, workspace, tile counters, M, N, K, mode, dtype, out
-    # dtype, act, route, splits, tile, stream
-    "taper_gemm": [_P] * 6 + [_I] * 10 + [_P],
+    # a, b, bias, y, workspace, tile counters, M, N, K, lda, ldb, mode,
+    # dtype, out dtype, act, route, splits, tile, stream
+    "taper_gemm": [_P] * 6 + [_I] * 12 + [_P],
     # x, w, bias, y, N, C, H, W, O, kh, kw, ph, pw, act, flipped, stream
     "taper_conv_fwd": [_P, _P, _P, _P] + [_I] * 11 + [_P],
     # x, g, part, dw, N, C, H, W, O, kh, kw, ph, pw, splits, stream
@@ -88,8 +88,9 @@ _SIGNATURES = {
     "taper_linear_q": [_P] * 6 + [_I] * 5 + [_P],
     # x, xq, sx, xsum, M, K, dtype, stream
     "taper_quantize_rows": [_P] * 4 + [_I] * 3 + [_P],
-    # xq, q, sx, corr, sw, zw, bias, y, M, N, K, relu, out dtype, stream
-    "taper_matmul_int8": [_P] * 8 + [_I] * 5 + [_P],
+    # xq, q, sx, corr, sw, zw, bias, y, M, N, K, relu, out dtype, route,
+    # stream
+    "taper_matmul_int8": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -31,11 +31,15 @@ CPU tensors run the plain versions (:func:`linear_reference`,
 (``csrc/gemm_sm90.cu``, bf16 through TMA and Hopper's warpgroup MMA),
 ``decode`` (``csrc/gemm_decode.cu``, bf16 mode nt at M <= 16: weights
 streamed into mma.sync fragments, K split over a thread-block cluster),
-``wmma`` (the bf16 WMMA tile, ``csrc/gemm.cu``) and ``f32`` (the FMA tile
-kernel, ``csrc/gemm.cu``, on a tile sized to the output by
-:func:`f32_plan`); ``wgmma`` and ``f32`` split a long K over blocks when
-the output's tiles are too few to fill the card, and sum the splits in a
-fixed order (``f32`` in the same launch).
+``realign`` (``csrc/gemm_realign.cu``, bf16 operands TMA cannot take:
+each operand staged by :func:`staging`, streamed where its rows are whole
+16-byte chunks, else through 16-byte windows realigned on chip) and
+``f32`` (the FMA tile kernel, ``csrc/gemm.cu``, on a tile sized to the
+output by :func:`f32_plan`); ``wgmma`` and ``f32`` split a long K over
+blocks when the output's tiles are too few to fill the card, and sum the
+splits in a fixed order (``f32`` in the same launch).  Operands are
+contiguous, except that a bf16 operand whose rows are contiguous may lie
+at any row stride (a view into a wider buffer): ``realign`` takes it.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2}
 MODES = {"nt": 0, "nn": 1, "tn": 2}
 # K1's kernels (codes shared with csrc/gemm.cu), and the output and K tile
 # of the wgmma route, which splits K (csrc/gemm_sm90.cu)
-ROUTES = {"wgmma": 0, "wmma": 1, "decode": 2, "f32": 3}
+ROUTES = {"wgmma": 0, "realign": 1, "decode": 2, "f32": 3}
 TILES = {"wgmma": (128, 128, 64)}
 # The f32 route's tiles (BM, BN, BK, KG: the thread groups that split
 # each K tile inside a block), codes shared with gemm_f32 in csrc/gemm.cu
@@ -132,16 +136,19 @@ def linear_reference(x, w, b=None, activation: str = "none"):
     return apply_activation(y, activation)
 
 
-def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
+def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool,
+         dense: bool = True):
     """K1's kernel and K split for ``[m, n] = contract_k`` in ``mode``:
     ``(route, splits)``, a pure function of its arguments, so one shape
     always runs the same kernels in the same order (bit-for-bit
-    repeatable).  ``aligned``: both operands' contiguous dimension is a
-    multiple of 8 elements and their data 16-byte aligned (TMA's rules).
+    repeatable).  ``aligned``: both operands are dense and
+    :func:`streams` (TMA's rules); ``dense``: both operands' row stride is
+    their row width.
 
-    * bf16 nt at ``m <= 16``: ``decode``, its K split over a cluster of
-      :func:`decode_splits` blocks;
-    * bf16 at ``m > 16``, aligned: ``wgmma``; other bf16: ``wmma``;
+    * bf16 nt at ``m <= 16``, dense: ``decode``, its K split over a
+      cluster of :func:`decode_splits` blocks;
+    * bf16 at ``m > 16``, aligned: ``wgmma``; other bf16: ``realign``
+      (each operand staged as :func:`staging` says);
     * f32: ``f32``, on the tile and split :func:`f32_plan` picks.
 
     ``wgmma`` and ``f32`` split K when the output's tiles are fewer than
@@ -150,10 +157,10 @@ def plan(m: int, n: int, k: int, dtype, mode: str, aligned: bool):
     the f32 partials within ``WORKSPACE_CAP``, and no split empty (the
     splits cover ``ceil(k_tiles / splits)`` tiles each)."""
     if dtype == torch.bfloat16:
-        if mode == "nt" and m <= DECODE_ROWS:
+        if mode == "nt" and m <= DECODE_ROWS and dense:
             return "decode", decode_splits(n, k)
         if m <= DECODE_ROWS or not aligned:
-            return "wmma", 1
+            return "realign", 1
         route = "wgmma"
     elif dtype == torch.float32:
         route = "f32"
@@ -272,13 +279,44 @@ def gemm_reference_split(a, b, mode: str, splits: int, k_tile: int,
     return lanes[0]
 
 
+def streams(t) -> bool:
+    """A 2-D operand's rows are whole 16-byte chunks from a 16-byte-aligned
+    base (its row width and row stride multiples of 8 elements): 16-byte
+    copies read it as it lies."""
+    return (t.shape[1] % 8 == 0 and _ld(t) % 8 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def staging(a_streams: bool, b_streams: bool) -> int:
+    """The realign route's staging of its two operands, each judged alone
+    (an aligned operand streams whatever the other one needs), as the
+    kernel's code: bit 0 stages ``a`` through realigned windows, bit 1
+    ``b``."""
+    return int(not a_streams) | int(not b_streams) << 1
+
+
 def plan_for(a, b, mode: str):
     """:func:`plan` for the operands ``a`` and ``b`` of ``mode`` as given
-    (their shapes, dtype and alignment)."""
+    (their shapes, dtype, alignment and row strides)."""
     m, n, k = _dims(a, b, mode)
-    aligned = all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
-                  for t in (a, b))
-    return plan(m, n, k, a.dtype, mode, aligned)
+    dense = a.is_contiguous() and b.is_contiguous()
+    aligned = dense and streams(a) and streams(b)
+    return plan(m, n, k, a.dtype, mode, aligned, dense)
+
+
+def _ld(t) -> int:
+    """A 2-D operand's row stride in elements (its width where dense)."""
+    return t.shape[1] if t.is_contiguous() else t.stride(0)
+
+
+def _check_rows(name, t) -> None:
+    """The realign route reads any row stride, but each row contiguous (a
+    row of one element is, whatever its stride)."""
+    if t.is_contiguous():
+        return
+    if (t.stride(1) != 1 and t.shape[1] != 1) or _ld(t) < t.shape[1]:
+        raise ValueError(f"{name}: kernel needs contiguous rows, got "
+                         f"strides {t.stride()} for shape {tuple(t.shape)}")
 
 
 def _out_dtype(out_dtype, dtype):
@@ -328,8 +366,12 @@ def _launch(a, b, bias, mode, activation, out_dtype):
     name = "linear" if mode == "nt" else f"gemm {mode}"
     if b.dtype != a.dtype or (bias is not None and bias.dtype != a.dtype):
         raise ValueError(f"{name}: operands and bias must share one dtype")
-    backend.check_kernel_args(name, a, b, bias, dtypes=_build.DTYPES,
-                              aligned=False)
+    # a bf16 operand may lie at any row stride (plan sends it to realign)
+    strided = a.dtype == torch.bfloat16
+    backend.check_kernel_args(name, *((bias,) if strided else (a, b, bias)),
+                              dtypes=_build.DTYPES, aligned=False)
+    for t in (a, b):
+        _check_rows(name, t)
     out_dtype = _out_dtype(out_dtype, a.dtype)
     route, splits = plan_for(a, b, mode)
     y = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -338,12 +380,15 @@ def _launch(a, b, bias, mode, activation, out_dtype):
     stream = _build.stream(a)
     sync = (_grid_sync(a.device, stream).data_ptr()
             if splits > 1 and route == "f32" else None)
-    tile = f32_tile(m, n, k) if route == "f32" else 0
+    tile = (f32_tile(m, n, k) if route == "f32"
+            else staging(streams(a), streams(b)) if route == "realign"
+            else 0)
     code = _build.library().taper_gemm(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         y.data_ptr(), None if ws is None else ws.data_ptr(), sync, m, n, k,
-        MODES[mode], _build.DTYPES[a.dtype], _build.DTYPES[out_dtype],
-        ACTIVATIONS[activation], ROUTES[route], splits, tile, stream)
+        _ld(a), _ld(b), MODES[mode], _build.DTYPES[a.dtype],
+        _build.DTYPES[out_dtype], ACTIVATIONS[activation], ROUTES[route],
+        splits, tile, stream)
     _build.check(code, name)
     backend.count_launch("linear" if mode == "nt" else f"gemm_{mode}")
     backend.count_route(route, mode, splits)

@@ -23,7 +23,10 @@ beside it:
   ``:292``): int8 x int8 -> int32 on the tensor cores, K15b writing the
   exact int32 product, K15a the W8A8 epilogue
   ``sx[m] sw[n] (acc - zw[n] corr[m]) (+ b) (+ relu)`` in the output
-  dtype.
+  dtype.  :func:`plan` picks their kernel: ``wgmma``
+  (``csrc/quant_sm90.cu``: int8 warpgroup MMA fed by TMA) where the rows
+  are whole 16-byte units from 16-byte-aligned bases, else ``mma``
+  (``csrc/quant.cu``'s ``mma.sync`` kernel).
 
 :func:`linear_w8a8` composes K14 and K15a and applies a sigmoid epilogue
 outside the kernel (``quant.py:519-548``).  :func:`linear_quantized` is the
@@ -228,6 +231,28 @@ def matmul_int8_scaled_reference(xq, q, sx, corr, sw, zw, bias=None,
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
+# K15's kernels (codes shared with csrc/quant.cu)
+I8_ROUTES = {"wgmma": 0, "mma": 1}
+
+
+def plan(m: int, n: int, k: int, aligned: bool) -> str:
+    """K15's kernel for ``[m, k] . [n, k]^T``, a pure function of its
+    arguments: ``wgmma`` where TMA can read both operands (``k`` a
+    multiple of 16, so that each row is whole 16-byte units, and
+    ``aligned``: both bases 16-byte aligned), at every ``m`` and ``n``
+    (TMA zero-fills the tiles' ragged edges, so decode's 8 rows run there
+    too); else ``mma``, the ``mma.sync`` kernel, which reads any row."""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"K15: empty product [{m}, {k}] . [{n}, {k}]^T")
+    return "wgmma" if k % 16 == 0 and aligned else "mma"
+
+
+def plan_for(xq, q) -> str:
+    """:func:`plan` for the operands as given."""
+    return plan(xq.shape[0], q.shape[0], xq.shape[1],
+                xq.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+
+
 def _i8mm(name, xq, q, vecs, bias, relu, out_dtype):
     if (xq.dim() != 2 or q.dim() != 2 or xq.shape[1] != q.shape[1]
             or xq.dtype != torch.int8 or q.dtype != torch.int8):
@@ -236,14 +261,18 @@ def _i8mm(name, xq, q, vecs, bias, relu, out_dtype):
                          f"and [N, K]")
     m, k = xq.shape
     n = q.shape[0]
-    backend.check_kernel_args(name, xq, q, *vecs, bias)
+    # the codes may lie anywhere (plan sends unaligned ones to mma)
+    backend.check_kernel_args(name, xq, q, aligned=False)
+    backend.check_kernel_args(name, *vecs, bias)
+    route = plan_for(xq, q)
     y = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     ptr = [None if t is None else t.data_ptr() for t in (*vecs, bias)]
     code = _build.library().taper_matmul_int8(
         xq.data_ptr(), q.data_ptr(), *ptr, y.data_ptr(), m, n, k, int(relu),
-        _OUT_DTYPES[out_dtype], _build.stream(xq))
+        _OUT_DTYPES[out_dtype], I8_ROUTES[route], _build.stream(xq))
     _build.check(code, name)
     backend.count_launch(name)
+    backend.count_route(route, name, 1)
     return y
 
 

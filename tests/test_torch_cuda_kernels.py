@@ -1784,17 +1784,27 @@ def test_quantize_rows_kernel_is_exact(dev, m, k, dtype):
 
 @pytest.mark.parametrize("m,n,k", [(37, 53, 100), (512, 384, 2048),
                                    (300, 130, 64), (1, 1, 16),
-                                   (256, 2048, 8192)])
+                                   (256, 2048, 8192), (4096, 2048, 2048),
+                                   (4096, 8192, 2048), (4096, 2048, 8192),
+                                   (8, 2048, 2048), (200, 262, 2050),
+                                   (130, 250, 48)])
 def test_matmul_int8_kernels_are_exact(dev, m, n, k):
+    """K15b and K15a against their plain versions, bit for bit, on the
+    route plan gives each shape (wgmma for K % 16 == 0, the W8A8 shapes
+    and decode's 8 rows among them; mma for K 100 and 2,050), counted by
+    route."""
     gen = torch.Generator().manual_seed(m + n + k)
     xq = torch.randint(-127, 128, (m, k), generator=gen,
                        dtype=torch.int8).to(dev)
     q = torch.randint(-128, 128, (n, k), generator=gen,
                       dtype=torch.int8).to(dev)
+    route = Q.plan_for(xq, q)
+    assert route == ("wgmma" if k % 16 == 0 else "mma")
     backend.reset_launch_counts()
     acc = Q.matmul_int8(xq, q)
     torch.cuda.synchronize()
     assert backend.launch_counts()["matmul_int8"] == 1
+    assert backend.route_counts() == {f"{route} matmul_int8": 1}
     assert acc.dtype == torch.int32
     assert torch.equal(acc, Q.matmul_int8_reference(xq, q))
     sx = torch.rand(m, generator=gen).to(dev) * 0.01
@@ -1811,6 +1821,66 @@ def test_matmul_int8_kernels_are_exact(dev, m, n, k):
                                               relu, out_dtype)
         assert y.dtype == out_dtype
         assert torch.equal(y, want)
+    assert backend.route_counts()[f"{route} matmul_int8_scaled"] == 3
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 16])
+def test_matmul_int8_misaligned_views_take_mma(dev, offset):
+    """Codes whose base is not 16-byte aligned cannot go through TMA: the
+    mma route takes them (byte loads), exact; a base a whole 16 bytes off
+    stays on wgmma."""
+    gen = torch.Generator().manual_seed(offset)
+    m, n, k = 96, 80, 256
+    flat = torch.randint(-127, 128, (offset + m * k,), generator=gen,
+                         dtype=torch.int8).to(dev)
+    xq = flat[offset:].view(m, k)
+    q = torch.randint(-128, 128, (n, k), generator=gen,
+                      dtype=torch.int8).to(dev)
+    route = "wgmma" if offset % 16 == 0 else "mma"
+    assert Q.plan_for(xq, q) == route
+    backend.reset_launch_counts()
+    acc = Q.matmul_int8(xq, q)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"{route} matmul_int8": 1}
+    assert torch.equal(acc, Q.matmul_int8_reference(xq, q))
+
+
+# Faults planted in csrc/quant_sm90.cu's K15a epilogue: (what, the line as
+# it is, the line with the fault)
+_K15_FAULTS = [
+    ("K15a's epilogue leaves nvcc free to contract the bias add into an FMA",
+     "  if (has_bias) v = __fadd_rn(v, bn);",
+     "  if (has_bias) v = sxm * swn * __fsub_rn(__int2float_rn(acc), "
+     "__fmul_rn(zwn, corrm)) + bn;"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _K15_FAULTS,
+                         ids=[f[0] for f in _K15_FAULTS])
+def test_matmul_int8_scaled_exactness_catches_a_planted_fault(
+        dev, tmp_path, monkeypatch, what, line, fault):
+    """K15a's bit-for-bit check fails a kernel whose epilogue rounds once
+    where the plain version rounds twice."""
+    _plant(tmp_path, monkeypatch, "quant_sm90.cu", line, fault, what)
+    gen = torch.Generator().manual_seed(3)
+    m, n, k = 512, 384, 2048
+    xq = torch.randint(-127, 128, (m, k), generator=gen,
+                       dtype=torch.int8).to(dev)
+    q = torch.randint(-128, 128, (n, k), generator=gen,
+                      dtype=torch.int8).to(dev)
+    sx = torch.rand(m, generator=gen).to(dev) * 0.01
+    corr = xq.float().sum(1)
+    sw = torch.rand(n, generator=gen).to(dev) * 0.01
+    zw = torch.randint(-5, 5, (n,), generator=gen).float().to(dev)
+    bias = _randn(gen, n).to(dev)
+    assert Q.plan_for(xq, q) == "wgmma"
+    y = Q.matmul_int8_scaled(xq, q, sx, corr, sw, zw, bias)
+    want = Q.matmul_int8_scaled_reference(xq, q, sx, corr, sw, zw, bias)
+    torch.cuda.synchronize()
+    off = int((y != want).sum())
+    print(f"{what}: {off} of {y.numel()} outputs differ from the plain "
+          f"version's bits")
+    assert off > 0, what
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1932,7 +2002,7 @@ def test_quantized_model_moves_to_the_card(dev):
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4)
 
 
-# -- K1's routes (ops/gemm.py plan): wgmma, wmma, decode, f32, split-K ------
+# -- K1's routes (ops/gemm.py plan): wgmma, realign, decode, f32, split-K ---
 
 _K1_CASES = [
     # route, mode, M, N, K, dtype: M != N != K throughout
@@ -1944,8 +2014,10 @@ _K1_CASES = [
     ("wgmma", "tn", 4096, 1024, 16384),
     ("wgmma", "tn", 1024, 1024, 16384),  # (e, e) dW: split in 2
     ("wgmma", "nn", 384, 256, 4096),     # split
-    ("wmma", "nt", 33, 70, 130), ("wmma", "nn", 33, 70, 130),
-    ("wmma", "tn", 33, 70, 130), ("wmma", "nt", 300, 264, 1001),
+    ("realign", "nt", 33, 70, 130), ("realign", "nn", 33, 70, 130),
+    ("realign", "tn", 33, 70, 130), ("realign", "nt", 300, 264, 1001),
+    ("realign", "nn", 16, 1024, 1024),   # M <= 16 off mode nt: streamed
+    ("realign", "tn", 9, 40, 264),
     ("decode", "nt", 16, 1024, 1024), ("decode", "nt", 5, 19, 37),
     ("decode", "nt", 16, 1024, 4096),    # a cluster of 4 blocks
     ("decode", "nt", 4, 1024, 8192),     # a cluster of 8
@@ -2082,21 +2154,121 @@ def test_k1_split_is_bitwise_repeatable(dev, mode, m, n, k, dtype):
 
 
 @pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
-def test_k1_misaligned_bf16_view_takes_wmma(dev, mode):
+def test_k1_misaligned_bf16_view_takes_realign(dev, mode):
     """A bf16 operand 2 bytes off a 16-byte boundary cannot go through
-    TMA: the wmma route takes it, and gives the plain product."""
+    TMA: the realign route takes it, and gives the plain product."""
     m, n, k = 96, 80, 136
     a, b = _k1_operands(dev, mode, m, n, k, torch.bfloat16, seed=3)
     flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
     flat[1:] = a.reshape(-1)
     a_off = flat[1:].view(a.shape)
     assert a_off.data_ptr() % 16 and a_off.is_contiguous()
-    assert G.plan_for(a_off, b, mode) == ("wmma", 1)
+    assert G.plan_for(a_off, b, mode) == ("realign", 1)
     backend.reset_launch_counts()
     y = _k1(a_off, b, mode)
     torch.cuda.synchronize()
-    assert backend.route_counts() == {f"wmma {mode}": 1}
+    assert backend.route_counts() == {f"realign {mode}": 1}
     _close(y, G.gemm_reference(a, b, mode), torch.bfloat16, 2e-4)
+
+
+def _k1_view(t, offset=0, pad=0, fill=0.0):
+    """``t`` copied into a view ``offset`` elements into a buffer whose rows
+    are ``pad`` elements wider, every other element of the buffer
+    ``fill`` (past each row, before the view and past its end)."""
+    r, c = t.shape
+    buf = torch.full((offset + r * (c + pad) + 64,), fill, dtype=t.dtype,
+                     device=t.device)
+    view = buf[offset:offset + r * (c + pad)].view(r, c + pad)[:, :c]
+    view.copy_(t)
+    return view
+
+
+def _k1_check(a, b, mode, a_view, b_view, bias=None, act="none"):
+    """K1 on the views against the plain product of the clean operands
+    (2e-4), through the realign route and the staging plan gives them;
+    the bf16 output is the f32 output cast, bit for bit."""
+    assert G.plan_for(a_view, b_view, mode)[0] == "realign"
+    backend.reset_launch_counts()
+    y = _k1(a_view, b_view, mode, bias, act)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"realign {mode}": 1}
+    ref = G.gemm_reference(a, b, mode)
+    if bias is not None:
+        ref = ref + bias.float()
+    ref = G.apply_activation(ref, act)
+    assert torch.isfinite(y).all()
+    _close(y, ref, torch.bfloat16, 2e-4)
+    if act == "none":
+        y16 = _k1(a_view, b_view, mode, bias, out_dtype=torch.bfloat16)
+        assert torch.equal(y16, y.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("offset", range(8))
+def test_k1_realign_at_every_base_offset(dev, mode, offset):
+    """Each base offset of 0-7 elements, on a and on b in turn (the other
+    operand aligned, so it streams), at an aligned shape and at odd M, N
+    and K; every element of the buffers outside the views NaN."""
+    for m, n, k in ((96, 80, 136), (97, 131, 77)):
+        a, b = _k1_operands(dev, mode, m, n, k, torch.bfloat16,
+                            seed=offset)
+        bias = (_randn(torch.Generator().manual_seed(n), n,
+                       dtype=torch.bfloat16).to(dev)
+                if mode == "nt" else None)
+        nan = float("nan")
+        for a_off, b_off in ((offset, 0), (0, offset), (offset, 7 - offset)):
+            av = _k1_view(a, a_off, fill=nan)
+            bv = _k1_view(b, b_off, fill=nan)
+            if G.plan_for(av, bv, mode)[0] == "wgmma":
+                continue    # both aligned: TMA's operands
+            _k1_check(a, b, mode, av, bv, bias)
+
+
+@pytest.mark.parametrize("mode", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("m,n,k", [(129, 67, 203), (512, 1000, 1001),
+                                   (33, 17, 9), (64, 72, 128)])
+def test_k1_realign_poisoned_tail(dev, mode, m, n, k):
+    """Operands as views into larger buffers whose elements past each
+    row, before the view and past its end hold NaN (rows 5 or 8 elements
+    wider, bases 1 or 3 elements off): the realign pass zeroes every
+    element past the matrix, so the result is the plain product of the
+    clean operands, with each epilogue."""
+    a, b = _k1_operands(dev, mode, m, n, k, torch.bfloat16, seed=5)
+    nan = float("nan")
+    bias = (_randn(torch.Generator().manual_seed(m), n,
+                   dtype=torch.bfloat16).to(dev) if mode == "nt" else None)
+    for i, (a_off, a_pad, b_off, b_pad) in enumerate(
+            ((1, 5, 0, 8), (0, 8, 3, 5), (3, 5, 1, 5))):
+        act = ("none", "relu", "sigmoid")[i] if mode == "nt" else "none"
+        _k1_check(a, b, mode, _k1_view(a, a_off, a_pad, nan),
+                  _k1_view(b, b_off, b_pad, nan), bias, act)
+
+
+# Faults planted in csrc/gemm_realign.cu: (what, the line as it is, the
+# line with the fault)
+_K1_REALIGN_FAULTS = [
+    ("the realign pass leaves the K tail unmasked",
+     "      if (valid < 8) v = keep_first(v, valid);",
+     "      if (valid < 0) v = keep_first(v, valid);"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _K1_REALIGN_FAULTS,
+                         ids=[f[0] for f in _K1_REALIGN_FAULTS])
+def test_k1_realign_poisoned_tail_catches_a_planted_fault(
+        dev, tmp_path, monkeypatch, what, line, fault):
+    """The poisoned-tail check fails a realign kernel built with its K
+    tail left unmasked: a window past a row's end carries the buffer's
+    NaN into the product."""
+    _plant(tmp_path, monkeypatch, "gemm_realign.cu", line, fault, what)
+    a, b = _k1_operands(dev, "nt", 129, 67, 203, torch.bfloat16, seed=5)
+    nan = float("nan")
+    y = _k1(_k1_view(a, 1, 5, nan), _k1_view(b, 0, 8, nan), "nt")
+    torch.cuda.synchronize()
+    ref = G.gemm_reference(a, b, "nt")
+    bad = ~torch.isclose(y, ref, rtol=2e-4, atol=2e-4)
+    print(f"{what}: {int(bad.sum())} of {y.numel()} outputs off")
+    assert bad.any(), what
 
 
 def test_k1_bf16_projection_grads_on_card_match_the_cast(dev):

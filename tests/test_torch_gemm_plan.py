@@ -109,16 +109,77 @@ def test_plan_at_the_path_shapes(what, mode, m, n, k, dtype, want):
 
 @pytest.mark.parametrize("mode,m,n,k,aligned,want", [
     ("nt", 5, 19, 37, False, ("decode", 1)),     # ragged, skinny: decode
-    ("nn", 5, 19, 37, False, ("wmma", 1)),
-    ("tn", 33, 70, 130, False, ("wmma", 1)),     # ragged: no TMA
-    ("nt", 33, 72, 136, False, ("wmma", 1)),     # a misaligned view
+    ("nn", 5, 19, 37, False, ("realign", 1)),
+    ("tn", 33, 70, 130, False, ("realign", 1)),  # ragged: no TMA
+    ("nt", 33, 72, 136, False, ("realign", 1)),  # a misaligned view
     ("nt", 33, 72, 136, True, ("wgmma", 1)),
-    ("nn", 16, 1024, 1024, True, ("wmma", 1)),   # M <= 16 off mode nt
+    ("nn", 16, 1024, 1024, True, ("realign", 1)),  # M <= 16 off mode nt
     ("tn", 17, 1024, 1024, True, ("wgmma", 4)),  # 8 tiles, 16 K tiles
 ])
 def test_plan_routes_ragged_misaligned_and_skinny_bf16(mode, m, n, k,
                                                        aligned, want):
     assert G.plan(m, n, k, BF, mode, aligned) == want
+
+
+def _view(shape, offset=0, pad=0, dtype=BF):
+    """A ``shape`` view ``offset`` elements into a buffer whose rows are
+    ``pad`` elements wider than the view's."""
+    r, c = shape
+    buf = torch.zeros(offset + r * (c + pad), dtype=dtype)
+    return buf[offset:].view(r, c + pad)[:, :c]
+
+
+# (mode, a's and b's (shape, offset, pad), route, staging code): the race
+# shape's three modes (K_in 1,001) and misaligned or strided views of an
+# aligned shape, each operand staged alone
+STAGING_CASES = [
+    ("nt", ((512, 1001), 0, 0), ((1000, 1001), 0, 0), "realign", 3),
+    # dX: the gradient [512, 1000] streams, the weight [1000, 1001] not
+    ("nn", ((512, 1000), 0, 0), ((1000, 1001), 0, 0), "realign", 2),
+    # dW: the gradient [512, 1000] streams, x [512, 1001] not
+    ("tn", ((512, 1000), 0, 0), ((512, 1001), 0, 0), "realign", 2),
+    ("nt", ((96, 136), 1, 0), ((80, 136), 0, 0), "realign", 1),
+    ("nn", ((96, 136), 0, 0), ((136, 80), 3, 0), "realign", 2),
+    ("tn", ((136, 96), 8, 0), ((136, 80), 0, 0), "wgmma", 0),
+    # a row stride of whole chunks streams; another one does not
+    ("nt", ((96, 136), 0, 8), ((80, 136), 0, 0), "realign", 0),
+    ("nt", ((96, 136), 0, 5), ((80, 136), 0, 0), "realign", 1),
+    ("nt", ((8, 136), 0, 0), ((80, 136), 0, 3), "realign", 2),
+    ("nt", ((8, 136), 0, 0), ((80, 136), 1, 0), "decode", None),
+]
+
+
+@pytest.mark.parametrize("mode,a,b,route,code", STAGING_CASES)
+def test_each_operand_is_staged_by_its_own_alignment(mode, a, b, route,
+                                                     code):
+    """An unaligned or strided operand sends the call to ``realign``, but
+    the other operand still streams where its own rows are whole 16-byte
+    chunks from an aligned base (it is not dragged through the windows);
+    a view whose base is a whole chunk off stays on ``wgmma``; a strided
+    operand never takes ``decode``, which reads dense rows only."""
+    ta, tb = _view(*a), _view(*b)
+    assert G.plan_for(ta, tb, mode)[0] == route
+    if code is not None:
+        assert G.staging(G.streams(ta), G.streams(tb)) == code
+
+
+def test_strided_rows_run_on_the_cpu_and_other_strides_raise():
+    """A bf16 operand at a row stride wider than its rows is taken as it
+    is (the plain version on the CPU); a layout whose rows are not
+    contiguous is refused on the card's path before any launch."""
+    a = _view((6, 10), offset=1, pad=5, dtype=F32)
+    a.copy_(torch.arange(60.0).view(6, 10))
+    w = torch.ones(3, 10)
+    assert torch.equal(G.linear(a, w), G.linear(a.contiguous(), w))
+    with pytest.raises(ValueError, match="contiguous rows"):
+        G._check_rows("linear", torch.zeros(10, 6).t())
+    G._check_rows("linear", a)
+    # rows of one element: contiguous to PyTorch whatever their stride
+    # (strides (1, 5)), or not (strides (6, 3))
+    G._check_rows("linear", torch.zeros(1, 5).t())
+    G._check_rows("linear", torch.zeros(4, 6)[:, ::3][:, :1])
+    with pytest.raises(ValueError, match="contiguous rows"):
+        G._check_rows("linear", torch.zeros(1, 1).expand(4, 1))
 
 
 def test_plan_refuses_other_dtypes():

@@ -1,5 +1,6 @@
 """Times K1 (the GEMM of ``taper_tpu_torch/ops/gemm.py``) at the shapes of
-the port's paths, in one checkout, on an NVIDIA GPU:
+the port's paths, and K15 (the int8 product of ``ops/quant.py``), in one
+checkout, on an NVIDIA GPU:
 
     python tools/gemm_ab.py [CHECKOUT] [--only LABEL ...]
 
@@ -9,12 +10,17 @@ ResNet-8's patch GEMMs and head (f32, 65,536 / 16,384 / 256 rows), the
 reference CNN's FC layers (f32, batch 256), each in modes nt (forward,
 with bias), nn (dX) and tn (dW); serving's decode (M = 1, 8 and 16) and
 prefill (M = 512) projections and the quantized-serving baseline's bf16
-up projection (M = 8, K_in 2,048, N_out 8,192) (bf16, nt); and one bf16
-product whose K_in of 1,001 is not a multiple of 8 (no TMA: the wmma
-route).  It calls only ``linear(x, w, b)`` and ``gemm(a, b, mode)``,
-which every version of the port has.  ``--only`` keeps the shapes whose
-label starts with one of the given words (``--only serve`` times the
-serving shapes alone).
+up projection (M = 8, K_in 2,048, N_out 8,192) (bf16, nt); one bf16
+product whose K_in of 1,001 is not a multiple of 8 (no TMA: the realign
+route); and K15b (``matmul_int8``, int32 out) and K15a
+(``matmul_int8_scaled``, bf16 out with a bias) at the W8A8 prefill's
+three shapes (M 4,096; (N, K) = (2,048, 2,048), (8,192, 2,048), (2,048,
+8,192)) and at K 2,050 (no TMA: the mma route).  It calls only
+``linear(x, w, b)``, ``gemm(a, b, mode)``, ``matmul_int8(xq, q)`` and
+``matmul_int8_scaled(...)``, which every version of the port with the
+quantized kernels has.  ``--only`` keeps the shapes whose label starts
+with one of the given words (``--only serve`` times the serving shapes
+alone, ``--only realign int8`` the realign route and K15).
 
 CHECKOUT (default: this one) is the root of a checkout of the repository
 (for example a parent commit unpacked with ``git archive`` into a
@@ -44,6 +50,8 @@ import torch  # noqa: E402
 import chip_smoke as C  # noqa: E402
 from taper_tpu_torch.ops import _build  # noqa: E402
 from taper_tpu_torch.ops.gemm import gemm, linear  # noqa: E402
+from taper_tpu_torch.ops.quant import (  # noqa: E402
+    matmul_int8, matmul_int8_scaled)
 
 BF, F32 = torch.bfloat16, torch.float32
 E, SORT_E = 1024, 128
@@ -62,7 +70,11 @@ SHAPES = (
     + [(f"serve M={m} ({k},{n})", BF, m, k, n, "nt")
        for m in (1, 8, 16, 512) for k, n in ((E, E), (E, 4 * E), (4 * E, E))]
     + [("serve M=8 baseline (2048,8192)", BF, 8, 2048, 8192, "nt")]
-    + [("wmma K_in 1001 (1001,1000)", BF, 512, 1001, 1000, "nt nn tn")])
+    + [("realign K_in 1001 (1001,1000)", BF, 512, 1001, 1000, "nt nn tn")])
+# K15: (label, M, N, K); modes "b" (K15b, int32) and "a" (K15a, bf16 + bias)
+INT8_SHAPES = [(f"int8 M=4096 (N,K)=({n},{k})", 4096, n, k)
+               for n, k in ((2048, 2048), (8192, 2048), (2048, 8192),
+                            (2048, 2050))]
 
 
 def operands(dtype, t, k_in, n_out, mode, gen):
@@ -76,6 +88,25 @@ def operands(dtype, t, k_in, n_out, mode, gen):
     if mode == "nn":
         return randn(t, n_out), randn(n_out, k_in, scale=n_out ** -0.5)
     return randn(t, n_out, scale=t ** -0.5), randn(t, k_in)
+
+
+def int8_operands(m, n, k, gen):
+    """Codes, the W8A8 row vectors and a bias, on the card."""
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             device="cuda", dtype=torch.int8)
+
+    xq, q = codes(m, k), codes(n, k)
+    sx = torch.rand(m, generator=gen, device="cuda") * 0.01
+    sw = torch.rand(n, generator=gen, device="cuda") * 1e-3
+    zw = torch.randint(-5, 5, (n,), generator=gen, device="cuda").float()
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    return xq, q, sx, xq.float().sum(1), sw, zw, bias
+
+
+def k15a(xq, q, sx, corr, sw, zw, bias):
+    return matmul_int8_scaled(xq, q, sx, corr, sw, zw, bias,
+                              out_dtype=torch.bfloat16)
 
 
 def main():
@@ -93,6 +124,18 @@ def main():
             ms[f"{label} {mode}"] = [round(C.cuda_ms(calls[mode], sets), 4)
                                      for _ in range(3)]
             del sets
+        torch.cuda.empty_cache()
+    for label, m, n, k in INT8_SHAPES:
+        if OPTS.only and not any(label.startswith(w) for w in OPTS.only):
+            continue
+        args = int8_operands(m, n, k, gen)
+        for name, fn, sets in (
+                ("K15b", matmul_int8, C.cold_sets(*args[:2])),
+                ("K15a", k15a, C.cold_sets(*args))):
+            ms[f"{label} {name}"] = [round(C.cuda_ms(fn, sets), 4)
+                                     for _ in range(3)]
+            del sets
+        del args
         torch.cuda.empty_cache()
     print(json.dumps({"root": str(ROOT),
                       "device": torch.cuda.get_device_name(0),

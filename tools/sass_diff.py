@@ -12,7 +12,9 @@ of each build by its demangled name, spaces removed (for example
 ``taper::flash::sm90::dkv_kernel<128,false>=taper::flash::sm90::dkv_kernel<128,false,false>``).
 For each pair it prints ptxas's report of both (registers, stack, spills)
 and whether their SASS instructions are the same, addresses and
-encodings aside, with the first lines that differ.  The last line of the
+encodings aside, with the first lines that differ.  With no pair given,
+every kernel that both builds have by the same name is compared (a
+kernel of one build alone is listed as such).  The last line of the
 output is one JSON object: ``{"pair": {"same_sass", "old", "new"}}``,
 the last two ptxas's report lines.
 """
@@ -109,11 +111,18 @@ def main():
         codes = [sass(o) for o in objs]
     names = [_demangle(list(c)) for c in codes]
     result = {}
+    if not pairs:
+        old_names, new_names = (set(n.values()) for n in names)
+        pairs = [f"{n}={n}" for n in sorted(old_names & new_names)]
+        for n in sorted(old_names ^ new_names):
+            print(f"{n}: only in the {'old' if n in old_names else 'new'} "
+                  f"build")
     for pair in pairs:
         want = pair.split("=")
         found = []
         for code, nm, rep, w in zip(codes, names, reports, want):
-            mangled = [m for m, d in nm.items() if d.endswith(w)]
+            mangled = [m for m, d in nm.items() if d == w]
+            mangled = mangled or [m for m, d in nm.items() if d.endswith(w)]
             if len(mangled) != 1:
                 raise SystemExit(f"{w}: {len(mangled)} kernels match "
                                  f"(of {sorted(nm.values())})")
