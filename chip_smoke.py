@@ -97,11 +97,14 @@ non-zero):
      BENCH_r05's 0.993 less MLP_BENCH's batch-order allowance;
  16. the quantized kernels against their plain versions at the shapes of
      phases 17-19: K12/K13 (``linear_q8``/``linear_q4``) at decode (M=8)
-     and K12 at M=4096 and at the CNN's FC layers (M=2000), within 2e-4;
-     K14 (``quantize_rows``), K15b (``matmul_int8``) and K15a
-     (``matmul_int8_scaled``) exactly, K15 at the three W8A8 shapes on
-     the route ``ops.quant.plan`` names (checked taken); ``torch._int_mm``
-     is K15b's library call, the others have none;
+     and K12 at M=4096 and at the CNN's FC layers (M=2000), within 2e-4,
+     each on the route ``ops.quant.plan_q`` names (checked taken: wgmma
+     at M=4096 and at the FC layers of N 128 and 64, wmma at decode and
+     at the 10-way head); K14 (``quantize_rows``), K15b
+     (``matmul_int8``) and K15a (``matmul_int8_scaled``) exactly, K15 at
+     the three W8A8 shapes on the route ``ops.quant.plan`` names (checked
+     taken); ``torch._int_mm`` is K15b's library call, the others have
+     none;
  17. PTQ serving of benchmarks/bench_serving.py:39-52's model (dim 2048,
      depth 6, 273M parameters, f32) with int8 and int4 weights in the
      paged engine (the bench's contiguous cache runs in phase 21): prefill
@@ -112,8 +115,9 @@ non-zero):
  18. bench.py:273-301's W8A8 prefill (dim 2048, depth 4, bf16, every 2-D
      leaf int8, 4 x 1024 tokens): TAPER_W8A8=1 runs 24 K14 and 24 K15a,
      the same weights through K12, the bf16 dense model through K1;
-     W8A8 logits against K12's, ms for each, and the W8A8 forward's
-     device time by kernel family (a profile of two forwards);
+     W8A8 logits against K12's, ms for each, and the W8A8 and the K12
+     forwards' device time by kernel family (a profile of two forwards
+     each);
  19. examples/ptq_quantize.py through its entry point with --epochs 1:
      int8 accuracy within 0.01 of f32, float16 within 0.001, three K12
      launches per eval batch of 2000;
@@ -140,7 +144,8 @@ non-zero):
      bound over the band's live pairs and SDPA with the same boolean
      mask: K5/K6/K7 and K11 with a window of 512 at the windowed model's
      training shape (bf16, B 2, H 8, S 4096, D 128, [B, S, H*D]) and
-     non-causal windowed in f32 at a small shape; K5/K6/K7 with
+     non-causal windowed in f32 at a small shape; K11 at GQA (8 query
+     heads on 2 KV heads) in bf16 and f32, its group sum against K7; K5/K6/K7 with
      bench_packing's segment ids (bf16, 13 rows, H 8, S 1024, D 64); K6
      and K7 through their planned routes, two calls of each bit-equal; K8
      (both arms, also timed without its bound pre-pass), K6 and K7 at the
@@ -155,7 +160,8 @@ non-zero):
      plans;
  26. the windowed model (bench_serving.py:287-340, window 512) trained at
      2 x 4096: ms/step, tokens/s and MFU over the band's FLOPs, with K7
-     and with K11 (K6's and K7's calls by route against the plans)
+     and with K11 (K6's, K7's and K11's calls by route against the
+     plans)
      under TAPER_ATTN_DKV_T=1, their gradients against each
      other, a profiled step against the full-causal model's (the
      windowed backward, K6 and K7 over the band, the cheaper), one step
@@ -179,14 +185,16 @@ Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
 step's K1 calls by route to what ``plan`` predicts for its shapes.  Every
-K8, K6, K7 and K10 row names the route ``plan_fwd`` or ``plan_bwd``
-gives it and checks that the call took it;
+K8, K6, K7, K10 and K11 row names the route ``plan_fwd`` or ``plan_bwd``
+gives it and checks that the call took it, as every K12 row does with
+``ops.quant.plan_q``'s and every K15 row with ``ops.quant.plan``'s;
 phases 11, 12, 25, 26 and 28 hold a step's flash calls by route to the
 plans.
 The line before the last is the kernel report (JSON), one entry per
 kernel with its numbers per path under ``by_path``; K1's entries give
-their route and K split (``k1_route``, ``splits``), K8's, K6's, K7's and
-K10's their route (``flash_route``), the top-level numbers
+their route and K split (``k1_route``, ``splits``), K8's, K6's, K7's,
+K10's and K11's their route (``flash_route``), K12's and K15's theirs
+(``q8_route``, ``i8_route``), the top-level numbers
 from the 170M model's (e, 4e) projection; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -326,6 +334,9 @@ K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu",
 I8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
               "mma": "taper_tpu_torch/csrc/quant.cu"}
 I8_NAMES = ("matmul_int8", "matmul_int8_scaled")
+# K12's routes (ops.quant.plan_q)
+Q8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
+              "wmma": "taper_tpu_torch/csrc/quant.cu"}
 # The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
 # row's source follows its route too; K10's "f32" keeps SOURCES'
 # flash_bwd.cu, and K5's "exact" (f32) is flash_fwd.cu's
@@ -334,10 +345,12 @@ FLASH_SOURCES = {
               "flash_fwd_bound": "taper_tpu_torch/csrc/flash_sm90.cu",
               "flash_dq": "taper_tpu_torch/csrc/flash_bwd_sm90.cu",
               "flash_dkv": "taper_tpu_torch/csrc/flash_sm90.cu",
+              "flash_dkv_t": "taper_tpu_torch/csrc/flash_sm90.cu",
               "flash_bwd_fused": "taper_tpu_torch/csrc/flash_sm90.cu"},
     "exact": {"flash_fwd": "taper_tpu_torch/csrc/flash_fwd.cu"},
     "f32": {"flash_dq": "taper_tpu_torch/csrc/flash_bwd_f32.cu",
-            "flash_dkv": "taper_tpu_torch/csrc/flash_bwd_f32.cu"}}
+            "flash_dkv": "taper_tpu_torch/csrc/flash_bwd_f32.cu",
+            "flash_dkv_t": "taper_tpu_torch/csrc/flash_bwd_f32.cu"}}
 
 
 def route_key(route, mode, splits):
@@ -361,7 +374,7 @@ SOURCES = {
                  "taper_tpu/ops/pallas/attention.py:487"),
     "flash_dkv": ("taper_tpu_torch/csrc/flash_bwd_f32.cu",
                   "taper_tpu/ops/pallas/attention.py:687"),
-    "flash_dkv_t": ("taper_tpu_torch/csrc/flash_bwd.cu",
+    "flash_dkv_t": ("taper_tpu_torch/csrc/flash_sm90.cu",
                     "taper_tpu/ops/pallas/attention.py:611"),
     "flash_bwd_fused": ("taper_tpu_torch/csrc/flash_bwd.cu",
                         "taper_tpu/ops/pallas/attention.py:826"),
@@ -538,14 +551,17 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     kind)`` for the bound.  A K1 row (``name`` in K1_MODES, operands
     first) records the route and K split ``plan`` gives its operands, and
     checks that the call took them, as a K15 row does with
-    ``ops.quant.plan``'s route; a K8, K6, K7 or K10 row is given the
-    route ``plan_fwd`` or ``plan_bwd`` gives (``flash_route``) and checks
-    it the same way.  Returns the report row."""
+    ``ops.quant.plan``'s route and a K12 row with ``ops.quant.plan_q``'s;
+    a K8, K6, K7, K10 or K11 row is given the route ``plan_fwd`` or
+    ``plan_bwd`` gives (``flash_route``) and checks it the same way.
+    Returns the report row."""
     mode = K1_MODES.get(name)
     if mode is not None:
         route, splits = plan_for(*arg_sets[0][:2], mode)
     elif name in I8_NAMES:
         route = Q.plan_for(*arg_sets[0][:2])
+    elif name == "linear_q8":
+        route = Q.plan_q_for(*arg_sets[0][:2])
     before = backend.route_counts()
     outs = _tuple(kernel_fn(*arg_sets[0]))
     torch.cuda.synchronize()
@@ -554,7 +570,7 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
              if c != before.get(k, 0)}
     if mode is not None:
         assert taken == {route_key(route, mode, splits): 1}, (name, taken)
-    elif name in I8_NAMES:
+    elif name in I8_NAMES or name == "linear_q8":
         assert taken == {f"{route} {name}": 1}, (name, taken)
     elif flash_route is not None:
         assert taken == {f"{flash_route} {name}": 1}, (name, taken)
@@ -593,6 +609,9 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
             via += f" (a, b: {row['k1_staging']})"
     elif name in I8_NAMES:
         row.update(i8_route=route)
+        via = f" via {route}"
+    elif name == "linear_q8":
+        row.update(q8_route=route)
         via = f" via {route}"
     elif flash_route is not None:
         row.update(flash_route=flash_route)
@@ -676,9 +695,9 @@ def k8_alone(row, arg_sets, scale, heads, force, phase):
 
 
 def repeats(kernel, args, kw, phase, label):
-    """Two calls of K6 or K7 (``kernel`` ``"flash_dq"`` or
-    ``"flash_dkv"``) on the same inputs give the same bits (a fixed order
-    of sums, no atomics)."""
+    """Two calls of K6, K7 or K11 (``kernel`` ``"flash_dq"``,
+    ``"flash_dkv"`` or ``"flash_dkv_t"``) on the same inputs give the same
+    bits (a fixed order of sums, no atomics)."""
     first = getattr(A, kernel)(*args, **kw)
     again = getattr(A, kernel)(*args, **kw)
     same = all(torch.equal(a, b) for a, b in zip(first, again))
@@ -690,13 +709,15 @@ def flash_routes(layers, dtype, mask, backward="split"):
     """The flash calls a step makes by route, as ``plan_fwd`` and
     ``plan_bwd`` predict them: one forward a layer (K8 where
     ``uses_bound``, else K5) and one backward: ``backward`` "split" K6 +
-    K7, "dkv_t" K6 + K11 (K11 has no route), "fused" K10, None none."""
+    K7, "dkv_t" K6 + K11, "fused" K10, None none."""
     fwd = "flash_fwd_bound" if A.uses_bound(dtype, mask) else "flash_fwd"
     want = {f"{A.plan_fwd(dtype, mask)} {fwd}": layers}
     if backward in ("split", "dkv_t"):
         want[f"{A.plan_bwd(dtype)} flash_dq"] = layers
     if backward == "split":
         want[f"{A.plan_bwd(dtype)} flash_dkv"] = layers
+    if backward == "dkv_t":
+        want[f"{A.plan_bwd(dtype)} flash_dkv_t"] = layers
     if backward == "fused":
         want[f"{A.plan_bwd(dtype)} flash_bwd_fused"] = layers
     return want
@@ -1572,17 +1593,16 @@ K1_FAMILIES = (("K1 gemm", "gemm_wgmma"), ("K1 gemm", "gemm_realign"),
                ("K1 gemm", "gemm_decode"), ("K1 gemm", "gemm_f32_kernel"),
                ("K1 gemm", "splitk_reduce"))
 OPT_FAMILY = ("K17 optimizer", "multi_tensor_kernel")
-# the flash kernels by name: the FMA ones of flash_fwd.cu,
-# flash_bwd_f32.cu and flash_bwd.cu (K11's flash_dkv_kernel) and the wgmma
-# ones of flash_sm90.cu and flash_bwd_sm90.cu (namespace
-# taper::flash::sm90; K8 and K5 are fwd_kernel<D, MASKED>)
+# the flash kernels by name: the FMA ones of flash_fwd.cu and
+# flash_bwd_f32.cu and the wgmma ones of flash_sm90.cu and
+# flash_bwd_sm90.cu (namespace taper::flash::sm90; K8 and K5 are
+# fwd_kernel<D, MASKED>; K11 is K7's kernel in its per-head mode)
 LM_FAMILIES = K1_FAMILIES + (OPT_FAMILY,
                              ("K8/K5 flash fwd", "flash_fwd_f32"),
                              ("K8/K5 flash fwd", "sm90::fwd_kernel"),
                              ("K6 flash dq", "dq_f32_kernel"),
                              ("K6 flash dq", "sm90::dq_kernel"),
                              ("K7 flash dkv", "dkv_f32_kernel"),
-                             ("K7 flash dkv", "flash_dkv_kernel"),
                              ("K7 flash dkv", "sm90::dkv_kernel"))
 CONV_FAMILIES = K1_FAMILIES + (("K3a conv fwd/dX", "conv_fwd"),
                  ("K3b conv dW", "conv_dw"), ("K3b conv dW", "split_sum"),
@@ -2203,6 +2223,8 @@ W8A8_BATCH, W8A8_ITERS = 4, 5
 QSERVE_REL_TOL, W8A8_REL_TOL = 1e-2, 5e-2
 PTQ_INT8_DROP, PTQ_F16_DROP = 0.01, 0.001
 QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_kernel"),
+                  ("K12 linear_q8 wgmma", "q8_wgmma_kernel"),
+                  ("K12 linear_q8 wgmma", "q8::rows_kernel"),
                   ("K16 paged decode", "paged_decode")) + K1_FAMILIES + (
                   ("head sgemm", "gemm"),
                   ("K14 quantize_rows", "quantize_rows"),
@@ -2284,6 +2306,8 @@ def phase16_quant_kernels(dev):
             x, b = randn(m, k), randn(n) * 0.1
             dq_note.append((bits, cuda_ms(
                 lambda x, b: F.linear(x, qt.dequantize(), b), [(x, b)])))
+    got = sorted({r["q8_route"] for r in rows["linear_q8"]})
+    assert got == ["wgmma", "wmma"], got
     for bits, ms in dq_note:
         print(f"phase 16: dequantize + F.linear, int{bits} M="
               f"{QSERVE_REQUESTS} N={decode[2][0]} K={decode[2][1]} "
@@ -2551,20 +2575,21 @@ def phase18_w8a8(dev, smi):
           f"{runs['int8 K12']['ms']:.2f} ms, bf16 dense "
           f"{runs['bf16 dense']['ms']:.2f} ms; on {smi}")
     assert rel <= W8A8_REL_TOL, rel
-    # where the W8A8 forward's device time goes
-    os.environ["TAPER_W8A8"] = "1"
-    try:
-        def forward():
-            with torch.no_grad():
-                qmodel(toks)
-        prof = profile_steps(forward, 2, W8A8_FAMILIES)
-    finally:
-        os.environ.pop("TAPER_W8A8")
-    print(f"phase 18: profiled 2 W8A8 forwards: {prof['wall_ms']:.2f} ms of "
-          f"wall each (under the profiler) for {prof['busy_ms']:.3f} ms of "
-          f"device busy time; device ms by family "
-          f"{ {k: round(v, 4) for k, v in prof['ms'].items()} }; largest "
-          f"glue {prof['glue_top']}")
+    # where the W8A8 and the K12 forwards' device time goes
+    def forward():
+        with torch.no_grad():
+            qmodel(toks)
+    for name, flag in (("W8A8", "1"), ("K12", "0")):
+        os.environ["TAPER_W8A8"] = flag
+        try:
+            prof = profile_steps(forward, 2, W8A8_FAMILIES)
+        finally:
+            os.environ.pop("TAPER_W8A8")
+        print(f"phase 18: profiled 2 {name} forwards: {prof['wall_ms']:.2f} "
+              f"ms of wall each (under the profiler) for "
+              f"{prof['busy_ms']:.3f} ms of device busy time; device ms by "
+              f"family { {k: round(v, 4) for k, v in prof['ms'].items()} }; "
+              f"largest glue {prof['glue_top']}")
     counts = dict.fromkeys(backend.KERNELS, 0)
     for r in runs.values():
         for k, c in r["counts"].items():
@@ -3185,11 +3210,59 @@ def masked_flash_rows(label, q, k, v, do, *, heads, causal, window, seg,
             tol=(gtol,) * 2, how=(how,) * 2, plain_ms=plain_ms,
             library_ms=lib_bwd,
             work=(4 * 2 * d * h * pairs,
-                  4 * io + 2 * rows_b + 2 * 4 * b * h * s * d, kind))]
+                  4 * io + 2 * rows_b + 2 * 4 * b * h * s * d, kind),
+            flash_route=A.plan_bwd(q.dtype))]
+        repeats("flash_dkv_t", dsets[0], dict(
+            causal=causal, scale=scale, heads=heads, window=window), phase,
+            label)
         del part
     del ref, bsets, dsets
     torch.cuda.empty_cache()
     return rows
+
+
+def dkv_t_gqa_row(label, q, k, v, do, *, causal, window, pairs, phase=24):
+    """K11 at GQA (``[B, H, S, D]`` q, ``[B, Hkv, S, D]`` k and v) against
+    the plain backward's per-head partials, timed beside its bound and the
+    plain version (no one PyTorch call takes GQA's k and v as they are:
+    no library time), two calls bit-equal, and its group sum against
+    K7's."""
+    b, h, s, d = q.shape
+    kind = "f32" if q.dtype == torch.float32 else "bf16"
+    scale = d ** -0.5
+    kw = dict(causal=causal, scale=scale, window=window)
+    ref_o, ref_lse = A.attention_lse_reference(q, k, v, **kw)
+    o = ref_o.contiguous()
+    part = A.flash_bwd_reference(q, k, v, o, ref_lse, do, causal, scale,
+                                 window=window, per_query_head=True)
+    _, delta = A.flash_dq(q, k, v, o, ref_lse, do, **kw)
+    dsets = cold_sets(q, k, v, ref_lse, delta, do)
+    plain_ms = cuda_ms(lambda q_, k_, v_, l_, de_, do_: A.flash_bwd_reference(
+        q_, k_, v_, o, l_, do_, causal, scale, window=window,
+        per_query_head=True), dsets[:1], iters=3)
+    f32 = kind == "f32"
+    row = check_kernel(
+        "flash_dkv_t", label + " (K11: per-head f32 partials)",
+        lambda *a: A.flash_dkv_t(*a, **kw), lambda *a: (part[1], part[2]),
+        dsets, phase=phase,
+        tol=((FLASH_F32_TOL,) if f32 else (BWD_BF16_TOL,)) * 2,
+        how=("each" if f32 else "tiles",) * 2, plain_ms=plain_ms,
+        work=(4 * 2 * d * h * pairs, 2 * nbytes(q) + 2 * nbytes(k)
+              + 8 * b * h * s + 2 * 4 * b * h * s * d, kind),
+        flash_route=A.plan_bwd(q.dtype))
+    repeats("flash_dkv_t", dsets[0], kw, phase, label)
+    parts = A.flash_dkv_t(*dsets[0], **kw)
+    summed = [A.group_sum(p_, t) for p_, t in zip(parts, (k, v))]
+    k7 = A.flash_dkv(*dsets[0], **kw)
+    gs = max(rel_l2(a_, b_) for a_, b_ in zip(summed, k7))
+    gs_tol = 1e-5 if f32 else 1e-2
+    print(f"phase {phase}: flash_dkv_t {label}: group sum against K7's "
+          f"dK/dV: rel L2 {gs:.3e} (tol {gs_tol:.0e}: the same products "
+          f"summed in another order, rounded once)")
+    assert gs <= gs_tol, (label, gs)
+    del part, dsets, parts, summed, k7
+    torch.cuda.empty_cache()
+    return row
 
 
 def packing_docs():
@@ -3231,6 +3304,18 @@ def phase24_masked_kernels(dev):
         pairs=band_pairs(1024, False, 256), dkv_t=True)
     for name, r in small.items():
         win[name] += r
+    # K11 at GQA, 8 query heads on 2 KV heads, in bf16 (a causal window of
+    # 512 at D 128) and f32 (non-causal, window 256, D 64)
+    for label, dtype, s_, d_, causal, window in (
+            ("bf16 B=1 H=8 Hkv=2 S=2048 D=128 causal window 512 bhsd",
+             bf, 2048, 128, True, 512),
+            ("f32 B=1 H=8 Hkv=2 S=1024 D=64 non-causal window 256 bhsd",
+             torch.float32, 1024, 64, False, 256)):
+        q, do = (randn(1, 8, s_, d_, dtype=dtype) for _ in range(2))
+        k, v = (randn(1, 2, s_, d_, dtype=dtype) for _ in range(2))
+        win["flash_dkv_t"].append(dkv_t_gqa_row(
+            label, q, k, v, do, causal=causal, window=window,
+            pairs=band_pairs(s_, causal, window)))
     # K5 in bf16 (wgmma) without causality, windowed at the f32 row's
     # shape and unmasked at an S that is not a multiple of 128, and under
     # a window and causality at a ragged S in [B, S, H*D]
@@ -3824,12 +3909,14 @@ def kernel_report(paths, standalone, top=None, routes=None):
                       if k in rep and p == (top or {}).get(k, p)),
                      standalone.get(k))
         extra = {key: first[key] for key in ("k1_route", "splits", "k1_tile",
-                                             "k1_staging", "i8_route")
+                                             "k1_staging", "i8_route",
+                                             "q8_route")
                  if key in first}
         if "flash_route" in first:
             extra["flash_route"] = first["flash_route"]
         source = (K1_SOURCES.get(first.get("k1_route"))
                   or I8_SOURCES.get(first.get("i8_route"))
+                  or Q8_SOURCES.get(first.get("q8_route"))
                   or FLASH_SOURCES.get(first.get("flash_route"), {}).get(k)
                   or SOURCES[k][0])
         kernels.append(dict(

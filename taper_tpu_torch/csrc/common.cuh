@@ -96,6 +96,14 @@ __device__ __forceinline__ float epilogue(float acc, int act) {
   return acc;
 }
 
+// K12/K13's affine step, scale . acc - xsum . (scale . zp), each product
+// and the difference rounded on their own (no FMA contraction), as the
+// plain version's separate operations are.
+__device__ __forceinline__ float q_affine(float acc, float xs, float s,
+                                          float z) {
+  return __fsub_rn(__fmul_rn(acc, s), __fmul_rn(xs, __fmul_rn(s, z)));
+}
+
 }  // namespace taper
 
 extern "C" const char* taper_error_string(int code);

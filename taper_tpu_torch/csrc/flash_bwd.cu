@@ -1,42 +1,29 @@
 // Flash attention backward: dQ, dK and dV from q, k, v, the forward's
 // output o and row logsumexp lse, and the output's cotangent do, under a
 // causal mask, a sliding window and segment ids (flash_common.cuh, Mask).
-// This file holds the C entry points of the four backward kernels and the
-// kernels that no redesign has taken yet: K11 and the f32 K10.  bf16 K6
-// runs flash_bwd_sm90.cu's kernel, bf16 K7 and K10's bf16 sweep
-// flash_sm90.cu's, f32 K6 and K7 flash_bwd_f32.cu's (ops/attention.py's
-// plan_bwd names the route).
+// This file holds the C entry points of the five backward kernels and the
+// one kernel that no redesign has taken yet, the f32 K10 (on no path).
+// bf16 K6 runs flash_bwd_sm90.cu's kernel; bf16 K7, K11 and K10's bf16
+// sweep flash_sm90.cu's; f32 K6, K7 and K11 flash_bwd_f32.cu's
+// (ops/attention.py's plan_bwd names the route).
 //
-// Replaces two backward TPU kernels of taper_tpu/ops/pallas/attention.py,
-// launched by _flash_bwd_impl:
-//   * flash_dkv_kernel (K11, _dkv_kernel_t, opt-in under TAPER_ATTN_DKV_T=1
-//     for non-causal or windowed masks without segment ids), in bf16 and
-//     f32: one block per (batch * QUERY head, 64-row KV tile) loops over the
-//     band of query tiles on transposed tiles, s^T = K Q^T, so that every
-//     product is a plain one: dV += p^T dO, dK += ds^T Q, dK scaled once at
-//     the end; it writes the head's dK and dV as f32 partials [B, H, S, D],
-//     which the caller sums over each group (JAX's kernel emits at
-//     query-head width too).  At GQA group G it puts G times the blocks on
-//     the card for a partial buffer and a reduction.
-//   * flash_fused_kernel (K10 in f32, _bwd_fused_kernel, opt-in under
-//     TAPER_ATTN_FUSED_BWD=1 for plain causal attention): one sweep of the
-//     band computes s, p and dp once per tile pair (5 products where K6 +
-//     K7 do 7) and feeds all three gradients.  JAX keeps the whole (S, D)
-//     f32 dQ in VMEM; at the 170M shape that is 1 MiB a head, far beyond
-//     an SM's 228 KB, so dK and dV stay in registers and each pair's ds K
-//     is added into a zeroed f32 dQ buffer with atomics, after a delta
-//     pre-pass (flash_delta_kernel, every dtype) and before an epilogue
-//     that scales and casts dQ: three launches.  The atomics make dQ's low
-//     bits depend on the order of the adds.
-// All read the forward's strides (Layout), so the projections' [B, S, H*D]
-// layout needs no copy in either direction.
+// Replaces, in f32, taper_tpu/ops/pallas/attention.py::_bwd_fused_kernel
+// (K10, launched by _flash_bwd_impl, opt-in under TAPER_ATTN_FUSED_BWD=1
+// for plain causal attention) with flash_fused_kernel: one sweep of the
+// band computes s, p and dp once per tile pair (5 products where K6 + K7
+// do 7) and feeds all three gradients.  JAX keeps the whole (S, D) f32 dQ
+// in VMEM; at the 170M shape that is 1 MiB a head, far beyond an SM's 228
+// KB, so dK and dV stay in registers and each pair's ds K is added into a
+// zeroed f32 dQ buffer with atomics, after a delta pre-pass
+// (flash_delta_kernel, every dtype) and before an epilogue that scales and
+// casts dQ: three launches.  The atomics make dQ's low bits depend on the
+// order of the adds.  It reads the forward's strides (Layout), so the
+// projections' [B, S, H*D] layout needs no copy in either direction.
 //
-// What bounds them on the H100: the FMA work in f32 (8 S^2 D flops a head
-// for K11's dK/dV, halved by causality, at 67 TFLOP/s), tensor-core work
-// over the band's S W pairs for K11 in bf16.  What the design here does
+// What bounds it on the H100: the FMA work in f32 (10 S^2 D flops a
+// head, halved by causality, at 67 TFLOP/s).  What the design here does
 // about that:
-//   * FMA loops in which a lane owns columns for f32, 16 x 16 WMMA tiles
-//     out of shared memory for K11 in bf16;
+//   * FMA loops in which a lane owns columns;
 //   * dK/dV stay in registers for the whole sweep; the scores and the
 //     weights go through shared memory, where their elementwise step reads
 //     them row by row;
@@ -74,8 +61,8 @@ struct BwdSmem {
   static_assert(L::out <= 2 * L::scores, "staging fits the score tiles");
 };
 
-// One (KV tile, query tile) pair of the transposed backward, shared by
-// K11 and K10: s^T = K Q^T, p^T, dV += p^T dO, dp^T = V dO^T,
+// One (KV tile, query tile) pair of the transposed backward of K10: s^T =
+// K Q^T, p^T, dV += p^T dO, dp^T = V dO^T,
 // ds^T = p^T (dp^T - delta), dK += ds^T Q.  Loads the query tile of head
 // `bh` (its Q, dO, lse, delta and, with segments, ids); leaves ds^T in Wt
 // for all 64 KV rows only after the caller's __syncthreads.  Returns
@@ -147,61 +134,6 @@ __device__ __forceinline__ bool dkv_pair(
   __syncwarp();
   dk_acc.mma(Wt + r0 * L::LDP, Qs);  // dK += ds^T Q
   return true;
-}
-
-// K11: one block per (batch * query head, KV tile), the head's dK/dV
-// written as f32 partials [B, H, S, D], which the caller sums over each
-// group.
-template <typename T, int D, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     Layout lay, int causal, int window,
-                     const int* __restrict__ seg, int H, int Hkv, int S,
-                     float scale, float scale_log2) {
-  const Mask mask{causal, window, seg};
-  using L = Tiles<T, D>;
-  using M = BwdSmem<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + M::t0);
-  T* Vs = reinterpret_cast<T*>(smem + M::t1);
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int hk = h / (H / Hkv);
-  const int kv0 = blockIdx.x * kTile;  // under causality the first tiles
-                                       // see the most query rows
-  const int warp = threadIdx.x / 32;
-  const int r0 = warp * 16;
-  const long long koff = b * lay.kb + hk * lay.kh;
-
-  load_rows<T, D, L::LDT>(Ks, k + koff, lay.ks, kv0, S);
-  load_rows<T, D, L::LDT>(Vs, v + koff, lay.ks, kv0, S);
-  if (has_ids<MASKED>(mask))
-    load_ids(reinterpret_cast<int*>(smem + M::sa_off), mask, b, kv0, S);
-  WarpAcc<T, D> dk_acc, dv_acc;
-  dk_acc.zero();
-  dv_acc.zero();
-
-  const int q_lo = q_begin(mask, kv0), q_hi = q_end<MASKED>(mask, kv0, S);
-  const long long qoff = b * lay.qb + h * lay.qh;
-  for (int q0 = q_lo; q0 < q_hi; q0 += kTile)
-    dkv_pair<T, D, MASKED>(q, dout, lse, delta, smem, lay, mask, b,
-                           blockIdx.y, qoff, kv0, q0, S, scale_log2, dk_acc,
-                           dv_acc);
-  __syncthreads();  // every warp is done with the Q/dO tiles
-  float* Cs = reinterpret_cast<float*>(smem + M::t2);  // over Q/dO tiles
-  float* dkg = dk + (size_t)blockIdx.y * S * D;
-  float* dvg = dv + (size_t)blockIdx.y * S * D;
-  dk_acc.store(Cs + r0 * L::LDO);
-  __syncwarp();
-  write_rows<float, D>(dkg, D, Cs + r0 * L::LDO, kv0 + r0, S, scale);
-  __syncwarp();
-  dv_acc.store(Cs + r0 * L::LDO);
-  __syncwarp();
-  write_rows<float, D>(dvg, D, Cs + r0 * L::LDO, kv0 + r0, S, 1.0f);
 }
 
 // K10's pre-pass: delta = rowsum(dO * O), one warp a row, in the order of
@@ -315,25 +247,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D, bool MASKED>
-int launch_dkv_t(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dk, void* dv, int B, int H, int Hkv, int S,
-                 float scale, Mask mask, int layout, cudaStream_t s) {
-  constexpr size_t bytes = BwdSmem<T, D>::bytes;
-  auto kernel = flash_dkv_kernel<T, D, MASKED>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTile - 1) / kTile, B * H);
-  kernel<<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<float*>(dk), static_cast<float*>(dv),
-      make_layout(layout, H, Hkv, S, D), mask.causal, mask.window, mask.seg,
-      H, Hkv, S, scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int D>
 int launch_delta(const void* o, const void* dout, float* delta, int B,
                  int H, int Hkv, int S, int layout, cudaStream_t s) {
@@ -395,14 +308,6 @@ int dispatch_dim(int D, const Mask& m, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The same over dtype too.
-template <typename F>
-int dispatch(int dtype, int D, const Mask& m, F&& f) {
-  if (dtype == kBFloat16) return dispatch_dim<__nv_bfloat16>(D, m, f);
-  if (dtype == kFloat32) return dispatch_dim<float>(D, m, f);
-  return (int)cudaErrorInvalidValue;
-}
-
 inline bool bad_dims(int B, int H, int Hkv, int S) {
   return B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0;
 }
@@ -431,6 +336,11 @@ int flash_fused_sm90(const void* q, const void* k, const void* v,
                      float* dq_acc, void* dq, void* dk, void* dv,
                      const Mask& m, int B, int H, int Hkv, int S, int D,
                      float scale, int layout, cudaStream_t stream);
+int flash_dkv_t_sm90(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     float* dk_part, float* dv_part, const Mask& m, int B,
+                     int H, int Hkv, int S, int D, float scale, int layout,
+                     cudaStream_t stream);
 // csrc/flash_bwd_f32.cu: K6 and K7 in f32 on the CUDA cores
 int flash_dq_f32(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, void* dq, float* delta,
@@ -441,6 +351,11 @@ int flash_dkv_f32(const void* q, const void* k, const void* v,
                   void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
                   int S, int D, float scale, int layout,
                   cudaStream_t stream);
+int flash_dkv_t_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    float* dk_part, float* dv_part, const Mask& m, int B,
+                    int H, int Hkv, int S, int D, float scale, int layout,
+                    cudaStream_t stream);
 }  // namespace flash
 }  // namespace taper
 
@@ -487,7 +402,9 @@ extern "C" int taper_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // K11, after K6 (its delta): dK/dV per query head as f32 partials
-// dk_part, dv_part [B, H, S, D] (dK's scaled), no segment ids.
+// dk_part, dv_part [B, H, S, D] (dK's scaled), no segment ids; bf16 runs
+// K7's wgmma kernel of flash_sm90.cu, f32 K7's FMA kernel of
+// flash_bwd_f32.cu, each in its per-head mode.
 extern "C" int taper_flash_dkv_t(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk_part,
@@ -496,13 +413,16 @@ extern "C" int taper_flash_dkv_t(const void* q, const void* k, const void* v,
                                  int layout, int dtype, void* stream) {
   if (bad_dims(B, H, Hkv, S)) return (int)cudaErrorInvalidValue;
   const Mask m{causal, window, nullptr};
-  return dispatch(dtype, D, m, [&](auto t, auto d, auto mk) {
-    return launch_dkv_t<typename decltype(t)::type, decltype(d)::value,
-                        decltype(mk)::value>(
-        q, k, v, dout, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), dk_part, dv_part, B, H, Hkv, S,
-        scale, m, layout, static_cast<cudaStream_t>(stream));
-  });
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  auto part = [](void* p) { return static_cast<float*>(p); };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16)
+    return flash_dkv_t_sm90(q, k, v, dout, f32(lse), f32(delta),
+                            part(dk_part), part(dv_part), m, B, H, Hkv, S, D,
+                            scale, layout, s);
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  return flash_dkv_t_f32(q, k, v, dout, f32(lse), f32(delta), part(dk_part),
+                         part(dv_part), m, B, H, Hkv, S, D, scale, layout, s);
 }
 
 // K10: the delta pre-pass, the fused sweep and the dQ epilogue, three

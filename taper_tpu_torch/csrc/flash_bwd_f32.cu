@@ -1,10 +1,11 @@
-// Flash attention backward in f32 on the CUDA cores: K6 (dQ) and K7 (dK,
-// dV), the kernels that every f32 call of taper_flash_dq and
-// taper_flash_dkv (csrc/flash_bwd.cu) runs, under every mask that
+// Flash attention backward in f32 on the CUDA cores: K6 (dQ), K7 (dK, dV)
+// and K11 (K7 per query head), the kernels that every f32 call of
+// taper_flash_dq, taper_flash_dkv and taper_flash_dkv_t (csrc/flash_bwd.cu)
+// runs, under every mask that
 // flash_common.cuh's Mask takes (causal, a window, segment ids), in both
 // layouts (Layout strides), with GQA read natively and any S.
 //
-// Replaces, in f32, two backward TPU kernels of
+// Replaces, in f32, three backward TPU kernels of
 // taper_tpu/ops/pallas/attention.py, launched by _flash_bwd_impl:
 //   * dq_f32_kernel (K6, _dq_kernel): per query tile, delta = rowsum(dO *
 //     O), exported for K7 (JAX also subtracts an lse cotangent there, which
@@ -19,6 +20,12 @@
 //     group's query heads sum into the same registers in a fixed order: no
 //     partials at query-head width, no atomics, the same bits on every run
 //     (JAX sums per-head partials after its kernel).
+//   * dkv_f32_kernel<.., PER_HEAD = true> (K11, _dkv_kernel_t, opt-in
+//     under TAPER_ATTN_DKV_T=1 for non-causal or windowed masks without
+//     segment ids): K7's sweep over one query head's tiles, a block a
+//     (batch * query head, KV tile), its dK and dV written as f32 partials
+//     [B, H, S, D], which ops/attention.py::group_sum adds over each group,
+//     as JAX sums after its kernel.
 // The port keeps TF32 off (ops/backend.py), so every product is an FMA
 // loop.
 //
@@ -382,8 +389,10 @@ __global__ void __launch_bounds__(kThreads * KVG, kMinBlocks<KVG>)
 // query rows see first: the first ones under causality, the last under a
 // window without it).  The sweep runs over the group's (head, query tile)
 // pairs, head by head; with KVG = 2 two groups of 128 threads take every
-// other pair and group 0 adds group 1's dK and dV at the end.
-template <int D, int RT, int KVG, bool MASKED>
+// other pair and group 0 adds group 1's dK and dV at the end.  K11
+// (PER_HEAD): block x is a batch-query head, the sweep covers that head
+// alone, and dk, dv are its f32 partials [B, H, S, D].
+template <int D, int RT, int KVG, bool MASKED, bool PER_HEAD>
 __global__ void __launch_bounds__(kThreads * KVG, kMinBlocks<KVG>)
     dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
@@ -406,8 +415,13 @@ __global__ void __launch_bounds__(kThreads * KVG, kMinBlocks<KVG>)
   float* Pt = reinterpret_cast<float*>(smem + P::w_off + gi * P::w_size);
   float* DSt = Pt + BK * LDW;
 
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int group = H / Hkv;
+  const int group = H / Hkv, heads = PER_HEAD ? H : Hkv;
+  const int b = blockIdx.x / heads;
+  const int hk = PER_HEAD ? blockIdx.x % H / group : blockIdx.x % Hkv;
+  // the sweep's query heads: the group's g0 .. g0 + n_g - 1 (K11: the
+  // block's own)
+  const int g0 = PER_HEAD ? blockIdx.x % H % group : 0;
+  const int n_g = PER_HEAD ? 1 : group;
   const bool rev = MASKED && !causal && window > 0;
   const int kv0 = (rev ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BK;
   const int tx = lt % 8, ty = lt / 8;
@@ -418,14 +432,14 @@ __global__ void __launch_bounds__(kThreads * KVG, kMinBlocks<KVG>)
   const int q_lo = causal ? kv0 : 0;
   const int q_hi = MASKED && window > 0 ? min(S, kv0 + BK - 1 + window) : S;
   const int n_q = (q_hi - q_lo + BQ - 1) / BQ;
-  const int total = group * n_q;  // (head, query tile) pairs, head-major
+  const int total = n_g * n_q;  // (head, query tile) pairs, head-major
   auto q_stage = [&](int i) {
     return reinterpret_cast<float*>(smem + P::st_off +
                                     (2 * gi + (i & 1)) * P::stage);
   };
   auto load_q = [&](int t, int i) {
     float* Qs = q_stage(i);
-    const int h = hk * group + t / n_q, q0 = q_lo + (t % n_q) * BQ;
+    const int h = hk * group + g0 + t / n_q, q0 = q_lo + (t % n_q) * BQ;
     const long long qoff = b * lay.qb + h * lay.qh;
     const size_t roff = (size_t)(b * H + h) * S;
     rows_async<BQ, D, LD, kThreads>(Qs, q + qoff, lay.qs, q0, S, lt);
@@ -552,8 +566,14 @@ __global__ void __launch_bounds__(kThreads * KVG, kMinBlocks<KVG>)
         dva[i][e] += red[((RT + i) * DT + e) * kThreads + lt];
       }
   }
-  store_block(dk + koff, lay.ks, dka, kv0, S, scale, ty, tx);
-  store_block(dv + koff, lay.ks, dva, kv0, S, 1.0f, ty, tx);
+  if constexpr (PER_HEAD) {
+    const size_t off = ((size_t)b * H + hk * group + g0) * S * D;
+    store_block(dk + off, D, dka, kv0, S, scale, ty, tx);
+    store_block(dv + off, D, dva, kv0, S, 1.0f, ty, tx);
+  } else {
+    store_block(dk + koff, lay.ks, dka, kv0, S, scale, ty, tx);
+    store_block(dv + koff, lay.ks, dva, kv0, S, 1.0f, ty, tx);
+  }
 }
 
 template <int D, int RT, int KVG, bool MASKED>
@@ -576,18 +596,18 @@ int launch_dq_f32(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D, int RT, int KVG, bool MASKED>
+template <int D, int RT, int KVG, bool MASKED, bool PER_HEAD>
 int launch_dkv_f32(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int B, int H, int Hkv, int S,
                    float scale, const Mask& m, int layout,
                    cudaStream_t stream) {
   using P = DkvF32<D, RT, KVG>;
-  auto kernel = dkv_f32_kernel<D, RT, KVG, MASKED>;
+  auto kernel = dkv_f32_kernel<D, RT, KVG, MASKED, PER_HEAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * Hkv, (S + P::BK - 1) / P::BK);
+  dim3 grid(B * (PER_HEAD ? H : Hkv), (S + P::BK - 1) / P::BK);
   kernel<<<grid, P::NT, P::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -607,8 +627,8 @@ struct Tile {
 // Calls f(Tile<...>{}) with 64-row tiles at D 64 (32-row ones at D 128,
 // where 64 would not let two blocks share an SM) where they give every SM
 // a block, else 32-row tiles with two thread groups (twice the blocks,
-// each with twice the threads on its sweep).  `units` is B * H for K6,
-// B * Hkv for K7.
+// each with twice the threads on its sweep).  `units` is B * H for K6 and
+// K11, B * Hkv for K7.
 template <int D, typename F>
 int by_tile(long long units, int S, const Mask& m, F&& f) {
   constexpr int RT = D == 64 ? 4 : 2;
@@ -631,14 +651,14 @@ int dq_f32(const void* q, const void* k, const void* v, const void* o,
   });
 }
 
-template <int D>
+template <int D, bool PER_HEAD>
 int dkv_f32(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv,
             const Mask& m, int B, int H, int Hkv, int S, float scale,
             int layout, cudaStream_t stream) {
-  return by_tile<D>((long long)B * Hkv, S, m, [&](auto t) {
+  return by_tile<D>((long long)B * (PER_HEAD ? H : Hkv), S, m, [&](auto t) {
     using C = decltype(t);
-    return launch_dkv_f32<D, C::RT, C::KVG, C::MASKED>(
+    return launch_dkv_f32<D, C::RT, C::KVG, C::MASKED, PER_HEAD>(
         q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, m, layout,
         stream);
   });
@@ -665,11 +685,27 @@ int flash_dkv_f32(const void* q, const void* k, const void* v,
                   int S, int D, float scale, int layout,
                   cudaStream_t stream) {
   if (D == 64)
-    return dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, m, B, H, Hkv, S,
-                       scale, layout, stream);
+    return dkv_f32<64, false>(q, k, v, dout, lse, delta, dk, dv, m, B, H,
+                              Hkv, S, scale, layout, stream);
   if (D == 128)
-    return dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, m, B, H, Hkv, S,
-                        scale, layout, stream);
+    return dkv_f32<128, false>(q, k, v, dout, lse, delta, dk, dv, m, B, H,
+                               Hkv, S, scale, layout, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11 in f32 (taper_flash_dkv_t's f32 calls), after K6: dk_part, dv_part
+// [B, H, S, D].
+int flash_dkv_t_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    float* dk_part, float* dv_part, const Mask& m, int B,
+                    int H, int Hkv, int S, int D, float scale, int layout,
+                    cudaStream_t stream) {
+  if (D == 64)
+    return dkv_f32<64, true>(q, k, v, dout, lse, delta, dk_part, dv_part, m,
+                             B, H, Hkv, S, scale, layout, stream);
+  if (D == 128)
+    return dkv_f32<128, true>(q, k, v, dout, lse, delta, dk_part, dv_part,
+                              m, B, H, Hkv, S, scale, layout, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Flash attention on Hopper: K8, the bound-max forward, K7, the dK/dV
-// backward, and K10's fused sweep (K7's with dQ's share added), in bf16 at
-// D 64 or 128, on TMA rings and warpgroup MMA (wgmma) with the softmax in
+// backward, K10's fused sweep (K7's with dQ's share added) and K11 (K7's
+// sweep over one query head, per-head partials out), in bf16 at D 64 or
+// 128, on TMA rings and warpgroup MMA (wgmma) with the softmax in
 // registers.  K6 (dQ) is flash_bwd_sm90.cu's.
 //
 // Replaces, for bf16 operands (16-byte aligned, as TMA needs and
@@ -31,7 +32,16 @@
 //     170M shape), far beyond an SM's 227 KB: here the shares of the
 //     blocks that see a query tile meet in device memory, added with
 //     16-byte vector reductions (a TMA bulk reduce would need 32 KB more
-//     shared memory for its staging than the 227 KB hold at D 128).
+//     shared memory for its staging than the 227 KB hold at D 128);
+//   * taper_tpu/ops/pallas/attention.py::_dkv_kernel_t (K11, opt-in under
+//     TAPER_ATTN_DKV_T=1 for non-causal or windowed masks without segment
+//     ids): dK and dV of one KV tile for one query head
+//     (dkv_kernel<.., kDkvPerHead>: a block a query head, the group loop
+//     over that head alone), written as f32 partials [B, H, S, D] straight
+//     from the fragments (f32 rows would need twice the bf16 staging), which
+//     ops/attention.py::group_sum adds over each group, as JAX sums after
+//     its kernel.  JAX's kernel computes on transposed tiles, s^T = K Q^T,
+//     so that dV and dK are NN forms; K7's kernel here already does.
 //
 // What bounds them on the H100: tensor-core work.  At the 170M shape (B 8,
 // H 8, S 2048, D 128, causal) K8's two products are 6.9e10 FLOP (69 us at
@@ -84,6 +94,7 @@
 // rows.
 #include <algorithm>
 #include <climits>
+#include <cstring>
 #include <type_traits>
 
 #include "flash_sm90.cuh"
@@ -503,7 +514,12 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// ---- K7: dK and dV --------------------------------------------------------
+// ---- K7: dK and dV (and K10's sweep, K11) --------------------------------
+
+// dkv_kernel's modes: K7 (the GQA group's query heads summed into one dK
+// and dV), K10's sweep (K7's, adding each query tile's share of dQ) and
+// K11 (one query head's dK and dV, written as f32 partials).
+enum DkvMode : int { kDkvSum = 0, kDkvFused = 1, kDkvPerHead = 2 };
 
 // What a stage holds beside its Q and dO tiles, written by the producer
 // warp: the tile's 64 query rows' lse in base 2 (0 past S or for a fully
@@ -604,7 +620,12 @@ __device__ __forceinline__ void red_dq_share(float* chunk,
 // behind a branch (ptxas serialises the wgmma of a kernel that has one).
 // The order of the blocks' additions varies from run to run, and so do
 // dQ's low bits.
-template <int D, bool MASKED, bool FUSED>
+//
+// K11 (kDkvPerHead) takes one block a (batch * query head, KV tile): the
+// sweep covers that head's query tiles alone, and the epilogue writes its
+// dK (scaled as K7's) and dV as f32 partials [B, H, S, D] (dk_part,
+// dv_part).
+template <int D, bool MASKED, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -615,7 +636,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                const float* __restrict__ lse, const float* __restrict__ delta,
                int causal, int window, const int* __restrict__ seg, int H,
                int Hkv, int S, int layout, float scale, float scale_log2,
-               float* __restrict__ dq_acc, int n_qt) {
+               float* __restrict__ dq_acc, int n_qt,
+               float* __restrict__ dk_part, float* __restrict__ dv_part) {
+  constexpr bool FUSED = MODE == kDkvFused, PER_HEAD = MODE == kDkvPerHead;
   const Mask mask{causal, window, seg};  // see Mask
   using P = DkvTiles<D, FUSED>;
   extern __shared__ unsigned char smem_raw[];
@@ -628,14 +651,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + P::STAGES;
 
-  // KV heads fastest, so that every head's first (longest) tiles go first
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, group = H / Hkv;
+  // KV heads (K11: query heads) fastest, so that every head's first
+  // (longest) tiles go first
+  const int heads = PER_HEAD ? H : Hkv, group = H / Hkv;
+  const int b = blockIdx.x / heads;
+  const int hk = PER_HEAD ? blockIdx.x % H / group : blockIdx.x % Hkv;
+  // the sweep's query heads: the group's g0 .. g0 + n_g - 1 (K11: the
+  // block's own)
+  const int g0 = PER_HEAD ? blockIdx.x % H % group : 0;
+  const int n_g = PER_HEAD ? 1 : group;
   const int kv0 = blockIdx.y * P::BKV;
   // the band of query tiles the block's two 64-row halves see
   const int q_lo = q_begin(mask, kv0);
   const int q_hi = q_end<MASKED>(mask, kv0 + 64, S);
   const int n_q = q_hi > q_lo ? (q_hi - q_lo + P::BQ - 1) / P::BQ : 0;
-  const int total = group * n_q;
+  const int total = n_g * n_q;
   const HeadAt kat = head_at(layout, b, Hkv, hk, D);
   const int wg = threadIdx.x / 128;
 
@@ -677,7 +707,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       khi = __reduce_max_sync(0xffffffffu, khi);
     }
     for (int it = 0; it < total; ++it) {
-      const int g = it / n_q, q0 = q_lo + (it % n_q) * P::BQ;
+      const int g = g0 + it / n_q, q0 = q_lo + (it % n_q) * P::BQ;
       const int h = hk * group + g, bh = b * H + h;
       const int s = it % P::STAGES;
       if (it >= P::STAGES) mbar_wait(&empty[s], (it / P::STAGES - 1) & 1);
@@ -765,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   mbar_wait(kv_full, 0);
   for (int it = 0; it < total; ++it) {
-    const int g = it / n_q, q0 = q_lo + (it % n_q) * P::BQ;
+    const int g = g0 + it / n_q, q0 = q_lo + (it % n_q) * P::BQ;
     const int s = it % P::STAGES;
     mbar_wait(&full[s], (it / P::STAGES) & 1);
     const DkvSlot& sl = slots[s];
@@ -878,6 +908,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
+  if constexpr (PER_HEAD) {
+    // K11: the head's dK (scaled once) and dV as f32 partials [B, H, S,
+    // D], straight from the fragments (a quad writes 32 contiguous bytes
+    // of a row)
+    const size_t bh = (size_t)b * H + hk * group + g0;
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int row = kr0 + frag_row(e), col = frag_col(e, quad);
+      if (row >= S) continue;
+      const size_t at = (bh * S + row) * D + col;
+      *reinterpret_cast<float2*>(dk_part + at) =
+          make_float2(dk[e] * scale, dk[e + 1] * scale);
+      *reinterpret_cast<float2*>(dv_part + at) = make_float2(dv[e], dv[e + 1]);
+    }
+    return;
+  }
   // epilogue: dK (scaled once) and dV in bf16 over the warpgroup's own K
   // and V rows (which only its wgmma read; K10's dS K read all of K, so
   // both warpgroups finish that first), then TMA stores of its 64 rows
@@ -900,29 +946,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, bool MASKED, bool FUSED>
+// K7 (kDkvSum), K10's sweep (kDkvFused: dq_acc) or K11 (kDkvPerHead: dk
+// and dv are the f32 partials [B, H, S, D]).
+template <int D, bool MASKED, int MODE>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dq_acc, void* dk,
                void* dv, const int* seg, int B, int H, int Hkv, int S,
                float scale, int causal, int window, int layout,
                cudaStream_t stream) {
-  using P = DkvTiles<D, FUSED>;
+  constexpr bool PER_HEAD = MODE == kDkvPerHead;
+  using P = DkvTiles<D, MODE == kDkvFused>;
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
   int err = head_desc(&tq, q, layout, B, H, S, D, P::BQ);
   if (err == 0) err = head_desc(&tdo, dout, layout, B, H, S, D, P::BQ);
   if (err == 0) err = head_desc(&tk, k, layout, B, Hkv, S, D, P::BKV);
   if (err == 0) err = head_desc(&tv, v, layout, B, Hkv, S, D, P::BKV);
-  if (err == 0) err = head_desc(&tdk, dk, layout, B, Hkv, S, D, 64);
-  if (err == 0) err = head_desc(&tdv, dv, layout, B, Hkv, S, D, 64);
+  if (PER_HEAD) {
+    memset(&tdk, 0, sizeof(tdk));
+    memset(&tdv, 0, sizeof(tdv));
+  } else {
+    if (err == 0) err = head_desc(&tdk, dk, layout, B, Hkv, S, D, 64);
+    if (err == 0) err = head_desc(&tdv, dv, layout, B, Hkv, S, D, 64);
+  }
   if (err != 0) return err;
-  auto kernel = dkv_kernel<D, MASKED, FUSED>;
+  auto kernel = dkv_kernel<D, MASKED, MODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * Hkv, (S + P::BKV - 1) / P::BKV);
+  dim3 grid(B * (PER_HEAD ? H : Hkv), (S + P::BKV - 1) / P::BKV);
   kernel<<<grid, kThreads, P::SMEM, stream>>>(
       tq, tk, tv, tdo, tdk, tdv, lse, delta, causal, window, seg, H, Hkv, S,
-      layout, scale, scale * kLog2e, dq_acc, (S + 63) / 64);
+      layout, scale, scale * kLog2e, dq_acc, (S + 63) / 64,
+      PER_HEAD ? static_cast<float*>(dk) : nullptr,
+      PER_HEAD ? static_cast<float*>(dv) : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -961,9 +1017,10 @@ int launch_fused(const void* q, const void* k, const void* v,
                  float* dq_acc, void* dq, void* dk, void* dv, const int* seg,
                  int B, int H, int Hkv, int S, float scale, int causal,
                  int window, int layout, cudaStream_t stream) {
-  int err = launch_dkv<D, MASKED, true>(q, k, v, dout, lse, delta, dq_acc,
-                                        dk, dv, seg, B, H, Hkv, S, scale,
-                                        causal, window, layout, stream);
+  int err = launch_dkv<D, MASKED, kDkvFused>(q, k, v, dout, lse, delta,
+                                             dq_acc, dk, dv, seg, B, H, Hkv,
+                                             S, scale, causal, window, layout,
+                                             stream);
   if (err != 0) return err;
   const int n_qt = (S + 63) / 64;
   const long long n4 = (long long)B * H * n_qt * 64 * D / 4;
@@ -1061,9 +1118,23 @@ int flash_dkv_sm90(const void* q, const void* k, const void* v,
                    int S, int D, float scale, int layout,
                    cudaStream_t stream) {
   return sm90::by_dim_and_mask(D, m, [&](auto d, auto mk) {
-    return sm90::launch_dkv<decltype(d)::value, decltype(mk)::value, false>(
+    return sm90::launch_dkv<decltype(d)::value, decltype(mk)::value,
+                            sm90::kDkvSum>(
         q, k, v, dout, lse, delta, nullptr, dk, dv, m.seg, B, H, Hkv, S,
         scale, m.causal, m.window, layout, stream);
+  });
+}
+
+int flash_dkv_t_sm90(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     float* dk_part, float* dv_part, const Mask& m, int B,
+                     int H, int Hkv, int S, int D, float scale, int layout,
+                     cudaStream_t stream) {
+  return sm90::by_dim_and_mask(D, m, [&](auto d, auto mk) {
+    return sm90::launch_dkv<decltype(d)::value, decltype(mk)::value,
+                            sm90::kDkvPerHead>(
+        q, k, v, dout, lse, delta, nullptr, dk_part, dv_part, m.seg, B, H,
+        Hkv, S, scale, m.causal, m.window, layout, stream);
   });
 }
 

@@ -42,7 +42,11 @@
 //   * persistent: one block an SM (160 KB of stages) walks the work units
 //     (tile and split), and the ring runs on from one unit to the next;
 //   * registers move from the producer warpgroup to the consumers
-//     (setmaxnreg).
+//     (setmaxnreg);
+//   * the ring, the two consumers' turns, the stage releases and the
+//     staged TMA-store epilogue are hopper.cuh's gemm_pingpong skeleton,
+//     which K15 and K12's wgmma route (quant_sm90.cu) share; this file
+//     gives it K1's loads, products and epilogue (GemmWork).
 // 128 x 256 tiles and a bank-conflict-free staging tile are later work.
 #include <algorithm>
 #include <cstring>
@@ -69,7 +73,6 @@ constexpr int OUT_BYTES = BM * BN * 4;         // two 64-row f32 halves
 constexpr int BAR_OFFSET = OUT_OFFSET + OUT_BYTES;
 constexpr int SMEM_BYTES = BAR_OFFSET + (2 * STAGES + 2) * 8 + 1024;
 constexpr int THREADS = 384;                   // producer + 2 consumers
-constexpr int CONSUMER_WARPS = 4;              // a unit's consumers
 
 template <typename OutT>
 __device__ __forceinline__ void store2(OutT* y, size_t i, float v0,
@@ -88,64 +91,207 @@ __device__ __forceinline__ void store2(OutT* y, size_t i, float v0,
 }
 
 // 64 rows of a consumer warpgroup's output tile through shared memory
-// (``tile``, row-major) and a TMA store at rows ``m0``: waits until the
-// warpgroup's previous store has read the tile, writes the fragment (plus
-// bias and epilogue unless ``raw``), fences the writes for the async
-// proxy and issues the store from the warpgroup's first thread.  ``bar``:
-// the warpgroup's named barrier.
-template <typename T>
+// (``tile``, row-major) and a TMA store at rows ``m0`` (staged_store): the
+// fragment, plus bias and the epilogue ACT unless ``raw``.  ``bar``: the
+// warpgroup's named barrier.
+template <typename T, int ACT>
 __device__ __forceinline__ void epilogue_tile(
     unsigned char* tile, const float (&acc)[64], int r0, int n0, int N,
-    const __nv_bfloat16* __restrict__ bias, int act, int bar, int z, int m0,
+    const __nv_bfloat16* __restrict__ bias, int bar, int z, int m0,
     const CUtensorMap* tma_y, bool raw) {
   const int lane = threadIdx.x % 32;
-  const bool leader = threadIdx.x % 128 == 0;
   T* out = reinterpret_cast<T*>(tile);
-  if (leader) bulk_wait_read<0>();
-  named_bar_sync(bar, 128);
+  staged_store(
+      bar,
+      [&] {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = j * 8 + (lane % 4) * 2;
-    float b0 = 0.0f, b1 = 0.0f;
-    if (!raw && bias != nullptr && n0 + col < N) {
-      b0 = __bfloat162float(bias[n0 + col]);
-      if (n0 + col + 1 < N) b1 = __bfloat162float(bias[n0 + col + 1]);
-    }
+        for (int j = 0; j < 16; ++j) {
+          const int col = j * 8 + (lane % 4) * 2;
+          float b0 = 0.0f, b1 = 0.0f;
+          if (!raw && bias != nullptr && n0 + col < N) {
+            b0 = __bfloat162float(bias[n0 + col]);
+            if (n0 + col + 1 < N) b1 = __bfloat162float(bias[n0 + col + 1]);
+          }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v0 = acc[j * 4 + h * 2], v1 = acc[j * 4 + h * 2 + 1];
-      if (!raw) {
-        v0 = epilogue(v0 + b0, act);
-        v1 = epilogue(v1 + b1, act);
-      }
-      store2(out, (size_t)(r0 + h * 8) * BN + col, v0, v1, true, true);
-    }
-  }
-  fence_proxy_async_smem();
-  named_bar_sync(bar, 128);
-  if (leader) {
-    if (raw)
-      tma_store_3d(tma_y, tile, n0, m0, z);
-    else
-      tma_store_2d(tma_y, tile, n0, m0);
-    bulk_commit();
-  }
+          for (int h = 0; h < 2; ++h) {
+            float v0 = acc[j * 4 + h * 2], v1 = acc[j * 4 + h * 2 + 1];
+            if (!raw) {
+              v0 = epilogue(v0 + b0, ACT);
+              v1 = epilogue(v1 + b1, ACT);
+            }
+            store2(out, (size_t)(r0 + h * 8) * BN + col, v0, v1, true, true);
+          }
+        }
+      },
+      [&] {
+        if (raw)
+          tma_store_3d(tma_y, tile, n0, m0, z);
+        else
+          tma_store_2d(tma_y, tile, n0, m0);
+      });
 }
 
-// A_K: a is K-major ([M, K]: modes nt, nn), else M-major ([K, M]: tn).
-// B_K: b is K-major ([N, K]: nt), else N-major ([K, N]: nn, tn).
-// Persistent: block x takes work units x, x + gridDim.x, ...; a unit is one
-// output tile and one run of ``k_per_split`` K tiles (split z of
-// ``splits``), N tiles fastest.  The two consumer warpgroups take the
-// block's units in turn, each a whole 128 x 128 tile (two m64n128 wgmma a
-// k-step); the producer fills the ring unit after unit, so one warpgroup's
-// wgmma run while the other stores its tile.
-// The output goes out through ``tma_y`` where ``tma_out`` (its rows a
-// multiple of 16 bytes): the warpgroup writes 64 rows at a time (bias and
-// epilogue applied, or the raw f32 partial of a split, 3-D [splits, M,
-// N]) to its staging tile and one thread hands them to a TMA store, which
-// drains while the warpgroup goes on; otherwise each thread stores its
-// fragment directly.
+// K1 on the skeleton of hopper.cuh (gemm_pingpong).  A_K: a is K-major
+// ([M, K]: modes nt, nn), else M-major ([K, M]: tn).  B_K: b is K-major
+// ([N, K]: nt), else N-major ([K, N]: nn, tn).  A work unit is one output
+// tile and one run of ``k_per_split`` K tiles (split z of ``splits``), N
+// tiles fastest; a consumer takes a whole 128 x 128 tile (two m64n128
+// wgmma a k-step).  The output goes out through ``tma_y`` where
+// ``tma_out`` (its rows a multiple of 16 bytes): the warpgroup writes 64
+// rows at a time (bias and epilogue applied, or the raw f32 partial of a
+// split, 3-D [splits, M, N]) to its staging tile and one thread hands them
+// to a TMA store, which drains while the warpgroup goes on; otherwise each
+// thread stores its fragment directly.
+template <bool A_K, bool B_K, typename OutT>
+struct GemmWork {
+  static constexpr int STAGES = taper::STAGES, STAGE_BYTES = taper::STAGE_BYTES;
+  static constexpr int STAGE_TX = STAGE_BYTES, BAR_OFFSET = taper::BAR_OFFSET;
+  static constexpr bool WIDEN = false;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  const CUtensorMap* tma_a;
+  const CUtensorMap* tma_b;
+  const CUtensorMap* tma_y;
+  const __nv_bfloat16* bias;
+  OutT* y;
+  float* part;
+  unsigned char* smem;
+  int M, N, act, k_per_split, splits, n_tiles, m_tiles, k_count;
+  bool tma_out;
+  // the unit's tile and its first K tile (the producer's and the
+  // consumer's own copies)
+  int n0, m0, z, kt0;
+  float acc[2][64];  // rows [64 mh, 64 mh + 64) of the tile
+
+  __device__ int units() const { return n_tiles * m_tiles * splits; }
+  __device__ int k_tiles(int u) const {
+    const int kt0 = u / (n_tiles * m_tiles) * k_per_split;
+    return min(k_count, kt0 + k_per_split) - kt0;
+  }
+  __device__ void prefetch() const {
+    tma_prefetch_desc(tma_a);
+    tma_prefetch_desc(tma_b);
+  }
+  __device__ void locate(int u) {
+    n0 = (u % n_tiles) * BN;
+    m0 = (u / n_tiles % m_tiles) * BM;
+    z = u / (n_tiles * m_tiles);
+    kt0 = z * k_per_split;
+  }
+  __device__ void load(unsigned char* sa, uint64_t* bar, int i) const {
+    const int k0 = (kt0 + i) * BK;
+    unsigned char* sb = sa + TILE_BYTES;
+    if (A_K) {
+      tma_load_2d(sa, tma_a, bar, k0, m0);
+    } else {
+      tma_load_2d(sa, tma_a, bar, m0, k0);
+      tma_load_2d(sa + HALF_BYTES, tma_a, bar, m0 + 64, k0);
+    }
+    if (B_K) {
+      tma_load_2d(sb, tma_b, bar, k0, n0);
+    } else {
+      tma_load_2d(sb, tma_b, bar, n0, k0);
+      tma_load_2d(sb + HALF_BYTES, tma_b, bar, n0 + 64, k0);
+    }
+  }
+  __device__ void start(int u, int) {
+    locate(u);
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        acc[mh][e] = 0.0f;
+        fence_operand(acc[mh][e]);
+      }
+  }
+  __device__ void mma(unsigned char* stage) {
+    const uint32_t sa = smem_u32(stage);
+    const uint32_t sb = sa + TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db =
+          B_K ? desc_sw128(sb + kk * 32, 16, 1024)
+              : desc_sw128(sb + kk * 16 * 128, HALF_BYTES, 1024);
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) {
+        const uint64_t da =
+            A_K ? desc_sw128(sa + mh * 64 * 128 + kk * 32, 16, 1024)
+                : desc_sw128(sa + mh * HALF_BYTES + kk * 16 * 128,
+                             HALF_BYTES, 1024);
+        wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc[mh], da, db);
+      }
+    }
+  }
+  __device__ void fence_acc() {
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[mh][e]);
+  }
+  // epilogue: each m64n128 fragment, pairs of columns per register pair
+  // (rows r0 and r0 + 8 of register pairs 2 (2 j) and 2 (2 j + 1)), one
+  // instantiation an activation (the choice made once, not per element)
+  __device__ void finish(int, int c) {
+    if (act == kRelu)
+      finish_act<kRelu>(c);
+    else if (act == kSigmoid)
+      finish_act<kSigmoid>(c);
+    else
+      finish_act<kNone>(c);
+  }
+  template <int ACT>
+  __device__ void finish_act(int c) {
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const bool split = part != nullptr;
+    const bool even = (N % 2) == 0;
+    unsigned char* tile = smem + OUT_OFFSET + c * (OUT_BYTES / 2);
+    const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh) {
+      if (tma_out) {
+        if (split)
+          epilogue_tile<float, kNone>(tile, acc[mh], r0, n0, N, nullptr,
+                                      1 + c, z, m0 + mh * 64, tma_y, true);
+        else
+          epilogue_tile<OutT, ACT>(tile, acc[mh], r0, n0, N, bias, 1 + c, z,
+                                   m0 + mh * 64, tma_y, false);
+        continue;
+      }
+      const int row0 = m0 + mh * 64 + r0;
+      float* pout = split ? part + (size_t)z * M * N : nullptr;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + j * 8 + (lane % 4) * 2;
+        if (col >= N) continue;
+        const bool both = col + 1 < N;
+        float b0 = 0.0f, b1 = 0.0f;
+        if (!split && bias != nullptr) {
+          b0 = __bfloat162float(bias[col]);
+          if (both) b1 = __bfloat162float(bias[col + 1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + h * 8;
+          if (row >= M) continue;
+          const size_t at = (size_t)row * N + col;
+          float v0 = acc[mh][j * 4 + h * 2];
+          float v1 = acc[mh][j * 4 + h * 2 + 1];
+          if (split) {
+            store2(pout, at, v0, v1, both, both && even);
+          } else {
+            v0 = epilogue(v0 + b0, ACT);
+            v1 = epilogue(v1 + b1, ACT);
+            store2(y, at, v0, v1, both, both && even);
+          }
+        }
+      }
+    }
+  }
+  // the last stores have read their tile (and are complete) before exit
+  __device__ void drain(int) {
+    if (tma_out && threadIdx.x % 128 == 0) bulk_wait<0>();
+  }
+};
+
 template <bool A_K, bool B_K, typename OutT>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -159,177 +305,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   // stages on 1024-byte boundaries (the swizzle's period)
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFFSET);
-  uint64_t* empty = full + STAGES;
-  // order[c]: the other consumer has waited for every stage of its unit,
-  // so warpgroup c may wait for the stages of its next one (a parity wait
-  // must never run two phases ahead of its barrier)
-  uint64_t* order = empty + STAGES;
-
-  const int k_tiles = (K + BK - 1) / BK;
-  const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + BM - 1) / BM;
-  const int units = n_tiles * m_tiles * splits;
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    mbar_init(&order[0], 1);
-    mbar_init(&order[1], 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // producer: one thread keeps the ring full
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      tma_prefetch_desc(&tma_a);
-      tma_prefetch_desc(&tma_b);
-      int it = 0;  // ring position
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const int n0 = (u % n_tiles) * BN;
-        const int m0 = (u / n_tiles % m_tiles) * BM;
-        const int kt0 = u / (n_tiles * m_tiles) * k_per_split;
-        const int nk = min(k_tiles, kt0 + k_per_split) - kt0;
-        for (int i = 0; i < nk; ++i, ++it) {
-          const int s = it % STAGES;
-          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
-          unsigned char* sa = smem + s * STAGE_BYTES;
-          unsigned char* sb = sa + TILE_BYTES;
-          const int k0 = (kt0 + i) * BK;
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          if (A_K) {
-            tma_load_2d(sa, &tma_a, &full[s], k0, m0);
-          } else {
-            tma_load_2d(sa, &tma_a, &full[s], m0, k0);
-            tma_load_2d(sa + HALF_BYTES, &tma_a, &full[s], m0 + 64, k0);
-          }
-          if (B_K) {
-            tma_load_2d(sb, &tma_b, &full[s], k0, n0);
-          } else {
-            tma_load_2d(sb, &tma_b, &full[s], n0, k0);
-            tma_load_2d(sb + HALF_BYTES, &tma_b, &full[s], n0 + 64, k0);
-          }
-        }
-      }
-    }
-  } else {
-    // consumers: warpgroup c takes the block's units c, c + 2, ... whole
-    setmaxnreg_inc<232>();
-    const int c = wg - 1;
-    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-    const bool split = part != nullptr;
-    const bool even = (N % 2) == 0;
-    unsigned char* tile = smem + OUT_OFFSET + c * (OUT_BYTES / 2);
-    float acc[2][64];  // rows [64 mh, 64 mh + 64) of the tile
-    int it = 0;        // ring position of this unit's first K tile
-    int own = 0;       // this warpgroup's units so far
-    for (int u = blockIdx.x, i = 0; u < units; u += gridDim.x, ++i) {
-      const int n0 = (u % n_tiles) * BN;
-      const int m0 = (u / n_tiles % m_tiles) * BM;
-      const int z = u / (n_tiles * m_tiles);
-      const int kt0 = z * k_per_split;
-      const int nk = min(k_tiles, kt0 + k_per_split) - kt0;
-      if (i % 2 != c) {  // the other warpgroup's unit
-        it += nk;
-        continue;
-      }
-      // the units' stages are consumed in ring order
-      if (c == 1)
-        mbar_wait(&order[1], own & 1);
-      else if (own > 0)
-        mbar_wait(&order[0], (own - 1) & 1);
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh)
-#pragma unroll
-        for (int e = 0; e < 64; ++e) {
-          acc[mh][e] = 0.0f;
-          fence_operand(acc[mh][e]);
-        }
-      for (int kt = 0; kt < nk; ++kt, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        const uint32_t sa = smem_u32(smem + s * STAGE_BYTES);
-        const uint32_t sb = sa + TILE_BYTES;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t db =
-              B_K ? desc_sw128(sb + kk * 32, 16, 1024)
-                  : desc_sw128(sb + kk * 16 * 128, HALF_BYTES, 1024);
-#pragma unroll
-          for (int mh = 0; mh < 2; ++mh) {
-            const uint64_t da =
-                A_K ? desc_sw128(sa + mh * 64 * 128 + kk * 32, 16, 1024)
-                    : desc_sw128(sa + mh * HALF_BYTES + kk * 16 * 128,
-                                 HALF_BYTES, 1024);
-            wgmma_m64n128k16<A_K ? 0 : 1, B_K ? 0 : 1>(acc[mh], da, db);
-          }
-        }
-        wgmma_commit();
-        // the previous stage's wgmma have finished reading it: release it
-        wgmma_wait<1>();
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh)
-#pragma unroll
-        for (int e = 0; e < 64; ++e) fence_operand(acc[mh][e]);
-      if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-      if (threadIdx.x % 128 == 0) mbar_arrive(&order[1 - c]);
-      ++own;
-
-      // epilogue: each m64n128 fragment, pairs of columns per register
-      // pair (rows r0 and r0 + 8 of register pairs 2 (2 j) and 2 (2 j + 1))
-      const int r0 = warp * 16 + lane / 4;
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh) {
-        if (tma_out) {
-          if (split)
-            epilogue_tile<float>(tile, acc[mh], r0, n0, N, nullptr, kNone,
-                                 1 + c, z, m0 + mh * 64, &tma_y, true);
-          else
-            epilogue_tile<OutT>(tile, acc[mh], r0, n0, N, bias, act, 1 + c,
-                                z, m0 + mh * 64, &tma_y, false);
-          continue;
-        }
-        const int row0 = m0 + mh * 64 + r0;
-        float* pout = split ? part + (size_t)z * M * N : nullptr;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = n0 + j * 8 + (lane % 4) * 2;
-          if (col >= N) continue;
-          const bool both = col + 1 < N;
-          float b0 = 0.0f, b1 = 0.0f;
-          if (!split && bias != nullptr) {
-            b0 = __bfloat162float(bias[col]);
-            if (both) b1 = __bfloat162float(bias[col + 1]);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = row0 + h * 8;
-            if (row >= M) continue;
-            const size_t at = (size_t)row * N + col;
-            float v0 = acc[mh][j * 4 + h * 2];
-            float v1 = acc[mh][j * 4 + h * 2 + 1];
-            if (split) {
-              store2(pout, at, v0, v1, both, both && even);
-            } else {
-              v0 = epilogue(v0 + b0, act);
-              v1 = epilogue(v1 + b1, act);
-              store2(y, at, v0, v1, both, both && even);
-            }
-          }
-        }
-      }
-    }
-    // the last stores have read their tile (and are complete) before exit
-    if (tma_out && threadIdx.x % 128 == 0) bulk_wait<0>();
-  }
+  GemmWork<A_K, B_K, OutT> w;
+  w.tma_a = &tma_a;
+  w.tma_b = &tma_b;
+  w.tma_y = &tma_y;
+  w.bias = bias;
+  w.y = y;
+  w.part = part;
+  w.smem = smem;
+  w.M = M, w.N = N, w.act = act;
+  w.k_per_split = k_per_split, w.splits = splits;
+  w.n_tiles = (N + BN - 1) / BN, w.m_tiles = (M + BM - 1) / BM;
+  w.k_count = (K + BK - 1) / BK;
+  w.tma_out = tma_out;
+  gemm_pingpong(smem, w);
 }
 
 template <bool A_K, bool B_K, typename OutT>

@@ -4,10 +4,12 @@
 // rebalancing between warpgroups, wgmma with A from registers, and the
 // accumulator-fragment helpers (quad reductions, the f32 accumulator as a
 // bf16 A operand), and the cluster barrier and distributed shared-memory
-// stores.  K1's wgmma GEMM (gemm_sm90.cu) and decode product
-// (gemm_decode.cu), the int8 product K15 (quant_sm90.cu) and the flash
-// kernels K8, K5, K7 and K10 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu)
-// are built on them.
+// stores, and the persistent warp-specialised GEMM skeleton
+// (gemm_pingpong) with its staged TMA-store epilogue.  K1's wgmma GEMM
+// (gemm_sm90.cu) and decode product (gemm_decode.cu), the int8 product
+// K15 and K12's wgmma route (quant_sm90.cu) and the flash kernels K8, K5,
+// K7, K10 and K11 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on
+// them.
 //
 // Conventions:
 //   * shared-memory addresses are 32-bit (``smem_u32``);
@@ -539,6 +541,183 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// -- the persistent GEMM skeleton --
+//
+// K1's wgmma GEMM (gemm_sm90.cu), K15 and K12's wgmma route
+// (quant_sm90.cu) are one structure, kept here once:
+//   * 384 threads: warpgroup 0 the producer, whose first thread issues
+//     the TMA loads of each work unit's K tiles into a ring of STAGES
+//     stages at the start of shared memory (each stage a "full" mbarrier
+//     and an "empty" one that the four warps of its consumer release);
+//     warpgroups 1 and 2 the consumers, which take the block's units in
+//     turn, whole (persistent: block x takes units x, x + gridDim.x, ...),
+//     so that one's epilogue runs under the other's K loop;
+//   * registers move from the producer to the consumers (setmaxnreg,
+//     PRODUCER_REGS and CONSUMER_REGS a thread);
+//   * "order" barriers keep the consumers' waits in ring order (a parity
+//     wait must never run two phases ahead of its barrier): a consumer
+//     waits for its unit's stages only after the other has waited for
+//     every stage of its own;
+//   * one wgmma group in flight behind the current one: a stage is
+//     released after wgmma_wait<1>, once the group that read it is done;
+//   * where the work object sets WIDEN, each landed stage is turned into
+//     the consumers' operands (K12: int8 codes into a bf16 tile) in two
+//     halves: the producer's warps 1-3 write part 0 and complete the
+//     stage's "full" mbarrier (the TMA completes its "loaded" one), and
+//     the consumer writes part 1 of its next K tile's stage itself, under
+//     the wgmma of the current one, and orders it with a barrier of its
+//     warpgroup;
+//   * epilogues go out through a staging tile and a TMA store
+//     (staged_store), which drains while the warpgroup goes on.
+// The kernel's work object ``w`` supplies the rest:
+//   STAGES, STAGE_BYTES, STAGE_TX (the bytes its loads bring a stage),
+//   WIDEN, BAR_OFFSET (2 STAGES + 2 mbarriers there, WIDEN 3 STAGES + 2),
+//   PRODUCER_REGS and CONSUMER_REGS (128 P + 256 C <= 384 x 168, the
+//   registers the block holds at its launch bounds: setmaxnreg.inc waits
+//   for registers the others have given up, and would wait for ever for
+//   more);
+//   units(), k_tiles(u) (at least 1);
+//   producer: prefetch(), locate(u) (once before unit u's loads), load(
+//   stage, bar, i) (the TMA loads of the unit's i-th K tile, after the
+//   skeleton's expect_tx); widen<PART, THREADS>(stage, t) (thread t of
+//   THREADS writes its share of part PART: 0 by warps 1-3, 1 by the
+//   consumer);
+//   consumer c: start(u, c) (accumulators zeroed), mma(stage) (a landed
+//   K tile's wgmma, between wgmma_fence and commit), fence_acc() after
+//   the last wait, finish(u, c) (the epilogue), drain(c) before it ends.
+template <typename W>
+__device__ __forceinline__ void gemm_pingpong(unsigned char* smem, W& w) {
+  constexpr int STAGES = W::STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::BAR_OFFSET);
+  uint64_t* empty = full + STAGES;
+  uint64_t* order = empty + STAGES;
+  // WIDEN: the TMA's barriers (else the TMA completes "full" itself)
+  uint64_t* loaded = W::WIDEN ? order + 2 : full;
+  const int units = w.units();
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], W::WIDEN ? 3 : 1);  // warps 1-3, or the TMA
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+      if (W::WIDEN) mbar_init(&loaded[s], 1);
+    }
+    mbar_init(&order[0], 1);
+    mbar_init(&order[1], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  static_assert(128 * W::PRODUCER_REGS + 256 * W::CONSUMER_REGS <=
+                    384 * 168,
+                "registers");
+  if (wg == 0) {
+    setmaxnreg_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      // one thread keeps the ring full
+      w.prefetch();
+      int it = 0;  // ring position
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int nk = w.k_tiles(u);
+        w.locate(u);
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          mbar_expect_tx(&loaded[s], W::STAGE_TX);
+          w.load(smem + s * W::STAGE_BYTES, &loaded[s], i);
+        }
+      }
+    } else if constexpr (W::WIDEN) {
+      // warps 1-3 turn each landed stage into the consumers' operands;
+      // the writes reach wgmma (the async proxy) before "full" completes
+      if (threadIdx.x < 32) return;
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int nk = w.k_tiles(u);
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&loaded[s], (it / STAGES) & 1);
+          w.template widen<0, 96>(smem + s * W::STAGE_BYTES,
+                                  threadIdx.x - 32);
+          fence_proxy_async_smem();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c takes the block's units c, c + 2, ... whole
+  setmaxnreg_inc<W::CONSUMER_REGS>();
+  const int c = wg - 1;
+  int it = 0;   // ring position of the unit's first K tile
+  int own = 0;  // this warpgroup's units so far
+  for (int u = blockIdx.x, i = 0; u < units; u += gridDim.x, ++i) {
+    const int nk = w.k_tiles(u);
+    if (i % 2 != c) {  // the other warpgroup's unit
+      it += nk;
+      continue;
+    }
+    w.start(u, c);
+    // the units' stages are consumed in ring order
+    if (c == 1)
+      mbar_wait(&order[1], own & 1);
+    else if (own > 0)
+      mbar_wait(&order[0], (own - 1) & 1);
+    // WIDEN: the consumer's part of ring position j, once it has landed
+    auto widen = [&](int j) {
+      if constexpr (W::WIDEN) {
+        mbar_wait(&loaded[j % STAGES], (j / STAGES) & 1);
+        w.template widen<1, 128>(smem + j % STAGES * W::STAGE_BYTES,
+                                 threadIdx.x % 128);
+        fence_proxy_async_smem();
+        named_bar_sync(1 + c, 128);
+      }
+    };
+    widen(it);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      wgmma_fence();
+      w.mma(smem + s * W::STAGE_BYTES);
+      wgmma_commit();
+      if (kt + 1 < nk) widen(it + 1);
+      // the previous stage's wgmma have finished reading it: release it
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    w.fence_acc();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&order[1 - c]);
+    ++own;
+    w.finish(u, c);
+  }
+  w.drain(c);
+}
+
+// The staged TMA-store epilogue of a consumer warpgroup: waits until its
+// previous store has read the staging tile, lets ``fill`` write the tile,
+// makes the writes visible to the async proxy and has the warpgroup's
+// first thread issue ``store`` (TMA stores of the tile) as one bulk
+// group.  ``bar``: the warpgroup's named barrier.
+template <typename Fill, typename Store>
+__device__ __forceinline__ void staged_store(int bar, Fill&& fill,
+                                             Store&& store) {
+  const bool leader = threadIdx.x % 128 == 0;
+  if (leader) bulk_wait_read<0>();
+  named_bar_sync(bar, 128);
+  fill();
+  fence_proxy_async_smem();
+  named_bar_sync(bar, 128);
+  if (leader) {
+    store();
+    bulk_commit();
+  }
 }
 
 // -- host: TMA descriptors --

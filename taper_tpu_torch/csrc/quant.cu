@@ -37,15 +37,22 @@
 //   * K14: memory bound, x read once, the int8 codes written once;
 //   * K15 at the W8A8 prefill (M = 4,096, N and K 2,048-8,192): int8
 //     tensor-core bound, 1,979 TOP/s.
-// What the simple design does about that:
-//   * K12/K13 stage the codes through registers and convert them to bf16
-//     on their way into shared memory (the f32 weights never exist in
-//     device memory), with the next tile's loads in flight while the
-//     current one is multiplied by WMMA 16x16x16 bf16; at decode (M <= 16)
-//     a block owns 16 output columns and its 4 warps split each 256-wide K
-//     tile, so a 2048-row weight spreads over 128 blocks; larger M takes
-//     128x128 or 64x64 tiles.  The row sum comes from the same f32
-//     registers, before the rounding, with a fixed-order reduction;
+// What the designs do about that:
+//   * K12 has two routes (ops/quant.py::plan_q): "wgmma" (quant_sm90.cu:
+//     a row pass writes bf16 x and the row sums, then bf16 wgmma on a TMA
+//     ring, the codes widened to bf16 in shared memory, for M > 16 where
+//     TMA reads both operands and stores y) and
+//     "wmma", the kernel below, for the rest (decode's M <= 16, ragged K,
+//     N % 4 != 0) and for K13 at every shape;
+//   * the wmma kernel stages the codes through registers and converts
+//     them to bf16 on their way into shared memory (the f32 weights never
+//     exist in device memory), with the next tile's loads in flight while
+//     the current one is multiplied by WMMA 16x16x16 bf16; at decode (M <=
+//     16) a block owns 16 output columns and its 4 warps split each
+//     256-wide K tile, so a 2048-row weight spreads over 128 blocks;
+//     larger M takes 128x128 or 64x64 tiles.  The row sum comes from the
+//     same f32 registers, before the rounding, with a fixed-order
+//     reduction;
 //   * K14 is one block per row: an absmax pass, then a quantize pass that
 //     re-reads the row (from L1/L2), 16-byte vectors where aligned;
 //   * K15 has two routes (ops/quant.py::plan): "wgmma" (quant_sm90.cu:
@@ -75,7 +82,7 @@ namespace taper {
 __device__ __forceinline__ float q_epilogue(float acc, float xs, float s,
                                             float z, const float* bias,
                                             int n, int act) {
-  float out = __fsub_rn(__fmul_rn(acc, s), __fmul_rn(xs, __fmul_rn(s, z)));
+  float out = q_affine(acc, xs, s, z);
   if (bias != nullptr) out = __fadd_rn(out, bias[n]);
   return epilogue(out, act);
 }
@@ -618,19 +625,38 @@ int matmul_int8_wgmma(const void* xq, const void* q, const void* sx,
 // K15's route codes, shared with I8_ROUTES in ops/quant.py
 enum I8Route : int { kI8Wgmma = 0, kI8Mma = 1 };
 
+// quant_sm90.cu: K12 on the wgmma route
+int linear_q8_wgmma(const void* x, const void* q, const void* scale,
+                    const void* zp, const void* bias, void* y, void* ws,
+                    int M, int N, int K, int act, cudaStream_t s);
+
+// K12's route codes, shared with Q8_ROUTES in ops/quant.py
+enum Q8Route : int { kQ8Wgmma = 0, kQ8Wmma = 1 };
+
 }  // namespace taper
 
 using namespace taper;
 
-// K12 (bits 8) and K13 (bits 4); act codes of ACTIVATIONS in ops/gemm.py.
+// K12 (bits 8) and K13 (bits 4) on the route ops/quant.py::plan_q chose
+// (Q8Route; K13 takes the WMMA kernel alone); act codes of ACTIVATIONS in
+// ops/gemm.py.  The wgmma route needs bits 8, K % 16 == 0, N % 4 == 0,
+// 16-byte-aligned x, q and y, and ``ws`` (M K bf16 and M f32).
 extern "C" int taper_linear_q(const void* x, const void* q,
                               const void* scale, const void* zp,
-                              const void* bias, void* y, int M, int N, int K,
-                              int bits, int act, void* stream) {
+                              const void* bias, void* y, void* ws, int M,
+                              int N, int K, int bits, int act, int route,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || (bits != 8 && bits != 4) ||
       (bits == 4 && K % 2))
     return (int)cudaErrorInvalidValue;
+  if (route == kQ8Wgmma) {
+    if (bits != 8 || K % 16 || N % 4 || (uintptr_t)x % 16 ||
+        (uintptr_t)q % 16 || (uintptr_t)y % 16 || ws == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return linear_q8_wgmma(x, q, scale, zp, bias, y, ws, M, N, K, act, s);
+  }
+  if (route != kQ8Wmma) return (int)cudaErrorInvalidValue;
   auto xp = static_cast<const float*>(x);
   auto qp = static_cast<const uint8_t*>(q);
   auto sp = static_cast<const float*>(scale);

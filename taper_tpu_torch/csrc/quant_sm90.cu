@@ -1,6 +1,9 @@
-// K15a / K15b for Hopper: xq[M, K] int8 . q[N, K]^T int8 with int32
-// accumulators on the int8 tensor cores through warpgroup MMA (wgmma), fed
-// by TMA from a ring of 128-byte-swizzled shared-memory stages.
+// K15a / K15b and K12's wgmma route for Hopper, on the persistent
+// skeleton of hopper.cuh (gemm_pingpong), which K1's wgmma GEMM shares.
+//
+// K15: xq[M, K] int8 . q[N, K]^T int8 with int32 accumulators on the int8
+// tensor cores through warpgroup MMA (wgmma), fed by TMA from a ring of
+// 128-byte-swizzled shared-memory stages.
 //
 // Replaces the TPU kernels taper_tpu/ops/pallas/quant.py::_i8mm_kernel
 // (K15b, quant.py:292: the exact int32 product) and _i8mm_scaled_kernel
@@ -44,6 +47,29 @@
 //     than K15b at K = 2,048 on an H100).  The tile goes out through
 //     shared memory and a TMA store where the output's rows are whole
 //     16-byte units, else by pairs from the registers.
+//
+// K12 (replaces taper_tpu/ops/pallas/quant.py::_q8_kernel, :41, launched by
+// _linear_q8_jit, at M > 16 where ops/quant.py::plan_q sends it here):
+//   y[m,n] = scale[n] sum_k bf16(x[m,k]) q[n,k] - xsum[m] (scale[n] zp[n])
+//            (+ bias[n]) (+ relu | sigmoid)
+// with the activations rounded to bf16 (quant.py:53), xsum over the unrounded
+// f32 activations (:57) and quant.cu's q_epilogue order of rounded steps
+// (q_affine).  Its bound on the H100 at the W8A8 prefill's M = 4,096: the bf16
+// tensor cores (989 TFLOP/s).  What the design does about that: wgmma
+// multiplies bf16 by bf16, and only its A operand may come from registers,
+// while K12's operands are f32 activations and int8 codes.  So a row pass
+// (rows_kernel) writes bf16 x and the row sums once (6 bytes an element, 0.015
+// ms of bytes at K 2,048, M 4,096), TMA brings bf16 x and the int8 codes into
+// each stage, and the codes are widened into a swizzled bf16 tile of the same
+// stage (exact; no device-memory bytes): half by the producer warpgroup's three
+// idle warps before they complete its "full" barrier, half by the consumer
+// under the previous K tile's wgmma; wgmma then reads both operands from shared
+// memory, as in K1's nt mode.  Measured against it on an H100 (PERF.md): the
+// activations as f32 rounded in registers by the consumers (no row pass, but 4
+// bytes an element from L2 for each column tile, and spilled registers), and
+// the codes widened by the consumers alone; both slower.  The widening's
+// instruction rate and the row pass hold it at 30-38% of the tensor cores'
+// rate, not the MMA.
 #include <algorithm>
 #include <cstring>
 #include <type_traits>
@@ -66,7 +92,6 @@ constexpr int STAGE_BYTES = 2 * TILE_BYTES;
 constexpr int MAX_STAGES = 5;
 constexpr int BAR_BYTES = (2 * MAX_STAGES + 2) * 8;
 constexpr int THREADS = 384;                    // producer + 2 consumers
-constexpr int CONSUMER_WARPS = 4;               // a tile's consumers
 
 template <int OUT>
 using OutT = typename std::conditional<
@@ -134,10 +159,10 @@ __device__ __forceinline__ int frag_row0() {
 // A warpgroup's 64 x 128 fragment ``acc`` (rows m0 + r0 and r0 + 8 of the
 // thread, tile columns n0 + 8 j + 2 (lane % 4) + {0, 1}) through the
 // epilogue: into the staging ``tile`` and out by a TMA store at (n0, m0)
-// where ``tma_out``, else straight to y (pairs where the row allows).
-// ``rows``: sx and corr of the thread's two rows; ``terms``: sw, zw and the
-// bias of the tile's columns, in shared memory (zero past M and N: those
-// outputs are not stored).
+// where ``tma_out`` (staged_store), else straight to y (pairs where the
+// row allows).  ``rows``: sx and corr of the thread's two rows; ``terms``:
+// sw, zw and the bias of the tile's columns, in shared memory (zero past M
+// and N: those outputs are not stored).
 template <int OUT>
 __device__ __forceinline__ void epilogue(
     unsigned char* tile, const int (&acc)[64], int m0, int n0, int M, int N,
@@ -146,63 +171,161 @@ __device__ __forceinline__ void epilogue(
     bool tma_out) {
   const int lane = threadIdx.x % 32;
   const int r0 = frag_row0();
-  const bool leader = threadIdx.x % 128 == 0;
   OutT<OUT>* out = reinterpret_cast<OutT<OUT>*>(tile);
-  if (tma_out) {
-    if (leader) bulk_wait_read<0>();
-    named_bar_sync(bar, 128);
-  }
   const bool even = N % 2 == 0;
+  auto emit = [&](bool staged) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = j * 8 + (lane % 4) * 2;
-    const int gn = n0 + col;
-    // sw, zw and the bias of the thread's column pair
-    float2 swn = {}, zwn = {}, bn = {};
-    if constexpr (OUT != kOutI32) {
-      swn = *reinterpret_cast<const float2*>(terms + col);
-      zwn = *reinterpret_cast<const float2*>(terms + BN + col);
-      bn = *reinterpret_cast<const float2*>(terms + 2 * BN + col);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i0 = acc[j * 4 + h * 2], i1 = acc[j * 4 + h * 2 + 1];
-      float v0 = 0.0f, v1 = 0.0f;
+    for (int j = 0; j < 16; ++j) {
+      const int col = j * 8 + (lane % 4) * 2;
+      const int gn = n0 + col;
+      // sw, zw and the bias of the thread's column pair
+      float2 swn = {}, zwn = {}, bn = {};
       if constexpr (OUT != kOutI32) {
-        const float sxm = rows[h][0], corrm = rows[h][1];
-        v0 = w8a8(i0, sxm, corrm, swn.x, zwn.x, has_bias, bn.x, relu);
-        v1 = w8a8(i1, sxm, corrm, swn.y, zwn.y, has_bias, bn.y, relu);
+        swn = *reinterpret_cast<const float2*>(terms + col);
+        zwn = *reinterpret_cast<const float2*>(terms + BN + col);
+        bn = *reinterpret_cast<const float2*>(terms + 2 * BN + col);
       }
-      const int r = r0 + h * 8;
-      if (tma_out) {
-        store_pair<OUT>(out + r * BN + col, i0, i1, v0, v1);
-        continue;
-      }
-      const int row = m0 + r;
-      if (row >= M || gn >= N) continue;
-      OutT<OUT>* p = y + (size_t)row * N + gn;
-      if (gn + 1 < N && even) {
-        store_pair<OUT>(p, i0, i1, v0, v1);
-      } else {
-        store_one<OUT>(p, i0, v0);
-        if (gn + 1 < N) store_one<OUT>(p + 1, i1, v1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i0 = acc[j * 4 + h * 2], i1 = acc[j * 4 + h * 2 + 1];
+        float v0 = 0.0f, v1 = 0.0f;
+        if constexpr (OUT != kOutI32) {
+          const float sxm = rows[h][0], corrm = rows[h][1];
+          v0 = w8a8(i0, sxm, corrm, swn.x, zwn.x, has_bias, bn.x, relu);
+          v1 = w8a8(i1, sxm, corrm, swn.y, zwn.y, has_bias, bn.y, relu);
+        }
+        const int r = r0 + h * 8;
+        if (staged) {
+          store_pair<OUT>(out + r * BN + col, i0, i1, v0, v1);
+          continue;
+        }
+        const int row = m0 + r;
+        if (row >= M || gn >= N) continue;
+        OutT<OUT>* p = y + (size_t)row * N + gn;
+        if (gn + 1 < N && even) {
+          store_pair<OUT>(p, i0, i1, v0, v1);
+        } else {
+          store_one<OUT>(p, i0, v0);
+          if (gn + 1 < N) store_one<OUT>(p + 1, i1, v1);
+        }
       }
     }
-  }
-  if (tma_out) {
-    fence_proxy_async_smem();
-    named_bar_sync(bar, 128);
-    if (leader) {
-      tma_store_2d(tma_y, tile, n0, m0);
-      bulk_commit();
-    }
-  }
+  };
+  if (tma_out)
+    staged_store(bar, [&] { emit(true); },
+                 [&] { tma_store_2d(tma_y, tile, n0, m0); });
+  else
+    emit(false);
 }
 
-// Persistent: block x takes tiles x, x + gridDim.x, ... (N tiles fastest).
-// The two consumer warpgroups take the block's tiles in turn, each a whole
-// 128 x 128 tile (two m64n128k32 wgmma a 32-deep k-step); the producer
-// fills the ring tile after tile.
+// K15 on the skeleton of hopper.cuh (gemm_pingpong): a work unit is one
+// 128 x 128 output tile (N tiles fastest) over all its 128-deep K tiles;
+// a consumer takes it whole, two m64n128k32 wgmma a 32-deep k-step.
+template <int OUT>
+struct I8Work {
+  using L = Layout<OUT>;
+  static constexpr int STAGES = L::STAGES, STAGE_BYTES = taper::STAGE_BYTES;
+  static constexpr int STAGE_TX = STAGE_BYTES, BAR_OFFSET = L::BAR_OFFSET;
+  static constexpr bool WIDEN = false;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  const CUtensorMap* tma_a;
+  const CUtensorMap* tma_b;
+  const CUtensorMap* tma_y;
+  const float *sx, *corr, *sw, *zw, *bias;
+  OutT<OUT>* y;
+  unsigned char* smem;
+  int M, N, relu, n_tiles, m_tiles, k_count;
+  bool tma_out;
+  // the consumer's tile and the epilogue's terms, loaded as it starts: sx
+  // and corr of the thread's four rows, sw, zw and the bias of column n0
+  // + t (zero past M and N)
+  int n0, m0;
+  float rows[2][2][2], cols[3];
+  int acc[2][64];  // rows [64 mh, 64 mh + 64) of the tile
+
+  __device__ int units() const { return n_tiles * m_tiles; }
+  __device__ int k_tiles(int) const { return k_count; }
+  __device__ void prefetch() const {
+    tma_prefetch_desc(tma_a);
+    tma_prefetch_desc(tma_b);
+  }
+  __device__ void locate(int u) {
+    n0 = (u % n_tiles) * BN, m0 = (u / n_tiles) * BM;
+  }
+  __device__ void load(unsigned char* sa, uint64_t* bar, int i) const {
+    tma_load_2d(sa, tma_a, bar, i * BK, m0);
+    tma_load_2d(sa + TILE_BYTES, tma_b, bar, i * BK, n0);
+  }
+  __device__ void start(int u, int) {
+    locate(u);
+    const int t = threadIdx.x % 128, r0 = frag_row0();
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rows[mh][h][0] = rows[mh][h][1] = 0.0f;
+    cols[0] = cols[1] = cols[2] = 0.0f;
+    if constexpr (OUT != kOutI32) {
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + mh * 64 + r0 + h * 8;
+          if (row < M) rows[mh][h][0] = sx[row], rows[mh][h][1] = corr[row];
+        }
+      if (n0 + t < N) {
+        cols[0] = sw[n0 + t], cols[1] = zw[n0 + t];
+        if (bias != nullptr) cols[2] = bias[n0 + t];
+      }
+    }
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        acc[mh][e] = 0;
+        fence_operand(acc[mh][e]);
+      }
+  }
+  __device__ void mma(unsigned char* stage) {
+    const uint32_t sa = smem_u32(stage);
+    const uint32_t sb = sa + TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      const uint64_t db = desc_sw128(sb + kk * 32, 16, 1024);
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh)
+        wgmma_s8_m64n128k32(
+            acc[mh], desc_sw128(sa + mh * 64 * 128 + kk * 32, 16, 1024), db);
+    }
+  }
+  __device__ void fence_acc() {
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[mh][e]);
+  }
+  __device__ void finish(int, int c) {
+    unsigned char* tile = smem + L::OUT_OFFSET + c * (L::OUT_BYTES / 2);
+    float* terms =
+        reinterpret_cast<float*>(smem + L::TERMS_OFFSET) + c * 3 * BN;
+    if constexpr (OUT != kOutI32) {
+      const int t = threadIdx.x % 128;
+      // the warpgroup's previous epilogue has read the column terms
+      named_bar_sync(1 + c, 128);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) terms[i * BN + t] = cols[i];
+      named_bar_sync(1 + c, 128);
+    }
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+      epilogue<OUT>(tile, acc[mh], m0 + mh * 64, n0, M, N, rows[mh], terms,
+                    bias != nullptr, relu != 0, y, 1 + c, tma_y, tma_out);
+  }
+  // the last stores have read their tile (and are complete) before exit
+  __device__ void drain(int) {
+    if (tma_out && threadIdx.x % 128 == 0) bulk_wait<0>();
+  }
+};
+
 template <int OUT>
 __global__ void __launch_bounds__(THREADS, 1)
     i8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -214,145 +337,22 @@ __global__ void __launch_bounds__(THREADS, 1)
                     const float* __restrict__ zw,
                     const float* __restrict__ bias, OutT<OUT>* __restrict__ y,
                     int M, int N, int K, int relu, bool tma_out) {
-  using L = Layout<OUT>;
-  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   // stages on 1024-byte boundaries (the swizzle's period)
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFFSET);
-  uint64_t* empty = full + STAGES;
-  // order[c]: the other consumer has waited for every stage of its tile,
-  // so warpgroup c may wait for the stages of its next one (a parity wait
-  // must never run two phases ahead of its barrier)
-  uint64_t* order = empty + STAGES;
-
-  const int k_tiles = (K + BK - 1) / BK;
-  const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + BM - 1) / BM;
-  const int tiles = n_tiles * m_tiles;
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    mbar_init(&order[0], 1);
-    mbar_init(&order[1], 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // producer: one thread keeps the ring full
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      tma_prefetch_desc(&tma_a);
-      tma_prefetch_desc(&tma_b);
-      int it = 0;  // ring position
-      for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
-        const int n0 = (u % n_tiles) * BN, m0 = (u / n_tiles) * BM;
-        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-          const int s = it % STAGES;
-          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
-          unsigned char* sa = smem + s * STAGE_BYTES;
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          tma_load_2d(sa, &tma_a, &full[s], kt * BK, m0);
-          tma_load_2d(sa + TILE_BYTES, &tma_b, &full[s], kt * BK, n0);
-        }
-      }
-    }
-  } else {
-    // consumers: warpgroup c takes the block's tiles c, c + 2, ... whole
-    setmaxnreg_inc<232>();
-    const int c = wg - 1;
-    const int lane = threadIdx.x % 32;
-    unsigned char* tile = smem + L::OUT_OFFSET + c * (L::OUT_BYTES / 2);
-    float* terms =
-        reinterpret_cast<float*>(smem + L::TERMS_OFFSET) + c * 3 * BN;
-    const int t = threadIdx.x % 128, r0 = frag_row0();
-    int acc[2][64];  // rows [64 mh, 64 mh + 64) of the tile
-    int it = 0;      // ring position of this tile's first K tile
-    int own = 0;     // this warpgroup's tiles so far
-    for (int u = blockIdx.x, i = 0; u < tiles; u += gridDim.x, ++i) {
-      if (i % 2 != c) {  // the other warpgroup's tile
-        it += k_tiles;
-        continue;
-      }
-      const int n0 = (u % n_tiles) * BN, m0 = (u / n_tiles) * BM;
-      // the epilogue's terms, loaded now and used after the K loop: sx
-      // and corr of the thread's four rows, sw, zw and the bias of column
-      // n0 + t (zero past M and N)
-      float rows[2][2][2] = {}, cols[3] = {};
-      if constexpr (OUT != kOutI32) {
-#pragma unroll
-        for (int mh = 0; mh < 2; ++mh)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0 + mh * 64 + r0 + h * 8;
-            if (row < M)
-              rows[mh][h][0] = sx[row], rows[mh][h][1] = corr[row];
-          }
-        if (n0 + t < N) {
-          cols[0] = sw[n0 + t], cols[1] = zw[n0 + t];
-          if (bias != nullptr) cols[2] = bias[n0 + t];
-        }
-      }
-      // the tiles' stages are consumed in ring order
-      if (c == 1)
-        mbar_wait(&order[1], own & 1);
-      else if (own > 0)
-        mbar_wait(&order[0], (own - 1) & 1);
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh)
-#pragma unroll
-        for (int e = 0; e < 64; ++e) {
-          acc[mh][e] = 0;
-          fence_operand(acc[mh][e]);
-        }
-      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        const uint32_t sa = smem_u32(smem + s * STAGE_BYTES);
-        const uint32_t sb = sa + TILE_BYTES;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 32; ++kk) {
-          const uint64_t db = desc_sw128(sb + kk * 32, 16, 1024);
-#pragma unroll
-          for (int mh = 0; mh < 2; ++mh)
-            wgmma_s8_m64n128k32(
-                acc[mh], desc_sw128(sa + mh * 64 * 128 + kk * 32, 16, 1024),
-                db);
-        }
-        wgmma_commit();
-        // the previous stage's wgmma have finished reading it: release it
-        wgmma_wait<1>();
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh)
-#pragma unroll
-        for (int e = 0; e < 64; ++e) fence_operand(acc[mh][e]);
-      if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-      if (threadIdx.x % 128 == 0) mbar_arrive(&order[1 - c]);
-      ++own;
-      if constexpr (OUT != kOutI32) {
-        // the warpgroup's previous epilogue has read the column terms
-        named_bar_sync(1 + c, 128);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) terms[i * BN + t] = cols[i];
-        named_bar_sync(1 + c, 128);
-      }
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh)
-        epilogue<OUT>(tile, acc[mh], m0 + mh * 64, n0, M, N, rows[mh], terms,
-                      bias != nullptr, relu != 0, y, 1 + c, &tma_y, tma_out);
-    }
-    // the last stores have read their tile (and are complete) before exit
-    if (tma_out && threadIdx.x % 128 == 0) bulk_wait<0>();
-  }
+  I8Work<OUT> w;
+  w.tma_a = &tma_a;
+  w.tma_b = &tma_b;
+  w.tma_y = &tma_y;
+  w.sx = sx, w.corr = corr, w.sw = sw, w.zw = zw, w.bias = bias;
+  w.y = y;
+  w.smem = smem;
+  w.M = M, w.N = N, w.relu = relu;
+  w.n_tiles = (N + BN - 1) / BN, w.m_tiles = (M + BM - 1) / BM;
+  w.k_count = (K + BK - 1) / BK;
+  w.tma_out = tma_out;
+  gemm_pingpong(smem, w);
 }
 
 template <int OUT>
@@ -393,6 +393,319 @@ int launch(const void* xq, const void* q, const float* sx, const float* corr,
   return (int)cudaGetLastError();
 }
 
+
+// ---- K12 on the wgmma route ---------------------------------------------
+
+namespace q8 {
+
+constexpr int BM = 128, BN = 128, BK = 64;
+// A stage: bf16 x [128, 64] (TMA, 128-byte swizzled), the codes widened
+// to bf16 [128, 64] (the same swizzle, written by the producer's warps
+// 1-3) and the int8 codes [128, 64] (TMA, unswizzled: each widening
+// thread reads 16 bytes, 8 threads a 128-byte run).  Then each consumer's
+// 64 x 64 f32 staging tile, its column terms (scale, zp and the bias of
+// its tile's columns) and the mbarriers.
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BN * BK * 2;
+constexpr int Q_BYTES = BN * BK;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES + Q_BYTES;
+constexpr int STAGES = 4;
+constexpr int OUT_BYTES = 64 * 64 * 4;
+constexpr int OUT_OFFSET = STAGES * STAGE_BYTES;
+constexpr int TERMS_OFFSET = OUT_OFFSET + 2 * OUT_BYTES;
+constexpr int BAR_OFFSET = TERMS_OFFSET + 2 * 3 * BN * 4;
+constexpr int SMEM_BYTES = BAR_OFFSET + (3 * STAGES + 2) * 8 + 1024;
+static_assert(SMEM_BYTES <= 232448, "shared memory");
+
+// Four int8 codes (the first in the low byte) as four bf16, two to a
+// word: each byte, biased to unsigned, becomes the mantissa of 2^23 and
+// the bias 2^23 + 128 is subtracted, exactly; the integer, of at most 8
+// significant bits, is exact in bf16, whose bits are its f32's upper 16.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+        8388736.0f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
+// The row pass: xb = bf16(x) and xsum[m] = the sum of x's row m over the
+// unrounded f32 values (quant.py:57), x read once: one warp a row, 16
+// bytes a lane, the row sum by shuffles (K a multiple of 4 from a
+// 16-byte-aligned base).
+__global__ void __launch_bounds__(256)
+    rows_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ xb,
+                float* __restrict__ xsum, int M, int K) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;  // whole warps leave together
+  const size_t base = (size_t)row * K;
+  float s = 0.0f;
+#pragma unroll 4
+  for (int k = lane * 4; k < K; k += 128) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x + base + k));
+    s += ((v.x + v.y) + v.z) + v.w;
+    *reinterpret_cast<uint2*>(xb + base + k) =
+        make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  }
+  s = warp_sum(s);
+  if (lane == 0) xsum[row] = s;
+}
+
+// K12 on the skeleton of hopper.cuh (gemm_pingpong): a work unit is one
+// 128 x 128 output tile of y = bf16(x) q^T (N tiles fastest) over its
+// 64-deep K tiles, taken whole by one consumer (two m64n128k16 wgmma a
+// 16-deep k-step, both operands K-major from shared memory, as K1's nt
+// mode).  Per stage the producer's warps 1-3 widen the first 64 of its
+// 128 code rows into the stage's bf16 tile, and the consumer the other 64
+// of its next stage under the current one's wgmma (WIDEN).
+// The epilogue, y = scale acc - xsum (scale zp) (+ bias) (+ relu |
+// sigmoid), each step rounded (q_affine), goes out by 64 x 64 quarters
+// through the consumer's staging tile and a TMA store (N a multiple of 4).
+struct Q8Work {
+  static constexpr int STAGES = q8::STAGES, STAGE_BYTES = q8::STAGE_BYTES;
+  static constexpr int STAGE_TX = A_BYTES + Q_BYTES;
+  static constexpr int BAR_OFFSET = q8::BAR_OFFSET;
+  static constexpr bool WIDEN = true;
+  // the widening warps keep their chunks' loads in flight
+  static constexpr int PRODUCER_REGS = 96, CONSUMER_REGS = 200;
+  // the code rows the producer's warps widen; the consumer the rest
+  static constexpr int SPLIT = 64;
+  const CUtensorMap* tma_a;
+  const CUtensorMap* tma_q;
+  const CUtensorMap* tma_y;
+  const float *xsum, *scale, *zp, *bias;
+  unsigned char* smem;
+  int M, N, act, n_tiles, m_tiles, k_count;
+  // the unit's tile; the consumer's row sums of the thread's four rows,
+  // and scale, zp and the bias of column n0 + t (zero past M and N)
+  int n0, m0;
+  float xs[2][2], cols[3];
+  float acc[2][64];  // rows [64 mh, 64 mh + 64) of the tile
+
+  __device__ int units() const { return n_tiles * m_tiles; }
+  __device__ int k_tiles(int) const { return k_count; }
+  __device__ void prefetch() const {
+    tma_prefetch_desc(tma_a);
+    tma_prefetch_desc(tma_q);
+  }
+  __device__ void locate(int u) {
+    n0 = (u % n_tiles) * BN, m0 = (u / n_tiles) * BM;
+  }
+  __device__ void load(unsigned char* st, uint64_t* bar, int i) const {
+    tma_load_2d(st, tma_a, bar, i * BK, m0);
+    tma_load_2d(st + A_BYTES + B_BYTES, tma_q, bar, i * BK, n0);
+  }
+  // Part PART of a stage's widening: code rows [0, SPLIT) (part 0, the
+  // producer's) or [SPLIT, 128) (part 1, the consumer's) in 16-byte
+  // chunks, thread t of THREADS taking chunks t + THREADS j, all its loads
+  // in flight before the first is widened; chunk ch of row n is 32 bytes,
+  // 16-byte chunks 2 ch and 2 ch + 1, of the widened row.
+  template <int PART, int THREADS>
+  __device__ void widen(unsigned char* st, int t) const {
+    constexpr int ROW0 = PART ? SPLIT : 0, ROWS = PART ? BN - SPLIT : SPLIT;
+    constexpr int CHUNKS = ROWS * BK / 16;
+    constexpr int PER = (CHUNKS + THREADS - 1) / THREADS;
+    const uint32_t qs = smem_u32(st) + A_BYTES + B_BYTES + ROW0 * BK;
+    const uint32_t wb = smem_u32(st) + A_BYTES;
+    uint4 v[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = t + THREADS * j;
+      if (i < CHUNKS)
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(v[j].x), "=r"(v[j].y), "=r"(v[j].z), "=r"(v[j].w)
+                     : "r"(qs + (i / 4) * 64 + (i % 4) * 16));
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = t + THREADS * j;
+      if (i >= CHUNKS) continue;
+      const int n = ROW0 + i / 4, ch = i % 4;
+      const uint2 w0 = widen4(v[j].x), w1 = widen4(v[j].y);
+      const uint2 w2 = widen4(v[j].z), w3 = widen4(v[j].w);
+      const uint32_t row = wb + n * 128;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       row + (((2 * ch) ^ (n & 7)) << 4)),
+                   "r"(w0.x), "r"(w0.y), "r"(w1.x), "r"(w1.y)
+                   : "memory");
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       row + (((2 * ch + 1) ^ (n & 7)) << 4)),
+                   "r"(w2.x), "r"(w2.y), "r"(w3.x), "r"(w3.y)
+                   : "memory");
+    }
+  }
+  __device__ void start(int u, int) {
+    locate(u);
+    const int t = threadIdx.x % 128, r0 = frag_row0();
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + mh * 64 + r0 + h * 8;
+        xs[mh][h] = row < M ? xsum[row] : 0.0f;
+      }
+    cols[0] = cols[1] = cols[2] = 0.0f;
+    if (n0 + t < N) {
+      cols[0] = scale[n0 + t], cols[1] = zp[n0 + t];
+      if (bias != nullptr) cols[2] = bias[n0 + t];
+    }
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        acc[mh][e] = 0.0f;
+        fence_operand(acc[mh][e]);
+      }
+  }
+  __device__ void mma(unsigned char* st) {
+    const uint32_t sa = smem_u32(st), sb = sa + A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = desc_sw128(sb + kk * 32, 16, 1024);
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh)
+        wgmma_m64n128k16<0, 0>(
+            acc[mh], desc_sw128(sa + mh * 64 * 128 + kk * 32, 16, 1024), db);
+    }
+  }
+  __device__ void fence_acc() {
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) fence_operand(acc[mh][e]);
+  }
+  // one instantiation an activation (the choice made once, not per
+  // element)
+  __device__ void finish(int, int c) {
+    if (act == kRelu)
+      finish_act<kRelu>(c);
+    else if (act == kSigmoid)
+      finish_act<kSigmoid>(c);
+    else
+      finish_act<kNone>(c);
+  }
+  template <int ACT>
+  __device__ void finish_act(int c) {
+    const int t = threadIdx.x % 128, lane = t % 32, r0 = frag_row0();
+    float* terms =
+        reinterpret_cast<float*>(smem + TERMS_OFFSET) + c * 3 * BN;
+    // the warpgroup's previous epilogue has read the column terms
+    named_bar_sync(1 + c, 128);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) terms[i * BN + t] = cols[i];
+    named_bar_sync(1 + c, 128);
+    float* out = reinterpret_cast<float*>(smem + OUT_OFFSET + c * OUT_BYTES);
+    const bool has_bias = bias != nullptr;
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh)
+        staged_store(
+            1 + c,
+            [&] {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int lc = j * 8 + (lane % 4) * 2, col = 64 * nh + lc;
+                const float2 s =
+                    *reinterpret_cast<const float2*>(terms + col);
+                const float2 z =
+                    *reinterpret_cast<const float2*>(terms + BN + col);
+                const float2 b =
+                    *reinterpret_cast<const float2*>(terms + 2 * BN + col);
+                const int e = (8 * nh + j) * 4;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  float v0 = q_affine(acc[mh][e + h * 2], xs[mh][h], s.x,
+                                      z.x);
+                  float v1 = q_affine(acc[mh][e + h * 2 + 1], xs[mh][h],
+                                      s.y, z.y);
+                  if (has_bias) {
+                    v0 = __fadd_rn(v0, b.x);
+                    v1 = __fadd_rn(v1, b.y);
+                  }
+                  *reinterpret_cast<float2*>(out + (r0 + h * 8) * 64 + lc) =
+                      make_float2(taper::epilogue(v0, ACT),
+                                  taper::epilogue(v1, ACT));
+                }
+              }
+            },
+            [&] { tma_store_2d(tma_y, out, n0 + 64 * nh, m0 + 64 * mh); });
+  }
+  // the last stores have read their tile (and are complete) before exit
+  __device__ void drain(int) {
+    if (threadIdx.x % 128 == 0) bulk_wait<0>();
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    q8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                    const __grid_constant__ CUtensorMap tma_q,
+                    const __grid_constant__ CUtensorMap tma_y,
+                    const float* __restrict__ xsum,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ zp,
+                    const float* __restrict__ bias, int M, int N, int K,
+                    int act) {
+  extern __shared__ unsigned char smem_raw[];
+  // stages on 1024-byte boundaries (the swizzle's period)
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  Q8Work w;
+  w.tma_a = &tma_a;
+  w.tma_q = &tma_q;
+  w.tma_y = &tma_y;
+  w.xsum = xsum, w.scale = scale, w.zp = zp, w.bias = bias;
+  w.smem = smem;
+  w.M = M, w.N = N, w.act = act;
+  w.n_tiles = (N + BN - 1) / BN, w.m_tiles = (M + BM - 1) / BM;
+  w.k_count = (K + BK - 1) / BK;
+  gemm_pingpong(smem, w);
+}
+
+// ws: bf16 x [M, K], then its row sums [M] (the row pass's output).
+int launch(const float* x, const void* q, const float* scale,
+           const float* zp, const float* bias, float* y, void* ws, int M,
+           int N, int K, int act, cudaStream_t s) {
+  auto xb = static_cast<__nv_bfloat16*>(ws);
+  auto xsum = reinterpret_cast<float*>(xb + (size_t)M * K);
+  rows_kernel<<<(M + 7) / 8, 256, 0, s>>>(x, xb, xsum, M, K);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  CUtensorMap ta, tq, ty;
+  err = tma_desc_bf16(&ta, xb, K, M, BK, BM);
+  if (err != 0) return err;
+  {
+    // the codes [N, K] in boxes of 128 rows by 64 bytes, unswizzled
+    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N};
+    const uint32_t box[2] = {BK, BN};
+    err = tma_desc(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, q, dims, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != 0) return err;
+  {
+    // y [M, N] f32 in boxes of 64 x 64
+    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)M};
+    const uint32_t box[2] = {64, 64};
+    err = tma_desc(&ty, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2, y, dims, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      q8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const int grid = (int)std::min<long long>(tiles, sm_count());
+  q8_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+      ta, tq, ty, xsum, scale, zp, bias, M, N, K, act);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace q8
 }  // namespace
 
 // K15 on the wgmma route: ``out`` kOutI32 (K15b, the vectors null) or
@@ -410,6 +723,17 @@ int matmul_int8_wgmma(const void* xq, const void* q, const void* sx,
                             M, N, K, relu, s);
   return launch<kOutF32>(xq, q, f(sx), f(corr), f(sw), f(zw), f(bias), y, M,
                          N, K, relu, s);
+}
+
+// K12 on the wgmma route (x f32 [M, K], q int8 [N, K], y f32 [M, N]):
+// K % 16 == 0, N % 4 == 0, 16-byte-aligned x, q and y; ``ws`` holds M K
+// bf16 and M f32 (the row pass's bf16 x and row sums).
+int linear_q8_wgmma(const void* x, const void* q, const void* scale,
+                    const void* zp, const void* bias, void* y, void* ws,
+                    int M, int N, int K, int act, cudaStream_t s) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return q8::launch(f(x), q, f(scale), f(zp), f(bias), static_cast<float*>(y),
+                    ws, M, N, K, act, s);
 }
 
 }  // namespace taper

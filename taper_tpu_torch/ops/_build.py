@@ -84,8 +84,9 @@ _SIGNATURES = {
     # host arrays p, g, m (null without momentum), n, count, lr,
     # momentum, wd, stream
     "taper_sgd": [_P] * 4 + [_I] + [_F] * 3 + [_P],
-    # x, q, scale, zp, bias, y, M, N, K, bits (8 or 4), act, stream
-    "taper_linear_q": [_P] * 6 + [_I] * 5 + [_P],
+    # x, q, scale, zp, bias, y, workspace, M, N, K, bits (8 or 4), act,
+    # route, stream
+    "taper_linear_q": [_P] * 7 + [_I] * 6 + [_P],
     # x, xq, sx, xsum, M, K, dtype, stream
     "taper_quantize_rows": [_P] * 4 + [_I] * 3 + [_P],
     # xq, q, sx, corr, sw, zw, bias, y, M, N, K, relu, out dtype, route,

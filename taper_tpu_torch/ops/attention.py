@@ -33,13 +33,15 @@ kernel as JAX does (``attention.py:1155``, :func:`uses_bound`): the
 bound-max K8 for bf16 causal inputs with no window and no segments, its
 exact arm chosen on the device by :func:`bound_predicate`; the exact K5
 for the rest.  :func:`plan_fwd` names K8's and K5's kernel and
-:func:`plan_bwd` K6's, K7's and K10's before launch: the TMA + wgmma
-kernels of ``csrc/flash_sm90.cu`` (K8, K5, K7, K10) and
+:func:`plan_bwd` K6's, K7's, K10's and K11's before launch: the TMA +
+wgmma kernels of ``csrc/flash_sm90.cu`` (K8, K5, K7, K10, K11) and
 ``csrc/flash_bwd_sm90.cu`` (K6) for bf16 (whose data
 ``backend.check_kernel_args`` holds to TMA's 16-byte alignment, or
 raises), the FMA kernels of ``csrc/flash_fwd.cu`` (K5),
-``csrc/flash_bwd_f32.cu`` (K6, K7) and ``csrc/flash_bwd.cu`` (K10) for
-f32; ``backend.route_counts()`` counts the calls by route.  The backward is
+``csrc/flash_bwd_f32.cu`` (K6, K7, K11) and ``csrc/flash_bwd.cu`` (K10)
+for f32; ``backend.route_counts()`` counts the calls by route.  K11 is a
+mode of K7's kernel in each dtype (one block a query head, per-head f32
+partials out).  The backward is
 K6 then K7, with JAX's two opt-in alternatives, read from the environment
 at each call as JAX reads them at trace time, and only on the card:
 ``TAPER_ATTN_FUSED_BWD=1`` runs K10 for plain causal attention (no window,
@@ -268,12 +270,12 @@ def plan_fwd(dtype, mask: str) -> str:
 
 
 def plan_bwd(dtype) -> str:
-    """The backward kernels' route (K6, K7 and K10 alike), decided before
-    launch by the dtype alone, under every mask: ``"wgmma"`` for bf16 (K6
-    in ``csrc/flash_bwd_sm90.cu``, K7 and K10's sweep in
+    """The backward kernels' route (K6, K7, K10 and K11 alike), decided
+    before launch by the dtype alone, under every mask: ``"wgmma"`` for
+    bf16 (K6 in ``csrc/flash_bwd_sm90.cu``, K7, K10's sweep and K11 in
     ``csrc/flash_sm90.cu``), ``"f32"`` for f32 (the FMA kernels of
-    ``csrc/flash_bwd_f32.cu`` for K6 and K7, of ``csrc/flash_bwd.cu`` for
-    K10)."""
+    ``csrc/flash_bwd_f32.cu`` for K6, K7 and K11, of
+    ``csrc/flash_bwd.cu`` for K10)."""
     return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
@@ -428,11 +430,13 @@ def flash_dkv(q, k, v, lse, delta, do, *, causal, scale, heads=None,
 
 def flash_dkv_t(q, k, v, lse, delta, do, *, causal, scale, heads=None,
                 window=None):
-    """K11 on CUDA tensors in either layout, after K6 (its ``delta``):
-    returns the per-query-head partials ``(dk, dv)``, f32 ``[B, H, S, D]``
-    (:func:`group_sum` reduces them).  No segment ids, as in JAX."""
+    """K11 on CUDA tensors in either layout, after K6 (its ``delta``),
+    through the route :func:`plan_bwd` gives: returns the per-query-head
+    partials ``(dk, dv)``, f32 ``[B, H, S, D]`` (:func:`group_sum` reduces
+    them).  No segment ids, as in JAX."""
     _, args = _bwd_args("flash backward dK/dV (per head)", q, k, v, heads,
                         causal, scale, window, None, do, rows=(lse, delta))
+    route = plan_bwd(q.dtype)
     b, h, _, s, d = args[:5]
     dk, dv = (torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)
               for _ in range(2))
@@ -442,6 +446,7 @@ def flash_dkv_t(q, k, v, lse, delta, do, *, causal, scale, heads=None,
         *args)
     _build.check(code, "flash backward dK/dV (per head)")
     backend.count_launch("flash_dkv_t")
+    backend.count_route(route, "flash_dkv_t", 1)
     return dk, dv
 
 
@@ -451,7 +456,8 @@ def group_sum(part, like, heads=None):
     (plain PyTorch, as JAX sums after its kernel)."""
     b, h, s, d = part.shape
     hkv = like.shape[1] if heads is None else like.shape[2] // d
-    out = part.reshape(b, hkv, h // hkv, s, d).sum(2)
+    # a group of one head sums nothing
+    out = part if h == hkv else part.reshape(b, hkv, h // hkv, s, d).sum(2)
     return _from_bhsd(out, heads).to(like.dtype).contiguous()
 
 

@@ -1,8 +1,8 @@
 """Quantized matrix products: port of ``taper_tpu/ops/pallas/quant.py``
 and of the quantized branch of ``taper_tpu/ops/__init__.py::linear``.
 
-Four kernels (``csrc/quant.cu``), each with its plain PyTorch version
-beside it:
+Four kernels (``csrc/quant.cu``, ``csrc/quant_sm90.cu``), each with its
+plain PyTorch version beside it:
 
 * K12 :func:`linear_q8` (``_q8_kernel``, ``quant.py:41``): int8 weights
   dequantized on load.  With ``w = (q - zp) * scale`` per tensor or per
@@ -11,9 +11,16 @@ beside it:
   - scale[n] zp[n] * sum_k x[m,k] (+ b) (+ relu|sigmoid)``:
   the activations are rounded to bf16 before the product, as the TPU
   kernel does (``quant.py:53``, a known numerics gap reproduced here), and
-  the row sum is taken over the unrounded f32 activations (``:57``);
+  the row sum is taken over the unrounded f32 activations (``:57``).
+  :func:`plan_q` picks its kernel: ``wgmma`` (``csrc/quant_sm90.cu``: a
+  row pass writes bf16 x and the row sums, then bf16 warpgroup MMA on a
+  TMA ring, the codes widened to bf16 in shared memory) at M > 16 where
+  TMA reads both operands and stores y, else
+  ``wmma`` (``csrc/quant.cu``'s WMMA kernel: decode's M <= 16 and the odd
+  shapes);
 * K13 :func:`linear_q4` (``_q4_kernel``, ``quant.py:159``): the same over
-  int4 codes packed two to a byte ``[N, K/2]`` (K even);
+  int4 codes packed two to a byte ``[N, K/2]`` (K even), on the ``wmma``
+  kernel at every shape;
 * K14 :func:`quantize_rows` (``_rowquant_kernel``, ``quant.py:460``):
   per-row symmetric activation quantization ``s = max(absmax, 1e-8) /
   127`` (a multiply by the f32 reciprocal, as XLA runs it),
@@ -106,7 +113,34 @@ def linear_q4_reference(x, packed, scale, zp, b=None, *, n_features: int,
                                scale, zp, b, epilogue)
 
 
+# K12's kernels (codes shared with csrc/quant.cu's Q8Route)
+Q8_ROUTES = {"wgmma": 0, "wmma": 1}
+
+
+def plan_q(m: int, n: int, k: int, aligned: bool) -> str:
+    """K12's kernel for ``x [m, k] . q [n, k]^T``, a pure function of its
+    arguments: ``wgmma`` where ``m > 16`` (decode's rows stay on the
+    kernel built for them), TMA can read both operands (``k`` a multiple
+    of 16, so that the codes' rows are whole 16-byte units, and
+    ``aligned``: the bases of x and q 16-byte aligned) and store the f32
+    output (``n`` a multiple of 4: its rows whole 16-byte units; the CNN's
+    10-way head fails this); else ``wmma``, the WMMA kernel, which reads
+    and writes any row."""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"K12: empty product [{m}, {k}] . [{n}, {k}]^T")
+    tma = k % 16 == 0 and n % 4 == 0 and aligned
+    return "wgmma" if m > 16 and tma else "wmma"
+
+
+def plan_q_for(x, q) -> str:
+    """:func:`plan_q` for K12's operands as given."""
+    return plan_q(x.shape[0], q.shape[0], x.shape[1],
+                  x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+
+
 def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
+    """K12 (``bits`` 8) on the route :func:`plan_q` gives, or K13
+    (``bits`` 4) on the WMMA kernel."""
     _check_epilogue(epilogue)
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not [M, {k}]")
@@ -119,20 +153,27 @@ def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
     backend.check_kernel_args(name, x, dtypes=(torch.float32,))
     backend.check_kernel_args(name, q, scale, zp, b)
     m = x.shape[0]
+    route = plan_q_for(x, q) if bits == 8 else "wmma"
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    # the wgmma route's row pass: bf16 x and the row sums
+    ws = (torch.empty(m * k * 2 + m * 4, dtype=torch.uint8, device=dev)
+          if route == "wgmma" else None)
     code = _build.library().taper_linear_q(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), zp.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), m, n, k, bits,
-        ACTIVATIONS[epilogue], _build.stream(x))
+        None if b is None else b.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n, k, bits,
+        ACTIVATIONS[epilogue], Q8_ROUTES[route], _build.stream(x))
     _build.check(code, name)
     backend.count_launch(name)
+    if bits == 8:
+        backend.count_route(route, name, 1)
     return y
 
 
 def linear_q8(x, q, scale, zp, b=None, *, epilogue: str = "none"):
     """``y = act(x @ dequant(q).T + b)`` with ``q`` int8 ``[N, K]``,
     ``scale``/``zp`` per tensor or ``[N]``; ``x`` ``[M, K]`` f32; f32
-    out.  Not differentiable."""
+    out, on the kernel :func:`plan_q` picks.  Not differentiable."""
     if not backend.on_cuda(x, q, b):
         _check_epilogue(epilogue)
         return linear_q8_reference(x, q, scale, zp, b, epilogue)

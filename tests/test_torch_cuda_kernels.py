@@ -480,8 +480,8 @@ _FAULTS = [
      "const int kv_lo = kv_begin<MASKED>(mask, q0);",
      "const int kv_lo = q0 > 0 ? P::BN : kv_begin<MASKED>(mask, q0);"),
     ("K7 skips the last query tile", "flash_sm90.cu",
-     "const int total = group * n_q;",
-     "const int total = group * n_q - 1;"),
+     "const int total = n_g * n_q;",
+     "const int total = n_g * n_q - 1;"),
     ("K6 skips the diagonal KV tile", "flash_bwd_sm90.cu",
      "bool skip = sl.skip || (causal && kv0 > qc + 63) ||",
      "bool skip = sl.skip || (causal && kv0 + P::BN - 1 > qc) ||"),
@@ -565,8 +565,8 @@ _F32_DKV_FAULTS = [
      "store_block(dk + koff, lay.ks, dka, kv0, S, scale, ty, tx);",
      "store_block(dk + koff, lay.ks, dka, kv0, S, 1.0f, ty, tx);", "sort"),
     ("K7 drops the last query head of a GQA group",
-     "const int total = group * n_q;",
-     "const int total = (group - 1) * n_q;", "gqa"),
+     "const int total = n_g * n_q;",
+     "const int total = (n_g - 1) * n_q;", "gqa"),
 ]
 
 
@@ -1265,14 +1265,18 @@ _DKV_T_MASKS = [(False, None, None), (True, 64, None), (True, 65, None),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,s,d", [(2, 4, 1, 333, 64),
                                          (1, 4, 2, 700, 128),
-                                         (1, 2, 2, 129, 128)])
+                                         (1, 2, 2, 129, 128),
+                                         (1, 4, 4, 200, 64),
+                                         (1, 8, 2, 300, 128)])
 @pytest.mark.parametrize("mask", _DKV_T_MASKS,
                          ids=[f"{'causal' if c else 'full'}-w{w}"
                               for c, w, _ in _DKV_T_MASKS])
 def test_flash_dkv_t_matches_plain(dev, mask, b, h, hkv, s, d, dtype,
                                    layout, monkeypatch):
-    """K11: its per-query-head partials against the plain backward's, and
-    through TAPER_ATTN_DKV_T=1 the group-summed dK/dV against K7's."""
+    """K11 (a mode of K7's kernel in each dtype, on the route plan_bwd
+    gives): its per-query-head partials against the plain backward's, at
+    MHA and GQA groups 2 and 4, and through TAPER_ATTN_DKV_T=1 the
+    group-summed dK/dV against K7's."""
     q, k, v, o, lse, do, kw = _masked_case(dev, b, h, hkv, s, d, dtype,
                                            layout, mask)
     _, delta = A.flash_dq(q, k, v, o, lse, do, **kw)
@@ -1281,6 +1285,9 @@ def test_flash_dkv_t_matches_plain(dev, mask, b, h, hkv, s, d, dtype,
         n: kw[n] for n in ("causal", "scale", "heads", "window")})
     torch.cuda.synchronize()
     assert backend.launch_counts()["flash_dkv_t"] == 1
+    assert backend.route_counts() == {
+        f"{A.plan_bwd(dtype)} flash_dkv_t": 1}
+    assert all(tuple(p.shape) == (b, h, s, d) for p in parts)
     assert all(p.dtype == torch.float32 for p in parts)
     refs = _masked_refs(q, k, v, o, lse, do, kw, layout, d,
                         per_query_head=True)
@@ -1300,6 +1307,22 @@ def test_flash_dkv_t_matches_plain(dev, mask, b, h, hkv, s, d, dtype,
         # two f32 sums of the same products in other orders, rounded once
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [(False, None, None), (True, 65, None)],
+                         ids=["full", "causal-w65"])
+def test_flash_dkv_t_is_bitwise_repeatable(dev, mask, dtype):
+    """K11 sums each head's tiles in a fixed order, with no atomics: two
+    calls give the same bits, on either route."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, 1, 8, 2, 300, 128, dtype,
+                                           "bshd", mask)
+    _, delta = A.flash_dq(q, k, v, o, lse, do, **kw)
+    kw11 = {n: kw[n] for n in ("causal", "scale", "heads", "window")}
+    first = A.flash_dkv_t(q, k, v, lse, delta, do, **kw11)
+    second = A.flash_dkv_t(q, k, v, lse, delta, do, **kw11)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
@@ -1764,6 +1787,71 @@ def test_linear_q_kernel_matches_plain(dev, bits, m, n, k, per_channel,
     assert backend.launch_counts()[f"linear_q{bits}"] == 1
     assert y.dtype == torch.float32 and y.shape == (m, n)
     torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+# K12 on wgmma: M > 16, N a multiple of 4 and K of 16, with ragged edges
+# (N not a multiple of the 128-column tile, K not of the 64-deep K tile)
+_K12_WGMMA = [(17, 196, 1040), (64, 132, 208), (2000, 64, 128),
+              (2000, 1028, 528), (4096, 2048, 2048), (4096, 260, 8192)]
+_K12_TERMS = [(False, False, True, "none"), (True, False, False, "relu"),
+              (False, True, True, "sigmoid"), (True, True, False, "none")]
+
+
+@pytest.mark.parametrize("per_channel,symmetric,bias,act", _K12_TERMS)
+@pytest.mark.parametrize("m,n,k", _K12_WGMMA)
+def test_k12_wgmma_matches_plain(dev, m, n, k, per_channel, symmetric,
+                                 bias, act):
+    """K12 on its wgmma kernel (the row pass, then bf16 wgmma with the
+    codes widened in shared memory) against the plain version, each
+    epilogue, per-tensor and per-channel scale and zero point, at 2e-4
+    (1 + |ref|), counted by route."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    qt = _qweight(gen, n, k, 8, per_channel, symmetric).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev) if bias else None
+    assert Q.plan_q_for(x, qt.values) == "wgmma"
+    backend.reset_launch_counts()
+    y = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point, b, epilogue=act)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["linear_q8"] == 1
+    assert backend.route_counts() == {"wgmma linear_q8": 1}
+    ref = Q.linear_q8_reference(x, qt.values, qt.scale, qt.zero_point, b,
+                                act)
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 2048, 2048), (16, 512, 4096),
+                                   (1, 64, 64), (300, 1024, 1030),
+                                   (2000, 10, 64), (64, 130, 256)])
+def test_k12_wmma_route_matches_plain(dev, m, n, k):
+    """Decode's M <= 16, K % 16 != 0 and rows of N f32 that are not whole
+    16-byte units keep the WMMA kernel."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    qt = _qweight(gen, n, k, 8, True, False).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev)
+    assert Q.plan_q_for(x, qt.values) == "wmma"
+    backend.reset_launch_counts()
+    y = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point, b)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wmma linear_q8": 1}
+    ref = Q.linear_q8_reference(x, qt.values, qt.scale, qt.zero_point, b)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 2048, 2048), (300, 1024, 1030),
+                                   (4096, 2048, 2048), (2000, 1028, 528)])
+def test_k12_routes_are_bitwise_repeatable(dev, m, n, k):
+    """Each K12 kernel sums in a fixed order: two calls give the same
+    bits, on wmma and on wgmma."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    qt = _qweight(gen, n, k, 8, False, False).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    a = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point)
+    b = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

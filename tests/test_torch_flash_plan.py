@@ -1,5 +1,6 @@
 """The flash kernels' routing (taper_tpu_torch/ops/attention.py
-``plan_fwd`` for K8 and K5, ``plan_bwd`` for K6, K7 and K10) on the CPU, and
+``plan_fwd`` for K8 and K5, ``plan_bwd`` for K6, K7, K10 and K11) on the
+CPU, and
 the CPU path of the attention ops
 against the JAX package's flash kernels at the layouts the paths use.
 
@@ -226,6 +227,47 @@ def test_backward_wrappers_count_the_planned_route(recorder, layout,
     assert backend.route_counts() == {"wgmma flash_bwd_fused": 1,
                                       "wgmma flash_dq": 2,
                                       "wgmma flash_dkv": 2}
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_k11_wrapper_counts_the_planned_route(recorder, layout,
+                                              monkeypatch):
+    """K11 (``flash_dkv_t``) in bf16 and f32, non-causal and windowed,
+    counts the route plan_bwd gives, one launch a call, and returns f32
+    per-query-head partials [B, H, S, D]; ``flash_bwd`` takes it under
+    TAPER_ATTN_DKV_T=1 for non-causal or windowed attention and keeps K7
+    for plain causal attention."""
+    heads = None if layout == "bhsd" else 4
+    for dtype in (BF, F32):
+        q, k, v, do, lse, delta = _inputs(dtype, layout=layout)
+        parts = A.flash_dkv_t(q, k, v, lse, delta, do, causal=False,
+                              scale=0.125, heads=heads)
+        assert all(tuple(p.shape) == (2, 4, 96, 64) and p.dtype == F32
+                   for p in parts)
+        A.flash_dkv_t(q, k, v, lse, delta, do, causal=True, scale=0.125,
+                      heads=heads, window=16)
+    names = [name for name, _ in recorder.calls]
+    assert names == ["taper_flash_dkv_t"] * 4
+    for name, args in recorder.calls:
+        assert len(args) == len(_build._SIGNATURES[name]), name
+    dtypes = [args[-2] for _, args in recorder.calls]
+    assert dtypes == [_build.DTYPES[BF]] * 2 + [_build.DTYPES[F32]] * 2
+    assert backend.route_counts() == {"wgmma flash_dkv_t": 2,
+                                      "f32 flash_dkv_t": 2}
+    assert backend.launch_counts()["flash_dkv_t"] == 4
+    # the dispatch
+    backend.reset_launch_counts()
+    monkeypatch.setenv("TAPER_ATTN_DKV_T", "1")
+    for dtype in (BF, F32):
+        q, k, v, do, lse, _ = _inputs(dtype, layout=layout)
+        kw = dict(scale=0.125, heads=heads)
+        A.flash_bwd(q, k, v, do.clone(), lse, do, causal=False, **kw)
+        A.flash_bwd(q, k, v, do.clone(), lse, do, causal=True, window=16,
+                    **kw)
+        A.flash_bwd(q, k, v, do.clone(), lse, do, causal=True, **kw)
+    assert backend.route_counts() == {
+        "wgmma flash_dq": 3, "wgmma flash_dkv_t": 2, "wgmma flash_dkv": 1,
+        "f32 flash_dq": 3, "f32 flash_dkv_t": 2, "f32 flash_dkv": 1}
 
 
 TRAIN_PATHS = [p for p in PATHS if p[5] is not None]

@@ -15,12 +15,18 @@ product whose K_in of 1,001 is not a multiple of 8 (no TMA: the realign
 route); and K15b (``matmul_int8``, int32 out) and K15a
 (``matmul_int8_scaled``, bf16 out with a bias) at the W8A8 prefill's
 three shapes (M 4,096; (N, K) = (2,048, 2,048), (8,192, 2,048), (2,048,
-8,192)) and at K 2,050 (no TMA: the mma route).  It calls only
-``linear(x, w, b)``, ``gemm(a, b, mode)``, ``matmul_int8(xq, q)`` and
-``matmul_int8_scaled(...)``, which every version of the port with the
-quantized kernels has.  ``--only`` keeps the shapes whose label starts
-with one of the given words (``--only serve`` times the serving shapes
-alone, ``--only realign int8`` the realign route and K15).
+8,192)) and at K 2,050 (no TMA: the mma route); and K12 (``linear_q8``,
+f32 activations, int8 codes, f32 out with a bias) at the same three
+shapes, on the kernel its checkout picks ("K12"), then phase 18's K12
+forward (chip_smoke's W8A8 model through K12,
+TAPER_W8A8=0: ms a forward by the host clock, and its device busy ms and
+K12's share of them from a profile of two forwards).  It calls only
+``linear(x, w, b)``, ``gemm(a, b, mode)``, ``matmul_int8(xq, q)``,
+``matmul_int8_scaled(...)`` and ``linear_q8(...)``, which every version of
+the port with the quantized kernels has.  ``--only`` keeps the shapes
+whose label starts with one of the given words (``--only serve`` times
+the serving shapes alone, ``--only realign int8`` the realign route and
+K15, ``--only q8`` K12).
 
 CHECKOUT (default: this one) is the root of a checkout of the repository
 (for example a parent commit unpacked with ``git archive`` into a
@@ -34,6 +40,7 @@ parent.
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -51,7 +58,7 @@ import chip_smoke as C  # noqa: E402
 from taper_tpu_torch.ops import _build  # noqa: E402
 from taper_tpu_torch.ops.gemm import gemm, linear  # noqa: E402
 from taper_tpu_torch.ops.quant import (  # noqa: E402
-    matmul_int8, matmul_int8_scaled)
+    linear_q8, matmul_int8, matmul_int8_scaled)
 
 BF, F32 = torch.bfloat16, torch.float32
 E, SORT_E = 1024, 128
@@ -75,6 +82,9 @@ SHAPES = (
 INT8_SHAPES = [(f"int8 M=4096 (N,K)=({n},{k})", 4096, n, k)
                for n, k in ((2048, 2048), (8192, 2048), (2048, 8192),
                             (2048, 2050))]
+# K12: (label, M, N, K)
+Q8_SHAPES = [(f"q8 M=4096 (N,K)=({n},{k})", 4096, n, k)
+             for n, k in ((2048, 2048), (8192, 2048), (2048, 8192))]
 
 
 def operands(dtype, t, k_in, n_out, mode, gen):
@@ -109,6 +119,40 @@ def k15a(xq, q, sx, corr, sw, zw, bias):
                               out_dtype=torch.bfloat16)
 
 
+def q8_operands(m, n, k, gen):
+    """f32 activations, per-tensor int8 codes (as PTQ makes them), their
+    scale and zero point, and a bias, on the card."""
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    q = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.full((n,), 2e-4, device="cuda")
+    zp = torch.full((n,), -3.0, device="cuda")
+    return x, q, scale, zp, torch.randn(n, generator=gen, device="cuda") * 0.1
+
+
+def q8_forward():
+    """Phase 18's K12 forward: ms a forward by the host clock, three
+    times, and the device busy ms and K12's ms of a profiled forward."""
+    gen = torch.Generator().manual_seed(C.SEED)
+    dense = C.TinyGPT(**C.W8A8, compute_dtype=BF)
+    dense.reset_parameters(gen)
+    qmodel = C.quantize_params(
+        dense, C.QuantizationConfig(qtype=C.QuantizationType.INT8)).cuda()
+    del dense
+    toks = torch.randint(0, C.W8A8["vocab_size"],
+                         (C.W8A8_BATCH, C.W8A8["max_seq"]),
+                         generator=gen).cuda()
+    os.environ["TAPER_W8A8"] = "0"
+    wall = [round(C.w8a8_forward(qmodel, toks)[1], 3) for _ in range(3)]
+
+    def forward():
+        with torch.no_grad():
+            qmodel(toks)
+    prof = C.profile_steps(forward, 2, C.W8A8_FAMILIES)
+    k12 = sum(v for f, v in prof["ms"].items() if f.startswith("K12"))
+    return wall, round(prof["busy_ms"], 4), round(k12, 4)
+
+
 def main():
     _build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -137,6 +181,19 @@ def main():
             del sets
         del args
         torch.cuda.empty_cache()
+    for label, m, n, k in Q8_SHAPES:
+        if OPTS.only and not any(label.startswith(w) for w in OPTS.only):
+            continue
+        sets = C.cold_sets(*q8_operands(m, n, k, gen))
+        ms[f"{label} K12"] = [round(C.cuda_ms(linear_q8, sets), 4)
+                              for _ in range(3)]
+        del sets
+        torch.cuda.empty_cache()
+    if not OPTS.only or any("q8 forward".startswith(w) for w in OPTS.only):
+        wall, busy, k12 = q8_forward()
+        ms["q8 forward"] = wall
+        ms["q8 forward busy"] = [busy]
+        ms["q8 forward K12"] = [k12]
     print(json.dumps({"root": str(ROOT),
                       "device": torch.cuda.get_device_name(0),
                       "ms": ms}), flush=True)
