@@ -98,9 +98,9 @@ non-zero):
  16. the quantized kernels against their plain versions at the shapes of
      phases 17-19: K12/K13 (``linear_q8``/``linear_q4``) at decode (M=8)
      and K12 at M=4096 and at the CNN's FC layers (M=2000), within 2e-4,
-     each on the route ``ops.quant.plan_q`` names (checked taken: wgmma
-     at M=4096 and at the FC layers of N 128 and 64, wmma at decode and
-     at the 10-way head); K14 (``quantize_rows``), K15b
+     each on the route ``ops.quant.plan_q`` names (checked taken: decode
+     for K12 and K13 at M=8, wgmma at M=4096 and at the FC layers of N
+     128 and 64, wmma at the 10-way head); K14 (``quantize_rows``), K15b
      (``matmul_int8``) and K15a (``matmul_int8_scaled``) exactly, K15 at
      the three W8A8 shapes on the route ``ops.quant.plan`` names (checked
      taken); ``torch._int_mm`` is K15b's library call, the others have
@@ -109,8 +109,8 @@ non-zero):
      depth 6, 273M parameters, f32) with int8 and int4 weights in the
      paged engine (the bench's contiguous cache runs in phase 21): prefill
      and decode logits against the port's CPU path with the same
-     weights, exactly 36 K12/K13 launches per decode step, 8 requests of
-     200 new tokens served, tokens/s beside f32, a profile of the decode
+     weights, exactly 36 K12/K13 launches per decode step, each on the
+     decode route, 8 requests of 200 new tokens served, tokens/s beside f32, a profile of the decode
      step in each format;
  18. bench.py:273-301's W8A8 prefill (dim 2048, depth 4, bf16, every 2-D
      leaf int8, 4 x 1024 tokens): TAPER_W8A8=1 runs 24 K14 and 24 K15a,
@@ -123,10 +123,13 @@ non-zero):
      launches per eval batch of 2000;
  20. K16 over int8 pools (``paged_decode_int8``) against its plain
      version at bench_paged_decode's shapes (16 rows, 8 KV heads, G 1,
-     D 128, block 128, 257/4033 positions, bf16 q) and at phase 17's
+     D 128, block 128, 257/4033 positions, bf16 q), with all 16 rows at
+     4033 (the worst case), at phase 5's serving mix and at phase 17's
      model shape (4 KV heads, G 4, f32 q), with the bound of the live
-     int8 rows, their scales, q and o; the bf16 kernel at the same mixed
-     lengths beside it;
+     int8 rows, their scales, q and o; the bf16 kernel at the mixed and
+     the all-long lengths beside it; each call on the split
+     ``ops.paged_attention.plan`` gives (checked taken), and a repeated
+     split call of each kernel bit-equal;
  21. the 32-request mix of phase 5 through the contiguous bf16, paged
      int8 and contiguous int8 engines: every request completes, exact
      launches per decode step (48 K1 and 8 K16 int8; contiguous: 48 K1),
@@ -193,8 +196,9 @@ plans.
 The line before the last is the kernel report (JSON), one entry per
 kernel with its numbers per path under ``by_path``; K1's entries give
 their route and K split (``k1_route``, ``splits``), K8's, K6's, K7's,
-K10's and K11's their route (``flash_route``), K12's and K15's theirs
-(``q8_route``, ``i8_route``), the top-level numbers
+K10's and K11's their route (``flash_route``), K12's, K13's and K15's
+theirs (``q8_route``, ``i8_route``), K16's its split (``k16_route``,
+``splits``, ``chunk``), the top-level numbers
 from the 170M model's (e, 4e) projection; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -231,6 +235,7 @@ from taper_tpu_torch.ops.gemm import (
     streams, tile_shape)
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_reference)
+from taper_tpu_torch.ops.paged_attention import plan as paged_plan
 from taper_tpu_torch.quantization import (
     QuantizationConfig, QuantizationType, quantize, quantize_params,
     quantized_bytes)
@@ -289,12 +294,24 @@ LM_BATCH, LM_LR, LM_WARMUP, LM_STEPS = 8, 1e-4, 2, 10
 #    independent CPU step, whose ReLU decisions may differ, 1e-2 (the
 #    worst of 8 seed/batch pairs was 7e-4, PERF.md).
 TOL = {"linear": 2e-4, "flash_fwd": 2e-2, "flash_fwd_bound": 2e-2,
-       "paged_decode": 2e-2, "gemm_nn": 1e-4, "gemm_tn": 1e-4,
+       "gemm_nn": 1e-4, "gemm_tn": 1e-4,
        "conv_fwd": 1e-4, "conv_dw": 1e-4, "pool": 1e-6,
        # the quantized kernels (reasons at QSERVE below)
        "linear_q8": 2e-4, "linear_q4": 2e-4, "quantize_rows": 0.0,
        "matmul_int8_scaled": 0.0, "matmul_int8": 0.0}
 LINEAR_F32_TOL = 1e-4           # linear on the training path (f32 FMA)
+# K16 (paged decode) against its plain version, by q's dtype: the tol and
+# how of :func:`check_kernel`.  Both sides compute in f32 and round o to
+# q's dtype once.  f32 q: 1e-4 (1 + |ref|).  bf16 q: one bf16 rounding of
+# nearly the same f32 value, at most 2^-7 |ref| apart, so |out - ref| <=
+# 8e-3 (|ref| + ULP_FLOOR).  A split dropped or misweighted in the merge
+# moves o by about |o| / splits; at 4,033 positions a typical |o| is
+# ~0.02, about the 2e-2 (1 + |ref|) this replaced.  Faults planted in the
+# merge (tests/test_torch_cuda_kernels.py) cross that one 4x over, this
+# one 2,700x or more (PERF.md).
+K16_TOL = {torch.bfloat16: dict(tol=8e-3, how="ulp"),
+           torch.float32: dict(tol=1e-4, how="each")}
+ULP_FLOOR = 1e-3
 BF16_GEMM_TOL = 2e-4
 LSE_TOL, LSE_F32_TOL, FLASH_F32_TOL = 1e-3, 1e-4, 1e-4
 BWD_BF16_TOL, DELTA_TOL = 1e-2, 1e-4
@@ -336,7 +353,10 @@ I8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
 I8_NAMES = ("matmul_int8", "matmul_int8_scaled")
 # K12's routes (ops.quant.plan_q)
 Q8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
+              "decode": "taper_tpu_torch/csrc/quant_decode.cu",
               "wmma": "taper_tpu_torch/csrc/quant.cu"}
+Q_NAMES = {"linear_q8": 8, "linear_q4": 4}
+K16_NAMES = ("paged_decode", "paged_decode_int8")
 # The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
 # row's source follows its route too; K10's "f32" keeps SOURCES'
 # flash_bwd.cu, and K5's "exact" (f32) is flash_fwd.cu's
@@ -518,8 +538,10 @@ def tile_norms(out, ref, tile=TILE):
 def within(out, ref, tol, how="each"):
     """Max abs error, the statistic held to ``tol``, and whether it holds.
     ``how``: "each" |out - ref| <= tol * (1 + |ref|) entry by entry, the
-    statistic is max |out - ref| / (1 + |ref|); "max" |out - ref| <= tol *
-    max |ref|, the statistic is max |out - ref| / max |ref|; "tiles" each
+    statistic is max |out - ref| / (1 + |ref|); "ulp" |out - ref| <= tol *
+    (|ref| + ULP_FLOOR) entry by entry, the statistic is max |out - ref|
+    / (|ref| + ULP_FLOOR); "max" |out - ref| <= tol * max |ref|, the
+    statistic is max |out - ref| / max |ref|; "tiles" each
     64-row tile of a ``[B, H, S, D]`` tensor within ``tol`` relative L2 of
     its own norm, plus TILE_ATOL per entry (RMS) where that norm is ~0,
     the statistic is the worst tile's ratio."""
@@ -529,6 +551,8 @@ def within(out, ref, tol, how="each"):
         e, r = tile_norms(out, ref)
         floor = TILE_ATOL * (TILE * ref.shape[-1]) ** 0.5 / tol
         stat = float((e / (r + floor)).max())
+    elif how == "ulp":
+        stat = float((err / (ref.abs() + ULP_FLOOR)).max())
     elif how == "max":
         stat = float(err.max() / ref.abs().max().clamp_min(1e-30))
     else:
@@ -553,15 +577,23 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     checks that the call took them, as a K15 row does with
     ``ops.quant.plan``'s route and a K12 row with ``ops.quant.plan_q``'s;
     a K8, K6, K7, K10 or K11 row is given the route ``plan_fwd`` or
-    ``plan_bwd`` gives (``flash_route``) and checks it the same way.
-    Returns the report row."""
+    ``plan_bwd`` gives (``flash_route``) and checks it the same way; a
+    K13 row's route is ``plan_q``'s for int4 codes, and a K16 row
+    (operands q, pools, tables first) records and checks the split
+    ``ops.paged_attention.plan`` gives ("split" or "whole").  Returns the
+    report row."""
     mode = K1_MODES.get(name)
     if mode is not None:
         route, splits = plan_for(*arg_sets[0][:2], mode)
     elif name in I8_NAMES:
         route = Q.plan_for(*arg_sets[0][:2])
-    elif name == "linear_q8":
-        route = Q.plan_q_for(*arg_sets[0][:2])
+    elif name in Q_NAMES:
+        route = Q.plan_q_for(*arg_sets[0][:2], Q_NAMES[name])
+    elif name in K16_NAMES:
+        q, pool, _, tables = arg_sets[0][:4]
+        splits, chunk = paged_plan(*q.shape, pool.shape[2], tables.shape[1],
+                                   pool.dtype)
+        route = "split" if splits > 1 else "whole"
     before = backend.route_counts()
     outs = _tuple(kernel_fn(*arg_sets[0]))
     torch.cuda.synchronize()
@@ -570,7 +602,7 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
              if c != before.get(k, 0)}
     if mode is not None:
         assert taken == {route_key(route, mode, splits): 1}, (name, taken)
-    elif name in I8_NAMES or name == "linear_q8":
+    elif name in I8_NAMES or name in Q_NAMES or name in K16_NAMES:
         assert taken == {f"{route} {name}": 1}, (name, taken)
     elif flash_route is not None:
         assert taken == {f"{flash_route} {name}": 1}, (name, taken)
@@ -610,9 +642,12 @@ def check_kernel(name, shape, kernel_fn, plain_fn, arg_sets, phase=3,
     elif name in I8_NAMES:
         row.update(i8_route=route)
         via = f" via {route}"
-    elif name == "linear_q8":
+    elif name in Q_NAMES:
         row.update(q8_route=route)
         via = f" via {route}"
+    elif name in K16_NAMES:
+        row.update(k16_route=route, splits=splits, chunk=chunk)
+        via = f" via {route} x{splits} of {chunk} table entries"
     elif flash_route is not None:
         row.update(flash_route=flash_route)
         via = f" via {flash_route}"
@@ -803,6 +838,7 @@ def phase3_kernels(dev):
         f"{lengths.min().item()}..{lengths.max().item()}",
         lambda *a: paged_decode_attention(*a, scale=scale),
         lambda *a: paged_decode_reference(*a, scale=scale), sets,
+        **K16_TOL[sets[0][0].dtype],
         work=(4 * tokens * 8 * 128,
               2 * tokens * 8 * 128 * 2 + 2 * nbytes(sets[0][0])
               + nbytes(tables, lengths), "bf16"))
@@ -2223,6 +2259,7 @@ W8A8_BATCH, W8A8_ITERS = 4, 5
 QSERVE_REL_TOL, W8A8_REL_TOL = 1e-2, 5e-2
 PTQ_INT8_DROP, PTQ_F16_DROP = 0.01, 0.001
 QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_kernel"),
+                  ("K12/K13 linear_q", "linear_q_decode_kernel"),
                   ("K12 linear_q8 wgmma", "q8_wgmma_kernel"),
                   ("K12 linear_q8 wgmma", "q8::rows_kernel"),
                   ("K16 paged decode", "paged_decode")) + K1_FAMILIES + (
@@ -2250,7 +2287,8 @@ def qlinear_work(m, n, k, bits):
 
 def phase16_quant_kernels(dev):
     """K12, K13, K14, K15a/b against their plain versions at the shapes of
-    phases 17-19, and K15a/b on their mma route, with the bound and the
+    phases 17-19, K12/K13 on their wmma route (ragged K at decode's M,
+    K13 at M > 16) and K15a/b on their mma route, with the bound and the
     library call where one exists."""
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
@@ -2271,12 +2309,19 @@ def phase16_quant_kernels(dev):
     decode = ((d, d), (kv, d), (4 * d, d), (d, 4 * d))
     pm, pd = W8A8_BATCH * W8A8["max_seq"], W8A8["dim"]
     prefill = ((pd, pd), (4 * pd, pd), (pd, 4 * pd))
-    cases = ([(QSERVE_REQUESTS, n, k, bits) for bits in (8, 4)
+    # each with the route plan_q must give it; last, the WMMA kernel's rows
+    # that no path takes, each with its label in the kernels line: K12 and
+    # K13 at decode's M with ragged K (int8 rows not whole 16-byte units,
+    # int4 rows not whole 32 codes), and K13 at M > 16
+    cases = ([(QSERVE_REQUESTS, n, k, bits, "decode") for bits in (8, 4)
               for n, k in decode]
-             + [(pm, n, k, 8) for n, k in prefill]
-             + [(2000, n, k, 8) for n, k in ((128, 128), (64, 128),
-                                             (10, 64))])
-    for m, n, k, bits in cases:
+             + [(pm, n, k, 8, "wgmma") for n, k in prefill]
+             + [(2000, n, k, 8, "wmma" if n == 10 else "wgmma")
+                for n, k in ((128, 128), (64, 128), (10, 64))]
+             + [(QSERVE_REQUESTS, d, d + 8, 8, "wmma", "wmma ragged K"),
+                (QSERVE_REQUESTS, d, d + 16, 4, "wmma", "wmma ragged K"),
+                (2000, 128, 128, 4, "wmma", "wmma M > 16")])
+    for m, n, k, bits, want, *off_path in cases:
         name = f"linear_q{bits}"
         act = "relu" if m == 2000 and n != 10 else "none"
 
@@ -2292,12 +2337,19 @@ def phase16_quant_kernels(dev):
             plain = (lambda x, q, s, z, b, act=act:
                      Q.linear_q8_reference(x, q, s, z, b, act))
         else:
-            kern = (lambda x, q, s, z, b, k=k:
-                    Q.linear_q4(x, q, s, z, b, n_features=k))
-            plain = (lambda x, q, s, z, b, k=k:
-                     Q.linear_q4_reference(x, q, s, z, b, n_features=k))
+            kern = (lambda x, q, s, z, b, k=k, act=act:
+                    Q.linear_q4(x, q, s, z, b, n_features=k, epilogue=act))
+            plain = (lambda x, q, s, z, b, k=k, act=act:
+                     Q.linear_q4_reference(x, q, s, z, b, n_features=k,
+                                           epilogue=act))
         add(name, f"M={m} N={n} K={k} {act} (+bias)", kern, plain, sets,
             work=qlinear_work(m, n, k, bits))
+        # the time includes the wrapper's expansion of the per-tensor scale
+        # and zero point into [N] vectors (two copies)
+        rows[name][-1]["ms_includes"] = "per-tensor scale/zp expansion"
+        assert rows[name][-1]["q8_route"] == want, (name, m, n, k, want)
+        if off_path:
+            rows[name][-1]["off_path"] = off_path[0]
         if m == QSERVE_REQUESTS and (n, k) == decode[2]:
             # information, not a yardstick: dequantize + F.linear
             qt = quantize(torch.randn(n, k, generator=gen) * 0.02,
@@ -2306,8 +2358,6 @@ def phase16_quant_kernels(dev):
             x, b = randn(m, k), randn(n) * 0.1
             dq_note.append((bits, cuda_ms(
                 lambda x, b: F.linear(x, qt.dequantize(), b), [(x, b)])))
-    got = sorted({r["q8_route"] for r in rows["linear_q8"]})
-    assert got == ["wgmma", "wmma"], got
     for bits, ms in dq_note:
         print(f"phase 16: dequantize + F.linear, int{bits} M="
               f"{QSERVE_REQUESTS} N={decode[2][0]} K={decode[2][1]} "
@@ -2413,7 +2463,7 @@ def qserve_logits(model, dev, prompt):
 
 def qserve_run(model, prompts):
     """Serve ``prompts`` (QSERVE_NEW greedy tokens each) on the card: wall
-    seconds, tokens, launch counts and engine stats."""
+    seconds, tokens, launch counts, engine stats and calls by route."""
     per = -(-(QSERVE_PROMPT + QSERVE_NEW) // QSERVE_ENGINE["block_size"])
     eng = ServingEngine(model, pool_blocks=QSERVE_ENGINE["slots"] * per + 1,
                         seed=SEED, **QSERVE_ENGINE)
@@ -2424,11 +2474,12 @@ def qserve_run(model, prompts):
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = backend.launch_counts()
+    counts, routes = backend.launch_counts(), backend.route_counts()
     for rid in ids:
         assert len(out[rid]) == QSERVE_NEW, (rid, len(out[rid]))
         assert all(0 <= t < QSERVE["vocab_size"] for t in out[rid]), rid
-    return wall, sum(len(out[i]) for i in ids), counts, eng.stats()
+    return (wall, sum(len(out[i]) for i in ids), counts, eng.stats(),
+            routes)
 
 
 def phase17_quant_serve(dev, smi):
@@ -2467,7 +2518,7 @@ def phase17_quant_serve(dev, smi):
                       f"{QSERVE_REL_TOL:.0e}), max abs err "
                       f"{float((o - r).abs().max()):.3e}")
                 assert rel <= QSERVE_REL_TOL, f"{name} {what} logits"
-        wall, toks, counts, st = qserve_run(card, prompts)
+        wall, toks, counts, st, routes = qserve_run(card, prompts)
         steps = st["decode_blocks"] * QSERVE_ENGINE["decode_block"]
         kern = {"int8": "linear_q8", "int4": "linear_q4"}.get(name)
         line = (f"phase 17: {name} served {QSERVE_REQUESTS} requests "
@@ -2480,6 +2531,14 @@ def phase17_quant_serve(dev, smi):
             line += f"; {kern} launches per decode step {per_step:g}"
             assert per_step == QSERVE_PER_STEP, counts
             assert counts["linear"] == 0, counts
+            # every call on the decode route: the decode steps' 8 rows and
+            # the prefills' 8 padded tokens alike
+            mine = {k: c for k, c in routes.items() if k.endswith(kern)}
+            assert mine == {f"decode {kern}": counts[kern]}, routes
+            on_route = (mine[f"decode {kern}"]
+                        - QSERVE_PER_STEP * st["admitted"]) / steps
+            line += f", {on_route:g} of them on the decode route"
+            assert on_route == QSERVE_PER_STEP, routes
         print(line + f"; on {smi}")
         assert st["completed"] == QSERVE_REQUESTS, st
         out[name] = dict(tokens_s=toks / wall, bytes=nbytes, counts=counts,
@@ -2638,9 +2697,7 @@ BENCH = dict(batch=16, smax=MODEL["max_seq"], bs=128, short=256,
 # K16 over int8 pools against its plain version: both compute in f32 from
 # the same int8 codes and f32 scales (the kernel scales the score and the
 # softmax weight, the plain version the gathered rows; other summation
-# orders), and round o to q's dtype: 2e-2 (1 + |ref|) with bf16 q (8
-# bits), 1e-4 with f32 q.
-INT8_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# orders), and round o to q's dtype: K16_TOL.
 # Launches per decode step of MODEL (8 layers x wq, wk, wv, wo, w1, w2):
 # the paged int8 engine also launches K16's int8 branch once a layer, the
 # contiguous engine no paged kernel (its decode attention is plain
@@ -2709,41 +2766,94 @@ def int8_row(name, shape, q, pools, tables, lengths, phase=20):
     live = int(lengths.sum()) * q.shape[1]          # positions x kv heads
     return check_kernel(
         name, shape, kernel, plain, sets, phase=phase,
-        tol=INT8_TOL[q.dtype],
+        **K16_TOL[q.dtype],
         work=(4 * live * q.shape[2] * d,
               2 * live * (d + 4) + 2 * nbytes(q), "f32"))
 
 
-def phase20_int8_kernel(dev):
-    """K16's int8 branch at bench_paged_decode's shapes (bf16 q) and at
-    phase 17's model shape (kvh 4, G 4, f32 q), with the bf16 kernel at
-    the same mixed lengths beside it."""
-    gen = torch.Generator().manual_seed(SEED)
-    b, bs = BENCH["batch"], BENCH["bs"]
-    mb = BENCH["smax"] // bs
-    lens = [BENCH["short"] if i % 2 == 0 else BENCH["long"]
-            for i in range(b)]
-    tables, n_blocks = bench_tables(lens, mb, bs)
-    tables = torch.from_numpy(tables).to(dev)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
-    kvh = MODEL["num_heads"]
-    q = torch.randn(b, kvh, 1, 128, generator=gen).to(torch.bfloat16).to(dev)
-    span = f"lengths {BENCH['short'] + 1}/{BENCH['long'] + 1}"
-    rows = {"paged_decode_int8": [int8_row(
-        "paged_decode_int8", f"bf16 q B={b} kvh={kvh} G=1 D=128 bs={bs} "
-        f"mb={mb} {span}", q, int8_pools(gen, n_blocks, kvh, bs, 128, dev),
-        tables, lengths)]}
-    kp, vp = (torch.randn(n_blocks, kvh, bs, 128, generator=gen).to(
-        torch.bfloat16).to(dev) for _ in range(2))
-    tokens = int(lengths.sum())
-    rows["paged_decode"] = check_kernel(
-        "paged_decode", f"bf16 B={b} kvh={kvh} G=1 D=128 bs={bs} {span}",
+def bf16_paged_row(label, q, kp, vp, tables, lengths):
+    """K16 over bf16 pools against its plain version; the bound is the
+    bytes of the live rows, q and o."""
+    tokens, kvh = int(lengths.sum()), q.shape[1]
+    return check_kernel(
+        "paged_decode", label,
         lambda *a: paged_decode_attention(*a, scale=128 ** -0.5),
         lambda *a: paged_decode_reference(*a, scale=128 ** -0.5),
         cold_sets(q, kp, vp, tables, lengths), phase=20,
+        **K16_TOL[q.dtype],
         work=(4 * tokens * kvh * 128,
               2 * tokens * kvh * 128 * 2 + 2 * nbytes(q), "bf16"))
-    del kp, vp
+
+
+def split_repeats(q, pools, tables, lengths, label):
+    """Two calls of K16 on the same inputs, split as ``plan`` says, give
+    the same bits (the splits merge in a fixed order, no atomics)."""
+    if len(pools) == 4:    # int8 codes and their scales
+        kp, ks, vp, vs = pools
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        (kp, vp), sc = pools, {}
+    splits, _ = paged_plan(*q.shape, kp.shape[2], tables.shape[1], kp.dtype)
+    with torch.no_grad():
+        first, again = (paged_decode_attention(
+            q, kp, vp, tables, lengths, scale=q.shape[-1] ** -0.5, **sc)
+            for _ in range(2))
+    same = torch.equal(first, again)
+    print(f"phase 20: {label} split x{splits}: two calls bit-equal: {same}")
+    assert splits > 1 and same, label
+
+
+def phase20_int8_kernel(dev):
+    """K16's int8 branch at bench_paged_decode's shapes (bf16 q), with
+    every row at the long length, at the serving mix and at phase 17's
+    model shape (kvh 4, G 4, f32 q), with the bf16 kernel at the mixed and
+    the all-long lengths beside it, and a repeated split call of each."""
+    gen = torch.Generator().manual_seed(SEED)
+    b, bs = BENCH["batch"], BENCH["bs"]
+    mb = BENCH["smax"] // bs
+    kvh = MODEL["num_heads"]
+    q = torch.randn(b, kvh, 1, 128, generator=gen).to(torch.bfloat16).to(dev)
+    rows = {"paged_decode_int8": [], "paged_decode": []}
+    for kind, lens in (("mixed", [BENCH["short"] if i % 2 == 0
+                                  else BENCH["long"] for i in range(b)]),
+                       ("all long", [BENCH["long"]] * b)):
+        tables, n_blocks = bench_tables(lens, mb, bs)
+        tables = torch.from_numpy(tables).to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
+        span = (f"lengths {BENCH['short'] + 1}/{BENCH['long'] + 1}"
+                if kind == "mixed" else f"all {BENCH['long'] + 1}")
+        pools = int8_pools(gen, n_blocks, kvh, bs, 128, dev)
+        rows["paged_decode_int8"].append(int8_row(
+            "paged_decode_int8", f"bf16 q B={b} kvh={kvh} G=1 D=128 "
+            f"bs={bs} mb={mb} {span}", q, pools, tables, lengths))
+        if kind == "mixed":
+            split_repeats(q, pools, tables, lengths, f"paged_decode_int8 "
+                          f"{span}")
+        del pools
+        kp, vp = (torch.randn(n_blocks, kvh, bs, 128, generator=gen).to(
+            torch.bfloat16).to(dev) for _ in range(2))
+        rows["paged_decode"].append(bf16_paged_row(
+            f"bf16 B={b} kvh={kvh} G=1 D=128 bs={bs} {span}", q, kp, vp,
+            tables, lengths))
+        if kind == "mixed":
+            split_repeats(q, (kp, vp), tables, lengths,
+                          f"paged_decode {span}")
+        del kp, vp
+        torch.cuda.empty_cache()
+    # phase 5's serving mix over int8 pools (the paged int8 engine's)
+    slots = ENGINE["slots"]
+    n_blocks = pool_blocks()
+    lengths = torch.tensor(np.random.default_rng(SEED).integers(
+        33, ENGINE["prompt_pad"] + max(MAX_NEW) + 1, slots),
+        dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_blocks - 1, generator=gen) + 1
+    tables = torch.zeros(slots, mb, dtype=torch.int32)
+    tables[:, :5] = perm[:slots * 5].reshape(slots, 5)
+    rows["paged_decode_int8"].append(int8_row(
+        "paged_decode_int8", f"bf16 q B={slots} kvh={kvh} G=1 D=128 bs={bs} "
+        f"lengths {int(lengths.min())}..{int(lengths.max())}", q,
+        int8_pools(gen, n_blocks, kvh, bs, 128, dev), tables.to(dev),
+        lengths))
     # phase 17's model: 8 slots, 16 query heads on 4 KV heads, f32, max_seq
     # 256 in two blocks of 128, lengths of 8-token prompts plus up to 200
     # new tokens
@@ -3910,7 +4020,8 @@ def kernel_report(paths, standalone, top=None, routes=None):
                      standalone.get(k))
         extra = {key: first[key] for key in ("k1_route", "splits", "k1_tile",
                                              "k1_staging", "i8_route",
-                                             "q8_route")
+                                             "q8_route", "ms_includes",
+                                             "k16_route", "chunk")
                  if key in first}
         if "flash_route" in first:
             extra["flash_route"] = first["flash_route"]
@@ -4066,7 +4177,7 @@ def main():
              "serve_contig": (contig_counts, {}),
              "bench_decode": (bench_counts, dict(
                  paged_decode_int8=int8_head,
-                 paged_decode=int8_rows["paged_decode"])),
+                 paged_decode=headline(int8_rows["paged_decode"]))),
              "serve_quant": (qserve_counts, dict(
                  linear_q8=headline(quant_rows["linear_q8"], 2),
                  linear_q4=headline(quant_rows["linear_q4"], 2))),
@@ -4085,13 +4196,15 @@ def main():
              "train_lm": (lm_launches, lm_report),
              "train_cnn": (cnn_counts, cnn_report),
              "serve": (serve_counts, serve_report)}
-    # routes no path takes, measured alone: K1's realign (phase 29) and
-    # K15's mma (phase 16)
+    # routes no path takes, measured alone: K1's realign (phase 29), K15's
+    # mma and K12's/K13's wmma at ragged K, K13's at M > 16 (phase 16)
     off_path = {k: {"realign": realign_rows[k]} for k in K1_MODES}
     off_path["linear"]["realign view"] = realign_rows["linear_view"]
     off_path.update({k: {"mma": headline(
         [r for r in quant_rows[k] if r["i8_route"] == "mma"])}
         for k in I8_NAMES})
+    off_path.update({k: {r["off_path"]: r for r in quant_rows[k]
+                         if "off_path" in r} for k in Q_NAMES})
     # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
     # largest; K8's: the 170M model's bound arm (train_packed also has a
     # K8 row, at the padded batch's shape); K6's and K7's: the 170M shape

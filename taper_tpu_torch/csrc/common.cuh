@@ -104,6 +104,32 @@ __device__ __forceinline__ float q_affine(float acc, float xs, float s,
   return __fsub_rn(__fmul_rn(acc, s), __fmul_rn(xs, __fmul_rn(s, z)));
 }
 
+// scale . acc - xsum . (scale . zp) (+ bias), each step rounded (no FMA
+// contraction), then the none/relu/sigmoid epilogue.
+__device__ __forceinline__ float q_epilogue(float acc, float xs, float s,
+                                            float z, const float* bias,
+                                            int n, int act) {
+  float out = q_affine(acc, xs, s, z);
+  if (bias != nullptr) out = __fadd_rn(out, bias[n]);
+  return epilogue(out, act);
+}
+
+// Four int8 codes (the first in the low byte) as four bf16, two to a
+// word: each byte, biased to unsigned, becomes the mantissa of 2^23 and
+// the bias 2^23 + 128 is subtracted, exactly; the integer, of at most 8
+// significant bits, is exact in bf16, whose bits are its f32's upper 16.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+        8388736.0f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
 }  // namespace taper
 
 extern "C" const char* taper_error_string(int code);

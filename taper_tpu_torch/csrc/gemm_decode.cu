@@ -59,6 +59,7 @@ namespace {
 using hopper::cluster_arrive;
 using hopper::cluster_rank;
 using hopper::cluster_wait;
+using hopper::mma16816;
 using hopper::smem_u32;
 using hopper::st_cluster_f32;
 
@@ -91,20 +92,6 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ p,
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// d += A . B, one mma.sync m16n8k16 (bf16 in, f32 accumulate): A 16 x 16
-// row-major in a0..a3, B 16 x 8 column-major in b0, b1 (PTX ISA's fragment
-// layouts for .bf16).
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Block x: weight rows [32 (x / splits), + 32), cluster rank x % splits,

@@ -5,10 +5,12 @@
 // accumulator-fragment helpers (quad reductions, the f32 accumulator as a
 // bf16 A operand), and the cluster barrier and distributed shared-memory
 // stores, and the persistent warp-specialised GEMM skeleton
-// (gemm_pingpong) with its staged TMA-store epilogue.  K1's wgmma GEMM
-// (gemm_sm90.cu) and decode product (gemm_decode.cu), the int8 product
-// K15 and K12's wgmma route (quant_sm90.cu) and the flash kernels K8, K5,
-// K7, K10 and K11 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on
+// (gemm_pingpong) with its staged TMA-store epilogue, bulk copies without
+// a tensor map, and mma.sync m16n8k16.  K1's wgmma GEMM (gemm_sm90.cu)
+// and decode product (gemm_decode.cu), the int8 product K15 and K12's
+// wgmma route (quant_sm90.cu), K12/K13's decode route (quant_decode.cu),
+// paged decode K16 (paged_decode.cu) and the flash kernels K8, K5, K7,
+// K10 and K11 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on
 // them.
 //
 // Conventions:
@@ -139,6 +141,27 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Copies ``bytes`` (a multiple of 16) from global memory at ``src`` into
+// shared memory at ``dst`` (both 16-byte aligned), one bulk copy of no
+// tensor map; completion is reported to ``bar`` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// An arrival on ``bar`` made once every cp.async this thread issued so far
+// has completed; it is one of the arrivals the barrier was initialised to
+// expect (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {
@@ -529,6 +552,22 @@ __device__ __forceinline__ void st_cluster_f32(uint32_t addr, uint32_t rank,
                : "r"(addr), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
                : "memory");
+}
+
+// -- mma.sync --
+
+// d += A . B, one mma.sync m16n8k16 (bf16 in, f32 accumulate): A 16 x 16
+// row-major in a0..a3, B 16 x 8 column-major in b0, b1 (PTX ISA's fragment
+// layouts for .bf16).
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // -- warpgroup register rebalancing --

@@ -38,19 +38,22 @@
 //   * K15 at the W8A8 prefill (M = 4,096, N and K 2,048-8,192): int8
 //     tensor-core bound, 1,979 TOP/s.
 // What the designs do about that:
-//   * K12 has two routes (ops/quant.py::plan_q): "wgmma" (quant_sm90.cu:
-//     a row pass writes bf16 x and the row sums, then bf16 wgmma on a TMA
-//     ring, the codes widened to bf16 in shared memory, for M > 16 where
-//     TMA reads both operands and stores y) and
-//     "wmma", the kernel below, for the rest (decode's M <= 16, ragged K,
-//     N % 4 != 0) and for K13 at every shape;
+//   * K12 has three routes (ops/quant.py::plan_q), K13 the last two:
+//     "wgmma" (quant_sm90.cu: a row pass writes bf16 x and the row sums,
+//     then bf16 wgmma on a TMA ring, the codes widened to bf16 in shared
+//     memory, for M > 16 where TMA reads both operands and stores y),
+//     "decode" (quant_decode.cu: M <= 16 with the codes' rows whole
+//     16-byte units from aligned bases; swap-AB mma.sync with the codes
+//     widened in registers, K split over a cluster) and "wmma", the
+//     kernel below, for the rest (ragged K, misaligned codes, N % 4 != 0
+//     at M > 16) and for K13 at M > 16;
 //   * the wmma kernel stages the codes through registers and converts
 //     them to bf16 on their way into shared memory (the f32 weights never
 //     exist in device memory), with the next tile's loads in flight while
-//     the current one is multiplied by WMMA 16x16x16 bf16; at decode (M <=
-//     16) a block owns 16 output columns and its 4 warps split each
-//     256-wide K tile, so a 2048-row weight spreads over 128 blocks;
-//     larger M takes 128x128 or 64x64 tiles.  The row sum comes from the
+//     the current one is multiplied by WMMA 16x16x16 bf16; at M <= 16
+//     (ragged K or misaligned codes) a block owns 16 output columns and
+//     its 4 warps split each 256-wide K tile; larger M takes 128x128 or
+//     64x64 tiles.  The row sum comes from the
 //     same f32 registers, before the rounding, with a fixed-order
 //     reduction;
 //   * K14 is one block per row: an absmax pass, then a quantize pass that
@@ -64,7 +67,6 @@
 //     applied to the int32 accumulators in registers.  (WMMA's s8
 //     fragments need 32-byte aligned addresses, which 16-byte K steps of
 //     int8 cannot give; the PTX fragments load 4 bytes a register.)
-// Split-K across blocks for K12/K13 at decode is later work.
 #include <mma.h>
 
 #include "common.cuh"
@@ -76,16 +78,6 @@ namespace taper {
 // ---------------------------------------------------------------------------
 // K12 / K13: dequant-on-load linear
 // ---------------------------------------------------------------------------
-
-// scale . acc - xsum . (scale . zp) (+ bias), each step rounded (no FMA
-// contraction), then the none/relu/sigmoid epilogue.
-__device__ __forceinline__ float q_epilogue(float acc, float xs, float s,
-                                            float z, const float* bias,
-                                            int n, int act) {
-  float out = q_affine(acc, xs, s, z);
-  if (bias != nullptr) out = __fadd_rn(out, bias[n]);
-  return epilogue(out, act);
-}
 
 // Sign-extended int4 codes of one packed byte (quant.py:170-171).
 __device__ __forceinline__ int nibble_lo(unsigned b) {
@@ -342,7 +334,7 @@ template <int BITS>
 int linear_q(const float* x, const uint8_t* q, const float* scale,
              const float* zp, const float* bias, float* y, int M, int N,
              int K, int act, cudaStream_t s) {
-  if (M <= 16)  // decode: 16 columns a block, 4 warps split K
+  if (M <= 16)  // 16 columns a block, 4 warps split K
     return launch_linear_q<16, 16, 256, 1, 1, 4, BITS>(x, q, scale, zp, bias,
                                                        y, M, N, K, act, s);
   const long long big_tiles =
@@ -630,22 +622,30 @@ int linear_q8_wgmma(const void* x, const void* q, const void* scale,
                     const void* zp, const void* bias, void* y, void* ws,
                     int M, int N, int K, int act, cudaStream_t s);
 
-// K12's route codes, shared with Q8_ROUTES in ops/quant.py
-enum Q8Route : int { kQ8Wgmma = 0, kQ8Wmma = 1 };
+// quant_decode.cu: K12/K13 on the decode route
+int linear_q_decode(const float* x, const uint8_t* q, const float* scale,
+                    const float* zp, const float* bias, float* y, int M,
+                    int N, int K, int bits, int act, int splits,
+                    cudaStream_t s);
+
+// K12/K13's route codes, shared with Q8_ROUTES in ops/quant.py
+enum Q8Route : int { kQ8Wgmma = 0, kQ8Wmma = 1, kQ8Decode = 2 };
 
 }  // namespace taper
 
 using namespace taper;
 
 // K12 (bits 8) and K13 (bits 4) on the route ops/quant.py::plan_q chose
-// (Q8Route; K13 takes the WMMA kernel alone); act codes of ACTIVATIONS in
+// (Q8Route; wgmma is K12's alone); act codes of ACTIVATIONS in
 // ops/gemm.py.  The wgmma route needs bits 8, K % 16 == 0, N % 4 == 0,
-// 16-byte-aligned x, q and y, and ``ws`` (M K bf16 and M f32).
+// 16-byte-aligned x, q and y, and ``ws`` (M K bf16 and M f32); the decode
+// route M <= 16, K % 16 == 0 (int8) or K % 32 == 0 (int4), 16-byte-aligned
+// x and q, and its cluster's ``splits`` (1..8; 1 on the other routes).
 extern "C" int taper_linear_q(const void* x, const void* q,
                               const void* scale, const void* zp,
                               const void* bias, void* y, void* ws, int M,
                               int N, int K, int bits, int act, int route,
-                              void* stream) {
+                              void* stream, int splits) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || (bits != 8 && bits != 4) ||
       (bits == 4 && K % 2))
@@ -656,13 +656,16 @@ extern "C" int taper_linear_q(const void* x, const void* q,
       return (int)cudaErrorInvalidValue;
     return linear_q8_wgmma(x, q, scale, zp, bias, y, ws, M, N, K, act, s);
   }
-  if (route != kQ8Wmma) return (int)cudaErrorInvalidValue;
   auto xp = static_cast<const float*>(x);
   auto qp = static_cast<const uint8_t*>(q);
   auto sp = static_cast<const float*>(scale);
   auto zpp = static_cast<const float*>(zp);
   auto bp = static_cast<const float*>(bias);
   auto yp = static_cast<float*>(y);
+  if (route == kQ8Decode)
+    return linear_q_decode(xp, qp, sp, zpp, bp, yp, M, N, K, bits, act,
+                           splits, s);
+  if (route != kQ8Wmma) return (int)cudaErrorInvalidValue;
   if (bits == 8) return linear_q<8>(xp, qp, sp, zpp, bp, yp, M, N, K, act, s);
   return linear_q<4>(xp, qp, sp, zpp, bp, yp, M, N, K, act, s);
 }

@@ -53,7 +53,7 @@
 //   y[m,n] = scale[n] sum_k bf16(x[m,k]) q[n,k] - xsum[m] (scale[n] zp[n])
 //            (+ bias[n]) (+ relu | sigmoid)
 // with the activations rounded to bf16 (quant.py:53), xsum over the unrounded
-// f32 activations (:57) and quant.cu's q_epilogue order of rounded steps
+// f32 activations (:57) and common.cuh's q_epilogue order of rounded steps
 // (q_affine).  Its bound on the H100 at the W8A8 prefill's M = 4,096: the bf16
 // tensor cores (989 TFLOP/s).  What the design does about that: wgmma
 // multiplies bf16 by bf16, and only its A operand may come from registers,
@@ -416,22 +416,6 @@ constexpr int TERMS_OFFSET = OUT_OFFSET + 2 * OUT_BYTES;
 constexpr int BAR_OFFSET = TERMS_OFFSET + 2 * 3 * BN * 4;
 constexpr int SMEM_BYTES = BAR_OFFSET + (3 * STAGES + 2) * 8 + 1024;
 static_assert(SMEM_BYTES <= 232448, "shared memory");
-
-// Four int8 codes (the first in the low byte) as four bf16, two to a
-// word: each byte, biased to unsigned, becomes the mantissa of 2^23 and
-// the bias 2^23 + 128 is subtracted, exactly; the integer, of at most 8
-// significant bits, is exact in bf16, whose bits are its f32's upper 16.
-__device__ __forceinline__ uint2 widen4(uint32_t w) {
-  const uint32_t u = w ^ 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __float_as_uint(
-        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
-        8388736.0f);
-  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
-                    __byte_perm(f[2], f[3], 0x7632));
-}
 
 // The row pass: xb = bf16(x) and xsum[m] = the sum of x's row m over the
 // unrounded f32 values (quant.py:57), x read once: one warp a row, 16

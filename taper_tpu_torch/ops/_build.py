@@ -70,12 +70,12 @@ _SIGNATURES = {
     # fragment helpers of csrc/hopper.cuh)
     "taper_wgmma_frag_test": [_P] * 6 + [_I, _P],
     # q, k_pool, v_pool, tables, lengths, o, B, kvh, G, D, bs, mb, scale,
-    # dtype, stream
-    "taper_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _I, _P],
+    # dtype, stream, workspace, splits, chunk
+    "taper_paged_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P, _P, _I, _I],
     # q, k_pool, v_pool, k_scales, v_scales, tables, lengths, o, B, kvh, G,
-    # D, bs, mb, scale, q dtype, stream
-    "taper_paged_decode_int8": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # D, bs, mb, scale, q dtype, stream, workspace, splits, chunk
+    "taper_paged_decode_int8": [_P] * 8 + [_I] * 6 + [_F, _I, _P, _P, _I,
+                                                      _I],
     # a, b, c, y, n, op, dtype, stream
     "taper_elementwise": [_P, _P, _P, _P, _L, _I, _I, _P],
     # host arrays p, g, m, v (device pointers), n (sizes), count, lr,
@@ -85,8 +85,8 @@ _SIGNATURES = {
     # momentum, wd, stream
     "taper_sgd": [_P] * 4 + [_I] + [_F] * 3 + [_P],
     # x, q, scale, zp, bias, y, workspace, M, N, K, bits (8 or 4), act,
-    # route, stream
-    "taper_linear_q": [_P] * 7 + [_I] * 6 + [_P],
+    # route, stream, splits
+    "taper_linear_q": [_P] * 7 + [_I] * 6 + [_P, _I],
     # x, xq, sx, xsum, M, K, dtype, stream
     "taper_quantize_rows": [_P] * 4 + [_I] * 3 + [_P],
     # xq, q, sx, corr, sw, zw, bias, y, M, N, K, relu, out dtype, route,

@@ -46,9 +46,11 @@ _launches = dict.fromkeys(KERNELS, 0)
 # K1 calls by route (ops.gemm.plan): "wgmma nt", "f32 tn split", ...; the
 # flash calls by route (ops.attention.plan_fwd / plan_bwd): "wgmma
 # flash_fwd_bound", "f32 flash_dkv_t", ...; K15's (ops.quant.plan): "wgmma
-# matmul_int8_scaled", "mma matmul_int8", ...; K12's (ops.quant.plan_q):
-# "wgmma linear_q8", "wmma linear_q8"; a tally of its own, so that the
-# per-kernel counts stay one a call
+# matmul_int8_scaled", "mma matmul_int8", ...; K12's and K13's
+# (ops.quant.plan_q): "wgmma linear_q8", "decode linear_q4", ...; K16's
+# (ops.paged_attention.plan): "split paged_decode", "whole
+# paged_decode_int8", ...; a tally of its own, so that the per-kernel
+# counts stay one a call
 _routes = {}
 # K8 launches that took the bound arm, counted by the kernel itself on the
 # device (the arm is decided there), one int32 counter per device
@@ -70,9 +72,9 @@ def count_route(route: str, mode: str, splits: int) -> None:
 
 
 def route_counts() -> dict:
-    """K1 calls by route and mode, and the flash kernels', K12's and K15's
-    calls by route, since the last :func:`reset_launch_counts` (" split" marks a
-    split-K call)."""
+    """K1 calls by route and mode, and the flash kernels', K12's, K13's,
+    K15's and K16's calls by route, since the last
+    :func:`reset_launch_counts` (" split" marks a K1 split-K call)."""
     return dict(_routes)
 
 

@@ -224,15 +224,15 @@ def tile_shape(route: str, m: int, n: int, k: int):
     return TILES[route]
 
 
-def decode_splits(n: int, k: int) -> int:
+def decode_splits(n: int, k: int, k_min: int = DECODE_TILE[1]) -> int:
     """The decode route's cluster size: the most blocks a tile of
     ``DECODE_TILE[0]`` weight rows, a power of two up to
-    ``DECODE_CLUSTER``, that leave each cluster rank at least
-    ``DECODE_TILE[1]`` of K and the grid within two blocks an SM (on an
-    H100 at M = 8 and 16, a larger split ran slower and a smaller one
-    left SMs idle; PERF.md)."""
-    rows, k_min = DECODE_TILE
-    tiles, splits = -(-n // rows), 1
+    ``DECODE_CLUSTER``, that leave each cluster rank at least ``k_min``
+    of K (``DECODE_TILE[1]`` for bf16 weights) and the grid within two
+    blocks an SM (on an H100 at M = 8 and 16, a larger split ran slower
+    and a smaller one left SMs idle; PERF.md).  K12/K13's decode route
+    (``ops.quant.decode_splits``) takes the same rule in bytes."""
+    tiles, splits = -(-n // DECODE_TILE[0]), 1
     while (splits < DECODE_CLUSTER and k >= 2 * splits * k_min
            and tiles * 2 * splits <= 2 * SMS):
         splits *= 2

@@ -22,7 +22,10 @@ gather-then-attend); CUDA tensors run the kernel of
 counted as ``paged_decode``; int8 pools with their scales:
 ``taper_paged_decode_int8``, counted as ``paged_decode_int8``), and raise
 where an input requires grad under grad mode (decode has no backward; a
-detached result would be silent).
+detached result would be silent).  The kernel splits each row's
+positions across blocks as :func:`plan` says (flash-decoding) and merges
+the splits in a fixed order; :func:`paged_decode_reference_split` repeats
+that chunking and merge in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -32,9 +35,16 @@ import torch.nn.functional as F
 
 from taper_tpu_torch.ops import _build
 from taper_tpu_torch.ops import backend
+from taper_tpu_torch.ops.gemm import SMS
+
+LOG2E = 1.4426950408889634
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+# K16's split (plan): at most SPLIT_WAVES blocks an SM over the call (two
+# are resident at a time), each split at least MIN_SPLIT_BYTES of K and V
+SPLIT_WAVES = 16
+MIN_SPLIT_BYTES = 64 * 1024
 
 
 def paged_write(k_pool, v_pool, k, v, tables, pos):
@@ -121,6 +131,86 @@ def paged_decode_reference(q, k_pool, v_pool, tables, lengths, *, scale,
     return o.to(q.dtype)
 
 
+def plan(b: int, kvh: int, g: int, d: int, bs: int, mb: int, dtype):
+    """K16's split of each row's table over blocks, ``(splits, chunk)``:
+    block (head, s) reads table entries ``[s chunk, (s + 1) chunk)`` of
+    its row (``splits chunk >= mb``, no split empty).  A pure function of
+    the shape, the pools' ``dtype`` and the SM count (the lengths live on
+    the device; the kernel skips a split past its row's length): the most
+    splits, a power of two, that keep the call within ``SPLIT_WAVES``
+    blocks an SM and each split's pages at ``MIN_SPLIT_BYTES`` of K and V
+    or more.  ``g`` does not move it: a position costs G dot products,
+    few beside its bytes.  A table of one entry is never split."""
+    if min(b, kvh, g, d, bs, mb) <= 0:
+        raise ValueError(f"K16: empty shape B={b} kvh={kvh} G={g} D={d} "
+                         f"bs={bs} mb={mb}")
+    row = 2 * d * dtype.itemsize
+    heads, splits = b * kvh, 1
+    while (2 * splits <= mb and heads * 2 * splits <= SPLIT_WAVES * SMS
+           and -(-mb // (2 * splits)) * bs * row >= MIN_SPLIT_BYTES):
+        splits *= 2
+    chunk = -(-mb // splits)
+    return -(-mb // chunk), chunk
+
+
+def paged_decode_reference_split(q, k_pool, v_pool, tables, lengths, *,
+                                 scale, splits, chunk, k_scales=None,
+                                 v_scales=None):
+    """Plain version of K16's chunking and merge order: each split's
+    positions ``[s chunk bs, (s + 1) chunk bs)`` of its row give a partial
+    ``(m, l, acc)`` in base 2 (the k scale on the score after the dot, the
+    v scale on the weight, l over unscaled weights), and the splits that
+    reach into the row merge in split order.  Same function as
+    :func:`paged_decode_reference`, other rounding."""
+    b, mb = tables.shape
+    kvh, bs = k_pool.shape[1:3]
+    if splits * chunk < mb or (splits - 1) * chunk >= mb:
+        raise ValueError(f"K16: {splits} splits of {chunk} do not cover "
+                         f"{mb} table entries")
+
+    def gather(pool):      # [B, mb, kvh, bs(, D)] -> [B, kvh, L(, D)]
+        g = pool[tables.long()].transpose(1, 2)
+        return g.reshape((b, kvh, mb * bs) + pool.shape[3:]).float()
+
+    kg, vg = gather(k_pool), gather(v_pool)
+    s = torch.einsum("bhgd,bhkd->bhgk", q.float() * (scale * LOG2E), kg)
+    w_scale = None
+    if k_scales is not None:
+        s = s * gather(k_scales)[:, :, None, :]
+        w_scale = gather(v_scales)[:, :, None, :]
+    length = torch.clamp(lengths.long(), max=mb * bs)
+    span = chunk * bs
+    m_all, l_all, acc_all = [], [], []
+    for i in range(splits):
+        cols = torch.arange(i * span, min((i + 1) * span, mb * bs),
+                            device=q.device)
+        live = cols[None, :] < length[:, None]               # [B, span]
+        ss = s[..., cols].masked_fill(~live[:, None, None, :],
+                                      float("-inf"))
+        m = ss.amax(-1, keepdim=True)                        # [B, kvh, G, 1]
+        p = torch.exp2(ss - torch.where(torch.isfinite(m), m,
+                                        torch.zeros_like(m)))
+        pv = p if w_scale is None else p * w_scale[..., cols]
+        m_all.append(m)
+        l_all.append(p.sum(-1, keepdim=True))
+        acc_all.append(torch.einsum("bhgk,bhkd->bhgd", pv, vg[:, :, cols]))
+    # the splits that reach into each row, merged in split order
+    n = torch.clamp(-(-length // span), min=1)               # [B]
+    mx = torch.full_like(m_all[0], float("-inf"))
+    for i in range(splits):
+        on = (i < n)[:, None, None, None]
+        mx = torch.where(on, torch.maximum(mx, m_all[i]), mx)
+    num = torch.zeros_like(acc_all[0])
+    den = torch.zeros_like(l_all[0])
+    for i in range(splits):
+        on = (i < n)[:, None, None, None]
+        f = torch.where(on, torch.exp2(m_all[i] - mx),
+                        torch.zeros_like(mx))
+        num = num + acc_all[i] * f
+        den = den + l_all[i] * f
+    return (num / den).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *, scale,
                            k_scales=None, v_scales=None):
     """Decode attention against a paged KV cache.
@@ -173,21 +263,29 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *, scale,
     backend.check_kernel_args("paged attention", q, dtypes=_build.DTYPES)
     backend.check_kernel_args("paged attention", k_pool, v_pool, tables,
                               lengths, k_scales, v_scales)
+    bs, mb = k_pool.shape[2], tables.shape[1]
+    splits, chunk = plan(b, kvh, g, d, bs, mb, k_pool.dtype)
     o = torch.empty_like(q)
+    # the splits' partial (acc, m, l) where a row may have more than one
+    ws = (torch.empty(b * kvh * splits * g * (d + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     lib = _build.library()
-    common = (b, kvh, g, d, k_pool.shape[2], tables.shape[1], float(scale),
-              _build.DTYPES[q.dtype], _build.stream(q))
+    common = (b, kvh, g, d, bs, mb, float(scale), _build.DTYPES[q.dtype],
+              _build.stream(q), None if ws is None else ws.data_ptr(),
+              splits, chunk)
     if quant:
+        name = "paged_decode_int8"
         code = lib.taper_paged_decode_int8(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), o.data_ptr(), *common)
         _build.check(code, "paged decode attention (int8 pools)")
-        backend.count_launch("paged_decode_int8")
     else:
+        name = "paged_decode"
         code = lib.taper_paged_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), *common)
         _build.check(code, "paged decode attention")
-        backend.count_launch("paged_decode")
+    backend.count_launch(name)
+    backend.count_route("split" if splits > 1 else "whole", name, 1)
     return o

@@ -15,12 +15,16 @@ plain PyTorch version beside it:
   :func:`plan_q` picks its kernel: ``wgmma`` (``csrc/quant_sm90.cu``: a
   row pass writes bf16 x and the row sums, then bf16 warpgroup MMA on a
   TMA ring, the codes widened to bf16 in shared memory) at M > 16 where
-  TMA reads both operands and stores y, else
-  ``wmma`` (``csrc/quant.cu``'s WMMA kernel: decode's M <= 16 and the odd
+  TMA reads both operands and stores y, ``decode``
+  (``csrc/quant_decode.cu``: swap-AB ``mma.sync`` with the codes widened
+  in registers, K split over a cluster of :func:`decode_splits` blocks)
+  at decode's M <= 16 where the codes' rows are whole 16-byte units from
+  aligned bases, else ``wmma`` (``csrc/quant.cu``'s WMMA kernel: the odd
   shapes);
 * K13 :func:`linear_q4` (``_q4_kernel``, ``quant.py:159``): the same over
-  int4 codes packed two to a byte ``[N, K/2]`` (K even), on the ``wmma``
-  kernel at every shape;
+  int4 codes packed two to a byte ``[N, K/2]`` (K even), on the
+  ``decode`` kernel at M <= 16 (K a multiple of 32, aligned) and the
+  ``wmma`` kernel otherwise;
 * K14 :func:`quantize_rows` (``_rowquant_kernel``, ``quant.py:460``):
   per-row symmetric activation quantization ``s = max(absmax, 1e-8) /
   127`` (a multiply by the f32 reciprocal, as XLA runs it),
@@ -52,6 +56,7 @@ import torch
 
 from taper_tpu_torch.ops import _build
 from taper_tpu_torch.ops import backend
+from taper_tpu_torch.ops import gemm as G
 from taper_tpu_torch.ops.gemm import ACTIVATIONS, apply_activation
 from taper_tpu_torch.ops.gemm import linear as _dense_linear
 from taper_tpu_torch.quantization.config import QuantizationType
@@ -113,34 +118,56 @@ def linear_q4_reference(x, packed, scale, zp, b=None, *, n_features: int,
                                scale, zp, b, epilogue)
 
 
-# K12's kernels (codes shared with csrc/quant.cu's Q8Route)
-Q8_ROUTES = {"wgmma": 0, "wmma": 1}
+# K12's and K13's kernels (codes shared with csrc/quant.cu's Q8Route)
+Q8_ROUTES = {"wgmma": 0, "wmma": 1, "decode": 2}
+# The decode route (M <= ops.gemm.DECODE_ROWS): each rank of its cluster
+# takes at least DECODE_MIN_BYTES of every code row, and a cluster holds
+# at most DECODE_MAX_RANKS (on an H100 at M 8, four ranks ran 15-35%
+# slower than two, one rank up to 31% slower; PERF.md)
+DECODE_MIN_BYTES = 512
+DECODE_MAX_RANKS = 2
 
 
-def plan_q(m: int, n: int, k: int, aligned: bool) -> str:
-    """K12's kernel for ``x [m, k] . q [n, k]^T``, a pure function of its
-    arguments: ``wgmma`` where ``m > 16`` (decode's rows stay on the
-    kernel built for them), TMA can read both operands (``k`` a multiple
-    of 16, so that the codes' rows are whole 16-byte units, and
-    ``aligned``: the bases of x and q 16-byte aligned) and store the f32
-    output (``n`` a multiple of 4: its rows whole 16-byte units; the CNN's
-    10-way head fails this); else ``wmma``, the WMMA kernel, which reads
-    and writes any row."""
+def plan_q(m: int, n: int, k: int, aligned: bool, bits: int = 8) -> str:
+    """K12's (``bits`` 8) or K13's (``bits`` 4) kernel for ``x [m, k] .
+    q [n, k]^T``, a pure function of its arguments:
+
+    * ``decode`` at decode's ``m <= 16`` where each thread's 16-byte code
+      loads tile the rows (``k`` a multiple of 16 for int8, 32 for int4)
+      and ``aligned`` (the bases of x and q 16-byte aligned);
+    * ``wgmma`` (K12 only) where ``m > 16``, TMA can read both operands
+      (``k`` a multiple of 16, ``aligned``) and store the f32 output (``n``
+      a multiple of 4: its rows whole 16-byte units; the CNN's 10-way head
+      fails this);
+    * else ``wmma``, the WMMA kernel, which reads and writes any row."""
     if min(m, n, k) <= 0:
         raise ValueError(f"K12: empty product [{m}, {k}] . [{n}, {k}]^T")
-    tma = k % 16 == 0 and n % 4 == 0 and aligned
-    return "wgmma" if m > 16 and tma else "wmma"
+    if bits not in (8, 4):
+        raise ValueError(f"K12/K13 take 8- or 4-bit codes, got {bits}")
+    if m <= G.DECODE_ROWS:
+        return "decode" if k % (128 // bits) == 0 and aligned else "wmma"
+    tma = bits == 8 and k % 16 == 0 and n % 4 == 0 and aligned
+    return "wgmma" if tma else "wmma"
 
 
-def plan_q_for(x, q) -> str:
-    """:func:`plan_q` for K12's operands as given."""
+def plan_q_for(x, q, bits: int = 8) -> str:
+    """:func:`plan_q` for K12's (or K13's) operands as given."""
     return plan_q(x.shape[0], q.shape[0], x.shape[1],
-                  x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+                  x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0, bits)
+
+
+def decode_splits(n: int, k: int, bits: int) -> int:
+    """The decode route's cluster size for ``n`` weight rows of ``k``
+    ``bits``-bit codes: ``ops.gemm.decode_splits``' rule (32 rows a block,
+    two blocks an SM), each rank at least ``DECODE_MIN_BYTES`` of every
+    code row, at most ``DECODE_MAX_RANKS`` ranks."""
+    return min(DECODE_MAX_RANKS,
+               G.decode_splits(n, k, DECODE_MIN_BYTES * 8 // bits))
 
 
 def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
-    """K12 (``bits`` 8) on the route :func:`plan_q` gives, or K13
-    (``bits`` 4) on the WMMA kernel."""
+    """K12 (``bits`` 8) or K13 (``bits`` 4) on the route :func:`plan_q`
+    gives."""
     _check_epilogue(epilogue)
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not [M, {k}]")
@@ -153,7 +180,8 @@ def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
     backend.check_kernel_args(name, x, dtypes=(torch.float32,))
     backend.check_kernel_args(name, q, scale, zp, b)
     m = x.shape[0]
-    route = plan_q_for(x, q) if bits == 8 else "wmma"
+    route = plan_q_for(x, q, bits)
+    splits = decode_splits(n, k, bits) if route == "decode" else 1
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     # the wgmma route's row pass: bf16 x and the row sums
     ws = (torch.empty(m * k * 2 + m * 4, dtype=torch.uint8, device=dev)
@@ -162,11 +190,10 @@ def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), zp.data_ptr(),
         None if b is None else b.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(), m, n, k, bits,
-        ACTIVATIONS[epilogue], Q8_ROUTES[route], _build.stream(x))
+        ACTIVATIONS[epilogue], Q8_ROUTES[route], _build.stream(x), splits)
     _build.check(code, name)
     backend.count_launch(name)
-    if bits == 8:
-        backend.count_route(route, name, 1)
+    backend.count_route(route, name, 1)
     return y
 
 

@@ -22,11 +22,14 @@ Tolerances, by the operands' dtype:
   * bf16 attention: 2e-2; the kernel rounds the running-max-relative
     softmax weights to bf16 where the plain version rounds the normalised
     ones, and the bf16 output itself keeps 8 bits.
-  * paged decode over int8 pools: 1e-4 (1 + |ref|) with f32 q, 2e-2 with
-    bf16 q (the bf16 output's 8 bits).  Both sides compute in f32 from the
-    same int8 codes and scales; the kernel applies the k scale to the
-    score and the v scale to the weight where the plain version scales
-    the rows, and sums in another order.
+  * paged decode (K16): 1e-4 (1 + |ref|) with f32 q; with bf16 q,
+    8e-3 (|ref| + 1e-3), one bf16 rounding of nearly the same f32 value
+    (2^-7 |ref| at most).  Both sides compute in f32 and round o once;
+    over int8 pools from the same codes and scales, the kernel applying
+    the k scale to the score and the v scale to the weight where the plain
+    version scales the rows, and summing in another order.  Planted
+    faults in the merge show what this check and the 2e-2 (1 + |ref|) it
+    replaced read.
   * logsumexp: 1e-4 (f32 on both sides from the same scores; 1e-3 for bf16
     inputs, whose bound arm sums weights shifted far below 1).
   * quantized linear K12/K13: 2e-4 (1 + |ref|); the activations are
@@ -123,6 +126,16 @@ def test_flash_kernel_matches_plain(dev, b, h, hkv, s, d, causal, dtype):
     _close(o, attention_reference(q, k, v, causal=causal), dtype, 2e-2)
 
 
+def _k16_err(o, ref):
+    """K16's statistic against its plain version, held to 1: |o - ref| /
+    (1e-4 (1 + |ref|)) with f32 q, |o - ref| / (8e-3 (|ref| + 1e-3))
+    with bf16 q (both round o once from f32)."""
+    err, ref = (o.float() - ref.float()).abs(), ref.float().abs()
+    if o.dtype == torch.float32:
+        return float((err / (1e-4 * (1 + ref))).max())
+    return float((err / (8e-3 * (ref + 1e-3))).max())
+
+
 def _paged_case(dev, dtype, b, kvh, g, d, bs, mb, lengths, seed=0):
     gen = torch.Generator().manual_seed(seed)
     n_blocks = b * mb + 1
@@ -151,7 +164,7 @@ def test_paged_kernel_matches_plain(dev, b, kvh, g, d, bs, mb, lengths,
     torch.cuda.synchronize()
     assert backend.launch_counts()["paged_decode"] == 1
     ref = PA.paged_decode_reference(q, kp, vp, tb, ln, scale=d ** -0.5)
-    _close(o, ref, dtype, 2e-2)
+    assert o.dtype == dtype and _k16_err(o, ref) <= 1
 
 
 def _int8_pools(gen, n_blocks, kvh, bs, d, dev):
@@ -192,9 +205,147 @@ def test_paged_int8_kernel_matches_plain(dev, d, g, bs, dtype):
     assert counts["paged_decode_int8"] == 1 and counts["paged_decode"] == 0
     assert o.dtype == dtype
     ref = PA.paged_decode_reference(*args, **sc)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    assert float(((o.float() - ref.float()).abs()
-                  / (1 + ref.float().abs())).max()) <= tol
+    assert _k16_err(o, ref) <= 1
+
+
+# K16 split across blocks (ops.paged_attention.plan): shapes whose plan
+# gives 1, 2, 3, 4, 8, 16 and 32 splits over bf16 pools, as (mb, bs, d, g,
+# splits); f32 and int8 pools split them their own way
+_K16_SPLITS = [(1, 128, 128, 1, 1), (2, 128, 128, 2, 2), (5, 128, 128, 4, 3),
+               (8, 128, 64, 8, 4), (8, 128, 128, 1, 8),
+               (16, 128, 128, 1, 16), (32, 128, 128, 2, 32),
+               (32, 16, 64, 1, 2), (3, 16, 64, 2, 1)]
+
+
+@pytest.mark.parametrize("mb,bs,d,g,splits", _K16_SPLITS)
+@pytest.mark.parametrize("qdt,pdt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.int8), (torch.float32, torch.int8)],
+    ids=["f32", "bf16", "int8-bf16q", "int8-f32q"])
+def test_k16_at_every_split_matches_plain(dev, qdt, pdt, mb, bs, d, g,
+                                          splits):
+    """K16 on the split ``plan`` gives against the plain version,
+    at lengths 1, bs, bs + 1, a chunk's boundary and its neighbours, mb bs
+    and past it, within K16's tolerance (``_k16_err``); counted by route,
+    and a second call bit-equal."""
+    b, kvh = 8, 2
+    got = PA.plan(b, kvh, g, d, bs, mb, pdt)
+    if pdt == torch.bfloat16:
+        assert got[0] == splits, got
+    chunk = got[1]
+    lengths = [1, bs, bs + 1, max(1, chunk * bs - 1), chunk * bs,
+               chunk * bs + 1, mb * bs, mb * bs + 9]
+    gen = torch.Generator().manual_seed(mb * bs + d + g)
+    n_blocks = b * mb + 1
+    q = _randn(gen, b, kvh, g, d, dtype=qdt).to(dev)
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb]
+    tables = tables.reshape(b, mb).to(torch.int32).to(dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if pdt == torch.int8:
+        kp, ks, vp, vs = _int8_pools(gen, n_blocks, kvh, bs, d, dev)
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp = _randn(gen, n_blocks, kvh, bs, d, dtype=pdt).to(dev)
+        vp = _randn(gen, n_blocks, kvh, bs, d, dtype=pdt).to(dev)
+        sc = {}
+    name = "paged_decode_int8" if pdt == torch.int8 else "paged_decode"
+    backend.reset_launch_counts()
+    o = PA.paged_decode_attention(q, kp, vp, tables, ln, scale=d ** -0.5,
+                                  **sc)
+    again = PA.paged_decode_attention(q, kp, vp, tables, ln,
+                                      scale=d ** -0.5, **sc)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[name] == 2
+    route = "split" if got[0] > 1 else "whole"
+    assert backend.route_counts() == {f"{route} {name}": 2}
+    ref = PA.paged_decode_reference(q, kp, vp, tables, ln, scale=d ** -0.5,
+                                    **sc)
+    assert _k16_err(o, ref) <= 1
+    assert torch.equal(o, again)
+
+
+@pytest.mark.parametrize("splits,chunk", [(2, 3), (3, 2), (6, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_k16_forced_splits_of_small_pages(dev, monkeypatch, dtype, splits,
+                                          chunk):
+    """Splits ``plan`` does not give for pages of 16 rows (a stage of less
+    than a page's ring slot), forced through it: the kernel against the
+    plain version and against the split reference of the same chunking."""
+    monkeypatch.setattr(PA, "plan", lambda *a: (splits, chunk))
+    b, kvh, g, d, bs, mb = 8, 2, 4, 64, 16, 6
+    lengths = [1, bs, bs + 1, chunk * bs - 1, chunk * bs, chunk * bs + 1,
+               mb * bs, mb * bs + 3]
+    gen = torch.Generator().manual_seed(splits * 10 + chunk)
+    n_blocks = b * mb + 1
+    qdt = torch.float32 if dtype == torch.int8 else dtype
+    q = _randn(gen, b, kvh, g, d, dtype=qdt).to(dev)
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb]
+    tables = tables.reshape(b, mb).to(torch.int32).to(dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if dtype == torch.int8:
+        kp, ks, vp, vs = _int8_pools(gen, n_blocks, kvh, bs, d, dev)
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp = _randn(gen, n_blocks, kvh, bs, d, dtype=dtype).to(dev)
+        vp = _randn(gen, n_blocks, kvh, bs, d, dtype=dtype).to(dev)
+        sc = {}
+    o = PA.paged_decode_attention(q, kp, vp, tables, ln, scale=0.125, **sc)
+    torch.cuda.synchronize()
+    for ref in (PA.paged_decode_reference(q, kp, vp, tables, ln,
+                                          scale=0.125, **sc),
+                PA.paged_decode_reference_split(
+                    q, kp, vp, tables, ln, scale=0.125, splits=splits,
+                    chunk=chunk, **sc)):
+        assert _k16_err(o, ref) <= 1
+
+
+# Faults planted in csrc/paged_decode.cu's merge (every row of more than
+# one split): (what, the line as it is, the line with the fault)
+_K16_FAULTS = [
+    ("K16's merge drops a row's last split",
+     "    for (int s = 0; s < n; ++s) {",
+     "    for (int s = 0; s < n - 1; ++s) {"),
+    ("K16's merge halves the first split's weight",
+     "      const float f = exp2f(ml[at * 2] - mx);",
+     "      const float f = exp2f(ml[at * 2] - mx) * (s ? 1.0f : 0.5f);"),
+]
+
+
+@pytest.mark.parametrize("what,line,fault", _K16_FAULTS,
+                         ids=[f[0] for f in _K16_FAULTS])
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.int8])
+def test_k16_check_catches_a_planted_fault(dev, tmp_path, monkeypatch, pdt,
+                                           what, line, fault):
+    """K16's bf16 check fails a merge built with a split dropped or
+    misweighted, at bench_paged_decode's mixed rows (16 rows of 257 and
+    4,033 positions, 8 KV heads, D 128, bs 128, 32 entries, bf16 q); the
+    2e-2 (1 + |ref|) check it replaced is printed beside it."""
+    _plant(tmp_path, monkeypatch, "paged_decode.cu", line, fault, what)
+    b, kvh, d, bs, mb = 16, 8, 128, 128, 32
+    gen = torch.Generator().manual_seed(5)
+    n_blocks = b * mb + 1
+    q = _randn(gen, b, kvh, 1, d, dtype=torch.bfloat16).to(dev)
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb]
+    tables = tables.reshape(b, mb).to(torch.int32).to(dev)
+    ln = torch.tensor([257, 4033] * (b // 2), dtype=torch.int32, device=dev)
+    if pdt == torch.int8:
+        kp, ks, vp, vs = _int8_pools(gen, n_blocks, kvh, bs, d, dev)
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp, vp = (_randn(gen, n_blocks, kvh, bs, d, dtype=pdt).to(dev)
+                  for _ in range(2))
+        sc = {}
+    assert PA.plan(b, kvh, 1, d, bs, mb, pdt)[0] > 1
+    o = PA.paged_decode_attention(q, kp, vp, tables, ln, scale=d ** -0.5,
+                                  **sc)
+    ref = PA.paged_decode_reference(q, kp, vp, tables, ln, scale=d ** -0.5,
+                                    **sc)
+    old = float(((o.float() - ref.float()).abs()
+                 / (1 + ref.float().abs())).max())
+    print(f"{what}, {pdt} pools: K16's check {_k16_err(o, ref):.3e} "
+          f"(held to 1), the old check {old:.3e} (held to 2e-2)")
+    assert _k16_err(o, ref) > 1, what
 
 
 def test_paged_int8_refuses_bad_scales_without_the_plain_version(
@@ -1821,12 +1972,12 @@ def test_k12_wgmma_matches_plain(dev, m, n, k, per_channel, symmetric,
     torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("m,n,k", [(8, 2048, 2048), (16, 512, 4096),
-                                   (1, 64, 64), (300, 1024, 1030),
+@pytest.mark.parametrize("m,n,k", [(8, 2048, 2056), (16, 512, 4104),
+                                   (1, 64, 72), (300, 1024, 1030),
                                    (2000, 10, 64), (64, 130, 256)])
 def test_k12_wmma_route_matches_plain(dev, m, n, k):
-    """Decode's M <= 16, K % 16 != 0 and rows of N f32 that are not whole
-    16-byte units keep the WMMA kernel."""
+    """K % 16 != 0 (at decode's M <= 16 too) and rows of N f32 that are
+    not whole 16-byte units keep the WMMA kernel."""
     gen = torch.Generator().manual_seed(m + n + k)
     qt = _qweight(gen, n, k, 8, True, False).to(dev)
     x = _randn(gen, m, k).to(dev)
@@ -1852,6 +2003,93 @@ def test_k12_routes_are_bitwise_repeatable(dev, m, n, k):
     b = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# K12 and K13 on the decode route (csrc/quant_decode.cu): M 1-16 at the
+# quantized model's decode shapes (dim 2,048: wq/wo, wk/wv, w1, w2), each
+# epilogue, with and without a bias, in turn
+_QDECODE_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+
+
+@pytest.mark.parametrize("n,k", _QDECODE_SHAPES)
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("bits", [8, 4])
+def test_k12_k13_decode_matches_plain(dev, bits, m, n, k):
+    """The decode route (codes widened in registers into swap-AB mma.sync
+    fragments, K split over a cluster of ``decode_splits`` blocks) against
+    the plain version at 2e-4 (1 + |ref|), counted by route, and a second
+    call bit-equal."""
+    gen = torch.Generator().manual_seed(m * 7 + n + k + bits)
+    act = ("none", "relu", "sigmoid")[m % 3]
+    qt = _qweight(gen, n, k, bits, m % 4 < 2, m % 2 == 0).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev) if m % 2 else None
+    name = f"linear_q{bits}"
+    backend.reset_launch_counts()
+    if bits == 8:
+        assert Q.plan_q_for(x, qt.values) == "decode"
+        call = lambda: Q.linear_q8(x, qt.values, qt.scale,  # noqa: E731
+                                   qt.zero_point, b, epilogue=act)
+        ref = Q.linear_q8_reference(x, qt.values, qt.scale, qt.zero_point,
+                                    b, act)
+    else:
+        call = lambda: Q.linear_q4(x, qt.values, qt.scale,  # noqa: E731
+                                   qt.zero_point, b, n_features=k,
+                                   epilogue=act)
+        ref = Q.linear_q4_reference(x, qt.values, qt.scale, qt.zero_point,
+                                    b, n_features=k, epilogue=act)
+    y, again = call(), call()
+    torch.cuda.synchronize()
+    assert backend.launch_counts()[name] == 2
+    assert backend.route_counts() == {f"decode {name}": 2}
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_k12_k13_decode_at_every_cluster_size(dev, monkeypatch, bits, m,
+                                              splits):
+    """The decode kernel takes clusters of up to 8 ranks; the wrapper's
+    rule gives at most ``DECODE_MAX_RANKS``.  Each size, forced, at K
+    8,192 (N 512, relu and a bias) against the plain version at 2e-4
+    (1 + |ref|), and a second call bit-equal."""
+    monkeypatch.setattr(Q, "decode_splits", lambda n, k, bits: splits)
+    n, k = 512, 8192
+    gen = torch.Generator().manual_seed(m + splits + bits)
+    qt = _qweight(gen, n, k, bits, True, False).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev)
+    kw = {} if bits == 8 else dict(n_features=k)
+    fn = Q.linear_q8 if bits == 8 else Q.linear_q4
+    ref = (Q.linear_q8_reference if bits == 8 else Q.linear_q4_reference)(
+        x, qt.values, qt.scale, qt.zero_point, b, epilogue="relu", **kw)
+    backend.reset_launch_counts()
+    y, again = (fn(x, qt.values, qt.scale, qt.zero_point, b,
+                   epilogue="relu", **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"decode linear_q{bits}": 2}
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 2048, 2064), (16, 512, 2056),
+                                   (1, 40, 18)])
+def test_k13_ragged_keeps_wmma(dev, m, n, k):
+    """K13 at decode's M with K % 32 != 0 takes the WMMA kernel."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    qt = _qweight(gen, n, k, 4, True, False).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    assert Q.plan_q_for(x, qt.values, 4) == "wmma"
+    backend.reset_launch_counts()
+    y = Q.linear_q4(x, qt.values, qt.scale, qt.zero_point, n_features=k)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"wmma linear_q4": 1}
+    ref = Q.linear_q4_reference(x, qt.values, qt.scale, qt.zero_point,
+                                n_features=k)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

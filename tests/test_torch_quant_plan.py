@@ -9,18 +9,23 @@ so decode's 8 rows run on ``wgmma`` too.  The tests pin the route at the
 W8A8 prefill's shapes, at decode's M, at ragged K and at misaligned views,
 and that the plain versions on the CPU count no route.
 
-K12's routing (``plan_q``) is pinned the same way: its ``wgmma`` kernel
-at M > 16 where TMA reads both operands (K % 16 == 0, 16-byte-aligned
-bases) and stores the f32 output (N % 4 == 0, rows of whole 16-byte
-units); ``wmma`` for decode's M <= 16 and the rest (the CNN's 10-way head
-among them).  Its wrapper, against a recorder in place of the kernel
-library, counts the route it passes.
+K12's and K13's routing (``plan_q``) is pinned the same way: ``decode``
+at M <= 16 where each thread's 16-byte code loads tile the rows (int8 K %
+16 == 0, int4 K % 32 == 0) from 16-byte-aligned bases; K12's ``wgmma``
+kernel at M > 16 where TMA reads both operands (K % 16 == 0,
+16-byte-aligned bases) and stores the f32 output (N % 4 == 0, rows of
+whole 16-byte units); ``wmma`` for the rest (the CNN's 10-way head among
+them, and K13 at M > 16).  The decode route's cluster size
+(``decode_splits``) is pinned at the quantized model's shapes.  The
+wrapper, against a recorder in place of the kernel library, counts the
+route it passes.
 """
 
 import pytest
 import torch
 
 from taper_tpu_torch.ops import _build, backend
+from taper_tpu_torch.ops import gemm as G
 from taper_tpu_torch.ops import quant as Q
 
 # the W8A8 prefill of bench.py:273-301: 4 x 1,024 rows, dim 2,048
@@ -86,9 +91,13 @@ def test_plain_versions_count_no_route():
     (2000, 64, 128, True, "wgmma"),
     (2000, 10, 64, True, "wmma"),       # N * 4 = 40 bytes a row: no TMA store
     (17, 4, 16, True, "wgmma"),         # the least M, N and K it takes
-    (16, 2048, 2048, True, "wmma"),     # decode's M
-    (8, 8192, 2048, True, "wmma"),
+    (16, 2048, 2048, True, "decode"),   # decode's M
+    (8, 8192, 2048, True, "decode"),
+    (1, 1, 16, True, "decode"),
+    (16, 10, 64, True, "decode"),       # any N at decode
     (1, 1, 1, True, "wmma"),
+    (8, 2048, 2056, True, "wmma"),      # K % 16 == 8 at decode
+    (8, 2048, 2048, False, "wmma"),     # a misaligned base at decode
     (300, 1024, 1030, True, "wmma"),    # K % 16: the codes' rows
     (300, 1024, 1032, True, "wmma"),    # K % 16 == 8
     (300, 1022, 1024, True, "wmma"),    # N % 4
@@ -114,11 +123,15 @@ def test_plan_q_for_judges_the_views_as_given(offset_x, offset_q, want):
 def test_plan_q_is_pure_and_refuses_empty_products():
     shapes = [(m, n, k) for m in (1, 16, 17, 2000, 4096)
               for n in (4, 10, 130, 2048) for k in (7, 16, 100, 2048)]
-    calls = [Q.plan_q(*s, a) for s in shapes for a in (True, False)]
-    assert calls == [Q.plan_q(*s, a) for s in shapes for a in (True, False)]
-    assert set(calls) == {"wgmma", "wmma"}
+    calls = [Q.plan_q(*s, a, bits) for s in shapes for a in (True, False)
+             for bits in (8, 4)]
+    assert calls == [Q.plan_q(*s, a, bits) for s in shapes
+                     for a in (True, False) for bits in (8, 4)]
+    assert set(calls) == {"wgmma", "wmma", "decode"}
     with pytest.raises(ValueError, match="empty"):
         Q.plan_q(16, 0, 16, True)
+    with pytest.raises(ValueError, match="bit"):
+        Q.plan_q(16, 16, 16, True, 2)
 
 
 class _Recorder:
@@ -148,7 +161,8 @@ def recorder(monkeypatch):
 def test_k12_wrapper_counts_the_planned_route(recorder):
     """K12 passes and counts the route plan_q gives (one launch a call),
     the wgmma route with a workspace for its row pass's bf16 x and row
-    sums; K13 takes the WMMA kernel and counts no route."""
+    sums, the decode route with its cluster's size last; K13 counts its
+    route too."""
     gen = torch.Generator().manual_seed(0)
 
     def call(m, n, k, fn=Q.linear_q8):
@@ -166,13 +180,79 @@ def test_k12_wrapper_counts_the_planned_route(recorder):
     assert names == ["taper_linear_q"] * 6
     for _, args in recorder.calls:
         assert len(args) == len(_build._SIGNATURES["taper_linear_q"])
-    routes = [args[-2] for _, args in recorder.calls]
+    routes = [args[-3] for _, args in recorder.calls]
     wgmma, wmma = Q.Q8_ROUTES["wgmma"], Q.Q8_ROUTES["wmma"]
-    assert routes == [wgmma, wmma, wmma, wmma, wgmma, wmma]
+    decode = Q.Q8_ROUTES["decode"]
+    assert routes == [wgmma, wmma, decode, wmma, wgmma, wmma]
+    splits = [args[-1] for _, args in recorder.calls]
+    assert splits == [1, 1, Q.decode_splits(2048, 2048, 8), 1, 1, 1]
     workspaces = [args[6] for _, args in recorder.calls]
     assert [w is not None for w in workspaces] == [True, False, False,
                                                    False, True, False]
     assert backend.route_counts() == {"wgmma linear_q8": 2,
-                                      "wmma linear_q8": 3}
+                                      "wmma linear_q8": 2,
+                                      "decode linear_q8": 1,
+                                      "wmma linear_q4": 1}
     counts = backend.launch_counts()
     assert counts["linear_q8"] == 5 and counts["linear_q4"] == 1
+
+
+# K13 (int4 codes, two to a byte): decode where each thread's 16 bytes hold
+# 32 codes, so K % 32 == 0; no wgmma route; wmma for the rest
+@pytest.mark.parametrize("m,n,k,aligned,want", [
+    (8, 2048, 2048, True, "decode"), (1, 512, 2048, True, "decode"),
+    (16, 2048, 8192, True, "decode"), (8, 64, 32, True, "decode"),
+    (17, 2048, 2048, True, "wmma"), (4096, 2048, 2048, True, "wmma"),
+    (8, 2048, 2064, True, "wmma"),      # K % 32 == 16
+    (8, 2048, 2048, False, "wmma"),     # a misaligned base
+])
+def test_plan_q_for_int4_codes(m, n, k, aligned, want):
+    assert Q.plan_q(m, n, k, aligned, 4) == want
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 8, 16, 17])
+def test_plan_q_names_decode_at_decode_rows_only(m, bits):
+    for n, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)):
+        want = "decode" if m <= 16 else ("wgmma" if bits == 8 else "wmma")
+        assert Q.plan_q(m, n, k, True, bits) == want
+
+
+# the quantized model's decode shapes (dim 2,048, 4 of 16 heads' width for
+# k and v): wq/wo, wk/wv, w1, w2
+@pytest.mark.parametrize("n,k,bits,want", [
+    (2048, 2048, 8, 2), (512, 2048, 8, 2), (8192, 2048, 8, 1),
+    (2048, 8192, 8, 2), (2048, 2048, 4, 2), (512, 2048, 4, 2),
+    (8192, 2048, 4, 1), (2048, 8192, 4, 2),
+    (64, 64, 8, 1),                     # under a rank's least share
+    (1024, 512, 4, 1),
+    (32, 65536, 8, 2),                  # the largest cluster
+])
+def test_decode_splits_at_the_model_shapes(n, k, bits, want):
+    got = Q.decode_splits(n, k, bits)
+    assert got == want
+    tiles = -(-n // G.DECODE_TILE[0])
+    assert got == 1 or (tiles * got <= 2 * G.SMS
+                        and got <= Q.DECODE_MAX_RANKS
+                        and k * bits // 8 // got >= Q.DECODE_MIN_BYTES)
+
+
+@pytest.mark.parametrize("offset_x,offset_q,want", [
+    (0, 0, "decode"), (4, 16, "decode"), (1, 0, "wmma"), (0, 8, "wmma")])
+def test_plan_q_for_int4_judges_the_views_as_given(offset_x, offset_q, want):
+    m, n, k = 8, 48, 256
+    x = torch.zeros(offset_x + m * k)[offset_x:].view(m, k)
+    q = torch.zeros(offset_q + n * k // 2, dtype=torch.uint8)[offset_q:]
+    assert Q.plan_q_for(x, q.view(n, k // 2), 4) == want
+
+
+def test_k13_wrapper_passes_the_decode_split(recorder):
+    """K13 at decode passes route decode and decode_splits' cluster, and
+    counts "decode linear_q4"."""
+    x = torch.randn(8, 8192)
+    packed = torch.zeros(2048, 4096, dtype=torch.uint8)
+    Q.linear_q4(x, packed, 0.01, 0.0, n_features=8192)
+    (name, args), = recorder.calls
+    assert args[-3] == Q.Q8_ROUTES["decode"] and args[10] == 4
+    assert args[-1] == Q.decode_splits(2048, 8192, 4) == 2
+    assert backend.route_counts() == {"decode linear_q4": 1}
