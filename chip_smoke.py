@@ -96,15 +96,18 @@ non-zero):
      (10 epochs, no early stop): final val accuracy at or above
      BENCH_r05's 0.993 less MLP_BENCH's batch-order allowance;
  16. the quantized kernels against their plain versions at the shapes of
-     phases 17-19: K12/K13 (``linear_q8``/``linear_q4``) at decode (M=8)
-     and K12 at M=4096 and at the CNN's FC layers (M=2000), within 2e-4,
+     phases 17-19: K12/K13 (``linear_q8``/``linear_q4``) at decode (M=8),
+     at M=4096 and K12 at the CNN's FC layers (M=2000), within 2e-4,
      each on the route ``ops.quant.plan_q`` names (checked taken: decode
      for K12 and K13 at M=8, wgmma at M=4096 and at the FC layers of N
-     128 and 64, wmma at the 10-way head); K14 (``quantize_rows``), K15b
-     (``matmul_int8``) and K15a (``matmul_int8_scaled``) exactly, K15 at
-     the three W8A8 shapes on the route ``ops.quant.plan`` names (checked
-     taken); ``torch._int_mm`` is K15b's library call, the others have
-     none;
+     128 and 64, mma at the 10-way head), and the mma route at ragged K,
+     codes 1 byte off and K 2,050 at M=4096 (on no path); one call of
+     each route with a per-tensor scale and zero point allocates its
+     output (and the wgmma route's workspace) and no copy; K14
+     (``quantize_rows``), K15b (``matmul_int8``) and K15a
+     (``matmul_int8_scaled``) exactly, K15 at the three W8A8 shapes on
+     the route ``ops.quant.plan`` names (checked taken);
+     ``torch._int_mm`` is K15b's library call, the others have none;
  17. PTQ serving of benchmarks/bench_serving.py:39-52's model (dim 2048,
      depth 6, 273M parameters, f32) with int8 and int4 weights in the
      paged engine (the bench's contiguous cache runs in phase 21): prefill
@@ -114,13 +117,16 @@ non-zero):
      step in each format;
  18. bench.py:273-301's W8A8 prefill (dim 2048, depth 4, bf16, every 2-D
      leaf int8, 4 x 1024 tokens): TAPER_W8A8=1 runs 24 K14 and 24 K15a,
-     the same weights through K12, the bf16 dense model through K1;
-     W8A8 logits against K12's, ms for each, and the W8A8 and the K12
+     the same weights through K12, the same dense weights in int4 through
+     24 K13 launches, all on the wgmma route (its logits against the
+     port's CPU path on one batch row), the bf16 dense model through K1;
+     W8A8 logits against K12's, ms for each, and the W8A8, K12 and K13
      forwards' device time by kernel family (a profile of two forwards
      each);
  19. examples/ptq_quantize.py through its entry point with --epochs 1:
      int8 accuracy within 0.01 of f32, float16 within 0.001, three K12
-     launches per eval batch of 2000;
+     launches per eval batch of 2000, two on wgmma and the 10-way head's
+     on mma;
  20. K16 over int8 pools (``paged_decode_int8``) against its plain
      version at bench_paged_decode's shapes (16 rows, 8 KV heads, G 1,
      D 128, block 128, 257/4033 positions, bf16 q), with all 16 rows at
@@ -351,10 +357,10 @@ K1_SOURCES = {"wgmma": "taper_tpu_torch/csrc/gemm_sm90.cu",
 I8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
               "mma": "taper_tpu_torch/csrc/quant.cu"}
 I8_NAMES = ("matmul_int8", "matmul_int8_scaled")
-# K12's routes (ops.quant.plan_q)
+# K12's and K13's routes (ops.quant.plan_q)
 Q8_SOURCES = {"wgmma": "taper_tpu_torch/csrc/quant_sm90.cu",
               "decode": "taper_tpu_torch/csrc/quant_decode.cu",
-              "wmma": "taper_tpu_torch/csrc/quant.cu"}
+              "mma": "taper_tpu_torch/csrc/quant_decode.cu"}
 Q_NAMES = {"linear_q8": 8, "linear_q4": 4}
 K16_NAMES = ("paged_decode", "paged_decode_int8")
 # The flash kernels' routes (ops.attention.plan_fwd, plan_bwd): a flash
@@ -2256,12 +2262,20 @@ W8A8_BATCH, W8A8_ITERS = 4, 5
 #  * the PTQ example: int8 accuracy within 0.01 of f32, float16 within
 #    0.001 (the JAX example's own table reports the drops; the reference's
 #    PTQ goal is an int8 drop under 1%, BASELINE.md).
+#  * phase 18's int4 logits, card against the port's CPU path with the
+#    same int4 weights, both bf16 trunks, one batch row: relative L2 3e-2,
+#    MODEL_REL_TOL as phase 4's bf16 logits.  The card's K8 rounds the
+#    softmax weights to bf16 where the CPU's plain attention rounds its
+#    output, a last-bit difference of an activation flips its bf16
+#    rounding before the next K13 product, and the final LayerNorm at
+#    init scale amplifies what four blocks carry about 50-fold.
 QSERVE_REL_TOL, W8A8_REL_TOL = 1e-2, 5e-2
+Q4_PREFILL_REL_TOL = MODEL_REL_TOL
 PTQ_INT8_DROP, PTQ_F16_DROP = 0.01, 0.001
-QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_kernel"),
-                  ("K12/K13 linear_q", "linear_q_decode_kernel"),
-                  ("K12 linear_q8 wgmma", "q8_wgmma_kernel"),
-                  ("K12 linear_q8 wgmma", "q8::rows_kernel"),
+QUANT_FAMILIES = (("K12/K13 linear_q", "linear_q_mma_kernel"),
+                  ("K12 linear_q8 wgmma", "q_wgmma_kernel<8>"),
+                  ("K13 linear_q4 wgmma", "q_wgmma_kernel<4>"),
+                  ("K12/K13 wgmma row pass", "qlinear::rows_kernel"),
                   ("K16 paged decode", "paged_decode")) + K1_FAMILIES + (
                   ("head sgemm", "gemm"),
                   ("K14 quantize_rows", "quantize_rows"),
@@ -2285,6 +2299,28 @@ def qlinear_work(m, n, k, bits):
             + 4 * m * n, "bf16")
 
 
+def per_tensor_uncopied(name, kern, args):
+    """One call of K12/K13 with PTQ's per-tensor scale and zero point
+    (0-d tensors on the card) allocates its output, and on the wgmma
+    route the row pass's workspace, and nothing else: no [N] copy of the
+    scale or the zero point, which a copy kernel would fill (the
+    allocator's count of requests, before and after)."""
+    assert args[2].dim() == 0 and args[3].dim() == 0, name
+    torch.cuda.synchronize()
+    before = backend.route_counts()
+    count = torch.cuda.memory_stats()["allocation.all.allocated"]
+    kern(*args)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - count
+    torch.cuda.synchronize()
+    route = next(k for k, c in backend.route_counts().items()
+                 if c != before.get(k, 0)).split()[0]
+    want = 2 if route == "wgmma" else 1
+    print(f"phase 16: {name} via {route} with a per-tensor scale and zero "
+          f"point: {allocs} allocation(s) a call (the output"
+          f"{' and the row pass' if want == 2 else ''}; no copies)")
+    assert allocs == want, (name, route, allocs)
+
+
 def phase16_quant_kernels(dev):
     """K12, K13, K14, K15a/b against their plain versions at the shapes of
     phases 17-19, K12/K13 on their wmma route (ragged K at decode's M,
@@ -2302,33 +2338,42 @@ def phase16_quant_kernels(dev):
 
     dq_note = []
     # K12 / K13 at the decode shapes of phase 17 (M = 8 rows: wq/wo, wk/wv,
-    # w1, w2), K12 at the W8A8 prefill's M = 4096 (phase 18's K12 run) and
-    # at the CNN's FC layers at an eval batch of 2000 (phase 19)
+    # w1, w2), K12 and K13 at the W8A8 prefill's M = 4096 (phase 18's K12
+    # and K13 forwards) and K12 at the CNN's FC layers at an eval batch of
+    # 2000 (phase 19: the 10-way head on the mma route)
     d = QSERVE["dim"]
     kv = d // QSERVE["num_heads"] * QSERVE["num_kv_heads"]
     decode = ((d, d), (kv, d), (4 * d, d), (d, 4 * d))
     pm, pd = W8A8_BATCH * W8A8["max_seq"], W8A8["dim"]
     prefill = ((pd, pd), (4 * pd, pd), (pd, 4 * pd))
-    # each with the route plan_q must give it; last, the WMMA kernel's rows
-    # that no path takes, each with its label in the kernels line: K12 and
+    # each with the route plan_q must give it and, for the rows beside the
+    # paths' headlines, the label they carry in the kernels line: K12 and
     # K13 at decode's M with ragged K (int8 rows not whole 16-byte units,
-    # int4 rows not whole 32 codes), and K13 at M > 16
-    cases = ([(QSERVE_REQUESTS, n, k, bits, "decode") for bits in (8, 4)
-              for n, k in decode]
-             + [(pm, n, k, 8, "wgmma") for n, k in prefill]
-             + [(2000, n, k, 8, "wmma" if n == 10 else "wgmma")
+    # int4 rows not whole 32 codes), K13 at the FC layer's M > 16, and at
+    # the prefill's M codes 1 byte off the 16-byte grid and a ragged K of
+    # 2,050 (on no path)
+    cases = ([(QSERVE_REQUESTS, n, k, bits, "decode", 0, None)
+              for bits in (8, 4) for n, k in decode]
+             + [(pm, n, k, bits, "wgmma", 0, None)
+                for bits in (8, 4) for n, k in prefill]
+             + [(2000, n, k, 8, "mma" if n == 10 else "wgmma", 0,
+                 "mma 10-way head" if n == 10 else None)
                 for n, k in ((128, 128), (64, 128), (10, 64))]
-             + [(QSERVE_REQUESTS, d, d + 8, 8, "wmma", "wmma ragged K"),
-                (QSERVE_REQUESTS, d, d + 16, 4, "wmma", "wmma ragged K"),
-                (2000, 128, 128, 4, "wmma", "wmma M > 16")])
-    for m, n, k, bits, want, *off_path in cases:
+             + [(QSERVE_REQUESTS, d, d + 8, 8, "mma", 0, "mma ragged K"),
+                (QSERVE_REQUESTS, d, d + 16, 4, "mma", 0, "mma ragged K"),
+                (2000, 128, 128, 4, "wgmma", 0, "wgmma M > 16")]
+             + [(pm, pd, pd, bits, "mma", 1, "mma q 1 byte off M > 16")
+                for bits in (8, 4)]
+             + [(pm, pd, pd + 2, bits, "mma", 0, "mma K 2050 M > 16")
+                for bits in (8, 4)])
+    for m, n, k, bits, want, off, label in cases:
         name = f"linear_q{bits}"
         act = "relu" if m == 2000 and n != 10 else "none"
 
-        def make(m=m, n=n, k=k, bits=bits):
+        def make(m=m, n=n, k=k, bits=bits, off=off):
             w = qweight(gen, n, k, bits, dev)
-            return (randn(m, k), w.values, w.scale, w.zero_point,
-                    randn(n) * 0.1)
+            q = misaligned(w.values, off) if off else w.values
+            return (randn(m, k), q, w.scale, w.zero_point, randn(n) * 0.1)
         first = make()
         sets = [first] + [make() for _ in range(copies_for(*first) - 1)]
         if bits == 8:
@@ -2342,14 +2387,15 @@ def phase16_quant_kernels(dev):
             plain = (lambda x, q, s, z, b, k=k, act=act:
                      Q.linear_q4_reference(x, q, s, z, b, n_features=k,
                                            epilogue=act))
-        add(name, f"M={m} N={n} K={k} {act} (+bias)", kern, plain, sets,
-            work=qlinear_work(m, n, k, bits))
-        # the time includes the wrapper's expansion of the per-tensor scale
-        # and zero point into [N] vectors (two copies)
-        rows[name][-1]["ms_includes"] = "per-tensor scale/zp expansion"
+        at = f"M={m} N={n} K={k} {act} (+bias)" + (
+            f" q {off} byte off" if off else "")
+        add(name, at, kern, plain, sets, work=qlinear_work(m, n, k, bits))
         assert rows[name][-1]["q8_route"] == want, (name, m, n, k, want)
-        if off_path:
-            rows[name][-1]["off_path"] = off_path[0]
+        if label:
+            rows[name][-1]["label"] = label
+        if (m, n, k, off) in ((QSERVE_REQUESTS, 4 * d, d, 0),
+                              (2000, 10, 64, 0), (pm, pd, pd, 0)):
+            per_tensor_uncopied(name, kern, first)
         if m == QSERVE_REQUESTS and (n, k) == decode[2]:
             # information, not a yardstick: dequantize + F.linear
             qt = quantize(torch.randn(n, k, generator=gen) * 0.02,
@@ -2589,16 +2635,25 @@ def w8a8_forward(model, toks, iters=W8A8_ITERS):
 
 def phase18_w8a8(dev, smi):
     """bench.py:273-301's W8A8 prefill: the int8 model under TAPER_W8A8=1
-    (K14 + K15a), the same weights through K12, and the bf16 dense model
-    through K1; then a profile of the W8A8 forward by kernel family."""
+    (K14 + K15a), the same weights through K12, the same dense weights in
+    int4 through K13 (every 2-D leaf, as phase 17 quantizes; its logits
+    against the port's CPU path on one batch row) and the bf16 dense model
+    through K1; then a profile of the W8A8, K12 and K13 forwards by kernel
+    family."""
     gen = torch.Generator().manual_seed(SEED)
     dense = TinyGPT(**W8A8, compute_dtype=torch.bfloat16)
     dense.reset_parameters(gen)
     qmodel = quantize_params(
         dense, QuantizationConfig(qtype=QuantizationType.INT8)).to(dev)
-    dense.to(dev)
+    q4model = quantize_params(dense, QuantizationConfig.int4())
     toks = torch.randint(0, W8A8["vocab_size"],
                          (W8A8_BATCH, W8A8["max_seq"]), generator=gen)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref4 = q4model(toks[:1]).float()
+    cpu_s = time.perf_counter() - t0
+    q4model.to(dev)
+    dense.to(dev)
     toks = toks.to(dev)
     n_lin = 6 * W8A8["depth"]
     runs = {}
@@ -2606,6 +2661,7 @@ def phase18_w8a8(dev, smi):
             ("w8a8", qmodel, "1", dict(quantize_rows=n_lin,
                                        matmul_int8_scaled=n_lin)),
             ("int8 K12", qmodel, "0", dict(linear_q8=n_lin)),
+            ("int4 K13", q4model, "0", dict(linear_q4=n_lin)),
             ("bf16 dense", dense, "0", dict(linear=n_lin))):
         os.environ["TAPER_W8A8"] = w8a8
         try:
@@ -2615,6 +2671,7 @@ def phase18_w8a8(dev, smi):
                 model(toks)
             torch.cuda.synchronize()
             counts = {k: c for k, c in backend.launch_counts().items() if c}
+            routes = backend.route_counts()
             logits, ms = w8a8_forward(model, toks)
         finally:
             os.environ.pop("TAPER_W8A8")
@@ -2624,21 +2681,36 @@ def phase18_w8a8(dev, smi):
         runs[name] = dict(logits=logits.float().cpu(), ms=ms, counts=counts)
         print(f"phase 18: {name} forward of {W8A8_BATCH} x "
               f"{W8A8['max_seq']} tokens: {ms:.2f} ms; launches {counts}")
+        if name == "int4 K13":
+            # every K13 product on the wgmma route
+            mine = {k: c for k, c in routes.items()
+                    if k.endswith("linear_q4")}
+            print(f"phase 18: int4 K13 calls by route {mine}")
+            assert mine == {"wgmma linear_q4": n_lin}, routes
     rel = rel_l2(runs["w8a8"]["logits"], runs["int8 K12"]["logits"])
     rel_dense = rel_l2(runs["int8 K12"]["logits"],
                        runs["bf16 dense"]["logits"])
+    rel4 = rel_l2(runs["int4 K13"]["logits"][:1], ref4)
     print(f"phase 18: W8A8 logits vs the same int8 weights through K12: "
           f"rel L2 {rel:.3e} (tol {W8A8_REL_TOL:.0e}, the activation "
           f"rounding); K12 vs bf16 dense {rel_dense:.3e} (the weight "
-          f"rounding); W8A8 {runs['w8a8']['ms']:.2f} ms, K12 "
-          f"{runs['int8 K12']['ms']:.2f} ms, bf16 dense "
+          f"rounding); int4 K13 logits {tuple(ref4.shape)} of batch row 0 "
+          f"vs the port's CPU path ({cpu_s:.1f} s there): rel L2 "
+          f"{rel4:.3e} (tol {Q4_PREFILL_REL_TOL:.0e}), max abs err "
+          f"{float((runs['int4 K13']['logits'][:1] - ref4).abs().max()):.3e}"
+          f"; W8A8 {runs['w8a8']['ms']:.2f} ms, K12 "
+          f"{runs['int8 K12']['ms']:.2f} ms, K13 "
+          f"{runs['int4 K13']['ms']:.2f} ms, bf16 dense "
           f"{runs['bf16 dense']['ms']:.2f} ms; on {smi}")
     assert rel <= W8A8_REL_TOL, rel
-    # where the W8A8 and the K12 forwards' device time goes
-    def forward():
-        with torch.no_grad():
-            qmodel(toks)
-    for name, flag in (("W8A8", "1"), ("K12", "0")):
+    assert runs["int4 K13"]["logits"][:1].shape == ref4.shape
+    assert rel4 <= Q4_PREFILL_REL_TOL, rel4
+    # where the W8A8, the K12 and the K13 forwards' device time goes
+    for name, model, flag in (("W8A8", qmodel, "1"), ("K12", qmodel, "0"),
+                              ("K13", q4model, "0")):
+        def forward(model=model):
+            with torch.no_grad():
+                model(toks)
         os.environ["TAPER_W8A8"] = flag
         try:
             prof = profile_steps(forward, 2, W8A8_FAMILIES)
@@ -2664,11 +2736,14 @@ def phase19_ptq_example(dev, smi):
     t0 = time.perf_counter()
     res = ptq_quantize.main(["--device", "cuda", "--epochs", "1"])
     torch.cuda.synchronize()
-    counts = backend.launch_counts()
+    counts, routes = backend.launch_counts(), backend.route_counts()
     # the int8 model: one diagnostic batch of 256 and the 10k test split
-    # in 5 eval batches of 2000, three int8 FC layers each
+    # in 5 eval batches of 2000, three int8 FC layers each: the two of N
+    # 128 and 64 on wgmma, the 10-way head (N % 4 != 0) on mma
     batches = 10000 // 2000
     per_batch = (counts["linear_q8"] - 3) / batches
+    by_route = {r: (routes.get(f"{r} linear_q8", 0) - want) / batches
+                for r, want in (("wgmma", 2), ("mma", 1))}
     f32 = res["f32"]["acc"]
     print(f"phase 19: examples/ptq_quantize.py --epochs 1 in "
           f"{time.perf_counter() - t0:.1f} s (the example's default of 2 "
@@ -2678,11 +2753,14 @@ def phase19_ptq_example(dev, smi):
               f"{r['bytes'] / 1e6:.3f} MB eval {r['eval_s']:.3f} s max "
               f"logit diff {r['max_logit_diff']:.5f}"
               for k, r in res.items())
-          + f"; K12 launches per eval batch of 2000: {per_batch:g}; on "
-          f"{smi}")
+          + f"; K12 launches per eval batch of 2000: {per_batch:g} (by "
+          f"route {by_route}); on {smi}")
     assert abs(res["int8"]["acc"] - f32) <= PTQ_INT8_DROP, res
     assert abs(res["float16"]["acc"] - f32) <= PTQ_F16_DROP, res
     assert per_batch == 3, counts
+    assert by_route == {"wgmma": 2, "mma": 1}, routes
+    assert sum(c for k, c in routes.items() if k.endswith("linear_q8")) \
+        == counts["linear_q8"], routes
     return counts
 
 
@@ -4009,8 +4087,9 @@ def kernel_report(paths, standalone, top=None, routes=None):
     from the path ``top`` names for it, else the first path with a row
     for it, else from ``standalone``.  K1's rows also give the route and
     K split their call took (``k1_route``, ``splits``; the f32 route's
-    tile, ``k1_tile``).  ``routes`` maps a kernel to the rows of routes no
-    path takes, by route, measured alone (``routes`` in its entry)."""
+    tile, ``k1_tile``).  ``routes`` maps a kernel to rows measured alone
+    beside the paths' headlines, by label (``routes`` in its entry): the
+    routes no path takes, and other shapes of K12's and K13's routes."""
     kernels = []
     for k in backend.KERNELS:
         by_path = {p: dict(launches=c[k], **rep.get(k, {}))
@@ -4020,7 +4099,7 @@ def kernel_report(paths, standalone, top=None, routes=None):
                      standalone.get(k))
         extra = {key: first[key] for key in ("k1_route", "splits", "k1_tile",
                                              "k1_staging", "i8_route",
-                                             "q8_route", "ms_includes",
+                                             "q8_route",
                                              "k16_route", "chunk")
                  if key in first}
         if "flash_route" in first:
@@ -4149,7 +4228,8 @@ def main():
     qserve_counts = {k: qserve["int8"]["counts"][k]
                      + qserve["int4"]["counts"][k] for k in backend.KERNELS}
     # headlines: K12/K13 at the decode up-projection (M=8 N=8192 K=2048),
-    # K12 at M=4096 N=8192 on the W8A8 path, at the first FC on the CNN's;
+    # K12 and K13 at M=4096 N=8192 on phase 18's path (its K12 and int4
+    # forwards), K12 at the first FC on the CNN's;
     # K14 at K=2048, K15a at M=4096 N=K=2048
     # K16 int8's headline: bench_paged_decode's shape (the serving model,
     # bf16 q, 257/4033 positions); the contiguous engines launch no paged
@@ -4183,6 +4263,7 @@ def main():
                  linear_q4=headline(quant_rows["linear_q4"], 2))),
              "prefill_w8a8": (w8a8_counts, dict(
                  linear_q8=headline(quant_rows["linear_q8"], 5),
+                 linear_q4=headline(quant_rows["linear_q4"], 5),
                  quantize_rows=headline(quant_rows["quantize_rows"]),
                  matmul_int8_scaled=headline(
                      [r for r in quant_rows["matmul_int8_scaled"]
@@ -4197,14 +4278,16 @@ def main():
              "train_cnn": (cnn_counts, cnn_report),
              "serve": (serve_counts, serve_report)}
     # routes no path takes, measured alone: K1's realign (phase 29), K15's
-    # mma and K12's/K13's wmma at ragged K, K13's at M > 16 (phase 16)
+    # mma; K12's/K13's rows beside their headlines (phase 16): the mma route
+    # at ragged K, misaligned codes and the 10-way head, K13's wgmma at the
+    # FC layer's M
     off_path = {k: {"realign": realign_rows[k]} for k in K1_MODES}
     off_path["linear"]["realign view"] = realign_rows["linear_view"]
     off_path.update({k: {"mma": headline(
         [r for r in quant_rows[k] if r["i8_route"] == "mma"])}
         for k in I8_NAMES})
-    off_path.update({k: {r["off_path"]: r for r in quant_rows[k]
-                         if "off_path" in r} for k in Q_NAMES})
+    off_path.update({k: {r["label"]: r for r in quant_rows[k]
+                         if "label" in r} for k in Q_NAMES})
     # K1's top-level numbers: the 170M (e, 4e) projection, the main path's
     # largest; K8's: the 170M model's bound arm (train_packed also has a
     # K8 row, at the padded batch's shape); K6's and K7's: the 170M shape

@@ -114,6 +114,22 @@ __device__ __forceinline__ float q_epilogue(float acc, float xs, float s,
   return epilogue(out, act);
 }
 
+// K12/K13's scale and zero point as their kernels read them: one value
+// for every channel (stride 0) or one a channel (stride 1); the zero point
+// in f32 or, as PTQ stores it, in int32 (exact in f32 below 2^24), read
+// where it lies, so that a call copies neither.
+struct QTerms {
+  const float* scale;
+  const void* zp;
+  int ss, zs;
+  bool zp_int;
+  __device__ __forceinline__ float s(int n) const { return scale[n * ss]; }
+  __device__ __forceinline__ float z(int n) const {
+    return zp_int ? (float)static_cast<const int*>(zp)[n * zs]
+                  : static_cast<const float*>(zp)[n * zs];
+  }
+};
+
 // Four int8 codes (the first in the low byte) as four bf16, two to a
 // word: each byte, biased to unsigned, becomes the mantissa of 2^23 and
 // the bias 2^23 + 128 is subtracted, exactly; the integer, of at most 8

@@ -8,10 +8,10 @@
 // (gemm_pingpong) with its staged TMA-store epilogue, bulk copies without
 // a tensor map, and mma.sync m16n8k16.  K1's wgmma GEMM (gemm_sm90.cu)
 // and decode product (gemm_decode.cu), the int8 product K15 and K12's
-// wgmma route (quant_sm90.cu), K12/K13's decode route (quant_decode.cu),
-// paged decode K16 (paged_decode.cu) and the flash kernels K8, K5, K7,
-// K10 and K11 (flash_sm90.cu) and K6 (flash_bwd_sm90.cu) are built on
-// them.
+// and K13's wgmma route (quant_sm90.cu), K12/K13's decode and mma routes
+// (quant_decode.cu), paged decode K16 (paged_decode.cu) and the flash
+// kernels K8, K5, K7, K10 and K11 (flash_sm90.cu) and K6
+// (flash_bwd_sm90.cu) are built on them.
 //
 // Conventions:
 //   * shared-memory addresses are 32-bit (``smem_u32``);

@@ -2,9 +2,9 @@
 // taper_tpu/ops/pallas/quant.py.
 //
 // K12 linear_q8 (replaces _q8_kernel, quant.py:41, launched by
-// _linear_q8_jit) and K13 linear_q4 (_q4_kernel, quant.py:159): one
-// templated kernel over int8 codes q[N, K] or int4 codes packed two to a
-// byte [N, K/2] (the even element in the low nibble), f32 out:
+// _linear_q8_jit) and K13 linear_q4 (_q4_kernel, quant.py:159): int8 codes
+// q[N, K] or int4 codes packed two to a byte [N, K/2] (the even element in
+// the low nibble), f32 out:
 //   y[m,n] = scale[n] * sum_k bf16(x[m,k]) q[n,k]
 //            - xsum[m] * (scale[n] zp[n])  (+ bias[n]) (+ relu | sigmoid)
 // with xsum[m] = sum_k x[m,k] over the unrounded f32 activations.  The
@@ -14,6 +14,8 @@
 // the plain version.  JAX permutes the activation's columns into the
 // kernel's planar nibble order, a TPU lane trick; here each packed byte
 // is unpacked in its natural interleaved order, so nothing is permuted.
+// Their kernels live in quant_sm90.cu and quant_decode.cu; the entry point
+// below dispatches on the route.
 //
 // K14 quantize_rows (_rowquant_kernel, quant.py:460): per row of x[M, K]
 // (f32 or bf16), s = max(absmax, 1e-8) / 127 (a multiply by the f32
@@ -38,24 +40,16 @@
 //   * K15 at the W8A8 prefill (M = 4,096, N and K 2,048-8,192): int8
 //     tensor-core bound, 1,979 TOP/s.
 // What the designs do about that:
-//   * K12 has three routes (ops/quant.py::plan_q), K13 the last two:
-//     "wgmma" (quant_sm90.cu: a row pass writes bf16 x and the row sums,
-//     then bf16 wgmma on a TMA ring, the codes widened to bf16 in shared
-//     memory, for M > 16 where TMA reads both operands and stores y),
-//     "decode" (quant_decode.cu: M <= 16 with the codes' rows whole
-//     16-byte units from aligned bases; swap-AB mma.sync with the codes
-//     widened in registers, K split over a cluster) and "wmma", the
-//     kernel below, for the rest (ragged K, misaligned codes, N % 4 != 0
-//     at M > 16) and for K13 at M > 16;
-//   * the wmma kernel stages the codes through registers and converts
-//     them to bf16 on their way into shared memory (the f32 weights never
-//     exist in device memory), with the next tile's loads in flight while
-//     the current one is multiplied by WMMA 16x16x16 bf16; at M <= 16
-//     (ragged K or misaligned codes) a block owns 16 output columns and
-//     its 4 warps split each 256-wide K tile; larger M takes 128x128 or
-//     64x64 tiles.  The row sum comes from the
-//     same f32 registers, before the rounding, with a fixed-order
-//     reduction;
+//   * K12 and K13 have three routes (ops/quant.py::plan_q): "wgmma"
+//     (quant_sm90.cu: a row pass writes bf16 x and the row sums, then bf16
+//     wgmma on a TMA ring, the codes widened to bf16 in shared memory, for
+//     M > 16 where TMA reads both operands and stores y), "decode"
+//     (quant_decode.cu: M <= 16 with the codes' rows whole 16-byte units
+//     from aligned bases; swap-AB mma.sync with the codes widened in
+//     registers, K split over a cluster) and "mma", the same mma.sync
+//     kernel for every other shape (ragged K, misaligned bases, N % 4 != 0
+//     at M > 16): loads as wide as the rows allow, the ragged last unit
+//     zero-filled, activation rows in groups of 8 or 16 a block;
 //   * K14 is one block per row: an absmax pass, then a quantize pass that
 //     re-reads the row (from L1/L2), 16-byte vectors where aligned;
 //   * K15 has two routes (ops/quant.py::plan): "wgmma" (quant_sm90.cu:
@@ -67,284 +61,9 @@
 //     applied to the int32 accumulators in registers.  (WMMA's s8
 //     fragments need 32-byte aligned addresses, which 16-byte K steps of
 //     int8 cannot give; the PTX fragments load 4 bytes a register.)
-#include <mma.h>
-
 #include "common.cuh"
 
-using namespace nvcuda;
-
 namespace taper {
-
-// ---------------------------------------------------------------------------
-// K12 / K13: dequant-on-load linear
-// ---------------------------------------------------------------------------
-
-// Sign-extended int4 codes of one packed byte (quant.py:170-171).
-__device__ __forceinline__ int nibble_lo(unsigned b) {
-  return static_cast<int>(b << 28) >> 28;
-}
-__device__ __forceinline__ int nibble_hi(unsigned b) {
-  return static_cast<int>(b << 24) >> 28;
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int WARPS_K>
-struct QTiles {
-  static constexpr int NT = WARPS_M * WARPS_N * WARPS_K * 32;
-  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  static constexpr int FM = WM / 16, FN = WN / 16;
-  static constexpr int KW = BK / WARPS_K;  // K columns per warp per tile
-  static constexpr int LD = BK + 8;        // bf16; keeps WMMA's 32 B rule
-  static constexpr int CPR_X = BK / 4;     // float4 chunks of x per row
-  static constexpr int X_CHUNKS = BM * CPR_X;
-  static constexpr int XC = X_CHUNKS / NT;  // x chunks per thread
-  static constexpr int CPR_Q = BK / 16;    // 16-code chunks per row
-  static constexpr int QC = BN * CPR_Q / NT;  // code chunks per thread
-  static constexpr int A_ELEMS = BM * LD, B_ELEMS = BN * LD;
-  static constexpr int PIPE_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;
-  // after the loop the pipeline holds the per-warp output staging (one
-  // 16x16 f32 tile a warp) or the split-K partial tiles
-  static constexpr int EPI_BYTES =
-      WARPS_K > 1 ? WARPS_K * BM * BN * 4 : WARPS_M * WARPS_N * 256 * 4;
-  static constexpr int SMEM_BYTES = PIPE_BYTES + X_CHUNKS * 4 + BM * 4;
-  static_assert(X_CHUNKS % NT == 0 && (BN * CPR_Q) % NT == 0, "chunks");
-  static_assert(EPI_BYTES <= PIPE_BYTES, "epilogue staging fits");
-  static_assert(KW % 16 == 0 && WM % 16 == 0 && WN % 16 == 0, "frags");
-  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory");
-};
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int WARPS_K,
-          int BITS>
-__global__ void __launch_bounds__(WARPS_M* WARPS_N* WARPS_K * 32)
-    linear_q_kernel(const float* __restrict__ x,
-                    const uint8_t* __restrict__ q,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ zp,
-                    const float* __restrict__ bias, float* __restrict__ y,
-                    int M, int N, int K, int act, bool vec) {
-  using L = QTiles<BM, BN, BK, WARPS_M, WARPS_N, WARPS_K>;
-  __shared__ __align__(128) unsigned char smem[L::SMEM_BYTES];
-  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* part = reinterpret_cast<float*>(smem + L::PIPE_BYTES);
-  float* xsum = part + L::X_CHUNKS;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wk = warp / (WARPS_M * WARPS_N);
-  const int wm = (warp % (WARPS_M * WARPS_N)) / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = (K + BK - 1) / BK;
-  const size_t row_bytes = BITS == 8 ? (size_t)K : (size_t)K / 2;
-
-  float4 xr[L::XC];      // the next tile's activations, f32
-  uint4 qr[L::QC];       // the next tile's codes, raw bytes
-  float xs[L::XC] = {};  // row-sum partials of this thread's x chunks
-
-  auto load_regs = [&](int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < L::XC; ++i) {
-      const int c = tid + i * L::NT;
-      const int gm = m0 + c / L::CPR_X, gk = k0 + (c % L::CPR_X) * 4;
-      const float* src = x + (size_t)gm * K + gk;
-      if (vec && gm < M && gk < K) {
-        xr[i] = __ldg(reinterpret_cast<const float4*>(src));
-      } else {
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = (gm < M && gk + e < K) ? src[e] : 0.0f;
-        xr[i] = make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < L::QC; ++i) {
-      const int c = tid + i * L::NT;
-      const int gn = n0 + c / L::CPR_Q, gk = k0 + (c % L::CPR_Q) * 16;
-      const uint8_t* src = q + gn * row_bytes + (BITS == 8 ? gk : gk / 2);
-      if (vec && gn < N && gk < K) {
-        if constexpr (BITS == 8) {
-          qr[i] = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          uint2 h = __ldg(reinterpret_cast<const uint2*>(src));
-          qr[i] = make_uint4(h.x, h.y, 0u, 0u);
-        }
-      } else {
-        // byte by byte, zero past the edges (an int4 byte holds codes
-        // gk + 2j and gk + 2j + 1, both in or both out: K is even)
-        __align__(16) uint8_t b[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int code = BITS == 8 ? gk + j : gk + 2 * j;
-          b[j] = (j < (BITS == 8 ? 16 : 8) && gn < N && code < K) ? src[j]
-                                                                  : 0;
-        }
-        qr[i] = *reinterpret_cast<uint4*>(b);
-      }
-    }
-  };
-
-  auto store_regs = [&](int buf) {
-    __nv_bfloat16* As = pipe + buf * (L::A_ELEMS + L::B_ELEMS);
-    __nv_bfloat16* Bs = As + L::A_ELEMS;
-#pragma unroll
-    for (int i = 0; i < L::XC; ++i) {
-      const int c = tid + i * L::NT;
-      const float4 v = xr[i];
-      xs[i] += ((v.x + v.y) + v.z) + v.w;  // unrounded f32 (quant.py:57)
-      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<unsigned*>(&lo);
-      packed.y = *reinterpret_cast<unsigned*>(&hi);
-      *reinterpret_cast<uint2*>(As + (c / L::CPR_X) * L::LD +
-                                (c % L::CPR_X) * 4) = packed;
-    }
-#pragma unroll
-    for (int i = 0; i < L::QC; ++i) {
-      const int c = tid + i * L::NT;
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&qr[i]);
-      __align__(16) __nv_bfloat16 w[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        int code;
-        if constexpr (BITS == 8)
-          code = static_cast<int8_t>(b[j]);
-        else
-          code = (j & 1) ? nibble_hi(b[j / 2]) : nibble_lo(b[j / 2]);
-        w[j] = __int2bfloat16_rn(code);  // exact: |code| <= 128
-      }
-      uint4* dst = reinterpret_cast<uint4*>(Bs + (c / L::CPR_Q) * L::LD +
-                                            (c % L::CPR_Q) * 16);
-      dst[0] = reinterpret_cast<const uint4*>(w)[0];
-      dst[1] = reinterpret_cast<const uint4*>(w)[1];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[L::FM][L::FN];
-#pragma unroll
-  for (int i = 0; i < L::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < L::FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  load_regs(0);
-  for (int kt = 0; kt < KT; ++kt) {
-    // buffer kt & 1 was last read two iterations ago, before every thread
-    // passed the previous iteration's barrier
-    store_regs(kt & 1);
-    __syncthreads();
-    if (kt + 1 < KT) load_regs(kt + 1);  // in flight during the products
-    const __nv_bfloat16* As = pipe + (kt & 1) * (L::A_ELEMS + L::B_ELEMS);
-    const __nv_bfloat16* Bs = As + L::A_ELEMS;
-#pragma unroll
-    for (int kk = wk * L::KW; kk < (wk + 1) * L::KW; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          af[L::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major>
-          bf[L::FN];
-#pragma unroll
-      for (int i = 0; i < L::FM; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * L::WM + i * 16) * L::LD + kk,
-                               L::LD);
-#pragma unroll
-      for (int j = 0; j < L::FN; ++j)
-        // the [N, K] row-major tile is the K x N operand in column-major
-        wmma::load_matrix_sync(bf[j], Bs + (wn * L::WN + j * 16) * L::LD + kk,
-                               L::LD);
-#pragma unroll
-      for (int i = 0; i < L::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < L::FN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-  }
-
-  // row sums: each chunk slot's partial, then a fixed-order sum per row
-#pragma unroll
-  for (int i = 0; i < L::XC; ++i) part[tid + i * L::NT] = xs[i];
-  __syncthreads();  // also: every warp is done with the pipeline
-  if (tid < BM) {
-    float s = 0.0f;
-    for (int c = 0; c < L::CPR_X; ++c) s += part[tid * L::CPR_X + c];
-    xsum[tid] = s;
-  }
-
-  float* stage = reinterpret_cast<float*>(smem);
-  if constexpr (WARPS_K > 1) {
-    // split-K: each warp's partial tile, summed in warp order
-#pragma unroll
-    for (int i = 0; i < L::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < L::FN; ++j)
-        wmma::store_matrix_sync(
-            stage + wk * BM * BN + (wm * L::WM + i * 16) * BN + wn * L::WN +
-                j * 16,
-            acc[i][j], BN, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < BM * BN; e += L::NT) {
-      const int r = e / BN, c = e % BN, gm = m0 + r, gn = n0 + c;
-      if (gm < M && gn < N) {
-        float a = 0.0f;
-#pragma unroll
-        for (int w = 0; w < WARPS_K; ++w) a += stage[w * BM * BN + e];
-        y[(size_t)gm * N + gn] =
-            q_epilogue(a, xsum[r], scale[gn], zp[gn], bias, gn, act);
-      }
-    }
-  } else {
-    __syncthreads();  // xsum is complete
-    float* mine = stage + warp * 256;
-#pragma unroll
-    for (int i = 0; i < L::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < L::FN; ++j) {
-        wmma::store_matrix_sync(mine, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = wm * L::WM + i * 16 + e / 16;
-          const int gm = m0 + r, gn = n0 + wn * L::WN + j * 16 + e % 16;
-          if (gm < M && gn < N)
-            y[(size_t)gm * N + gn] =
-                q_epilogue(mine[e], xsum[r], scale[gn], zp[gn], bias, gn,
-                           act);
-        }
-        __syncwarp();
-      }
-  }
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int WARPS_K,
-          int BITS>
-int launch_linear_q(const float* x, const uint8_t* q, const float* scale,
-                    const float* zp, const float* bias, float* y, int M,
-                    int N, int K, int act, cudaStream_t s) {
-  // 16-byte x chunks need K % 4 == 0; 16-code chunks K % 16 == 0 (int8
-  // rows of 16 bytes, int4 rows of 8); bases are 16-byte aligned (the
-  // wrapper checks)
-  const bool vec = K % 16 == 0;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_q_kernel<BM, BN, BK, WARPS_M, WARPS_N, WARPS_K, BITS>
-      <<<grid, WARPS_M * WARPS_N * WARPS_K * 32, 0, s>>>(
-          x, q, scale, zp, bias, y, M, N, K, act, vec);
-  return (int)cudaGetLastError();
-}
-
-template <int BITS>
-int linear_q(const float* x, const uint8_t* q, const float* scale,
-             const float* zp, const float* bias, float* y, int M, int N,
-             int K, int act, cudaStream_t s) {
-  if (M <= 16)  // 16 columns a block, 4 warps split K
-    return launch_linear_q<16, 16, 256, 1, 1, 4, BITS>(x, q, scale, zp, bias,
-                                                       y, M, N, K, act, s);
-  const long long big_tiles =
-      (long long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= 132)
-    return launch_linear_q<128, 128, 32, 2, 4, 1, BITS>(
-        x, q, scale, zp, bias, y, M, N, K, act, s);
-  return launch_linear_q<64, 64, 32, 2, 2, 1, BITS>(x, q, scale, zp, bias,
-                                                    y, M, N, K, act, s);
-}
 
 // ---------------------------------------------------------------------------
 // K14: per-row activation quantization
@@ -617,57 +336,60 @@ int matmul_int8_wgmma(const void* xq, const void* q, const void* sx,
 // K15's route codes, shared with I8_ROUTES in ops/quant.py
 enum I8Route : int { kI8Wgmma = 0, kI8Mma = 1 };
 
-// quant_sm90.cu: K12 on the wgmma route
-int linear_q8_wgmma(const void* x, const void* q, const void* scale,
-                    const void* zp, const void* bias, void* y, void* ws,
-                    int M, int N, int K, int act, cudaStream_t s);
+// quant_sm90.cu: K12/K13 on the wgmma route
+int linear_q_wgmma(const void* x, const void* q, const QTerms& qt,
+                   const void* bias, void* y, void* ws, int M, int N, int K,
+                   int bits, int act, cudaStream_t s);
 
-// quant_decode.cu: K12/K13 on the decode route
-int linear_q_decode(const float* x, const uint8_t* q, const float* scale,
-                    const float* zp, const float* bias, float* y, int M,
-                    int N, int K, int bits, int act, int splits,
-                    cudaStream_t s);
+// quant_decode.cu: K12/K13 on the mma.sync kernel (the decode and mma
+// routes)
+int linear_q_mma(const float* x, const uint8_t* q, const QTerms& qt,
+                 const float* bias, float* y, int M, int N, int K, int bits,
+                 int act, int splits, int rows, bool decode, cudaStream_t s);
 
 // K12/K13's route codes, shared with Q8_ROUTES in ops/quant.py
-enum Q8Route : int { kQ8Wgmma = 0, kQ8Wmma = 1, kQ8Decode = 2 };
+enum Q8Route : int { kQ8Wgmma = 0, kQ8Mma = 1, kQ8Decode = 2 };
 
 }  // namespace taper
 
 using namespace taper;
 
 // K12 (bits 8) and K13 (bits 4) on the route ops/quant.py::plan_q chose
-// (Q8Route; wgmma is K12's alone); act codes of ACTIVATIONS in
-// ops/gemm.py.  The wgmma route needs bits 8, K % 16 == 0, N % 4 == 0,
-// 16-byte-aligned x, q and y, and ``ws`` (M K bf16 and M f32); the decode
-// route M <= 16, K % 16 == 0 (int8) or K % 32 == 0 (int4), 16-byte-aligned
-// x and q, and its cluster's ``splits`` (1..8; 1 on the other routes).
+// (Q8Route); act codes of ACTIVATIONS in ops/gemm.py; scale (f32) and zp
+// (f32, or int32 where zp_int) read with strides scale_stride and
+// zp_stride (0: one value, 1: [N]).  The wgmma route needs K % 16 == 0
+// (int8) or K % 32 == 0 (int4), N % 4 == 0, 16-byte-aligned x, q and y,
+// and ``ws`` (M K bf16 and M f32); the decode route M <= 16, K % 16 == 0
+// (int8) or K % 32 == 0 (int4) and 16-byte-aligned x and q; the mma route
+// any shape (K even for int4, x 4-byte aligned).  decode and mma take
+// activation rows in groups of ``rows`` (8 or 16) and K split over a
+// cluster of ``splits`` (1..8; 1 on the wgmma route).
 extern "C" int taper_linear_q(const void* x, const void* q,
                               const void* scale, const void* zp,
                               const void* bias, void* y, void* ws, int M,
                               int N, int K, int bits, int act, int route,
-                              void* stream, int splits) {
+                              void* stream, int splits, int rows,
+                              int scale_stride, int zp_stride, int zp_int) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || (bits != 8 && bits != 4) ||
-      (bits == 4 && K % 2))
+      (bits == 4 && K % 2) || scale_stride < 0 || scale_stride > 1 ||
+      zp_stride < 0 || zp_stride > 1)
     return (int)cudaErrorInvalidValue;
+  const QTerms qt = {static_cast<const float*>(scale), zp, scale_stride,
+                     zp_stride, zp_int != 0};
   if (route == kQ8Wgmma) {
-    if (bits != 8 || K % 16 || N % 4 || (uintptr_t)x % 16 ||
+    if (K % (bits == 8 ? 16 : 32) || N % 4 || (uintptr_t)x % 16 ||
         (uintptr_t)q % 16 || (uintptr_t)y % 16 || ws == nullptr)
       return (int)cudaErrorInvalidValue;
-    return linear_q8_wgmma(x, q, scale, zp, bias, y, ws, M, N, K, act, s);
+    return linear_q_wgmma(x, q, qt, bias, y, ws, M, N, K, bits, act, s);
   }
-  auto xp = static_cast<const float*>(x);
-  auto qp = static_cast<const uint8_t*>(q);
-  auto sp = static_cast<const float*>(scale);
-  auto zpp = static_cast<const float*>(zp);
-  auto bp = static_cast<const float*>(bias);
-  auto yp = static_cast<float*>(y);
-  if (route == kQ8Decode)
-    return linear_q_decode(xp, qp, sp, zpp, bp, yp, M, N, K, bits, act,
-                           splits, s);
-  if (route != kQ8Wmma) return (int)cudaErrorInvalidValue;
-  if (bits == 8) return linear_q<8>(xp, qp, sp, zpp, bp, yp, M, N, K, act, s);
-  return linear_q<4>(xp, qp, sp, zpp, bp, yp, M, N, K, act, s);
+  if (route != kQ8Decode && route != kQ8Mma)
+    return (int)cudaErrorInvalidValue;
+  return linear_q_mma(static_cast<const float*>(x),
+                      static_cast<const uint8_t*>(q), qt,
+                      static_cast<const float*>(bias), static_cast<float*>(y),
+                      M, N, K, bits, act, splits, rows, route == kQ8Decode,
+                      s);
 }
 
 // K14; dtype codes of DTYPES in ops/_build.py.

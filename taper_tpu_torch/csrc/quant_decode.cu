@@ -1,27 +1,31 @@
-// K12 and K13 at decode: the weight-only products over int8 codes q[N, K]
-// (K12) or int4 codes packed two to a byte [N, K/2] (K13, the even element
-// in the low nibble) at M <= 16 rows, f32 out:
+// K12 and K13 on the register-widening mma.sync kernel: the weight-only
+// products over int8 codes q[N, K] (K12) or int4 codes packed two to a byte
+// [N, K/2] (K13, the even element in the low nibble), f32 out:
 //   y[m,n] = scale[n] acc[m,n] - xsum[m] (scale[n] zp[n]) (+ bias[n])
 //            (+ relu | sigmoid),
 //   acc[m,n] = sum_k bf16(x[m,k]) q[n,k],  xsum[m] = sum_k x[m,k]
 // over the unrounded f32 activations (quant.py:57), each epilogue step
-// rounded (common.cuh's q_epilogue): every projection of a quantized
-// model's decode step (one row a slot).
+// rounded (common.cuh's q_epilogue); a per-tensor scale or zero point is
+// read with a stride of 0, a per-channel one with 1 (QTerms).
 //
 // Replaces the TPU kernels taper_tpu/ops/pallas/quant.py::_q8_kernel (:41,
 // launched by _linear_q8_jit) and _q4_kernel (:159, _linear_q4_jit) at the
-// shapes ops/quant.py::plan_q routes here ("decode": M <= 16, the codes'
+// shapes ops/quant.py::plan_q routes here: "decode" (M <= 16, the codes'
 // rows whole 16-byte units (int8 K % 16 == 0, int4 K % 32 == 0) from
-// 16-byte-aligned bases; quant.cu's WMMA kernel takes the rest).
+// 16-byte-aligned bases: every projection of a quantized model's decode
+// step, one row a slot) and "mma" (every shape quant_sm90.cu's TMA kernel
+// cannot take: a ragged K, a misaligned base, or, at M > 16, rows of N f32
+// that are not whole 16-byte units, as the PTQ example's 10-way head).
 //
-// What bounds it on the H100: bytes.  2 M FLOP a code against one byte
-// (int8) or half of one (int4), so the bound is the codes over the memory
-// rate (the quantized model's up projection, 8,192 x 2,048 int8: 16 MB, 5
-// us).  The design is K1's decode route's (gemm_decode.cu), its loader
-// and epilogue changed:
+// What bounds it on the H100: at decode, bytes.  2 M FLOP a code against
+// one byte (int8) or half of one (int4), so the bound is the codes over the
+// memory rate (the quantized model's up projection, 8,192 x 2,048 int8: 16
+// MB, 5 us).  The design is K1's decode route's (gemm_decode.cu), its
+// loader and epilogue changed:
 //   * swap A and B: the weight codes are the M side of mma.sync m16n8k16
 //     (bf16 in, f32 accumulate), the activations its N side (one n8 tile
-//     for M <= 8, two for M <= 16; rows past M read as zeros, no load);
+//     for groups of 8 rows, two for 16; rows past M read as zeros, no
+//     load);
 //   * a thread loads 16 contiguous bytes of a code row, 16 int8 or 32 int4
 //     codes, and widens them in registers straight into A fragments, as
 //     exact bf16 integers (|code| <= 128 fits bf16's 8-bit significand):
@@ -35,13 +39,21 @@
 //   * the thread loads the 16 or 32 f32 activations of those k, rounds
 //     them to bf16 for the B words (quant.py:53) and adds the unrounded
 //     values to its row sums in a fixed order;
-//   * a block of 8 warps covers 32 weight rows; its warps take interleaved
-//     K steps (64 codes deep for int8, 128 for int4); K is split over a
-//     thread-block cluster of ``splits`` blocks (ops/quant.py::
-//     decode_splits), whose partial sums and row sums meet in rank 0's
-//     shared memory in a fixed order (warps, then ranks), behind one
-//     cluster barrier; rank 0 applies the epilogue.  One launch, no
-//     workspace, the same bits on every call.
+//   * a block of 8 warps covers 32 weight rows and one group of 8 or 16
+//     activation rows (grid y: ops/quant.py::mma_rows sizes the group);
+//     its warps take interleaved K steps (64 codes deep for int8, 128 for
+//     int4); K is split over a thread-block cluster of ``splits`` blocks
+//     (ops/quant.py::decode_splits, M <= 16 only), whose partial sums and
+//     row sums meet in rank 0's shared memory in a fixed order (warps, then
+//     ranks), behind one cluster barrier; rank 0 applies the epilogue.  One
+//     launch, no workspace, the same bits on every call;
+//   * the odd shapes (VEC false) load each 16-byte unit in pieces as wide
+//     as the row's base allows (codes 16, 8, 4, 2 or 1 bytes, activations
+//     4, 2 or 1 floats: the widest power of two dividing both the row's
+//     length and the base address), each piece wholly inside the row or
+//     zero-filled past its end, so a ragged last unit reads zeros for codes
+//     and activations alike.  The aligned shapes (VEC) keep one 16-byte
+//     load a unit.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -121,21 +133,93 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&b);
 }
 
-// Block x: weight rows [32 (x / splits), + 32), cluster rank x % splits,
-// which takes K steps [rank * per, (rank + 1) * per) of ceil(K / kStep).
-// NT: n8 tiles of activation rows (1: M <= 8, 2: M <= 16).
-template <int BITS, int NT>
+// 16 bytes of a code row at ``p`` (``valid`` bytes of the row from ``p``
+// on, at least 16 where VEC), in pieces of ``qw`` bytes (16, 8, 4, 2 or
+// 1), each wholly inside the row or zero.
+template <bool VEC>
+__device__ __forceinline__ uint4 load_codes(const uint8_t* p, int valid,
+                                            int qw) {
+  if (VEC || qw == 16) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (qw == 8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (8 * h < valid) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + h);
+        w[2 * h] = v.x, w[2 * h + 1] = v.y;
+      }
+  } else if (qw == 4) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      if (4 * h < valid) w[h] = __ldg(reinterpret_cast<const uint32_t*>(p) + h);
+  } else if (qw == 2) {
+#pragma unroll
+    for (int h = 0; h < 8; ++h)
+      if (2 * h < valid)
+        w[h / 2] |= (uint32_t)__ldg(reinterpret_cast<const uint16_t*>(p) + h)
+                    << (16 * (h % 2));
+  } else {
+#pragma unroll
+    for (int h = 0; h < 16; ++h)
+      if (h < valid) w[h / 4] |= (uint32_t)__ldg(p + h) << (8 * (h % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// PER activations of a row at ``p`` (``valid`` of the row from ``p`` on, at
+// least PER where VEC), in pieces of ``xw`` floats (4, 2 or 1), each wholly
+// inside the row or zero.
+template <bool VEC, int PER>
+__device__ __forceinline__ void load_acts(float (&e)[PER], const float* p,
+                                          int valid, int xw) {
+  if (VEC || (xw == 4 && valid >= PER)) {
+#pragma unroll
+    for (int v = 0; v < PER / 4; ++v) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p) + v);
+      e[4 * v] = f.x, e[4 * v + 1] = f.y, e[4 * v + 2] = f.z,
+      e[4 * v + 3] = f.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) e[i] = 0.0f;
+  if (xw == 4) {
+#pragma unroll
+    for (int v = 0; v < PER / 4; ++v)
+      if (4 * v < valid) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(p) + v);
+        e[4 * v] = f.x, e[4 * v + 1] = f.y, e[4 * v + 2] = f.z,
+        e[4 * v + 3] = f.w;
+      }
+  } else if (xw == 2) {
+#pragma unroll
+    for (int v = 0; v < PER / 2; ++v)
+      if (2 * v < valid) {
+        const float2 f = __ldg(reinterpret_cast<const float2*>(p) + v);
+        e[2 * v] = f.x, e[2 * v + 1] = f.y;
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (i < valid) e[i] = __ldg(p + i);
+  }
+}
+
+// Block (x, y): weight rows [32 (x / splits), + 32), cluster rank x %
+// splits, which takes K steps [rank * per, (rank + 1) * per) of ceil(K /
+// kStep), and activation rows [8 NT y, + 8 NT) (NT n8 tiles).  qw, xw:
+// the code and activation load widths (VEC: 16 bytes, 4 floats, whole
+// units).
+template <int BITS, int NT, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
-    linear_q_decode_kernel(const float* __restrict__ x,
-                           const uint8_t* __restrict__ q,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ zp,
-                           const float* __restrict__ bias,
-                           float* __restrict__ y, int M, int N, int K,
-                           int act, int splits) {
+    linear_q_mma_kernel(const float* __restrict__ x,
+                        const uint8_t* __restrict__ q, const QTerms qt,
+                        const float* __restrict__ bias,
+                        float* __restrict__ y, int M, int N, int K, int act,
+                        int splits, int qw, int xw) {
   using C = Codes<BITS>;
   constexpr int kPer = C::kStep / 4;        // codes a thread loads a row
-  // steps whose loads a warp keeps in flight (one at M > 8: registers)
+  // steps whose loads a warp keeps in flight (one at NT 2: registers)
   constexpr int kUnroll = NT == 1 ? C::kUnroll : 1;
   constexpr int kWords = 2 * C::kProducts;  // A words of those codes
   // each warp's partial [16 M, 32 rows] and row sums; in rank 0, every
@@ -150,11 +234,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the cluster's first phase: every block has started (rank 0's shared
   // memory is there to be written); waited for after the products
   if (splits > 1) cluster_arrive<false>();
-  const int n0 = blockIdx.x / splits * kRows;
+  const int n0 = blockIdx.x / splits * kRows, m0 = blockIdx.y * 8 * NT;
   const int steps = (K + C::kStep - 1) / C::kStep;
   const int per = (steps + splits - 1) / splits;
   const int lo = rank * per, hi = min(steps, lo + per);
-  const size_t row_bytes = (size_t)K * BITS / 8;
+  const int row_bytes = K * BITS / 8;
 
   float acc[2][NT][4], xs[NT];
 #pragma unroll
@@ -169,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int s0 = lo + warp; s0 < hi; s0 += kWarps * kUnroll) {
     // the loads of up to kUnroll steps first, then their products
     uint4 cv[kUnroll][2][2];
-    float4 xv[kUnroll][NT][kPer / 4];
+    float xv[kUnroll][NT][kPer];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int s = s0 + u * kWarps;
@@ -179,21 +263,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = n0 + 16 * i + 8 * r + g;
-          cv[u][i][r] =
-              row < N && col < K
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        q + row * row_bytes + col * BITS / 8))
-                  : make_uint4(0, 0, 0, 0);
+          cv[u][i][r] = row < N && col < K
+                            ? load_codes<VEC>(
+                                  q + (size_t)row * row_bytes + col * BITS / 8,
+                                  row_bytes - col * BITS / 8, qw)
+                            : make_uint4(0, 0, 0, 0);
         }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const int m = 8 * j + g;
+        const int m = m0 + 8 * j + g;
+        if (m < M && col < K) {
+          load_acts<VEC>(xv[u][j], x + (size_t)m * K + col, K - col, xw);
+        } else {
 #pragma unroll
-        for (int v = 0; v < kPer / 4; ++v)
-          xv[u][j][v] = m < M && col < K
-                            ? __ldg(reinterpret_cast<const float4*>(
-                                  x + (size_t)m * K + col) + v)
-                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int k = 0; k < kPer; ++k) xv[u][j][k] = 0.0f;
+        }
       }
     }
 #pragma unroll
@@ -205,14 +289,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int r = 0; r < 2; ++r) C::widen(a[i][r], cv[u][i][r]);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        float e[kPer];
-#pragma unroll
-        for (int v = 0; v < kPer / 4; ++v) {
-          e[4 * v] = xv[u][j][v].x;
-          e[4 * v + 1] = xv[u][j][v].y;
-          e[4 * v + 2] = xv[u][j][v].z;
-          e[4 * v + 3] = xv[u][j][v].w;
-        }
+        const float* e = xv[u][j];
 #pragma unroll
         for (int k = 0; k < kPer; ++k) xs[j] += e[k];  // unrounded
 #pragma unroll
@@ -251,9 +328,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
 
-  // the block's sums in warp order (entry i: activation row i / 32,
-  // weight row i % 32; thread i < 8 NT: row i's sum), then the cluster's
-  // in rank order by rank 0
+  // the block's sums in warp order (entry i: activation row m0 + i / 32,
+  // weight row i % 32; thread i < 8 NT: row m0 + i's sum), then the
+  // cluster's in rank order by rank 0
   constexpr int kEntries = 8 * NT * kRows;
   float v[kEntries / kThreads];
 #pragma unroll
@@ -300,19 +377,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < kEntries / kThreads; ++i) {
     const int at = threadIdx.x + i * kThreads;
-    const int m = at / kRows, n = n0 + at % kRows;
+    const int ml = at / kRows, m = m0 + ml, n = n0 + at % kRows;
     if (m < M && n < N)
       y[(size_t)m * N + n] =
-          q_epilogue(v[i], xsum[m], scale[n], zp[n], bias, n, act);
+          q_epilogue(v[i], xsum[ml], qt.s(n), qt.z(n), bias, n, act);
   }
 }
 
-template <int BITS, int NT>
-int launch(const float* x, const uint8_t* q, const float* scale,
-           const float* zp, const float* bias, float* y, int M, int N, int K,
-           int act, int splits, cudaStream_t s) {
+template <int BITS, int NT, bool VEC>
+int launch(const float* x, const uint8_t* q, const QTerms& qt,
+           const float* bias, float* y, int M, int N, int K, int act,
+           int splits, int qw, int xw, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((N + kRows - 1) / kRows * splits));
+  cfg.gridDim = dim3((unsigned)((N + kRows - 1) / kRows * splits),
+                     (unsigned)((M + 8 * NT - 1) / (8 * NT)));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;
@@ -323,34 +401,54 @@ int launch(const float* x, const uint8_t* q, const float* scale,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;  // one block: no cluster
-  cudaError_t e = cudaLaunchKernelEx(&cfg, linear_q_decode_kernel<BITS, NT>,
-                                     x, q, scale, zp, bias, y, M, N, K, act,
-                                     splits);
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, linear_q_mma_kernel<BITS, NT, VEC>, x, q, qt, bias, y, M, N, K,
+      act, splits, qw, xw);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+template <int BITS, bool VEC>
+int launch_rows(const float* x, const uint8_t* q, const QTerms& qt,
+                const float* bias, float* y, int M, int N, int K, int act,
+                int splits, int rows, int qw, int xw, cudaStream_t s) {
+  return rows == 8 ? launch<BITS, 1, VEC>(x, q, qt, bias, y, M, N, K, act,
+                                          splits, qw, xw, s)
+                   : launch<BITS, 2, VEC>(x, q, qt, bias, y, M, N, K, act,
+                                          splits, qw, xw, s);
+}
+
 }  // namespace
 
-// K12 (bits 8) / K13 (bits 4) on the decode route: M <= 16, K a multiple
-// of 16 (int8) or 32 (int4), x and q 16-byte aligned, K split over a
-// cluster of ``splits`` (1..8) blocks.
-int linear_q_decode(const float* x, const uint8_t* q, const float* scale,
-                    const float* zp, const float* bias, float* y, int M,
-                    int N, int K, int bits, int act, int splits,
-                    cudaStream_t s) {
-  if (M > 16 || splits < 1 || splits > kMaxSplits ||
-      K % (bits == 8 ? 16 : 32) || (uintptr_t)x % 16 || (uintptr_t)q % 16)
+// K12 (bits 8) / K13 (bits 4) on the mma.sync kernel: any M in groups of
+// ``rows`` (8 or 16) activation rows, K split over a cluster of
+// ``splits`` (1..8) blocks.  ``decode`` (the decode route) takes only the
+// aligned shapes at M <= 16: K a multiple of 16 (int8) or 32 (int4), x and
+// q 16-byte aligned.  Otherwise any K (even for int4) and any base (x
+// 4-byte aligned).
+int linear_q_mma(const float* x, const uint8_t* q, const QTerms& qt,
+                 const float* bias, float* y, int M, int N, int K, int bits,
+                 int act, int splits, int rows, bool decode,
+                 cudaStream_t s) {
+  if (splits < 1 || splits > kMaxSplits || (rows != 8 && rows != 16) ||
+      (uintptr_t)x % 4)
     return (int)cudaErrorInvalidValue;
+  // the widest loads both the rows' length and the base allow
+  const int row_bytes = K * bits / 8;
+  int qw = 16, xw = 4;
+  while (qw > 1 && (row_bytes % qw || (uintptr_t)q % qw)) qw /= 2;
+  while (xw > 1 && (K % xw || (uintptr_t)x % (4 * xw))) xw /= 2;
+  const bool vec = qw == 16 && xw == 4;
+  if (decode && (M > 16 || !vec)) return (int)cudaErrorInvalidValue;
   if (bits == 8)
-    return M <= 8 ? launch<8, 1>(x, q, scale, zp, bias, y, M, N, K, act,
-                                 splits, s)
-                  : launch<8, 2>(x, q, scale, zp, bias, y, M, N, K, act,
-                                 splits, s);
-  return M <= 8 ? launch<4, 1>(x, q, scale, zp, bias, y, M, N, K, act,
-                               splits, s)
-                : launch<4, 2>(x, q, scale, zp, bias, y, M, N, K, act,
-                               splits, s);
+    return vec ? launch_rows<8, true>(x, q, qt, bias, y, M, N, K, act,
+                                      splits, rows, qw, xw, s)
+               : launch_rows<8, false>(x, q, qt, bias, y, M, N, K, act,
+                                       splits, rows, qw, xw, s);
+  return vec ? launch_rows<4, true>(x, q, qt, bias, y, M, N, K, act, splits,
+                                    rows, qw, xw, s)
+             : launch_rows<4, false>(x, q, qt, bias, y, M, N, K, act, splits,
+                                     rows, qw, xw, s);
 }
 
 }  // namespace taper

@@ -48,28 +48,34 @@
 //     shared memory and a TMA store where the output's rows are whole
 //     16-byte units, else by pairs from the registers.
 //
-// K12 (replaces taper_tpu/ops/pallas/quant.py::_q8_kernel, :41, launched by
-// _linear_q8_jit, at M > 16 where ops/quant.py::plan_q sends it here):
+// K12 and K13 (replace taper_tpu/ops/pallas/quant.py::_q8_kernel, :41,
+// launched by _linear_q8_jit, and _q4_kernel, :159, launched by
+// _linear_q4_jit, at M > 16 where ops/quant.py::plan_q sends them here):
 //   y[m,n] = scale[n] sum_k bf16(x[m,k]) q[n,k] - xsum[m] (scale[n] zp[n])
 //            (+ bias[n]) (+ relu | sigmoid)
-// with the activations rounded to bf16 (quant.py:53), xsum over the unrounded
-// f32 activations (:57) and common.cuh's q_epilogue order of rounded steps
-// (q_affine).  Its bound on the H100 at the W8A8 prefill's M = 4,096: the bf16
-// tensor cores (989 TFLOP/s).  What the design does about that: wgmma
-// multiplies bf16 by bf16, and only its A operand may come from registers,
-// while K12's operands are f32 activations and int8 codes.  So a row pass
-// (rows_kernel) writes bf16 x and the row sums once (6 bytes an element, 0.015
-// ms of bytes at K 2,048, M 4,096), TMA brings bf16 x and the int8 codes into
-// each stage, and the codes are widened into a swizzled bf16 tile of the same
-// stage (exact; no device-memory bytes): half by the producer warpgroup's three
-// idle warps before they complete its "full" barrier, half by the consumer
-// under the previous K tile's wgmma; wgmma then reads both operands from shared
-// memory, as in K1's nt mode.  Measured against it on an H100 (PERF.md): the
-// activations as f32 rounded in registers by the consumers (no row pass, but 4
-// bytes an element from L2 for each column tile, and spilled registers), and
-// the codes widened by the consumers alone; both slower.  The widening's
-// instruction rate and the row pass hold it at 30-38% of the tensor cores'
-// rate, not the MMA.
+// over int8 codes [N, K] or int4 codes packed two to a byte [N, K / 2] (the
+// even element in the low nibble), with the activations rounded to bf16
+// (quant.py:53), xsum over the unrounded f32 activations (:57) and
+// common.cuh's q_epilogue order of rounded steps (q_affine); a per-tensor
+// scale or zero point is read with a stride of 0 (QTerms).  Its bound on the H100 at
+// the W8A8 prefill's M = 4,096: the bf16 tensor cores (989 TFLOP/s).  What
+// the design does about that: wgmma multiplies bf16 by bf16, and only its A
+// operand may come from registers, while K12's and K13's operands are f32
+// activations and integer codes.  So a row pass (rows_kernel) writes bf16 x
+// and the row sums once (6 bytes an element, 0.015 ms of bytes at K 2,048, M
+// 4,096), TMA brings bf16 x and the codes into each stage, and the codes are
+// widened into a swizzled bf16 tile of the same stage (exact; no
+// device-memory bytes), each row in K order: half by the producer
+// warpgroup's three idle warps before they complete its "full" barrier, half
+// by the consumer under the previous K tile's wgmma; wgmma then reads both
+// operands from shared memory, as in K1's nt mode.  The int4 stage holds half
+// the code bytes of the int8 one, so its ring has 5 stages where int8's has
+// 4; the widening writes the same bf16 tile from either.  Measured against it
+// on an H100 (PERF.md): the activations as f32 rounded in registers by the
+// consumers (no row pass, but 4 bytes an element from L2 for each column
+// tile, and spilled registers), and the codes widened by the consumers
+// alone; both slower.  The widening's instruction rate and the row pass hold
+// K12 at 30-38% of the tensor cores' rate, not the MMA.
 #include <algorithm>
 #include <cstring>
 #include <type_traits>
@@ -394,28 +400,41 @@ int launch(const void* xq, const void* q, const float* sx, const float* corr,
 }
 
 
-// ---- K12 on the wgmma route ---------------------------------------------
+// ---- K12 and K13 on the wgmma route -------------------------------------
 
-namespace q8 {
+namespace qlinear {
 
 constexpr int BM = 128, BN = 128, BK = 64;
 // A stage: bf16 x [128, 64] (TMA, 128-byte swizzled), the codes widened
 // to bf16 [128, 64] (the same swizzle, written by the producer's warps
-// 1-3) and the int8 codes [128, 64] (TMA, unswizzled: each widening
-// thread reads 16 bytes, 8 threads a 128-byte run).  Then each consumer's
-// 64 x 64 f32 staging tile, its column terms (scale, zp and the bias of
-// its tile's columns) and the mbarriers.
+// 1-3 and the consumer) and the codes of the K tile (TMA, unswizzled: int8
+// [128, 64 bytes], int4 [128, 32 bytes]; each widening thread reads 16
+// codes, a row's in turn).  Then each consumer's 64 x 64 f32 staging
+// tile, its column terms (scale, zp and the bias of its tile's columns)
+// and the mbarriers.  The ring takes as many stages as fit beside the rest
+// of the 227 KB, at most 5: 4 of int8's 40 KB, 5 of int4's 36 KB.
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BYTES = BN * BK * 2;
-constexpr int Q_BYTES = BN * BK;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES + Q_BYTES;
-constexpr int STAGES = 4;
 constexpr int OUT_BYTES = 64 * 64 * 4;
-constexpr int OUT_OFFSET = STAGES * STAGE_BYTES;
-constexpr int TERMS_OFFSET = OUT_OFFSET + 2 * OUT_BYTES;
-constexpr int BAR_OFFSET = TERMS_OFFSET + 2 * 3 * BN * 4;
-constexpr int SMEM_BYTES = BAR_OFFSET + (3 * STAGES + 2) * 8 + 1024;
-static_assert(SMEM_BYTES <= 232448, "shared memory");
+constexpr int TERMS_BYTES = 2 * 3 * BN * 4;
+constexpr int MAX_STAGES = 5;
+
+template <int BITS>
+struct QLayout {
+  static constexpr int Q_ROW = BK * BITS / 8;  // a code row's K-tile bytes
+  static constexpr int Q_BYTES = BN * Q_ROW;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + Q_BYTES;
+  static constexpr int FIT =
+      (232448 - 1024 - 2 * OUT_BYTES - TERMS_BYTES -
+       (3 * MAX_STAGES + 2) * 8) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int OUT_OFFSET = STAGES * STAGE_BYTES;
+  static constexpr int TERMS_OFFSET = OUT_OFFSET + 2 * OUT_BYTES;
+  static constexpr int BAR_OFFSET = TERMS_OFFSET + TERMS_BYTES;
+  static constexpr int SMEM_BYTES = BAR_OFFSET + (3 * STAGES + 2) * 8 + 1024;
+  static_assert(STAGE_BYTES % 1024 == 0, "stages on the swizzle's period");
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+};
 
 // The row pass: xb = bf16(x) and xsum[m] = the sum of x's row m over the
 // unrounded f32 values (quant.py:57), x read once: one warp a row, 16
@@ -439,20 +458,43 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) xsum[row] = s;
 }
 
-// K12 on the skeleton of hopper.cuh (gemm_pingpong): a work unit is one
-// 128 x 128 output tile of y = bf16(x) q^T (N tiles fastest) over its
-// 64-deep K tiles, taken whole by one consumer (two m64n128k16 wgmma a
-// 16-deep k-step, both operands K-major from shared memory, as K1's nt
-// mode).  Per stage the producer's warps 1-3 widen the first 64 of its
-// 128 code rows into the stage's bf16 tile, and the consumer the other 64
-// of its next stage under the current one's wgmma (WIDEN).
+// Eight int4 codes of a word (element i in bits 4i..4i+3, two's
+// complement) as four bf16 pairs in K order, pair j holding elements 2j
+// (low half) and 2j + 1: each nibble biased to unsigned, the even one as
+// the mantissa of bf16 128 (136 subtracted), the odd one as bits 3-6 of
+// the mantissa of bf16 16 (24 subtracted), both exact.
+__device__ __forceinline__ uint4 widen_nibbles(uint32_t w) {
+  const uint32_t u = w ^ 0x88888888u;
+  const uint32_t bias = 0x41C04308u;  // bf16 24 (high), 136 (low)
+  uint32_t r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t b = u >> (8 * j);
+    uint32_t v = (b & 0x0000000Fu) | ((b << 15) & 0x00780000u) | 0x41804300u;
+    __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+    h = __hsub2(h, *reinterpret_cast<const __nv_bfloat162*>(&bias));
+    r[j] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// K12 (BITS 8) and K13 (BITS 4) on the skeleton of hopper.cuh
+// (gemm_pingpong): a work unit is one 128 x 128 output tile of y = bf16(x)
+// q^T (N tiles fastest) over its 64-deep K tiles, taken whole by one
+// consumer (two m64n128k16 wgmma a 16-deep k-step, both operands K-major
+// from shared memory, as K1's nt mode).  Per stage the producer's warps
+// 1-3 widen the first 64 of its 128 code rows into the stage's bf16 tile,
+// and the consumer the other 64 of its next stage under the current one's
+// wgmma (WIDEN); each widened row holds its K tile in order.
 // The epilogue, y = scale acc - xsum (scale zp) (+ bias) (+ relu |
 // sigmoid), each step rounded (q_affine), goes out by 64 x 64 quarters
 // through the consumer's staging tile and a TMA store (N a multiple of 4).
-struct Q8Work {
-  static constexpr int STAGES = q8::STAGES, STAGE_BYTES = q8::STAGE_BYTES;
-  static constexpr int STAGE_TX = A_BYTES + Q_BYTES;
-  static constexpr int BAR_OFFSET = q8::BAR_OFFSET;
+template <int BITS>
+struct QWork {
+  using L = QLayout<BITS>;
+  static constexpr int STAGES = L::STAGES, STAGE_BYTES = L::STAGE_BYTES;
+  static constexpr int STAGE_TX = A_BYTES + L::Q_BYTES;
+  static constexpr int BAR_OFFSET = L::BAR_OFFSET;
   static constexpr bool WIDEN = true;
   // the widening warps keep their chunks' loads in flight
   static constexpr int PRODUCER_REGS = 96, CONSUMER_REGS = 200;
@@ -461,7 +503,8 @@ struct Q8Work {
   const CUtensorMap* tma_a;
   const CUtensorMap* tma_q;
   const CUtensorMap* tma_y;
-  const float *xsum, *scale, *zp, *bias;
+  const float *xsum, *bias;
+  QTerms qt;
   unsigned char* smem;
   int M, N, act, n_tiles, m_tiles, k_count;
   // the unit's tile; the consumer's row sums of the thread's four rows,
@@ -481,45 +524,58 @@ struct Q8Work {
   }
   __device__ void load(unsigned char* st, uint64_t* bar, int i) const {
     tma_load_2d(st, tma_a, bar, i * BK, m0);
-    tma_load_2d(st + A_BYTES + B_BYTES, tma_q, bar, i * BK, n0);
+    tma_load_2d(st + A_BYTES + B_BYTES, tma_q, bar, i * L::Q_ROW, n0);
   }
   // Part PART of a stage's widening: code rows [0, SPLIT) (part 0, the
-  // producer's) or [SPLIT, 128) (part 1, the consumer's) in 16-byte
-  // chunks, thread t of THREADS taking chunks t + THREADS j, all its loads
-  // in flight before the first is widened; chunk ch of row n is 32 bytes,
-  // 16-byte chunks 2 ch and 2 ch + 1, of the widened row.
+  // producer's) or [SPLIT, 128) (part 1, the consumer's) in chunks of 16
+  // codes (16 bytes of int8, 8 of int4: either way 32 bytes, two 16-byte
+  // units, of the widened row), thread t of THREADS taking chunks t +
+  // THREADS j, all its loads in flight before the first is widened; chunk
+  // ch of a row holds its codes [16 ch, + 16), units 2 ch and 2 ch + 1.
   template <int PART, int THREADS>
   __device__ void widen(unsigned char* st, int t) const {
     constexpr int ROW0 = PART ? SPLIT : 0, ROWS = PART ? BN - SPLIT : SPLIT;
-    constexpr int CHUNKS = ROWS * BK / 16;
+    constexpr int CB = 2 * BITS;         // a chunk's code bytes
+    constexpr int CPR = BK / 16;         // chunks a code row
+    constexpr int CHUNKS = ROWS * CPR;
     constexpr int PER = (CHUNKS + THREADS - 1) / THREADS;
-    const uint32_t qs = smem_u32(st) + A_BYTES + B_BYTES + ROW0 * BK;
+    const uint32_t qs = smem_u32(st) + A_BYTES + B_BYTES + ROW0 * L::Q_ROW;
     const uint32_t wb = smem_u32(st) + A_BYTES;
-    uint4 v[PER];
+    uint32_t v[PER][CB / 4];
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = t + THREADS * j;
-      if (i < CHUNKS)
+      if (i >= CHUNKS) continue;
+      if constexpr (BITS == 8)
         asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(v[j].x), "=r"(v[j].y), "=r"(v[j].z), "=r"(v[j].w)
-                     : "r"(qs + (i / 4) * 64 + (i % 4) * 16));
+                     : "=r"(v[j][0]), "=r"(v[j][1]), "=r"(v[j][2]),
+                       "=r"(v[j][3])
+                     : "r"(qs + i * CB));
+      else
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(v[j][0]), "=r"(v[j][1])
+                     : "r"(qs + i * CB));
     }
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = t + THREADS * j;
       if (i >= CHUNKS) continue;
-      const int n = ROW0 + i / 4, ch = i % 4;
-      const uint2 w0 = widen4(v[j].x), w1 = widen4(v[j].y);
-      const uint2 w2 = widen4(v[j].z), w3 = widen4(v[j].w);
+      const int n = ROW0 + i / CPR, ch = i % CPR;
       const uint32_t row = wb + n * 128;
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       row + (((2 * ch) ^ (n & 7)) << 4)),
-                   "r"(w0.x), "r"(w0.y), "r"(w1.x), "r"(w1.y)
-                   : "memory");
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       row + (((2 * ch + 1) ^ (n & 7)) << 4)),
-                   "r"(w2.x), "r"(w2.y), "r"(w3.x), "r"(w3.y)
-                   : "memory");
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint4 o;
+        if constexpr (BITS == 8) {
+          const uint2 lo = widen4(v[j][2 * h]), hi = widen4(v[j][2 * h + 1]);
+          o = make_uint4(lo.x, lo.y, hi.x, hi.y);
+        } else {
+          o = widen_nibbles(v[j][h]);
+        }
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         row + (((2 * ch + h) ^ (n & 7)) << 4)),
+                     "r"(o.x), "r"(o.y), "r"(o.z), "r"(o.w)
+                     : "memory");
+      }
     }
   }
   __device__ void start(int u, int) {
@@ -534,7 +590,7 @@ struct Q8Work {
       }
     cols[0] = cols[1] = cols[2] = 0.0f;
     if (n0 + t < N) {
-      cols[0] = scale[n0 + t], cols[1] = zp[n0 + t];
+      cols[0] = qt.s(n0 + t), cols[1] = qt.z(n0 + t);
       if (bias != nullptr) cols[2] = bias[n0 + t];
     }
 #pragma unroll
@@ -576,13 +632,14 @@ struct Q8Work {
   __device__ void finish_act(int c) {
     const int t = threadIdx.x % 128, lane = t % 32, r0 = frag_row0();
     float* terms =
-        reinterpret_cast<float*>(smem + TERMS_OFFSET) + c * 3 * BN;
+        reinterpret_cast<float*>(smem + L::TERMS_OFFSET) + c * 3 * BN;
     // the warpgroup's previous epilogue has read the column terms
     named_bar_sync(1 + c, 128);
 #pragma unroll
     for (int i = 0; i < 3; ++i) terms[i * BN + t] = cols[i];
     named_bar_sync(1 + c, 128);
-    float* out = reinterpret_cast<float*>(smem + OUT_OFFSET + c * OUT_BYTES);
+    float* out =
+        reinterpret_cast<float*>(smem + L::OUT_OFFSET + c * OUT_BYTES);
     const bool has_bias = bias != nullptr;
 #pragma unroll
     for (int mh = 0; mh < 2; ++mh)
@@ -625,24 +682,23 @@ struct Q8Work {
   }
 };
 
+template <int BITS>
 __global__ void __launch_bounds__(THREADS, 1)
-    q8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                    const __grid_constant__ CUtensorMap tma_q,
-                    const __grid_constant__ CUtensorMap tma_y,
-                    const float* __restrict__ xsum,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ zp,
-                    const float* __restrict__ bias, int M, int N, int K,
-                    int act) {
+    q_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                   const __grid_constant__ CUtensorMap tma_q,
+                   const __grid_constant__ CUtensorMap tma_y,
+                   const float* __restrict__ xsum, const QTerms qt,
+                   const float* __restrict__ bias, int M, int N, int K,
+                   int act) {
   extern __shared__ unsigned char smem_raw[];
   // stages on 1024-byte boundaries (the swizzle's period)
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  Q8Work w;
+  QWork<BITS> w;
   w.tma_a = &tma_a;
   w.tma_q = &tma_q;
   w.tma_y = &tma_y;
-  w.xsum = xsum, w.scale = scale, w.zp = zp, w.bias = bias;
+  w.xsum = xsum, w.qt = qt, w.bias = bias;
   w.smem = smem;
   w.M = M, w.N = N, w.act = act;
   w.n_tiles = (N + BN - 1) / BN, w.m_tiles = (M + BM - 1) / BM;
@@ -651,9 +707,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ws: bf16 x [M, K], then its row sums [M] (the row pass's output).
-int launch(const float* x, const void* q, const float* scale,
-           const float* zp, const float* bias, float* y, void* ws, int M,
-           int N, int K, int act, cudaStream_t s) {
+template <int BITS>
+int launch(const float* x, const void* q, const QTerms& qt,
+           const float* bias, float* y, void* ws, int M, int N, int K,
+           int act, cudaStream_t s) {
+  using L = QLayout<BITS>;
   auto xb = static_cast<__nv_bfloat16*>(ws);
   auto xsum = reinterpret_cast<float*>(xb + (size_t)M * K);
   rows_kernel<<<(M + 7) / 8, 256, 0, s>>>(x, xb, xsum, M, K);
@@ -663,9 +721,10 @@ int launch(const float* x, const void* q, const float* scale,
   err = tma_desc_bf16(&ta, xb, K, M, BK, BM);
   if (err != 0) return err;
   {
-    // the codes [N, K] in boxes of 128 rows by 64 bytes, unswizzled
-    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N};
-    const uint32_t box[2] = {BK, BN};
+    // the codes [N, K BITS / 8] in boxes of 128 rows by a K tile's bytes,
+    // unswizzled
+    const uint64_t dims[2] = {(uint64_t)K * BITS / 8, (uint64_t)N};
+    const uint32_t box[2] = {L::Q_ROW, BN};
     err = tma_desc(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, q, dims, box,
                    CU_TENSOR_MAP_SWIZZLE_NONE);
   }
@@ -678,18 +737,18 @@ int launch(const float* x, const void* q, const float* scale,
                    CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   if (err != 0) return err;
+  auto kernel = q_wgmma_kernel<BITS>;
   cudaError_t e = cudaFuncSetAttribute(
-      q8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   const int grid = (int)std::min<long long>(tiles, sm_count());
-  q8_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-      ta, tq, ty, xsum, scale, zp, bias, M, N, K, act);
+  kernel<<<grid, THREADS, L::SMEM_BYTES, s>>>(ta, tq, ty, xsum, qt, bias, M,
+                                              N, K, act);
   return (int)cudaGetLastError();
 }
 
-}  // namespace q8
+}  // namespace qlinear
 }  // namespace
 
 // K15 on the wgmma route: ``out`` kOutI32 (K15b, the vectors null) or
@@ -709,15 +768,18 @@ int matmul_int8_wgmma(const void* xq, const void* q, const void* sx,
                          N, K, relu, s);
 }
 
-// K12 on the wgmma route (x f32 [M, K], q int8 [N, K], y f32 [M, N]):
-// K % 16 == 0, N % 4 == 0, 16-byte-aligned x, q and y; ``ws`` holds M K
-// bf16 and M f32 (the row pass's bf16 x and row sums).
-int linear_q8_wgmma(const void* x, const void* q, const void* scale,
-                    const void* zp, const void* bias, void* y, void* ws,
-                    int M, int N, int K, int act, cudaStream_t s) {
+// K12 (bits 8) / K13 (bits 4) on the wgmma route (x f32 [M, K], q int8
+// [N, K] or int4 [N, K / 2], y f32 [M, N]): K % 16 == 0 (int8) or 32
+// (int4), N % 4 == 0, 16-byte-aligned x, q and y; ``ws`` holds M K bf16
+// and M f32 (the row pass's bf16 x and row sums).
+int linear_q_wgmma(const void* x, const void* q, const QTerms& qt,
+                   const void* bias, void* y, void* ws, int M, int N, int K,
+                   int bits, int act, cudaStream_t s) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  return q8::launch(f(x), q, f(scale), f(zp), f(bias), static_cast<float*>(y),
-                    ws, M, N, K, act, s);
+  auto yp = static_cast<float*>(y);
+  if (bits == 8)
+    return qlinear::launch<8>(f(x), q, qt, f(bias), yp, ws, M, N, K, act, s);
+  return qlinear::launch<4>(f(x), q, qt, f(bias), yp, ws, M, N, K, act, s);
 }
 
 }  // namespace taper

@@ -85,8 +85,8 @@ _SIGNATURES = {
     # momentum, wd, stream
     "taper_sgd": [_P] * 4 + [_I] + [_F] * 3 + [_P],
     # x, q, scale, zp, bias, y, workspace, M, N, K, bits (8 or 4), act,
-    # route, stream, splits
-    "taper_linear_q": [_P] * 7 + [_I] * 6 + [_P, _I],
+    # route, stream, splits, rows, scale stride, zp stride, zp int32
+    "taper_linear_q": [_P] * 7 + [_I] * 6 + [_P] + [_I] * 5,
     # x, xq, sx, xsum, M, K, dtype, stream
     "taper_quantize_rows": [_P] * 4 + [_I] * 3 + [_P],
     # xq, q, sx, corr, sw, zw, bias, y, M, N, K, relu, out dtype, route,

@@ -1,8 +1,9 @@
 """Quantized matrix products: port of ``taper_tpu/ops/pallas/quant.py``
 and of the quantized branch of ``taper_tpu/ops/__init__.py::linear``.
 
-Four kernels (``csrc/quant.cu``, ``csrc/quant_sm90.cu``), each with its
-plain PyTorch version beside it:
+Four kernels (``csrc/quant.cu``, ``csrc/quant_sm90.cu``,
+``csrc/quant_decode.cu``), each with its plain PyTorch version beside
+it:
 
 * K12 :func:`linear_q8` (``_q8_kernel``, ``quant.py:41``): int8 weights
   dequantized on load.  With ``w = (q - zp) * scale`` per tensor or per
@@ -19,12 +20,13 @@ plain PyTorch version beside it:
   (``csrc/quant_decode.cu``: swap-AB ``mma.sync`` with the codes widened
   in registers, K split over a cluster of :func:`decode_splits` blocks)
   at decode's M <= 16 where the codes' rows are whole 16-byte units from
-  aligned bases, else ``wmma`` (``csrc/quant.cu``'s WMMA kernel: the odd
-  shapes);
+  aligned bases, else ``mma`` (the same ``mma.sync`` kernel for the odd
+  shapes: loads as wide as the rows allow, a ragged last unit zero-filled,
+  activation rows in groups of :func:`mma_rows`);
 * K13 :func:`linear_q4` (``_q4_kernel``, ``quant.py:159``): the same over
-  int4 codes packed two to a byte ``[N, K/2]`` (K even), on the
-  ``decode`` kernel at M <= 16 (K a multiple of 32, aligned) and the
-  ``wmma`` kernel otherwise;
+  int4 codes packed two to a byte ``[N, K/2]`` (K even), on the same three
+  routes (its codes' rows whole 16-byte units when K is a multiple of
+  32);
 * K14 :func:`quantize_rows` (``_rowquant_kernel``, ``quant.py:460``):
   per-row symmetric activation quantization ``s = max(absmax, 1e-8) /
   127`` (a multiply by the f32 reciprocal, as XLA runs it),
@@ -86,6 +88,25 @@ def _row(v, n: int, device) -> torch.Tensor:
     return v.expand(n).contiguous()
 
 
+def _term(v, n: int, device, dtypes=(torch.float32,)):
+    """A per-tensor scalar or a per-channel ``[n]`` vector as K12's and
+    K13's kernels read it: ``(tensor, stride)``, the stride between
+    channels 0 for one value and 1 for ``[n]``.  Nothing is expanded, and a
+    tensor on ``device`` in one of ``dtypes`` is passed as it is (PTQ's
+    int32 zero point among them where the caller allows it); anything
+    else becomes f32."""
+    v = torch.as_tensor(v, device=device)
+    if v.dtype not in dtypes:
+        v = v.float()
+    v = v.reshape(-1)
+    if v.numel() == 1:
+        return v, 0
+    if v.numel() != n:
+        raise ValueError(f"scale / zero point of {v.numel()} values for "
+                         f"{n} output channels")
+    return v.contiguous(), 1
+
+
 def _check_epilogue(epilogue: str) -> None:
     if epilogue not in ACTIVATIONS:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -119,7 +140,7 @@ def linear_q4_reference(x, packed, scale, zp, b=None, *, n_features: int,
 
 
 # K12's and K13's kernels (codes shared with csrc/quant.cu's Q8Route)
-Q8_ROUTES = {"wgmma": 0, "wmma": 1, "decode": 2}
+Q8_ROUTES = {"wgmma": 0, "mma": 1, "decode": 2}
 # The decode route (M <= ops.gemm.DECODE_ROWS): each rank of its cluster
 # takes at least DECODE_MIN_BYTES of every code row, and a cluster holds
 # at most DECODE_MAX_RANKS (on an H100 at M 8, four ranks ran 15-35%
@@ -130,29 +151,33 @@ DECODE_MAX_RANKS = 2
 
 def plan_q(m: int, n: int, k: int, aligned: bool, bits: int = 8) -> str:
     """K12's (``bits`` 8) or K13's (``bits`` 4) kernel for ``x [m, k] .
-    q [n, k]^T``, a pure function of its arguments:
+    q [n, k]^T``, a pure function of its arguments.  The codes' rows are
+    whole 16-byte units where ``k`` is a multiple of 16 (int8) or 32
+    (int4); ``aligned``: the bases of x and q are 16-byte aligned.
 
-    * ``decode`` at decode's ``m <= 16`` where each thread's 16-byte code
-      loads tile the rows (``k`` a multiple of 16 for int8, 32 for int4)
-      and ``aligned`` (the bases of x and q 16-byte aligned);
-    * ``wgmma`` (K12 only) where ``m > 16``, TMA can read both operands
-      (``k`` a multiple of 16, ``aligned``) and store the f32 output (``n``
-      a multiple of 4: its rows whole 16-byte units; the CNN's 10-way head
-      fails this);
-    * else ``wmma``, the WMMA kernel, which reads and writes any row."""
+    * ``decode`` at decode's ``m <= 16`` with whole units, aligned;
+    * ``wgmma`` where ``m > 16``, TMA can read both operands (whole units,
+      aligned) and store the f32 output (``n`` a multiple of 4: its rows
+      whole 16-byte units; the CNN's 10-way head fails this);
+    * else ``mma``, the ``mma.sync`` kernel of ``decode`` with loads as
+      wide as the rows allow, which reads and writes any row (``k`` even
+      for int4)."""
     if min(m, n, k) <= 0:
         raise ValueError(f"K12: empty product [{m}, {k}] . [{n}, {k}]^T")
     if bits not in (8, 4):
         raise ValueError(f"K12/K13 take 8- or 4-bit codes, got {bits}")
+    whole = k % (128 // bits) == 0 and aligned
     if m <= G.DECODE_ROWS:
-        return "decode" if k % (128 // bits) == 0 and aligned else "wmma"
-    tma = bits == 8 and k % 16 == 0 and n % 4 == 0 and aligned
-    return "wgmma" if tma else "wmma"
+        return "decode" if whole else "mma"
+    return "wgmma" if whole and n % 4 == 0 else "mma"
 
 
 def plan_q_for(x, q, bits: int = 8) -> str:
-    """:func:`plan_q` for K12's (or K13's) operands as given."""
-    return plan_q(x.shape[0], q.shape[0], x.shape[1],
+    """:func:`plan_q` for K12's (or K13's) operands as given: ``q`` the
+    int8 codes ``[N, K]`` or the packed int4 codes (``[N, K/2]`` or
+    flat)."""
+    m, k = x.shape
+    return plan_q(m, q.numel() * 8 // bits // k, k,
                   x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0, bits)
 
 
@@ -165,9 +190,45 @@ def decode_splits(n: int, k: int, bits: int) -> int:
                G.decode_splits(n, k, DECODE_MIN_BYTES * 8 // bits))
 
 
+# The mma.sync kernel's weight rows a block (its two m16 tiles)
+MMA_WEIGHT_ROWS = 32
+
+
+def mma_rows(m: int, n: int) -> int:
+    """The activation rows a block of the ``decode``/``mma`` kernel takes
+    (one n8 tile or two), a pure function of the shape: 8 for ``m <= 8``,
+    16 for ``m <= 16``; above, 16 unless 16-row groups give fewer blocks
+    than the card has SMs, then 8 (the PTQ example's 10-way head, N 10 in
+    one 32-row weight block at M 2,000: 125 blocks of 16 rows, 250 of
+    8).  A block reads its weight rows' codes once for its group."""
+    if m <= 8:
+        return 8
+    if m <= G.DECODE_ROWS:
+        return 16
+    blocks = -(-n // MMA_WEIGHT_ROWS) * -(-m // 16)
+    return 16 if blocks >= G.SMS else 8
+
+
+def q_linear_args(x, q, scale, scale_stride, zp, zp_stride, b, y, ws,
+                  bits, epilogue, route, splits, rows, stream):
+    """The arguments of ``taper_linear_q`` for these tensors, a pure
+    function: pointers (``None`` for a missing bias or workspace), the
+    shape, and the route's codes.  ``scale`` (f32) and ``zp`` (f32 or
+    int32) go as they are, with their strides (0: one value for every
+    channel) and whether ``zp`` is int32."""
+    m, k = x.shape
+    n = y.shape[1]
+    return (x.data_ptr(), q.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k, bits,
+            ACTIVATIONS[epilogue], Q8_ROUTES[route], stream, splits, rows,
+            scale_stride, zp_stride, int(zp.dtype == torch.int32))
+
+
 def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
     """K12 (``bits`` 8) or K13 (``bits`` 4) on the route :func:`plan_q`
-    gives."""
+    gives; a per-tensor scale and zero point reach the kernel as they are
+    (stride 0, PTQ's int32 zero point as int32), with no copy."""
     _check_epilogue(epilogue)
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not [M, {k}]")
@@ -175,22 +236,24 @@ def _q_linear(name, bits, x, q, scale, zp, b, epilogue, n, k):
         raise ValueError(f"{name}: bias {tuple(b.shape)} is not [{n}]")
     backend.refuse_grad(name, x, b)
     dev = x.device
-    scale, zp = _row(scale, n, dev), _row(zp, n, dev)
+    scale, ss = _term(scale, n, dev)
+    zp, zs = _term(zp, n, dev, (torch.float32, torch.int32))
     b = None if b is None else b.float().contiguous()
-    backend.check_kernel_args(name, x, dtypes=(torch.float32,))
-    backend.check_kernel_args(name, q, scale, zp, b)
+    # the routes read any base (plan_q sends misaligned ones to mma)
+    backend.check_kernel_args(name, x, dtypes=(torch.float32,),
+                              aligned=False)
+    backend.check_kernel_args(name, q, scale, zp, b, aligned=False)
     m = x.shape[0]
     route = plan_q_for(x, q, bits)
-    splits = decode_splits(n, k, bits) if route == "decode" else 1
+    splits = (decode_splits(n, k, bits)
+              if route != "wgmma" and m <= G.DECODE_ROWS else 1)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     # the wgmma route's row pass: bf16 x and the row sums
     ws = (torch.empty(m * k * 2 + m * 4, dtype=torch.uint8, device=dev)
           if route == "wgmma" else None)
-    code = _build.library().taper_linear_q(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), zp.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, n, k, bits,
-        ACTIVATIONS[epilogue], Q8_ROUTES[route], _build.stream(x), splits)
+    code = _build.library().taper_linear_q(*q_linear_args(
+        x, q, scale, ss, zp, zs, b, y, ws, bits, epilogue, route, splits,
+        mma_rows(m, n), _build.stream(x)))
     _build.check(code, name)
     backend.count_launch(name)
     backend.count_route(route, name, 1)

@@ -649,11 +649,19 @@ _FAULTS = [
 def _plant(tmp_path, monkeypatch, name, line, fault, what):
     """Rebuilds the kernels from a copy of csrc with ``line`` of ``name``
     replaced by ``fault``."""
+    _plant_lines(tmp_path, monkeypatch, name, [(line, fault)], what)
+
+
+def _plant_lines(tmp_path, monkeypatch, name, lines, what):
+    """Rebuilds the kernels from a copy of csrc with each ``(line,
+    fault)`` of ``lines`` in ``name`` replaced."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     src = (csrc / name).read_text()
-    assert src.count(line) == 1, what
-    (csrc / name).write_text(src.replace(line, fault))
+    for line, fault in lines:
+        assert src.count(line) == 1, what
+        src = src.replace(line, fault)
+    (csrc / name).write_text(src)
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_lib", None)
@@ -1975,18 +1983,19 @@ def test_k12_wgmma_matches_plain(dev, m, n, k, per_channel, symmetric,
 @pytest.mark.parametrize("m,n,k", [(8, 2048, 2056), (16, 512, 4104),
                                    (1, 64, 72), (300, 1024, 1030),
                                    (2000, 10, 64), (64, 130, 256)])
-def test_k12_wmma_route_matches_plain(dev, m, n, k):
+def test_k12_mma_route_matches_plain(dev, m, n, k):
     """K % 16 != 0 (at decode's M <= 16 too) and rows of N f32 that are
-    not whole 16-byte units keep the WMMA kernel."""
+    not whole 16-byte units take the mma route (the decode kernel's
+    register widening, loads as wide as the rows allow, token groups)."""
     gen = torch.Generator().manual_seed(m + n + k)
     qt = _qweight(gen, n, k, 8, True, False).to(dev)
     x = _randn(gen, m, k).to(dev)
     b = _randn(gen, n, scale=0.1).to(dev)
-    assert Q.plan_q_for(x, qt.values) == "wmma"
+    assert Q.plan_q_for(x, qt.values) == "mma"
     backend.reset_launch_counts()
     y = Q.linear_q8(x, qt.values, qt.scale, qt.zero_point, b)
     torch.cuda.synchronize()
-    assert backend.route_counts() == {"wmma linear_q8": 1}
+    assert backend.route_counts() == {"mma linear_q8": 1}
     ref = Q.linear_q8_reference(x, qt.values, qt.scale, qt.zero_point, b)
     torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
 
@@ -1995,7 +2004,7 @@ def test_k12_wmma_route_matches_plain(dev, m, n, k):
                                    (4096, 2048, 2048), (2000, 1028, 528)])
 def test_k12_routes_are_bitwise_repeatable(dev, m, n, k):
     """Each K12 kernel sums in a fixed order: two calls give the same
-    bits, on wmma and on wgmma."""
+    bits, on mma and on wgmma."""
     gen = torch.Generator().manual_seed(m + n + k)
     qt = _qweight(gen, n, k, 8, False, False).to(dev)
     x = _randn(gen, m, k).to(dev)
@@ -2077,19 +2086,184 @@ def test_k12_k13_decode_at_every_cluster_size(dev, monkeypatch, bits, m,
 
 @pytest.mark.parametrize("m,n,k", [(8, 2048, 2064), (16, 512, 2056),
                                    (1, 40, 18)])
-def test_k13_ragged_keeps_wmma(dev, m, n, k):
-    """K13 at decode's M with K % 32 != 0 takes the WMMA kernel."""
+def test_k13_ragged_takes_mma(dev, m, n, k):
+    """K13 at decode's M with K % 32 != 0 takes the mma route."""
     gen = torch.Generator().manual_seed(m + n + k)
     qt = _qweight(gen, n, k, 4, True, False).to(dev)
     x = _randn(gen, m, k).to(dev)
-    assert Q.plan_q_for(x, qt.values, 4) == "wmma"
+    assert Q.plan_q_for(x, qt.values, 4) == "mma"
     backend.reset_launch_counts()
     y = Q.linear_q4(x, qt.values, qt.scale, qt.zero_point, n_features=k)
     torch.cuda.synchronize()
-    assert backend.route_counts() == {"wmma linear_q4": 1}
+    assert backend.route_counts() == {"mma linear_q4": 1}
     ref = Q.linear_q4_reference(x, qt.values, qt.scale, qt.zero_point,
                                 n_features=k)
     torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+def _q_call(bits, x, qt, b=None, act="none", k=None):
+    """K12 or K13 and its plain version on the same operands."""
+    args = (x, qt.values, qt.scale, qt.zero_point, b)
+    if bits == 8:
+        return (Q.linear_q8(*args, epilogue=act),
+                Q.linear_q8_reference(*args, act))
+    return (Q.linear_q4(*args, n_features=k, epilogue=act),
+            Q.linear_q4_reference(*args, n_features=k, epilogue=act))
+
+
+# K13 on wgmma at its edges: M one past decode's, and a 128-row tile
+# less one and plus one; N of one 16-byte output unit and one past a
+# 128-column tile; K of one 32-code unit and 2,080 (65 units, a ragged
+# 64-deep K tile); then phase 18's three shapes at M 4,096
+_K13_WGMMA = ([(m, n, k) for m in (17, 63, 129) for n in (4, 132)
+               for k in (32, 2080)]
+              + [(4096, 2048, 2048), (4096, 8192, 2048), (4096, 2048, 8192)])
+
+
+@pytest.mark.parametrize("per_channel,symmetric,bias,act", _K12_TERMS)
+@pytest.mark.parametrize("m,n,k", _K13_WGMMA)
+def test_k13_wgmma_matches_plain(dev, m, n, k, per_channel, symmetric,
+                                 bias, act):
+    """K13 on the wgmma kernel (the row pass, then bf16 wgmma with the
+    nibbles widened in shared memory in K order) against the plain
+    version, each epilogue, per-tensor and per-channel scale and zero
+    point, at 2e-4 (1 + |ref|), counted by route."""
+    gen = torch.Generator().manual_seed(m + n + k + 4)
+    qt = _qweight(gen, n, k, 4, per_channel, symmetric).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev) if bias else None
+    assert Q.plan_q_for(x, qt.values, 4) == "wgmma"
+    backend.reset_launch_counts()
+    y, ref = _q_call(4, x, qt, b, act, k)
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["linear_q4"] == 1
+    assert backend.route_counts() == {"wgmma linear_q4": 1}
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+# every ragged tail: int8 K % 16 in 1..15, int4 K % 32 in 2..30
+_TAILS = ([(8, r) for r in range(1, 16)] + [(4, r) for r in range(2, 32, 2)])
+
+
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("bits,r", _TAILS)
+def test_k12_k13_every_ragged_tail_matches_plain(dev, bits, r, m):
+    """A ragged last 16-byte unit of the codes (and of the activations) is
+    read as zeros past K, at decode's M and at M > 16, on the mma route;
+    a zero point of 7, so that a wrong row sum moves its term."""
+    k, n = 1024 + r, 96
+    gen = torch.Generator().manual_seed(k * bits + m)
+    qt = _qweight(gen, n, k, bits, m > 16, False).to(dev)
+    qt.zero_point = torch.full_like(qt.zero_point, 7.0)
+    x = _randn(gen, m, k).to(dev)
+    b = _randn(gen, n, scale=0.1).to(dev)
+    assert Q.plan_q_for(x, qt.values, bits) == "mma"
+    backend.reset_launch_counts()
+    y, ref = _q_call(bits, x, qt, b, "relu", k)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"mma linear_q{bits}": 1}
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+def _offset(t, off):
+    """A copy of ``t`` whose base lies ``off`` bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    nb = t.numel() * t.element_size()
+    buf = torch.empty(off + nb + 16, dtype=torch.uint8, device=t.device)
+    assert buf.data_ptr() % 16 == 0
+    out = buf[off:off + nb].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("what,off", [("q", o) for o in range(1, 16)]
+                         + [("x", o) for o in (4, 8, 12)])
+def test_k12_k13_misaligned_bases_match_plain(dev, what, off, bits, m):
+    """Codes 1..15 bytes off a 16-byte boundary, and f32 activations 4, 8
+    and 12 bytes off (the offsets an f32 tensor can have), on the mma
+    route at decode's M and at M > 16 (narrower loads, the same sums)."""
+    n, k = 72, 512
+    gen = torch.Generator().manual_seed(off * 3 + bits + m)
+    qt = _qweight(gen, n, k, bits, False, False).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    if what == "q":
+        qt.values = _offset(qt.values, off)
+    else:
+        x = _offset(x, off)
+    assert Q.plan_q_for(x, qt.values, bits) == "mma"
+    backend.reset_launch_counts()
+    y, ref = _q_call(bits, x, qt, None, "sigmoid", k)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {f"mma linear_q{bits}": 1}
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_k12_k13_large_odd_shape_matches_plain(dev, bits):
+    """An odd shape on no path, K 2,050 at M 4,096 (N 2,048), on the mma
+    route: 256 token groups of 16 rows over 64 weight blocks."""
+    m, n, k = 4096, 2048, 2050
+    gen = torch.Generator().manual_seed(bits)
+    qt = _qweight(gen, n, k, bits, True, False).to(dev)
+    x = _randn(gen, m, k).to(dev)
+    assert Q.plan_q_for(x, qt.values, bits) == "mma"
+    assert Q.mma_rows(m, n) == 16
+    y, ref = _q_call(bits, x, qt, None, "none", k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+def _q_err(y, ref):
+    return float(((y - ref).abs() / (1 + ref.abs())).max())
+
+
+# Faults planted in K13's and the mma route's code widening and tail:
+# (what, file, [(the line as it is, the line with the fault)], bits, (M, N,
+# K)): K13 on wgmma with each byte's two nibbles exchanged, or read
+# unsigned (the sign extension dropped); the mma route with the
+# activations' ragged last unit read past K (its codes stay zero, so the
+# row sum, and through it the zero point's term, goes wrong)
+_Q_FAULTS = [
+    ("K13 wgmma swaps each byte's nibbles", "quant_sm90.cu",
+     [("    const uint32_t b = u >> (8 * j);",
+       "    const uint32_t b = ((u >> (8 * j + 4)) & 0xFu) | "
+       "(((u >> (8 * j)) & 0xFu) << 4);")], 4, (64, 128, 256)),
+    ("K13 wgmma drops the nibbles' sign extension", "quant_sm90.cu",
+     [("  const uint32_t u = w ^ 0x88888888u;", "  const uint32_t u = w;"),
+      ("  const uint32_t bias = 0x41C04308u;  // bf16 24 (high), 136 (low)",
+       "  const uint32_t bias = 0x41804300u;")], 4, (64, 128, 256)),
+    ("the mma route reads the activations' tail past K", "quant_decode.cu",
+     [("      if (4 * v < valid) {", "      if (true) {")], 8,
+     (8, 256, 1032)),
+]
+
+
+@pytest.mark.parametrize("what,name,lines,bits,shape", _Q_FAULTS,
+                         ids=[f[0] for f in _Q_FAULTS])
+def test_k13_and_mma_check_catches_a_planted_fault(dev, tmp_path,
+                                                   monkeypatch, what, name,
+                                                   lines, bits, shape):
+    """The K12/K13 check (2e-4 (1 + |ref|)) fails a kernel built with its
+    nibbles swapped, their sign dropped, or a ragged tail not zeroed; the
+    kernels are rebuilt from a copy of csrc with the fault in it.  The
+    activations lie in a larger buffer, so a read past K stays inside
+    it."""
+    _plant_lines(tmp_path, monkeypatch, name, lines, what)
+    m, n, k = shape
+    gen = torch.Generator().manual_seed(7)
+    qt = _qweight(gen, n, k, bits, False, False).to(dev)
+    qt.zero_point = torch.full_like(qt.zero_point, 20.0)
+    buf = _randn(gen, m * k + 64).to(dev)
+    x = buf[:m * k].view(m, k)
+    route = Q.plan_q_for(x, qt.values, bits)
+    assert route == ("wgmma" if bits == 4 else "mma"), route
+    y, ref = _q_call(bits, x, qt, None, "none", k)
+    torch.cuda.synchronize()
+    print(f"{what}: K12/K13's check {_q_err(y, ref):.3e} (held to 2e-4)")
+    assert _q_err(y, ref) > 2e-4, what
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

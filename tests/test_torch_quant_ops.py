@@ -93,7 +93,8 @@ def test_linear_q8_plain_matches_jax(m, n, k, per_channel, symmetric, bias,
 
 
 @pytest.mark.parametrize("per_channel,symmetric,bias,epilogue", CASES)
-@pytest.mark.parametrize("m,n,k", [(8, 40, 300), (3, 17, 512)])
+@pytest.mark.parametrize("m,n,k", [(8, 40, 300), (3, 17, 512),
+                                   (20, 130, 64), (64, 96, 256)])
 def test_linear_q4_plain_matches_jax(m, n, k, per_channel, symmetric, bias,
                                      epilogue):
     jq, tq = _weight(n, k, 4, per_channel, symmetric, m + n + 1)

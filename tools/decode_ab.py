@@ -12,10 +12,15 @@ int8 pools with their scales (bf16 q); at serving's mix (16 slots of
 33..640 positions, bf16, phase 3's pools); and at the quantized model's
 f32 shape (8 rows, G 4 on 4 KV heads, 9..208 positions, f32 q over int8
 pools).  K12 and K13 at decode's M 8 on the quantized model's
-projections (dim 2,048: N = K = 2,048; N 512; N 8,192; K 8,192), per
-tensor scale and zero point and a bias.  It calls only
-``paged_decode_attention``, ``linear_q8`` and ``linear_q4``, which every
-version of the port with the int8 KV cache has.  ``--only`` keeps the
+projections (dim 2,048: N = K = 2,048; N 512; N 8,192; K 8,192), scale
+and zero point as [N] vectors and a bias, and at N = K = 2,048 with a
+per-tensor scale and zero point (0-d tensors, as PTQ stores them: "pt").
+Then phase 17's decode step ("step int8", "step int4": chip_smoke's
+quantized model, 4 steps at 8 rows profiled by its ``qserve_profile``):
+device busy ms a step, device ops a step, the glue's ms and K12/K13's.
+It calls only ``paged_decode_attention``, ``linear_q8`` and
+``linear_q4``, which every version of the port with the int8 KV cache
+has.  ``--only`` keeps the
 shapes whose label starts with one of the given words (``--only paged``
 times K16 alone).  ``--set`` overrides a constant of the split plans
 before the first call (a sweep needs no rebuild): ``SPLIT_WAVES`` and
@@ -66,11 +71,13 @@ PAGED = [(f"paged {kind} {'int8' if quant else 'bf16'}", BF, quant, lens)
          for kind, lens in (("mixed", [SHORT, LONG] * (B // 2)),
                             ("long", [LONG] * B))
          for quant in (False, True)]
-# (label, N, K, bits)
-QDECODE = [(f"q{bits} M=8 (N,K)=({n},{k})", n, k, bits)
-           for bits in (8, 4)
-           for n, k in ((2048, 2048), (512, 2048), (8192, 2048),
-                        (2048, 8192))]
+# (label, N, K, bits, per-tensor scale and zero point)
+QDECODE = ([(f"q{bits} M=8 (N,K)=({n},{k})", n, k, bits, False)
+            for bits in (8, 4)
+            for n, k in ((2048, 2048), (512, 2048), (8192, 2048),
+                         (2048, 8192))]
+           + [(f"q{bits} M=8 (N,K)=(2048,2048) pt", 2048, 2048, bits, True)
+              for bits in (8, 4)])
 
 
 # the constants --set may override, by the module that reads them
@@ -134,6 +141,28 @@ def paged_ms(label, q, kp, vp, tables, lengths, sc):
         return [round(C.cuda_ms(call, sets), 4) for _ in range(3)]
 
 
+def step_profile(bits, ms):
+    """Phase 17's decode step of the int8 or int4 model, profiled by the
+    checkout's own ``qserve_profile`` (4 steps at 8 rows)."""
+    name = f"int{bits}"
+    model = C.TinyGPT(**C.QSERVE)
+    model.reset_parameters(torch.Generator().manual_seed(C.SEED))
+    model.eval()
+    cfg = (C.QuantizationConfig.int8() if bits == 8
+           else C.QuantizationConfig.int4())
+    card = C.restore_f32(C.quantize_params(model, cfg), model,
+                         ("tok.w", "pos.w")).cuda()
+    del model
+    prof = C.qserve_profile(card, "cuda", name, [None] * C.QSERVE_REQUESTS)
+    ms[f"step {name} busy"] = [round(prof["busy_ms"], 4)]
+    ms[f"step {name} device ops"] = [prof["device_ops"]]
+    ms[f"step {name} glue"] = [round(prof["ms"].get("glue", 0.0), 4)]
+    ms[f"step {name} K12/K13"] = [round(sum(
+        v for f, v in prof["ms"].items() if "K12" in f or "K13" in f), 4)]
+    del card
+    torch.cuda.empty_cache()
+
+
 def main():
     _build.library()
     gen = torch.Generator().manual_seed(C.SEED)
@@ -172,7 +201,7 @@ def main():
             torch.tensor(lens, dtype=torch.int32).cuda(), sc)
         del kp, vp, sc
         torch.cuda.empty_cache()
-    for label, n, k, bits in QDECODE:
+    for label, n, k, bits, pt in QDECODE:
         if not keep(label):
             continue
 
@@ -184,8 +213,9 @@ def main():
             else:
                 q = torch.randint(0, 256, (n, k // 2), generator=gen,
                                   dtype=torch.uint8).cuda()
-            return (x, q, torch.full((n,), 2e-4).cuda(),
-                    torch.full((n,), -3.0).cuda(),
+            shape = () if pt else (n,)
+            return (x, q, torch.full(shape, 2e-4).cuda(),
+                    torch.full(shape, -3.0).cuda(),
                     (torch.randn(n, generator=gen) * 0.1).cuda())
         first = make()
         sets = [first] + [make() for _ in range(C.copies_for(*first) - 1)]
@@ -196,6 +226,9 @@ def main():
         ms[label] = [round(C.cuda_ms(fn, sets), 4) for _ in range(3)]
         del sets, first
         torch.cuda.empty_cache()
+    for bits in (8, 4):
+        if keep(f"step int{bits}"):
+            step_profile(bits, ms)
     print(json.dumps({"root": str(ROOT),
                       "device": torch.cuda.get_device_name(0),
                       "set": SET, "plan": PLAN, "ms": ms}), flush=True)

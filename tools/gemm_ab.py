@@ -16,17 +16,23 @@ route); and K15b (``matmul_int8``, int32 out) and K15a
 (``matmul_int8_scaled``, bf16 out with a bias) at the W8A8 prefill's
 three shapes (M 4,096; (N, K) = (2,048, 2,048), (8,192, 2,048), (2,048,
 8,192)) and at K 2,050 (no TMA: the mma route); and K12 (``linear_q8``,
-f32 activations, int8 codes, f32 out with a bias) at the same three
-shapes, on the kernel its checkout picks ("K12"), then phase 18's K12
-forward (chip_smoke's W8A8 model through K12,
-TAPER_W8A8=0: ms a forward by the host clock, and its device busy ms and
-K12's share of them from a profile of two forwards).  It calls only
-``linear(x, w, b)``, ``gemm(a, b, mode)``, ``matmul_int8(xq, q)``,
-``matmul_int8_scaled(...)`` and ``linear_q8(...)``, which every version of
-the port with the quantized kernels has.  ``--only`` keeps the shapes
-whose label starts with one of the given words (``--only serve`` times
-the serving shapes alone, ``--only realign int8`` the realign route and
-K15, ``--only q8`` K12).
+f32 activations, int8 codes, f32 out with a bias) and K13 (``linear_q4``,
+int4 codes) at the same three shapes, on the kernel its checkout picks
+("K12", "K13"); the odd shapes of K12/K13 (the PTQ example's 10-way head
+at M 2,000, its FC layer's shape in int4, ragged K at M 8 and 4,096, and
+codes 1 byte off at M 4,096: "odd", timed where the checkout takes them,
+"refused" where it raises); then phase 18's K12 and K13 forwards
+(chip_smoke's W8A8 model, int8 through K12 with TAPER_W8A8=0, and the
+same dense weights in int4 through K13: ms a forward by the host clock,
+and its device busy ms and K12's or K13's share of them from a profile of
+two forwards).  It calls only ``linear(x, w, b)``, ``gemm(a, b, mode)``,
+``matmul_int8(xq, q)``, ``matmul_int8_scaled(...)``, ``linear_q8(...)``
+and ``linear_q4(...)``, which every version of the port with the
+quantized kernels has.  ``--only`` keeps the shapes whose label starts
+with one of the given words (``--only serve`` times the serving shapes
+alone, ``--only realign int8`` the realign route and K15, ``--only q8``
+K12 and its forward, ``--only q4`` K13 and its forward, ``--only odd``
+the odd shapes).
 
 CHECKOUT (default: this one) is the root of a checkout of the repository
 (for example a parent commit unpacked with ``git archive`` into a
@@ -58,7 +64,7 @@ import chip_smoke as C  # noqa: E402
 from taper_tpu_torch.ops import _build  # noqa: E402
 from taper_tpu_torch.ops.gemm import gemm, linear  # noqa: E402
 from taper_tpu_torch.ops.quant import (  # noqa: E402
-    linear_q8, matmul_int8, matmul_int8_scaled)
+    linear_q4, linear_q8, matmul_int8, matmul_int8_scaled)
 
 BF, F32 = torch.bfloat16, torch.float32
 E, SORT_E = 1024, 128
@@ -82,9 +88,17 @@ SHAPES = (
 INT8_SHAPES = [(f"int8 M=4096 (N,K)=({n},{k})", 4096, n, k)
                for n, k in ((2048, 2048), (8192, 2048), (2048, 8192),
                             (2048, 2050))]
-# K12: (label, M, N, K)
-Q8_SHAPES = [(f"q8 M=4096 (N,K)=({n},{k})", 4096, n, k)
+# K12 and K13: (label, bits, M, N, K, the codes' offset in bytes)
+Q_SHAPES = ([(f"q{b} M=4096 (N,K)=({n},{k})", b, 4096, n, k, 0)
+             for b in (8, 4)
              for n, k in ((2048, 2048), (8192, 2048), (2048, 8192))]
+            + [("odd q8 PTQ head M=2000 (N,K)=(10,64)", 8, 2000, 10, 64, 0),
+               ("odd q4 M=2000 (N,K)=(128,128)", 4, 2000, 128, 128, 0)]
+            + [(f"odd q{b} ragged M={m} (N,K)=(2048,{k})", b, m, 2048, k, 0)
+               for b, m, k in ((8, 8, 2056), (4, 8, 2064), (8, 4096, 2050),
+                               (4, 4096, 2050))]
+            + [(f"odd q{b} q 1 byte off M=4096 (N,K)=(2048,2048)", b, 4096,
+                2048, 2048, 1) for b in (8, 4)])
 
 
 def operands(dtype, t, k_in, n_out, mode, gen):
@@ -119,25 +133,36 @@ def k15a(xq, q, sx, corr, sw, zw, bias):
                               out_dtype=torch.bfloat16)
 
 
-def q8_operands(m, n, k, gen):
-    """f32 activations, per-tensor int8 codes (as PTQ makes them), their
-    scale and zero point, and a bias, on the card."""
+def q_operands(bits, m, n, k, off, gen):
+    """f32 activations, random int8 codes [N, K] or packed int4 codes [N K
+    / 2] (``off`` bytes off the 16-byte grid), a per-channel scale and
+    zero point as [N] vectors (every version passes them as they are),
+    and a bias, on the card."""
     x = torch.randn(m, k, generator=gen, device="cuda")
-    q = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
-                      dtype=torch.int8)
+    if bits == 8:
+        q = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        q = torch.randint(0, 256, (n * k // 2,), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    if off:
+        q = C.misaligned(q, off)
     scale = torch.full((n,), 2e-4, device="cuda")
     zp = torch.full((n,), -3.0, device="cuda")
     return x, q, scale, zp, torch.randn(n, generator=gen, device="cuda") * 0.1
 
 
-def q8_forward():
-    """Phase 18's K12 forward: ms a forward by the host clock, three
-    times, and the device busy ms and K12's ms of a profiled forward."""
+def q_forward(bits):
+    """Phase 18's K12 (``bits`` 8) or K13 (4) forward: ms a forward by the
+    host clock, three times, and the device busy ms and K12's or K13's ms
+    of a profiled forward (the families whose names hold "K12" or
+    "K13")."""
     gen = torch.Generator().manual_seed(C.SEED)
     dense = C.TinyGPT(**C.W8A8, compute_dtype=BF)
     dense.reset_parameters(gen)
-    qmodel = C.quantize_params(
-        dense, C.QuantizationConfig(qtype=C.QuantizationType.INT8)).cuda()
+    qmodel = C.quantize_params(dense, C.QuantizationConfig(
+        qtype=C.QuantizationType.INT8 if bits == 8
+        else C.QuantizationType.INT4)).cuda()
     del dense
     toks = torch.randint(0, C.W8A8["vocab_size"],
                          (C.W8A8_BATCH, C.W8A8["max_seq"]),
@@ -149,8 +174,9 @@ def q8_forward():
         with torch.no_grad():
             qmodel(toks)
     prof = C.profile_steps(forward, 2, C.W8A8_FAMILIES)
-    k12 = sum(v for f, v in prof["ms"].items() if f.startswith("K12"))
-    return wall, round(prof["busy_ms"], 4), round(k12, 4)
+    key = "K12" if bits == 8 else "K13"
+    mine = sum(v for f, v in prof["ms"].items() if key in f)
+    return wall, round(prof["busy_ms"], 4), round(mine, 4)
 
 
 def main():
@@ -181,19 +207,33 @@ def main():
             del sets
         del args
         torch.cuda.empty_cache()
-    for label, m, n, k in Q8_SHAPES:
+    for label, bits, m, n, k, off in Q_SHAPES:
         if OPTS.only and not any(label.startswith(w) for w in OPTS.only):
             continue
-        sets = C.cold_sets(*q8_operands(m, n, k, gen))
-        ms[f"{label} K12"] = [round(C.cuda_ms(linear_q8, sets), 4)
-                              for _ in range(3)]
-        del sets
+        args = q_operands(bits, m, n, k, off, gen)
+        sets = [args] + [tuple(t.clone() for t in args)
+                         for _ in range(C.copies_for(*args) - 1)]
+        if off:   # each copy's codes off the grid too
+            sets = [args] + [a[:1] + (C.misaligned(a[1], off),) + a[2:]
+                             for a in sets[1:]]
+        fn = linear_q8 if bits == 8 else (
+            lambda x, q, s, z, b, k=k: linear_q4(x, q, s, z, b, n_features=k))
+        name = f"{label} K1{2 if bits == 8 else 3}"
+        try:
+            fn(*sets[0])
+        except ValueError as e:   # a checkout whose K12/K13 refuse it
+            ms[name] = f"refused: {e}"
+            continue
+        ms[name] = [round(C.cuda_ms(fn, sets), 4) for _ in range(3)]
+        del sets, args
         torch.cuda.empty_cache()
-    if not OPTS.only or any("q8 forward".startswith(w) for w in OPTS.only):
-        wall, busy, k12 = q8_forward()
-        ms["q8 forward"] = wall
-        ms["q8 forward busy"] = [busy]
-        ms["q8 forward K12"] = [k12]
+    for bits in (8, 4):
+        label = f"q{bits} forward"
+        if not OPTS.only or any(label.startswith(w) for w in OPTS.only):
+            wall, busy, mine = q_forward(bits)
+            ms[label] = wall
+            ms[f"{label} busy"] = [busy]
+            ms[f"{label} K1{2 if bits == 8 else 3}"] = [mine]
     print(json.dumps({"root": str(ROOT),
                       "device": torch.cuda.get_device_name(0),
                       "ms": ms}), flush=True)
