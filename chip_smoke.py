@@ -9,7 +9,10 @@ dequant-on-load, W8A8 prefill, examples/ptq_quantize.py), int8 KV caches
 and the contiguous-cache engine (bench.py's bench_paged_decode), the
 Trainer's checkpoints, and sliding-window and packed-sequence attention
 (training a windowed model and bench_packing's packed batches, decoding
-through ring caches, the opt-in backwards K10 and K11).
+through ring caches, the opt-in backwards K10 and K11), and the rest of
+the training step (the fused vocab-chunked loss at 16 x 2048 with remat,
+dropout and the training helpers; an MoE model; Lion, Muon and
+Adafactor).
 
     python3 chip_smoke.py
 
@@ -73,7 +76,10 @@ non-zero):
  12. the sort task at examples/train_tinylm.py's defaults in f32: its
      kernels against their plain versions at the task's shapes, then 600
      steps through the example's step function; the teacher-forced eval
-     accuracy must reach 0.9, with exact launch counts per step;
+     accuracy must reach 0.9, with exact launch counts per step; then
+     SORT_SHORT steps each through the example with --opt lion, --opt
+     muon, --opt adafactor and --experts 4, each loss falling, with exact
+     launch counts per step;
  13. the elementwise kernel K2 (relu at ResNet-8's three activation
      shapes, each other op once) and the SGD update K17b (over the XOR
      model's and ResNet-8's parameters) against their plain versions,
@@ -189,7 +195,27 @@ non-zero):
      own f32 result cast to bf16; split-K calls (bf16 wgmma, f32) give the
      same bits twice; the realign route timed at a K of 1,001 (no TMA) in
      each mode and at a view 2 bytes off an aligned base, F.linear beside
-     it.
+     it;
+ 30. (run right after phase 28) the 170M model at 16 x 2048, past JAX's
+     naive-loss limit, so through the fused vocab-chunked loss, with
+     remat, dropout 0.1, z-loss, AdamW, clip_grad_norm, WarmupCosineLR
+     and an EMA: the fused loss op and the model's fused loss and
+     gradients against the naive branch on the card (dropout off), a
+     plain step's ms and peak memory with each branch at 8 x 2048 and 16
+     x 2048, then the timed run (ms/step, tokens/s, MFU, peak memory
+     under the same step without remat, exact launches and K1/flash
+     routes a step with remat's recompute), K17a's AdamW row, a profile
+     of 2 steps;
+ 31. every FFN of the 170M model an 8-expert top-2 MoE at capacity factor
+     1.25 (benchmarks/bench_moe.py's routing), batch 8 x 2048, Adam: K1 at
+     the experts' M of 5,120 against its plain version, one MoE layer
+     sparse with nothing dropped against dense at 1 x 2048, the
+     dropped-slot share,
+     the timed run with exact launches and K1 calls by route, a profile
+     of 2 steps;
+ 32. the 170M model at 8 x 2048 through Lion, Muon and Adafactor: a few
+     steps each, losses finite, exact launches (no K17), Muon's
+     Newton-Schulz time beside its step's.
 Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
@@ -223,13 +249,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from taper_tpu_torch import optim
+from taper_tpu_torch import losses, optim
 from taper_tpu_torch.data import (
     CIFAR10Dataset, MNISTDataset, pack_documents, packing_efficiency)
 from taper_tpu_torch.examples import (
     ptq_quantize, train_cifar10_resnet, train_mnist, train_tinylm, train_xor)
 from taper_tpu_torch.models import (
     TinyGPT, mnist_cnn, mnist_mlp, resnet8, xor_mlp)
+from taper_tpu_torch.models.transformer import FUSED_CHUNK, NAIVE_LOSS_MAX
+from taper_tpu_torch.nn import transformer as NT
+from taper_tpu_torch.nn.transformer import moe_capacity
 from taper_tpu_torch.ops import _build, backend
 from taper_tpu_torch.ops import conv_direct as CD
 from taper_tpu_torch.ops import elementwise as EW
@@ -1831,6 +1860,32 @@ def phase12_sort_task(dev, smi):
     assert per_step(routes, args.steps) == flash_routes(
         args.depth, torch.float32, "causal"), routes
     assert accs[-1] >= SORT_MIN_ACC, accs
+    # short runs through the example's other optimizers and its dense MoE
+    for extra, want in ((["--opt", "lion"], SORT_OPTS_PER_STEP),
+                        (["--opt", "muon"], SORT_OPTS_PER_STEP),
+                        (["--opt", "adafactor"], SORT_OPTS_PER_STEP),
+                        (["--experts", "4"], SORT_MOE_PER_STEP)):
+        args = train_tinylm.parse_args(["--device", "cuda", *extra])
+        model, opt = train_tinylm.build(args)
+        step = train_tinylm.make_step(
+            model, opt, args, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses_ = torch.stack([step()[0] for _ in range(SORT_SHORT)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = backend.launch_counts()
+        for k, c in counts.items():
+            totals[k] += c
+        first, last = (float(losses_[:20].mean()), float(losses_[-20:].mean()))
+        print(f"phase 12: sort task through train_tinylm {' '.join(extra)} "
+              f"(lr {train_tinylm.LR_DEFAULTS[args.opt]}): {SORT_SHORT} "
+              f"steps in {wall:.2f} s, mean loss of the first 20 steps "
+              f"{first:.4f}, of the last 20 {last:.4f}; launches per step "
+              f"{per_step(counts, SORT_SHORT)}")
+        assert torch.isfinite(losses_).all() and last < first, losses_
+        assert per_step(counts, SORT_SHORT) == want, counts
     return totals, rows
 
 
@@ -2323,9 +2378,11 @@ def per_tensor_uncopied(name, kern, args):
 
 def phase16_quant_kernels(dev):
     """K12, K13, K14, K15a/b against their plain versions at the shapes of
-    phases 17-19, K12/K13 on their wmma route (ragged K at decode's M,
-    K13 at M > 16) and K15a/b on their mma route, with the bound and the
-    library call where one exists."""
+    phases 17-19, each K12/K13 row on the route ``ops.quant.plan_q`` names
+    (``decode`` at decode's M, ``wgmma`` at M 4,096 and at the FC layers'
+    M of 2,000 with N 128 and 64, ``mma`` for the 10-way head, ragged K
+    and codes off the grid) and K15a/b on their ``mma`` route, with the
+    bound and the library call where one exists."""
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
 
@@ -4081,6 +4138,437 @@ def phase28_fused_backward(dev, smi, lm):
     return counts["K10"], dict(step_ms=ms, winner=winner)
 
 
+# -- the rest of the training step: fused loss, remat, dropout, MoE, the
+# other optimizers (phases 30-32) ---------------------------------------------
+
+# Phase 30: the 170M model at batch 16 x 2048, past JAX's naive-loss limit
+# (B S V = 2^29 > 2^28), so TinyGPT.loss takes the fused vocab-chunked
+# loss; remat, dropout 0.1, z-loss 1e-4, AdamW with clip_grad_norm(1.0)
+# and a warmup-cosine lr stepped every step, an EMA updated every step.
+LONG = dict(batch=16, dropout=0.1, z_loss=1e-4, lr=1e-4, wd=0.1, warmup=2,
+            steps=6, clip=1.0, ema=0.999)
+# remat recomputes each block's forward in the backward: 72 K1 nt and 12
+# K8 launches again a step
+LONG_PER_STEP = dict(linear=144, gemm_nn=72, gemm_tn=72, flash_fwd_bound=24,
+                     flash_dq=12, flash_dkv=12, adam=1)
+# the loss branches timed against each other (item 3 of the slice), per
+# batch: 1 warm-up and 3 timed plain AdamW steps each (no remat, dropout
+# off)
+BRANCH_STEPS = 3
+# Fused against naive on the card.  The loss op on the same f32 hidden
+# states and head: both branches compute f32 logits by cuBLAS f32 (TF32
+# off) and reduce them in other orders, so nll and lse are held to 1e-5 (1
+# + |ref|) and dx, dhead to 1e-5 relative L2.  The model's loss to 1e-5
+# relative; its gradients per leaf to LM_BF16_GRAD_TOL: the two dx differ
+# in f32 rounding, which flips some bf16 roundings of the trunk's
+# cotangent at the final norm (2^-8 each), carried through 12 blocks.
+FUSED_OP_TOL, FUSED_LOSS_TOL = 1e-5, 1e-5
+# Phase 31: every FFN of the 170M model swapped for bench_moe.py:29-37's
+# routing (8 experts, top-2, capacity factor 1.25; ~0.87B parameters,
+# ~14 GB of f32 weights, gradients and Adam moments), batch 8 x 2048:
+# C = ceil(2 * 16384 / 8 * 1.25) = 5,120 tokens an expert.  Sparse with
+# nothing dropped against dense, one full-width MoE layer on 1 x 2048
+# bf16 inputs (through the whole model the two modes part: a last-bit
+# difference upstream moves a token whose second and third gate logits
+# nearly tie to another expert).  The same routing and the same per-row
+# products: the output to one bf16 ulp (8e-3 (|ref| + 1e-3), as K16's
+# bf16 rows); the gradients to 1e-2 relative L2 each, the weight
+# gradients summing the same rows in another order in f32 before their
+# bf16 rounding.
+MOE = dict(n_experts=8, top_k=2, capacity_factor=1.25, batch=8, warmup=2,
+           steps=5, check_batch=1)
+MOE_OUT_TOL, MOE_GRAD_TOL = 8e-3, 1e-2
+# 4 attention projections and 8 experts x 2 products a layer
+MOE_PER_STEP = dict(linear=240, gemm_nn=240, gemm_tn=240,
+                    flash_fwd_bound=12, flash_dq=12, flash_dkv=12, adam=1)
+# Phase 32: the 170M at 8 x 2048 through Lion, Muon and Adafactor at
+# examples/train_tinylm.py's default lr (plain PyTorch updates: no K17)
+OPTS = dict(warmup=1, steps=3)
+OPTS_PER_STEP = {k: v for k, v in LM_PER_STEP.items() if k != "adam"}
+# the sort task's short runs through train_tinylm (phase 12): the mean
+# loss of the last 20 steps under that of the first 20
+SORT_SHORT = 200
+SORT_OPTS_PER_STEP = {k: v for k, v in SORT_PER_STEP.items() if k != "adam"}
+SORT_MOE_PER_STEP = dict(SORT_PER_STEP, linear=24, gemm_nn=24, gemm_tn=24)
+
+
+def lm_flops(n_params, batch, s=LM["max_seq"]):
+    """Model FLOPs of one 170M-width step as bench.py:185-186 counts
+    them: 6 P T plus causal attention (a recompute is not model work)."""
+    return 3 * (2 * n_params * batch * s + LM["depth"] * 4 * batch * s ** 2
+                * LM["dim"] * 0.5)
+
+
+def lm_products(tokens, experts=None):
+    """A layer's K1 products ``(t, K_in, N_out)``: the four attention
+    projections and the FFN's two, or each expert's two at its
+    capacity ``experts = (n, C)``."""
+    e = LM["dim"]
+    ffn = ((tokens, e, 4 * e), (tokens, 4 * e, e))
+    if experts is not None:
+        n, cap = experts
+        ffn = ((cap, e, 4 * e), (cap, 4 * e, e)) * n
+    return ((tokens, e, e),) * 4 + ffn
+
+
+def lm_step_routes(products, remat=False):
+    """K1's and the flash kernels' calls a 170M-width step makes by route,
+    as the plans predict them; remat runs each layer's forward twice."""
+    want = {k: v * LM["depth"]
+            for k, v in planned_routes(products, torch.bfloat16).items()}
+    fwd = flash_routes(LM["depth"], torch.bfloat16, "causal")
+    if remat:
+        for t, k_in, n_out in products:
+            route, splits = plan(t, n_out, k_in, torch.bfloat16, "nt", True)
+            key = route_key(route, "nt", splits)
+            want[key] += LM["depth"]
+        key = next(k for k in fwd if "flash_fwd" in k)
+        fwd[key] *= 2
+    want.update(fwd)
+    return want
+
+
+def lm_model(dev, **kw):
+    """The 170M-width TinyGPT (bf16 trunk) drawn from SEED on the CPU,
+    then moved to ``dev``."""
+    model = TinyGPT(**LM, compute_dtype=torch.bfloat16, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model.to(dev)
+
+
+def lm_batch(gen, batch, dev):
+    toks = torch.randint(0, LM["vocab_size"], (batch, LM["max_seq"]),
+                         generator=gen).to(dev)
+    return toks, toks.roll(-1, 1), torch.ones(LM["max_seq"], device=dev)
+
+
+def fused_op_check(model, batch):
+    """fused_linear_cross_entropy on the card against the naive loss (full
+    f32 logits, autograd) on the same hidden states (f32, [B S, D]), head
+    and targets: nll, lse, dx and dhead."""
+    with torch.no_grad():
+        x = model.hidden(batch[0]).reshape(-1, LM["dim"])
+    head = model.tok.w.detach()
+    tgt = batch[1].reshape(-1)
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 3)
+    w_nll = torch.rand(x.shape[0], generator=gen, device=x.device)
+    w_lse = torch.rand(x.shape[0], generator=gen, device=x.device) - 0.5
+    out = {}
+    for name in ("fused", "naive"):
+        xx, hh = x.clone().requires_grad_(), head.clone().requires_grad_()
+        if name == "fused":
+            nll, _, lse = losses.fused_linear_cross_entropy(
+                xx, hh, tgt, return_lse=True)
+        else:
+            logits = xx @ hh.t()
+            lse = torch.logsumexp(logits, -1)
+            nll = lse - logits.gather(1, tgt[:, None])[:, 0]
+            del logits
+        ((nll * w_nll).sum() + (lse * w_lse).sum()).backward()
+        out[name] = (nll.detach(), lse.detach(), xx.grad, hh.grad)
+        del xx, hh, nll, lse
+    errs = {}
+    for i, key in enumerate(("nll", "lse")):
+        errs[key] = within(out["fused"][i], out["naive"][i], FUSED_OP_TOL)
+    for i, key in ((2, "dx"), (3, "dhead")):
+        rel = rel_l2(out["fused"][i], out["naive"][i])
+        errs[key] = (rel, rel, rel <= FUSED_OP_TOL)
+    del out
+    torch.cuda.empty_cache()
+    return errs
+
+
+def branch_times(model, gen, dev):
+    """ms/step and peak memory of a plain AdamW step (no remat, dropout
+    off) with the naive and the fused loss, at 8 x 2048 (JAX's rule:
+    naive) and 16 x 2048 (fused)."""
+    opt = optim.AdamW(LONG["lr"], weight_decay=LONG["wd"]).init(
+        model.named_parameters())
+    out = {}
+    for batch in (LM_BATCH, LONG["batch"]):
+        data = lm_batch(gen, batch, dev)
+        # the fused branch by JAX's rule where it applies, else forced
+        past = batch * LM["max_seq"] * LM["vocab_size"] > NAIVE_LOSS_MAX
+        for name, chunk in (("naive", 0),
+                            ("fused", None if past else FUSED_CHUNK)):
+            step = train_step(model, opt, *data, chunk=chunk)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step_s, _, _ = timed_steps(step, 1, BRANCH_STEPS)
+            out[f"{name} {batch}x{LM['max_seq']}"] = dict(
+                ms=step_s * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del data
+    del opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase30_long_training(dev, smi):
+    """The 170M model at 16 x 2048 through the fused loss, with remat,
+    dropout, z-loss, AdamW, clip_grad_norm, WarmupCosineLR and an EMA."""
+    gen = torch.Generator().manual_seed(SEED + 30)
+    model = lm_model(dev, dropout=LONG["dropout"], remat=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = lm_batch(gen, LONG["batch"], dev)
+    tokens = LONG["batch"] * LM["max_seq"]
+    assert tokens * LM["vocab_size"] > NAIVE_LOSS_MAX
+
+    # gate 2: fused against naive at the same weights, dropout off
+    op = fused_op_check(model, batch)
+    fused = lm_grads(model, *batch, z_loss=LONG["z_loss"])
+    naive = lm_grads(model, *batch, z_loss=LONG["z_loss"], chunk=0)
+    loss_rel = abs(fused[0] - naive[0]) / abs(naive[0])
+    rel, worst, med = worst_rel(fused[1], naive[1])
+    del fused, naive
+    print(f"phase 30: fused against naive loss on the card ({LONG['batch']} "
+          f"x {LM['max_seq']}, vocab {LM['vocab_size']}, chunk "
+          f"{FUSED_CHUNK}): the op on the same f32 hidden states "
+          + ", ".join(f"{k} {v[1]:.3e}" for k, v in op.items())
+          + f" (tol {FUSED_OP_TOL:.0e}); the model's loss rel err "
+          f"{loss_rel:.3e} (tol {FUSED_LOSS_TOL:.0e}), grads rel L2 max "
+          f"{rel:.3e} at {worst}, median {med:.3e} (tol "
+          f"{LM_BF16_GRAD_TOL:.0e})")
+    assert all(ok for _, _, ok in op.values()), op
+    assert loss_rel <= FUSED_LOSS_TOL and rel <= LM_BF16_GRAD_TOL
+
+    # the loss branches timed (remat off, dropout off)
+    model.remat = False
+    branches = branch_times(model, gen, dev)
+    print(f"phase 30: one plain AdamW step by loss branch, ms and peak GiB "
+          f"(1 warm-up, {BRANCH_STEPS} timed): {branches}; on {smi}")
+
+    # the training run: remat, dropout, z-loss, clip, schedule, EMA
+    model.remat = True
+    opt = optim.AdamW(LONG["lr"], weight_decay=LONG["wd"]).init(
+        model.named_parameters())
+    sched = optim.WarmupCosineLR(LONG["lr"], LONG["warmup"] + LONG["steps"],
+                                 LONG["warmup"])
+    ema = optim.EMA(LONG["ema"])
+    shadow = ema.init(opt.params)
+    drop_gen = torch.Generator().manual_seed(SEED + 31)
+    norms = []
+
+    def step():
+        loss, _ = model.loss(*batch, z_loss=LONG["z_loss"], train=True,
+                             generator=drop_gen)
+        opt.zero_grad()
+        loss.backward()
+        norms.append(optim.clip_grad_norm([p.grad for p in opt.params],
+                                          LONG["clip"])[1])
+        opt.lr = sched.step()
+        opt.step()
+        ema.update(shadow, opt.params)
+        return loss.detach()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses_, counts = timed_steps(step, LONG["warmup"],
+                                          LONG["steps"])
+    routes = per_step(backend.route_counts(), LONG["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    # gate 3: the same step without remat
+    model.remat = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak_plain = torch.cuda.max_memory_allocated()
+    model.remat = True
+    flops = lm_flops(n_params, LONG["batch"])
+    mfu = flops / step_s / PEAK_FLOPS["bf16"]
+    lrs = sched.schedule_array()[:LONG["warmup"] + LONG["steps"] + 1]
+    print(f"phase 30: trained the 170M TinyGPT at {LONG['batch']} x "
+          f"{LM['max_seq']} (fused loss, remat, dropout {LONG['dropout']}, "
+          f"z-loss {LONG['z_loss']}, AdamW({LONG['lr']}, wd {LONG['wd']}), "
+          f"clip_grad_norm({LONG['clip']}), WarmupCosineLR over "
+          f"{LONG['warmup']} + {LONG['steps']} steps, EMA({LONG['ema']})): "
+          f"{LONG['warmup']} warm-up + {LONG['steps']} timed steps, "
+          f"{step_s * 1e3:.1f} ms/step, {tokens / step_s:.0f} tokens/s, "
+          f"model FLOPs {flops:.3e}/step = {mfu:.4f} of 989 TFLOP/s (remat's "
+          f"recompute not counted), peak memory {peak / 2 ** 30:.2f} GiB "
+          f"with remat against {peak_plain / 2 ** 30:.2f} GiB without; loss "
+          f"per step {losses_}; grad norms "
+          f"{[round(float(n), 4) for n in norms]}; lr {lrs.tolist()}; "
+          f"launches per step {per_step(counts, LONG['steps'])}; card clocks "
+          f"{card_clocks()}; on {smi}")
+    assert per_step(counts, LONG["steps"]) == LONG_PER_STEP, counts
+    want = lm_step_routes(lm_products(tokens), remat=True)
+    print(f"phase 30: K1, K8, K6 and K7 calls per step by route {routes} "
+          f"(plan: {want})")
+    assert routes == want, (routes, want)
+    assert peak < peak_plain, (peak, peak_plain)
+    assert all(torch.isfinite(s).all() for s in shadow)
+    prof = profile_steps(step, 2)
+    print(f"phase 30: profiled 2 steps: {prof['wall_ms']:.1f} ms of wall "
+          f"per step (under the profiler) for {prof['busy_ms']:.1f} ms of "
+          f"device busy time, {prof['device_ops']:.0f} device ops per step; "
+          f"device ms per step by family {prof['ms']}; largest glue "
+          f"{prof['glue_top']}")
+    params = opt.params
+    adamw_row = opt_row("adam", f"170M TinyGPT AdamW({LONG['lr']}, wd "
+                        f"{LONG['wd']})", params, [p.grad for p in params],
+                        dict(lr=LONG["lr"], wd=LONG["wd"], decoupled=True),
+                        30)
+    del model, opt, shadow, batch, params
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s,
+                        mfu=mfu, peak_gib=peak / 2 ** 30,
+                        peak_plain_gib=peak_plain / 2 ** 30,
+                        branches=branches, adam=adamw_row, profile=prof)
+
+
+def moe_layer_check(mlp, gen, dev):
+    """One MoE layer, dense against sparse at a capacity of every token
+    (nothing dropped), on the same bf16 inputs and cotangent: the
+    output's error and each gradient's relative L2 error."""
+    n, k = mlp.n_experts, mlp.top_k
+    shape = (MOE["check_batch"], LM["max_seq"], LM["dim"])
+    x = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    cot = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    out = {}
+    for name, cf in (("dense", None), ("sparse", n / k)):
+        mlp.capacity_factor = cf
+        mlp.zero_grad(set_to_none=True)
+        xx = x.clone().requires_grad_()
+        y = mlp(xx)
+        (y.float() * cot.float()).sum().backward()
+        out[name] = (y.detach(), {"x": xx.grad, **{
+            f"mlp.{key}": p.grad.clone()
+            for key, p in mlp.named_parameters()}})
+    mlp.capacity_factor = MOE["capacity_factor"]
+    mlp.zero_grad(set_to_none=True)
+    err = within(out["sparse"][0], out["dense"][0], MOE_OUT_TOL, "ulp")
+    rel = {key: rel_l2(g, out["dense"][1][key])
+           for key, g in out["sparse"][1].items()}
+    return err, rel
+
+
+def phase31_moe_training(dev, smi):
+    """Every FFN of the 170M model an 8-expert top-2 MoE at capacity
+    factor 1.25, batch 8 x 2048, Adam: K1 at the experts' shapes against
+    its plain version, one layer sparse against dense where nothing
+    drops, then the
+    timed run with the experts' K1 calls by route against the plan."""
+    gen = torch.Generator().manual_seed(SEED + 31)
+    n, k = MOE["n_experts"], MOE["top_k"]
+    tokens = MOE["batch"] * LM["max_seq"]
+    cap = moe_capacity(tokens, n, k, MOE["capacity_factor"])
+    e = LM["dim"]
+    rows = gemm_rows(dev, ((cap, e, 4 * e), (cap, 4 * e, e)),
+                     torch.bfloat16, 31, BF16_GEMM_TOL, gen)
+    model = lm_model(dev, n_experts=n, top_k=k,
+                     capacity_factor=MOE["capacity_factor"])
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # gate 2: sparse with nothing dropped (C = T) against dense mode
+    err, rel = moe_layer_check(model.blocks[0].mlp, gen, dev)
+    worst = max(rel, key=rel.get)
+    print(f"phase 31: one MoE layer, sparse at C = T (nothing dropped) "
+          f"against dense at {MOE['check_batch']} x {LM['max_seq']} bf16: "
+          f"output max_abs_err {err[0]:.3e} ({err[1]:.3e} <= "
+          f"{MOE_OUT_TOL:.0e} (|ref| + {ULP_FLOOR:.0e})); grads rel L2 "
+          f"{ {key: float(f'{v:.3e}') for key, v in rel.items()} } (tol "
+          f"{MOE_GRAD_TOL:.0e})")
+    assert err[2] and rel[worst] <= MOE_GRAD_TOL, (err, rel)
+
+    # the dropped-slot share of one forward at the training batch
+    batch = lm_batch(gen, MOE["batch"], dev)
+    kept = []
+    real = NT.moe_sparse_routing
+
+    def spy(*args):
+        out = real(*args)
+        kept.append(out[3].float().mean())
+        return out
+    NT.moe_sparse_routing = spy
+    try:
+        with torch.no_grad():
+            model.loss(*batch)
+    finally:
+        NT.moe_sparse_routing = real
+    dropped = 1.0 - float(torch.stack(kept).mean())
+
+    opt = optim.Adam(LM_LR).init(model.named_parameters())
+    step = train_step(model, opt, *batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses_, counts = timed_steps(step, MOE["warmup"], MOE["steps"])
+    routes = per_step(backend.route_counts(), MOE["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 31: trained the 170M-width MoE TinyGPT ({n_params / 1e6:.1f}"
+          f"M params, {n} experts, top-{k}, capacity factor "
+          f"{MOE['capacity_factor']}: C = {cap} of {tokens} tokens, bf16 "
+          f"trunk, Adam({LM_LR})) at {MOE['batch']} x {LM['max_seq']}: "
+          f"{MOE['warmup']} warm-up + {MOE['steps']} timed steps, "
+          f"{step_s * 1e3:.1f} ms/step, {tokens / step_s:.0f} tokens/s, "
+          f"dropped slots {dropped:.4f} of top-{k} slots, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; loss per step {losses_}; launches per "
+          f"step {per_step(counts, MOE['steps'])}; card clocks "
+          f"{card_clocks()}; on {smi}")
+    assert per_step(counts, MOE["steps"]) == MOE_PER_STEP, counts
+    want = lm_step_routes(lm_products(tokens, (n, cap)))
+    print(f"phase 31: K1, K8, K6 and K7 calls per step by route {routes} "
+          f"(plan: {want})")
+    assert routes == want, (routes, want)
+    prof = profile_steps(step, 2)
+    print(f"phase 31: profiled 2 steps: {prof['wall_ms']:.1f} ms of wall "
+          f"per step (under the profiler) for {prof['busy_ms']:.1f} ms of "
+          f"device busy time, {prof['device_ops']:.0f} device ops per step; "
+          f"device ms per step by family {prof['ms']}; largest glue "
+          f"{prof['glue_top']}")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s,
+                        dropped=dropped, peak_gib=peak / 2 ** 30,
+                        rows=rows, profile=prof)
+
+
+def phase32_optimizers(dev, smi):
+    """The 170M model at 8 x 2048 through Lion, Muon and Adafactor: a few
+    steps each, every loss finite, Muon's Newton-Schulz time a step beside
+    its step's."""
+    gen = torch.Generator().manual_seed(SEED + 32)
+    model = lm_model(dev)
+    batch = lm_batch(gen, LM_BATCH, dev)
+    totals, out = dict.fromkeys(backend.KERNELS, 0), {}
+    for name in ("lion", "muon", "adafactor"):
+        opt = train_tinylm.OPTIMIZERS[name](train_tinylm.LR_DEFAULTS[name])
+        opt.init(model.named_parameters())
+        step = train_step(model, opt, *batch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, losses_, counts = timed_steps(step, OPTS["warmup"],
+                                              OPTS["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        for k_, c in counts.items():
+            totals[k_] += c
+        out[name] = dict(step_ms=step_s * 1e3, peak_gib=peak / 2 ** 30,
+                         losses=losses_)
+        extra = ""
+        if name == "muon":
+            mats = [m.reshape(m.shape[0], -1)
+                    for m, mat in zip(opt.m, opt.matrix) if mat]
+            ns_ms = cuda_ms(lambda: [optim.newton_schulz_orthogonalize(
+                u, opt.ns_steps) for u in mats], [()], iters=3)
+            out[name]["ns_ms"] = ns_ms
+            extra = (f", Newton-Schulz {ns_ms:.1f} ms of it over "
+                     f"{len(mats)} matrices ({ns_ms / (step_s * 1e3):.3f} "
+                     f"of the step)")
+        print(f"phase 32: 170M TinyGPT ({LM_BATCH} x {LM['max_seq']}, bf16 "
+              f"trunk) through {type(opt).__name__}"
+              f"({train_tinylm.LR_DEFAULTS[name]}): {OPTS['warmup']} warm-up "
+              f"+ {OPTS['steps']} timed steps, {step_s * 1e3:.1f} ms/step"
+              f"{extra}, peak memory {peak / 2 ** 30:.2f} GiB; loss per "
+              f"step {losses_}; launches per step "
+              f"{per_step(counts, OPTS['steps'])}; on {smi}")
+        assert per_step(counts, OPTS["steps"]) == OPTS_PER_STEP, counts
+        del opt, step
+    del model, batch
+    torch.cuda.empty_cache()
+    return totals, out
+
+
 def kernel_report(paths, standalone, top=None, routes=None):
     """One entry per kernel: its launches and numbers on each path that
     launched it or measured it (``by_path``); the top-level numbers come
@@ -4174,6 +4662,9 @@ def main():
     lm_counts, lm_stats = phase11_lm_train(dev, smi)
     fused_counts, _ = phase28_fused_backward(dev, smi, lm_stats)
     torch.cuda.empty_cache()
+    long_counts, long_stats = phase30_long_training(dev, smi)
+    moe_counts, moe_stats = phase31_moe_training(dev, smi)
+    opts_counts, _ = phase32_optimizers(dev, smi)
     sort_counts, sort_rows = phase12_sort_task(dev, smi)
     torch.cuda.empty_cache()
 
@@ -4238,10 +4729,16 @@ def main():
     contig_counts = {k: modes["contig_bf16"]["counts"][k]
                      + modes["contig_int8"]["counts"][k]
                      for k in backend.KERNELS}
-    # this slice's paths first: K10 at the 170M shape, K5/K6/K7 and K11
-    # windowed at the windowed model's, K5/K6/K7 with segment ids at
-    # bench_packing's packed batch
-    paths = {"train_lm_fused": (fused_counts, {
+    # the newest paths first: the 170M at 16 x 2048 (fused loss, remat;
+    # its AdamW row), the MoE model (K1 at the experts' M), the other
+    # optimizers; then K10 at the 170M shape, K5/K6/K7 and K11 windowed at
+    # the windowed model's, K5/K6/K7 with segment ids at bench_packing's
+    # packed batch
+    paths = {"train_lm_long": (long_counts, dict(adam=long_stats["adam"])),
+             "train_moe": (moe_counts, {k: headline(r) for k, r in
+                                        moe_stats["rows"].items()}),
+             "train_opts": (opts_counts, {}),
+             "train_lm_fused": (fused_counts, {
                  k: headline(r) for k, r in
                  masked_rows["train_lm_fused"].items()}),
              "train_window": (window_counts, {
@@ -4300,7 +4797,7 @@ def main():
         top=dict(dict.fromkeys(K1_MODES, "train_lm"),
                  flash_fwd_bound="train_lm", flash_dq="train_lm",
                  flash_dkv="train_lm", conv_fwd="train_cnn",
-                 conv_dw="train_cnn"), routes=off_path)
+                 conv_dw="train_cnn", adam="train_lm"), routes=off_path)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,7 +11,9 @@ Ported so far: TinyGPT serving (``serve.ServingEngine`` over
 dtype or int8), training the reference MNIST models (``train.Trainer``
 over ``models.mnist_cnn`` and friends, with ``nn``, ``losses``, ``optim``
 and ``data``), training TinyGPT (``TinyGPT.loss``;
-``examples/train_tinylm.py``), training ResNet-8 on CIFAR-10 and the
+``examples/train_tinylm.py``; the fused vocab-chunked loss, dropout,
+remat, MoE, Adafactor/Lion/Muon and ``utils.amp``), training ResNet-8 on
+CIFAR-10 and the
 reference's XOR and MNIST-MLP examples (``models.resnet8``,
 ``data.CIFAR10Dataset``, ``data.DataLoader``, ``Trainer.fit``;
 ``examples/``), PTQ-quantized serving (``quantization``), and

@@ -12,9 +12,10 @@ differences:
   dispatches by the device of its tensors, CUDA tensors through the
   hand-written kernels, CPU tensors through the plain versions.  There is
   no ``--backend``: the port has no backend switch.
-* ``--opt`` takes ``adam`` and ``adamw``; Lion, Muon and Adafactor are not
-  ported and raise, as does ``--experts``.  ``--window W`` trains with
-  sliding-window attention over the last W positions, as in JAX.
+* ``--opt`` takes adam, adamw, lion, muon and adafactor, with JAX's
+  default learning rates; ``--experts N`` gives every block an N-expert
+  MoE FFN in dense mode, as JAX's example builds it.  ``--window W``
+  trains with sliding-window attention over the last W positions.
 * The greedy generation at the end of the JAX example needs the
   contiguous-cache ``generate``, which is not ported (ROADMAP.md, Queue
   1); it is left out.
@@ -37,8 +38,12 @@ from taper_tpu_torch import optim
 from taper_tpu_torch.data.seq import sort_task_batch, sort_task_vocab
 from taper_tpu_torch.models import TinyGPT
 
-LR_DEFAULTS = {"adam": 1e-3, "adamw": 1e-3}
-NOT_PORTED_OPTS = ("lion", "muon", "adafactor")
+LR_DEFAULTS = {"adam": 1e-3, "adamw": 1e-3, "lion": 1e-4, "muon": 0.02,
+               "adafactor": 0.05}
+OPTIMIZERS = {"adam": lambda lr: optim.Adam(lr, weight_decay=0.0),
+              "adamw": lambda lr: optim.AdamW(lr, weight_decay=0.01),
+              "lion": optim.Lion, "muon": optim.Muon,
+              "adafactor": optim.Adafactor}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -53,9 +58,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--length", type=int, default=63,
                     help="digits per sequence (S = 2*length + 2)")
     ap.add_argument("--lr", type=float, default=None,
-                    help="default: per optimizer (adam/adamw 1e-3)")
-    ap.add_argument("--opt", default="adam",
-                    choices=list(LR_DEFAULTS) + list(NOT_PORTED_OPTS))
+                    help="default: per optimizer (adam/adamw 1e-3, "
+                         "lion 1e-4, muon 0.02, adafactor 0.05)")
+    ap.add_argument("--opt", default="adam", choices=list(LR_DEFAULTS))
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 trunk (params/softmax/logits stay f32)")
     ap.add_argument("--eval-every", type=int, default=100)
@@ -70,16 +75,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="sliding-window attention over the last W "
                          "positions (0 = full causal)")
     ap.add_argument("--experts", type=int, default=0,
-                    help="MoE experts per FFN (not ported: raises)")
+                    help="MoE: experts per FFN (0 = dense)")
     return ap.parse_args(argv)
 
 
 def build(args, seed: int = 0):
     """The model on ``args.device`` (weights drawn from ``seed``) and its
     bound optimizer."""
-    if args.opt in NOT_PORTED_OPTS:
-        raise NotImplementedError(f"--opt {args.opt}: not ported to "
-                                  f"taper_tpu_torch yet (ROADMAP.md)")
     seq = 2 * args.length + 2
     model = TinyGPT(vocab_size=sort_task_vocab(), dim=args.dim,
                     depth=args.depth, num_heads=args.heads, max_seq=seq,
@@ -89,9 +91,8 @@ def build(args, seed: int = 0):
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(args.device)
     lr = LR_DEFAULTS[args.opt] if args.lr is None else args.lr
-    opt = (optim.Adam(lr, weight_decay=0.0) if args.opt == "adam"
-           else optim.AdamW(lr, weight_decay=0.01))
-    return model, opt.init(model.parameters())
+    opt = OPTIMIZERS[args.opt](lr)
+    return model, opt.init(model.named_parameters())
 
 
 def make_step(model, opt, args, generator):

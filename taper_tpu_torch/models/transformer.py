@@ -7,9 +7,15 @@ blocks, final norm, tied or untied LM head.  ``compute_dtype`` runs the
 trunk in that dtype; parameters, normalisation statistics, the softmax
 and the logits stay f32.
 
-``loss`` trains it: the naive branch of the JAX package's ``TinyGPT.loss``
-(full logits, then the masked next-token loss), through the port's
-kernels and autograd.
+``loss`` trains it, branching as the JAX package's ``TinyGPT.loss``: full
+logits and the masked next-token loss while ``B * S * vocab <= 2^28``,
+the vocab-chunked ``fused_linear_cross_entropy`` beyond.  ``hidden``,
+``forward`` and ``loss`` take ``train`` and a ``generator`` (JAX's
+``train=`` and ``rng=``): with ``dropout > 0`` each block draws its masks
+from a seed of its own, drawn from the generator before the block runs.
+``remat=True`` recomputes each block's forward in the backward
+(``torch.utils.checkpoint``); the seeds fixed ahead make the recompute
+draw the same masks.  ``n_experts > 0`` gives every block an MoE FFN.
 
 ``hidden``, ``forward`` and ``loss`` take ``segment_ids``/``positions``
 ``[B, S]`` for packed-sequence training (``data/packing.py``); a
@@ -21,33 +27,36 @@ The caches are filled and updated in place (``prefill``,
 package returns new caches.  Paged caches refuse a window model, as JAX
 asserts; the contiguous engine serves one through the full cache.
 
-Not ported yet: remat, dropout, MoE and the fused vocab-chunked loss
-(their arguments raise ``NotImplementedError``), and generation
-(``generate``,
+Not ported yet: generation (``generate``,
 ``generate_continued``, ``decode_chunk``, ``prefill_paged_continued``,
 beam search, speculative decoding).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from taper_tpu_torch.data.seq import masked_token_loss
+from taper_tpu_torch.losses import fused_linear_cross_entropy
+from taper_tpu_torch.nn.layers import draw_seed
 from taper_tpu_torch.nn.transformer import (
     Embedding, LayerNorm, RMSNorm, TransformerBlock)
 from taper_tpu_torch.ops.paged_attention import (
     paged_write_prefill, paged_write_prefill_scale)
 from taper_tpu_torch.quantization.qtensor import dense
-from taper_tpu_torch.utils import not_ported
 
 # TinyGPT.loss takes the naive branch (full [B, S, vocab] logits) up to
-# this many logits, as JAX does (models/transformer.py:291-292); beyond
-# it JAX streams the fused vocab-chunked loss, which is not ported
+# this many logits and the fused vocab-chunked loss beyond, as JAX does
+# (models/transformer.py:290-292); the limit was measured on a TPU v5e
+# and is kept as JAX's rule, not as a speed fact of the card
 NAIVE_LOSS_MAX = 2 ** 28
+FUSED_CHUNK = 4096              # the fused loss's vocab chunk by default
 
 
 def _filter_logits(logits, temperature, top_k=None, top_p=None):
@@ -95,10 +104,6 @@ class TinyGPT(nn.Module):
                  remat: bool = False,
                  norm: str = "layer", mlp_act: str = "gelu"):
         super().__init__()
-        not_ported("TinyGPT", dropout=dropout != 0.0,
-                   n_experts=n_experts != 0, top_k=top_k != 2,
-                   capacity_factor=capacity_factor is not None,
-                   remat=remat)
         self.vocab_size = vocab_size
         self.dim = dim
         self.depth = depth
@@ -107,14 +112,17 @@ class TinyGPT(nn.Module):
         self.rope = rope
         self.window = window
         self.compute_dtype = compute_dtype
+        self.remat = remat
         out_std = 0.02 / math.sqrt(2 * depth)
         self.tok = Embedding(vocab_size, dim)
         self.pos = Embedding(max_seq, dim)
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_heads, causal=True,
-                             mlp_ratio=mlp_ratio, out_init_std=out_std,
-                             rope=rope, max_seq=max_seq,
-                             num_kv_heads=num_kv_heads, window=window,
+                             mlp_ratio=mlp_ratio, dropout=dropout,
+                             out_init_std=out_std, rope=rope,
+                             max_seq=max_seq, num_kv_heads=num_kv_heads,
+                             n_experts=n_experts, top_k=top_k,
+                             capacity_factor=capacity_factor, window=window,
                              norm=norm, mlp_act=mlp_act)
             for _ in range(depth))
         self.ln_f = (RMSNorm if norm == "rms" else LayerNorm)(dim)
@@ -141,7 +149,8 @@ class TinyGPT(nn.Module):
         the same numbers.  Embeddings, norms and the head stay f32, and a
         quantized weight (not a parameter) stays as it is."""
         for blk in self.blocks:
-            for mod in (blk.attn, blk.mlp):
+            # an MoE FFN casts its experts; the gate stays f32
+            for mod in (blk.attn, getattr(blk.mlp, "experts", blk.mlp)):
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(dtype)
         return self
@@ -174,42 +183,76 @@ class TinyGPT(nn.Module):
         # the f32 logits product stays a plain matmul, as JAX's einsum
         return torch.matmul(x, self._head_weights().t())
 
-    def hidden(self, tokens, segment_ids=None, positions=None):
+    def hidden(self, tokens, segment_ids=None, positions=None,
+               train: bool = False, generator=None):
         """Trunk forward: final-normed activations ``[B, S, D]`` (f32).
         ``segment_ids``/``positions`` ``[B, S]``: packed sequences,
         attention within each document and positions restarting per
-        document (JAX ``models/transformer.py:212-240``)."""
+        document (JAX ``models/transformer.py:212-240``).  ``train`` with
+        a ``generator``: dropout, one seed a block drawn from the
+        generator first (as JAX splits ``rng`` into one key a block), each
+        block's masks then drawn on the activations' device from a
+        generator of its seed alone, so a remat recompute draws them
+        again."""
         x = self._embed_prompt(tokens, positions)
-        for blk in self.blocks:
-            x = blk(x, segment_ids, positions)
+        seeds = ([draw_seed(generator) for _ in self.blocks]
+                 if generator is not None else [None] * self.depth)
+        for blk, seed in zip(self.blocks, seeds):
+            run = functools.partial(self._block, blk, seed, train,
+                                    segment_ids, positions)
+            # the blocks draw nothing from the global RNG, so checkpoint
+            # need not save and restore it
+            x = (checkpoint(run, x, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if self.remat else run(x))
         return self.ln_f(x).float()
 
-    def forward(self, tokens, segment_ids=None, positions=None):
+    @staticmethod
+    def _block(blk, seed, train, segment_ids, positions, x):
+        gen = None if seed is None else \
+            torch.Generator(device=x.device).manual_seed(seed)
+        return blk(x, segment_ids, positions, train=train, generator=gen)
+
+    def forward(self, tokens, segment_ids=None, positions=None,
+                train: bool = False, generator=None):
         """Logits ``[B, S, vocab]`` (JAX's ``TinyGPT.apply``)."""
-        return self._logits(self.hidden(tokens, segment_ids, positions))
+        return self._logits(self.hidden(tokens, segment_ids, positions,
+                                        train, generator))
 
     def loss(self, tokens, targets, mask, z_loss: float = 0.0, chunk=None,
-             segment_ids=None, positions=None):
+             segment_ids=None, positions=None, train: bool = False,
+             generator=None):
         """Masked next-token loss and accuracy, ``(loss, acc)`` as 0-d
         tensors (JAX ``models/transformer.py:259-309``).  ``targets``
         ``[B, S]``, ``mask`` ``[S]`` or ``[B, S]``; ``z_loss`` adds
         ``z_loss * mean(logsumexp^2)`` over the masked positions;
-        ``segment_ids``/``positions`` as :meth:`hidden` (the packer's loss
-        mask already zeroes cross-document targets).  JAX takes
-        the naive branch (full logits) where ``B * S * vocab <=
-        2^28`` or ``chunk == 0``, and the fused vocab-chunked loss beyond
-        or for an explicit ``chunk``; the port has the naive branch only,
-        and the fused one raises until ``fused_linear_cross_entropy`` is
-        ported."""
-        b, s = tokens.shape
-        if not (chunk == 0 or (chunk is None and
-                               b * s * self.vocab_size <= NAIVE_LOSS_MAX)):
-            raise NotImplementedError(
-                "TinyGPT.loss: the fused vocab-chunked loss "
-                "(fused_linear_cross_entropy) is not ported to "
-                "taper_tpu_torch yet (ROADMAP.md, Queue 1)")
-        return masked_token_loss(self(tokens, segment_ids, positions),
-                                 targets, mask, z_loss=z_loss)
+        ``segment_ids``/``positions``, ``train`` and ``generator`` as
+        :meth:`hidden` (the packer's loss mask already zeroes
+        cross-document targets).
+
+        The naive branch (full logits) runs where ``chunk == 0``, or
+        ``chunk`` is None and ``B * S * vocab <= 2^28``; otherwise the
+        fused vocab-chunked loss (``fused_linear_cross_entropy``, vocab
+        chunks of ``chunk`` or FUSED_CHUNK rows), which never holds the
+        ``[B * S, vocab]`` logits: its z-loss comes from the fused
+        logsumexp and its accuracy from the fused argmax."""
+        x = self.hidden(tokens, segment_ids, positions, train, generator)
+        b, s, d = x.shape
+        if chunk == 0 or (chunk is None and
+                          b * s * self.vocab_size <= NAIVE_LOSS_MAX):
+            return masked_token_loss(self._logits(x), targets, mask,
+                                     z_loss=z_loss)
+        nll, pred, lse = fused_linear_cross_entropy(
+            x.reshape(b * s, d), self._head_weights(), targets.reshape(-1),
+            chunk=chunk or FUSED_CHUNK, return_lse=True)
+        nll, pred, lse = (t.reshape(b, s) for t in (nll, pred, lse))
+        m = mask.to(nll.dtype).expand_as(nll)
+        denom = m.sum().clamp_min(1.0)
+        loss = (nll * m).sum() / denom
+        if z_loss:
+            loss = loss + z_loss * (lse * lse * m).sum() / denom
+        acc = ((pred == targets).to(m.dtype) * m).sum() / denom
+        return loss, acc
 
     def _device(self, device):
         return self.tok.w.device if device is None else device

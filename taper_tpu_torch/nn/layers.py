@@ -1,6 +1,7 @@
 """Core layers: port of ``taper_tpu/nn/layers.py``: Linear, ReLU,
 Sigmoid, Conv2d (``conv3x3``, ``conv1x1``), Conv2dReLU, MaxPool2d,
-AvgPool2d, AdaptiveAvgPool2d, Flatten, BatchNorm2d and BasicBlock.
+AvgPool2d, AdaptiveAvgPool2d, Flatten, Dropout, BatchNorm2d and
+BasicBlock.
 
 Each layer runs the op of ``taper_tpu_torch.ops`` its JAX counterpart
 runs, with the activation fused into the Linear and Conv epilogues, and
@@ -22,7 +23,12 @@ their weight parameter (``quantization.quantize_params`` installs one
 under the same name): ``ops.linear`` sends int8 and int4 weights to the
 dequant-on-load kernels, and the convolutions dequantize.
 
-Not ported yet: Dropout.
+Dropout draws its mask from an explicit ``torch.Generator``, the
+counterpart of JAX's ``rng`` key; its bits are not ``jax.random``'s.  A
+generator on another device than the activations (a CPU generator, say,
+for a CUDA tensor) seeds a generator on their device from one draw
+(:func:`generator_on`), so a CPU generator drives any device without a
+host sync.
 """
 
 from __future__ import annotations
@@ -202,6 +208,56 @@ class Flatten(nn.Module):
 
     def forward(self, x):
         return x.reshape(*x.shape[:self.start_dim], -1)
+
+
+def draw_seed(generator) -> int:
+    """One 63-bit seed drawn from ``generator`` (read on the host: a CPU
+    generator costs no device sync)."""
+    return int(torch.randint(2 ** 63 - 1, (1,), generator=generator,
+                             device=generator.device))
+
+
+def generator_on(generator, device) -> torch.Generator:
+    """``generator`` itself where it lives on ``device``, else a generator
+    on ``device`` seeded by one draw from it."""
+    device = torch.device(device)
+    if generator.device.type == device.type:
+        return generator
+    return torch.Generator(device=device).manual_seed(draw_seed(generator))
+
+
+def dropout(x, p: float, generator):
+    """Inverted dropout: each element kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)``, at ``x``'s dtype (``where(mask, x / keep,
+    0)``, as JAX's ``Dropout.apply``).  The mask is drawn from
+    ``generator`` on ``x``'s device."""
+    keep = 1.0 - p
+    gen = generator_on(generator, x.device)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, active in training only.  ``train`` defaults to
+    the module's mode (``model.train()``/``model.eval()``); a training
+    call needs a ``generator`` and raises without one, as JAX's
+    ``Dropout.apply`` raises without ``rng``."""
+
+    takes_rng = True
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout p must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x, train: Optional[bool] = None, generator=None):
+        train = self.training if train is None else train
+        if not train or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout in training needs a generator=")
+        return dropout(x, self.p, generator)
 
 
 class BatchNorm2d(nn.Module):

@@ -9,7 +9,11 @@ and ``b``, so a JAX tree loads by name (``utils/convert.load_jax_params``:
 ``1.w``, ``1.b``, ...).
 
 Initialisation draws from an explicit ``torch.Generator`` through
-``reset_parameters(generator)``, the counterpart of ``init(key)``.
+``reset_parameters(generator)``, the counterpart of ``init(key)``.  A
+forward takes ``train`` and ``generator``, the counterparts of
+``apply``'s ``train`` and ``rng``, and hands them to the layers that draw
+random numbers (``Dropout``), which draw from the one generator in layer
+order where JAX splits its key per layer.
 """
 
 from __future__ import annotations
@@ -22,10 +26,20 @@ class Sequential(nn.Sequential):
     ...).  Takes the layers as arguments or as one list, as the JAX
     ``Sequential`` does."""
 
+    takes_rng = True
+
     def __init__(self, *layers: nn.Module):
         if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
             layers = tuple(layers[0])
         super().__init__(*layers)
+
+    def forward(self, x, train=None, generator=None):
+        for layer in self:
+            if getattr(layer, "takes_rng", False):
+                x = layer(x, train=train, generator=generator)
+            else:
+                x = layer(x)
+        return x
 
     def reset_parameters(self, generator=None) -> None:
         """Re-draw every layer's parameters, in layer order, from

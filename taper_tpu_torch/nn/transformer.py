@@ -28,13 +28,23 @@ than ``max_seq`` is read and written as a ring, as in JAX.
 Packed sequences: ``forward(x, segment_ids=, positions=)`` masks attention
 to each document and rotates every token by its own position.
 
-Not ported yet: dropout, MoE, LoRA, bias-free projections and chunked
-decode (``q_offsets``, per-row chunks); their arguments raise
+Training options: ``TransformerBlock(dropout=p)`` drops the attention
+and FFN outputs before each residual add when called with ``train=True``
+and a ``generator`` (two masks from it, in that order, where JAX splits
+the block's key in two).  ``n_experts > 0`` swaps the FFN for
+:class:`MoEMLP`, dense (every expert on every token) or capacity-routed
+(``capacity_factor``), with the routing and dispatch in the plain
+functions :func:`moe_capacity`, :func:`moe_sparse_routing` and
+:func:`moe_sparse_dispatch`.
+
+Not ported yet: LoRA, bias-free projections and chunked decode
+(``q_offsets``, per-row chunks); their arguments raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -42,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from taper_tpu_torch import ops
+from taper_tpu_torch.nn.layers import Dropout
 from taper_tpu_torch.ops import gemm as _gemm
 from taper_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_write, paged_write_scale)
@@ -577,7 +588,9 @@ class MLPBlock(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: ``x + MHA(LN(x))`` then ``x + FFN(LN(x))``."""
+    """Pre-LN block: ``x + MHA(LN(x))`` then ``x + FFN(LN(x))``, each
+    branch's output dropped (``dropout > 0``, training only) before its
+    add."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
                  mlp_ratio: int = 4, dropout: float = 0.0,
@@ -589,9 +602,6 @@ class TransformerBlock(nn.Module):
                  capacity_factor: Optional[float] = None,
                  norm: str = "layer", mlp_act: str = "gelu"):
         super().__init__()
-        not_ported("TransformerBlock", dropout=dropout != 0.0,
-                   n_experts=n_experts != 0, top_k=top_k != 2,
-                   capacity_factor=capacity_factor is not None)
         if norm not in ("layer", "rms") or mlp_act not in ("gelu", "swiglu"):
             raise ValueError(f"norm {norm!r} (layer|rms) or mlp_act "
                              f"{mlp_act!r} (gelu|swiglu) unknown")
@@ -602,13 +612,30 @@ class TransformerBlock(nn.Module):
             out_init_std=out_init_std, rope=rope, max_seq=max_seq,
             num_kv_heads=num_kv_heads, window=window)
         self.ln2 = norm_cls(dim)
-        self.mlp = MLPBlock(dim, ratio=mlp_ratio, init_std=init_std,
-                            out_init_std=out_init_std,
-                            gated=mlp_act == "swiglu")
+        # n_experts > 0 swaps the FFN for a top-k gated MoE (JAX's experts
+        # are plain GELU MLPBlocks whatever mlp_act says)
+        if n_experts > 0:
+            self.mlp = MoEMLP(dim, n_experts, ratio=mlp_ratio, top_k=top_k,
+                              init_std=init_std, out_init_std=out_init_std,
+                              capacity_factor=capacity_factor)
+        else:
+            self.mlp = MLPBlock(dim, ratio=mlp_ratio, init_std=init_std,
+                                out_init_std=out_init_std,
+                                gated=mlp_act == "swiglu")
+        self.drop = Dropout(dropout) if dropout > 0 else None
 
-    def forward(self, x, segment_ids=None, positions=None):
-        x = x + self.attn(self.ln1(x), segment_ids, positions)
-        return x + self.mlp(self.ln2(x))
+    def _drop(self, y, train, generator):
+        if self.drop is None:
+            return y
+        return self.drop(y, train=train, generator=generator)
+
+    def forward(self, x, segment_ids=None, positions=None, train=False,
+                generator=None):
+        """``train`` with a ``generator`` applies the dropout (the block
+        draws its attention mask, then its FFN mask, from it)."""
+        a = self.attn(self.ln1(x), segment_ids, positions)
+        x = x + self._drop(a, train, generator)
+        return x + self._drop(self.mlp(self.ln2(x)), train, generator)
 
     def prefill(self, x, cache):
         """``block_apply_prefill``: fills ``cache`` at ``[0, P)`` in
@@ -627,3 +654,174 @@ class TransformerBlock(nn.Module):
         ``pool`` in place."""
         x_t = x_t + self.attn.decode_paged(self.ln1(x_t), pool, tables, pos)
         return x_t + self.mlp(self.ln2(x_t))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (taper_tpu/nn/transformer.py:891-1058)
+# ---------------------------------------------------------------------------
+
+class MoEExperts(nn.Module):
+    """The experts' parameters, stacked along a leading expert axis as
+    JAX's tree keeps them: ``w1 [n, hidden, dim]``, ``b1 [n, hidden]``,
+    ``w2 [n, dim, hidden]``, ``b2 [n, dim]`` (each expert a GELU
+    :class:`MLPBlock`)."""
+
+    def __init__(self, n_experts: int, dim: int, hidden: int,
+                 init_std: float, out_init_std: float):
+        super().__init__()
+        self.init_std = init_std
+        self.out_init_std = out_init_std
+        self.w1 = nn.Parameter(torch.empty(n_experts, hidden, dim))
+        self.b1 = nn.Parameter(torch.zeros(n_experts, hidden))
+        self.w2 = nn.Parameter(torch.empty(n_experts, dim, hidden))
+        self.b2 = nn.Parameter(torch.zeros(n_experts, dim))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.w1.normal_(0.0, self.init_std, generator=generator)
+            self.w2.normal_(0.0, self.out_init_std, generator=generator)
+            self.b1.zero_()
+            self.b2.zero_()
+
+    def unbound(self, dtype):
+        """Per expert ``(w1, b1, w2, b2)`` views at ``dtype``: one cast of
+        each stack, and one gradient stack in the backward (``unbind``)."""
+        parts = [t.to(dtype).unbind(0)
+                 for t in (self.w1, self.b1, self.w2, self.b2)]
+        return list(zip(*parts))
+
+
+def _expert_apply(x2, w1, b1, w2, b2):
+    """One GELU expert on rows ``x2 [R, dim]``: two K1 products, as
+    JAX's ``MLPBlock.apply`` reaches ``ops.linear``."""
+    h = F.gelu(_proj(x2, w1, b1), approximate="tanh")
+    return _proj(h, w2, b2)
+
+
+class MoEMLP(nn.Module):
+    """Mixture-of-experts FFN: softmax top-k gating over ``n_experts``
+    GELU experts.  Dense (``capacity_factor=None``, the oracle): every
+    expert on every token, the non-top-k gates zero.  Sparse
+    (``capacity_factor=f``): each expert takes a buffer of ``C =
+    ceil(top_k T / n f)`` tokens by top-k assignment in token order; a
+    slot past capacity drops that expert's contribution only.  With
+    nothing dropped the two agree.
+
+    The gate's product is a plain f32 ``torch.matmul`` (an einsum in
+    JAX); every expert product is K1 through ``_proj`` on the stacked
+    weights' views.  ``torch.topk`` does not promise JAX's lower-index
+    choice on tied gate logits."""
+
+    def __init__(self, dim: int, n_experts: int, ratio: int = 4,
+                 top_k: int = 2, init_std: float = 0.02,
+                 out_init_std: Optional[float] = None,
+                 capacity_factor: Optional[float] = None):
+        super().__init__()
+        if not 1 <= top_k <= n_experts:
+            raise ValueError(f"top_k {top_k} must be in [1, {n_experts}]")
+        self.dim = dim
+        self.n_experts = n_experts
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.init_std = init_std
+        self.gate = nn.Parameter(torch.empty(n_experts, dim))
+        self.experts = MoEExperts(
+            n_experts, dim, ratio * dim, init_std,
+            init_std if out_init_std is None else out_init_std)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.gate.normal_(0.0, self.init_std, generator=generator)
+        self.experts.reset_parameters(generator)
+
+    def gates(self, x):
+        """Top-k masked, renormalised softmax gates ``[..., n_experts]``
+        (f32)."""
+        logits = torch.matmul(x.float(), self.gate.t())
+        if self.top_k < self.n_experts:
+            idx = torch.topk(logits, self.top_k, dim=-1).indices
+            keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(
+                -1, idx, True)
+            logits = logits.masked_fill(~keep, float("-inf"))
+        return torch.softmax(logits, dim=-1)
+
+    def forward(self, x):
+        if self.capacity_factor is not None:
+            return self.forward_sparse(x)
+        b, s, e = x.shape
+        x2 = x.reshape(b * s, e)
+        g = self.gates(x2)
+        ye = torch.stack([_expert_apply(x2, *p)
+                          for p in self.experts.unbound(x.dtype)])
+        y = torch.einsum("nte,tn->te", ye.float(), g)
+        return y.reshape(b, s, e).to(x.dtype)
+
+    def forward_sparse(self, x):
+        """Capacity-routed dispatch: routing by :func:`moe_sparse_routing`,
+        the gather, experts and weighted sum by
+        :func:`moe_sparse_dispatch`."""
+        b, s, e = x.shape
+        t = b * s
+        n, k = self.n_experts, self.top_k
+        cap = moe_capacity(t, n, k, self.capacity_factor)
+        x2 = x.reshape(t, e)
+        w, expert, pos, keep = moe_sparse_routing(self.gate, x2, n, k, cap)
+        y2 = moe_sparse_dispatch(x2, expert, pos, keep, w, cap, n, 0,
+                                 _expert_apply,
+                                 self.experts.unbound(x.dtype))
+        return y2.reshape(b, s, e).to(x.dtype)
+
+
+def moe_capacity(t: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Per-expert buffer ``C = ceil(top_k T / n f)``, at most T."""
+    return min(int(math.ceil(top_k * t / n_experts * capacity_factor)), t)
+
+
+def moe_sparse_routing(gate_w, x2, n_experts: int, top_k: int, cap: int):
+    """Global routing of capacity-based sparse dispatch, for ``x2 [T,
+    E]``: ``(w [T, k], expert [T k], pos [T k], keep [T k])``, the
+    renormalised top-k gate weights, each slot's expert, its position in
+    that expert's buffer (an exclusive running count in token-major
+    order) and whether it fits under ``cap``."""
+    t = x2.shape[0]
+    logits = torch.matmul(x2.float(), gate_w.t())
+    top, idx = torch.topk(logits, top_k, dim=-1)        # [T, k]
+    w = torch.softmax(top, dim=-1)
+    expert = idx.reshape(t * top_k)
+    onehot = F.one_hot(expert, n_experts)
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(1)
+    return w, expert, pos, pos < cap
+
+
+def moe_sparse_dispatch(x2, expert, pos, mine, w, cap: int, n_local: int,
+                        lo: int, expert_apply, experts_params):
+    """Gather dispatch for experts ``[lo, lo + n_local)``: this range's
+    weighted contributions ``[T, E]`` (f32; other ranges' slots give 0).
+    ``mine`` masks the slots this range takes (kept and owned);
+    ``experts_params[i]`` are expert ``lo + i``'s arguments of
+    ``expert_apply(rows, *params)``.  Each buffer row (e, c) gathers the
+    token of the slot routed there, through the inverse permutation; a
+    row no slot fills gathers a zero row.  Every slot not taken points
+    at one trash row past the buffers, which takes the duplicate writes
+    and is never read into a result."""
+    t, e = x2.shape
+    tk = expert.shape[0]
+    k = tk // t
+    rows = n_local * cap
+    dst = torch.where(mine, (expert - lo) * cap + pos,
+                      torch.full_like(pos, rows))
+    slot = torch.arange(tk, device=x2.device)
+    inv = torch.full((rows + 1,), tk, dtype=torch.int64, device=x2.device)
+    inv[dst] = slot
+    tok_idx = torch.where(inv < tk, inv // k, torch.full_like(inv, t))
+    x2p = torch.cat([x2, x2.new_zeros(1, e)])
+    xe = x2p[tok_idx[:rows]].reshape(n_local, cap, e)
+    ye = torch.cat([torch.stack([expert_apply(xe[i], *experts_params[i])
+                                 for i in range(n_local)]).reshape(rows, e),
+                    x2.new_zeros(1, e)])
+    wm = torch.where(mine, w.reshape(tk), torch.zeros_like(w.reshape(tk)))
+    y_slot = ye[dst].float() * wm[:, None]
+    return y_slot.reshape(t, k, e).sum(1)

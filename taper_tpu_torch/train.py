@@ -33,9 +33,18 @@ A checkpoint holds ``{"params", "opt_state"}`` in the JAX package's
 statistics) under the JAX tree's names, and the optimizer's ``lr``, step
 count and moments.
 
+``train_uses_rng=True`` gives every training step a ``torch.Generator``
+(the model is called ``model(x, train=True, generator=g)``, as JAX calls
+``apply(p, x, train=True, rng=key)``), seeded from the Trainer's seed and
+a counter alone: ``train_epoch``'s global step count (JAX:
+``fold_in(dropout_key, step)``) or ``fit_device``'s epoch and step in it
+(JAX: ``fold_in(fold_in(dropout_key, epoch), step)``), so a resumed
+``fit_device`` draws the masks the interrupted run would have drawn.  The
+bits are not ``jax.random``'s.
+
 Not ported yet: ``fit_device_fused``, meshes (data/tensor parallel,
-ZeRO-1), augmentation and dropout keys (``train_uses_rng``).  Their
-arguments raise ``NotImplementedError``.
+ZeRO-1) and augmentation.  Their arguments raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +66,24 @@ from taper_tpu_torch.utils import not_ported
 # seed + 1 + e * _EPOCH_STRIDE (epoch 0 keeps the seed + 1 of a generator
 # drawn in sequence)
 _EPOCH_STRIDE = 0x9E3779B9
+_MASK64 = 2 ** 64 - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def stream_seed(*parts: int) -> int:
+    """A 63-bit generator seed from integers (seed, counters), each folded
+    in by splitmix64: the counter-based stream of the Trainer's dropout
+    generators, the same parts giving the same seed."""
+    h = 0
+    for x in parts:
+        h = _splitmix64(h ^ _splitmix64(x & _MASK64))
+    return h >> 1
 
 
 @dataclass
@@ -127,7 +154,6 @@ class Trainer:
                  augment: Optional[Callable] = None):
         not_ported("Trainer", mesh=mesh is not None,
                    tensor_parallel=tensor_parallel, zero1=zero1,
-                   train_uses_rng=train_uses_rng,
                    augment=augment is not None)
         if device is None:
             if not torch.cuda.is_available():
@@ -141,6 +167,7 @@ class Trainer:
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.loss_fn = loss_fn
+        self.train_uses_rng = train_uses_rng
         self.log_path = log_path
         self._initial_lr = optimizer.lr
         self.model.to(self.device)
@@ -151,7 +178,7 @@ class Trainer:
         drawn from ``seed``, optimizer state, metrics, the scheduler and
         ``fit_device``'s batch order."""
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
-        self.optimizer.init(self.model.parameters())
+        self.optimizer.init(self.model.named_parameters())
         self.metrics = Metrics(log_path=self.log_path)
         self.optimizer.lr = self._initial_lr
         if self.scheduler is not None:
@@ -160,6 +187,8 @@ class Trainer:
         # epochs completed before this process (set by restore): keeps
         # fit's checkpoint numbering global across resumes
         self._epoch_offset = 0
+        # train_epoch's steps so far: its dropout generators' counter
+        self._step_count = 0
 
     def _epoch_order(self, n: int, epoch: int) -> torch.Tensor:
         """fit_device's permutation of ``n`` samples for ``epoch``, from
@@ -168,14 +197,27 @@ class Trainer:
             (self._seed + 1 + epoch * _EPOCH_STRIDE) % 2 ** 63)
         return torch.randperm(n, generator=gen)
 
+    def _dropout_generator(self, *counters: int):
+        """The step's generator (CPU) under ``train_uses_rng``, from the
+        seed and ``counters`` alone; None otherwise."""
+        if not self.train_uses_rng:
+            return None
+        return torch.Generator().manual_seed(
+            stream_seed(self._seed, 0xD809, *counters))
+
     # -- steps -------------------------------------------------------------
 
-    def train_step(self, x, y):
+    def train_step(self, x, y, generator=None):
         """Forward, backward and update on one batch (tensors on the
         trainer's device).  Returns the loss and the accuracy as 0-d
-        tensors on the device, without a host sync."""
+        tensors on the device, without a host sync.  Under
+        ``train_uses_rng`` the model draws its dropout masks from
+        ``generator``."""
         self.model.train()
-        logits = self.model(x)
+        if self.train_uses_rng:
+            logits = self.model(x, train=True, generator=generator)
+        else:
+            logits = self.model(x)
         loss = self.loss_fn(logits, y)
         self.optimizer.zero_grad()
         loss.backward()
@@ -252,9 +294,10 @@ class Trainer:
             order = order.to(self.device)
             loss_sum = torch.zeros((), device=self.device)
             acc_sum = torch.zeros((), device=self.device)
-            for idx in order:
+            for i, idx in enumerate(order):
                 loss, acc = self.train_step(ti.index_select(0, idx),
-                                            tl.index_select(0, idx))
+                                            tl.index_select(0, idx),
+                                            self._dropout_generator(e, i))
                 loss_sum += loss
                 acc_sum += acc
             va_loss, va_correct = self._eval_sums(vi, vl, eval_batch_size)
@@ -288,7 +331,10 @@ class Trainer:
         except every ``log_every`` steps when that is set."""
         losses, accs = [], []
         for i, (bx, by) in enumerate(loader):
-            loss, acc = self.train_step(*self._to_device(bx, by))
+            self._step_count += 1
+            loss, acc = self.train_step(
+                *self._to_device(bx, by),
+                self._dropout_generator(self._step_count))
             losses.append(loss)
             accs.append(acc)
             if log_every and (i + 1) % log_every == 0:

@@ -58,6 +58,14 @@ def unflatten(tree, leaves, sep="/"):
     return build(tree, "")
 
 
+def tree_map(fn, *trees):
+    """A tree of ``trees[0]``'s structure whose leaves are ``fn`` of the
+    leaves at the same path of each tree."""
+    leaves = [dict(flatten(t)) for t in trees]
+    return unflatten(trees[0], {p: fn(*(lv[p] for lv in leaves))
+                                for p in leaves[0]})
+
+
 def _host(leaf) -> np.ndarray:
     """A leaf as a host numpy array (a copy: later in-place updates of
     the tensor do not reach it)."""

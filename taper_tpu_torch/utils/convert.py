@@ -3,7 +3,9 @@
 The port's modules name their parameters after the JAX parameter tree
 (``tok.w``, ``pos.w``, ``blocks[i].{ln1, attn, ln2, mlp}``, ``ln_f`` and,
 untied, ``head``), and both packages keep weights as ``[out, in]``, so a
-tree converts leaf by leaf under its dotted path.  BatchNorm's
+tree converts leaf by leaf under its dotted path.  An MoE block's FFN
+keeps JAX's stacked leaves: ``mlp.gate [n, dim]`` and
+``mlp.experts.{w1 [n, hidden, dim], b1, w2 [n, dim, hidden], b2}``.  BatchNorm's
 ``running_*`` leaves land in the buffers of the same names.
 
 A PTQ tree (``taper_tpu.quantization.ptq.quantize_params``) loads too: a

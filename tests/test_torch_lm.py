@@ -126,15 +126,17 @@ def test_bf16_trunk_loss_matches_jax(monkeypatch):
 
 
 def test_loss_takes_the_naive_branch_only():
-    """The fused vocab-chunked branch (B*S*V > 2^28, or an explicit
-    chunk) raises until fused_linear_cross_entropy is ported."""
+    """chunk=0 takes the naive branch; an explicit chunk takes the fused
+    vocab-chunked branch (ported: tests/test_torch_fused_ce.py holds it
+    against JAX), which gives the naive branch's loss and accuracy."""
     model = TinyGPT(vocab_size=VOCAB, dim=32, depth=1, num_heads=2,
                     max_seq=16)
     toks = torch.zeros(1, 16, dtype=torch.int64)
     loss, acc = model.loss(toks, toks, torch.ones(16), chunk=0)
     assert loss.dim() == 0 and acc.dim() == 0
-    with pytest.raises(NotImplementedError, match="fused"):
-        model.loss(toks, toks, torch.ones(16), chunk=8)
+    fused, facc = model.loss(toks, toks, torch.ones(16), chunk=8)
+    torch.testing.assert_close(fused, loss, rtol=1e-6, atol=0)
+    assert float(facc) == float(acc)
 
 
 @pytest.mark.parametrize("kw", [dict(dropout=0.1), dict(window=8),
@@ -142,11 +144,14 @@ def test_loss_takes_the_naive_branch_only():
                                 dict(capacity_factor=1.25),
                                 dict(remat=True)])
 def test_unported_options_raise(kw):
-    """Each option the port cannot honour raises naming ROADMAP.md; a
-    window is ported (tests/test_torch_window_model.py holds it against
-    JAX), so it builds a model whose rows see the last 8 keys only: the
-    last row's output is that of the model on the last 8 tokens alone
-    (RoPE makes attention depend on relative positions only)."""
+    """Every option here is ported now, so each builds a model that
+    trains: dropout, MoE and remat (held against JAX in
+    tests/test_torch_moe.py and tests/test_torch_regularize.py; top_k and
+    capacity_factor without experts change nothing, as in JAX) give a
+    finite loss and gradient.  A window builds a model whose rows see the
+    last 8 keys only: the last row's output is that of the model on the
+    last 8 tokens alone (RoPE makes attention depend on relative
+    positions only)."""
     if "window" in kw:
         model = TinyGPT(vocab_size=VOCAB, dim=32, depth=1, num_heads=2,
                         rope=True, max_seq=16, **kw)
@@ -158,5 +163,13 @@ def test_unported_options_raise(kw):
             alone = model(toks[:, -8:])[0, -1]
         torch.testing.assert_close(full, alone, rtol=1e-5, atol=1e-5)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TinyGPT(vocab_size=VOCAB, dim=32, depth=1, num_heads=2, **kw)
+    model = TinyGPT(vocab_size=VOCAB, dim=32, depth=1, num_heads=2,
+                    max_seq=16, **kw)
+    toks = torch.randint(0, VOCAB, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    loss, _ = model.loss(toks, toks.roll(-1, 1), torch.ones(16),
+                         train=True, generator=torch.Generator())
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+               if p.grad is not None)

@@ -80,11 +80,11 @@ def test_ops_attention_window_and_segment_ids():
 
 
 def test_trainer_train_uses_rng_and_save_every(tmp_path):
-    with pytest.raises(NotImplementedError, match="train_uses_rng"):
-        Trainer(mnist_mlp(), optim.SGD(0.1), device="cpu",
-                train_uses_rng=True)
+    """train_uses_rng is ported: the Trainer hands the model a generator
+    per step (tests/test_torch_regularize.py holds the masks it draws)."""
     tr = Trainer(mnist_mlp(), optim.SGD(0.1), device="cpu",
-                 train_uses_rng=False)
+                 train_uses_rng=True)
+    assert tr.train_uses_rng
     x = np.random.default_rng(0).random((16, 784)).astype(np.float32)
     y = np.arange(16) % 10
     tr.fit_device(x, y, x, y, 2, batch_size=8, verbose=False,

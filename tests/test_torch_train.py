@@ -186,8 +186,7 @@ def test_fit_device_is_reproducible_from_the_seed():
 
 def test_trainer_raises_on_what_is_not_ported():
     for kw in (dict(mesh=object()), dict(zero1=True),
-               dict(tensor_parallel=True), dict(augment=lambda b, k: b),
-               dict(train_uses_rng=True)):
+               dict(tensor_parallel=True), dict(augment=lambda b, k: b)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(mnist_mlp(), optim.SGD(0.1), device="cpu", **kw)
 
