@@ -12,7 +12,10 @@ Trainer's checkpoints, and sliding-window and packed-sequence attention
 through ring caches, the opt-in backwards K10 and K11), and the rest of
 the training step (the fused vocab-chunked loss at 16 x 2048 with remat,
 dropout and the training helpers; an MoE model; Lion, Muon and
-Adafactor).
+Adafactor), and generation (generate, multi-turn, chunked decode and beam
+search on bench_multiturn's model; the BPE tokenizer, the byte LMs of
+examples/train_bytelm.py and speculative decoding; the serving engine's
+shared system prompt).
 
     python3 chip_smoke.py
 
@@ -215,7 +218,40 @@ non-zero):
      of 2 steps;
  32. the 170M model at 8 x 2048 through Lion, Muon and Adafactor: a few
      steps each, losses finite, exact launches (no K17), Muon's
-     Newton-Schulz time beside its step's.
+     Newton-Schulz time beside its step's;
+ 33. generation on benchmarks/bench_serving.py:121's bench_multiturn
+     model (vocab 4096, dim 2048, depth 6, 16 heads on 4 KV heads, RoPE,
+     bf16, 0.28B parameters at random init): K1 at a decode step's (M 8),
+     a chunk's (M 256) and the prefill's (M 8192) rows and K8 at the
+     prefill against their plain versions; generate on 8 x 1024 + 64
+     greedy (exact launches, K1 and K8 calls by route as plan predicts,
+     one decode step's K1 routes), token-at-a-time, over an int8 cache,
+     ragged and with eos, each token held by a teacher-forced forward
+     (within GREEDY_TAU of its row's maximum); turn 1 with return_cache
+     and turn 2 through generate_continued with a chunk of 32;
+     decode_chunk's logits against a prefill of all 1,056 positions and
+     its new tokens/s against re-prefilling; beam_search with 4 beams on
+     2 prompts;
+ 34. the BPE tokenizer to vocab 512 on the repository's markdown (the
+     native library and the Python loop give the same merges and ids;
+     encode then decode gives the bytes back; both timed), the byte LMs of
+     bench_serving.py:446's bench_speculative (target dim 512, depth 6,
+     8 heads; draft dim 128, depth 2, 4 heads of 32; f32, RoPE) with their
+     f32 kernels against the plain versions at their shapes, trained
+     through examples/train_bytelm.py's code for 1,200 Adam steps each
+     (exact launches per step), the target's sampled continuation; then
+     speculative_generate (gamma 4, 64 + 128) at batch 1, 4 and 8, per row
+     and in lockstep, against the target's own greedy generate (where a
+     row parts, the two logits within SPEC_TAU), tokens a round and
+     tokens/s beside plain decoding;
+ 35. the serving engine's shared system prompt on phase 5's model, pools
+     and 32-request mix with a 256-token prefix: K16 over tables that
+     alias the prefix blocks against its plain version; an admission's
+     logits through prefill_paged_continued against prefill_paged of
+     system + prompt; the engine's prefix blocks allocated once (the free
+     count), K16 calls by route, and every greedy request's tokens held
+     by the teacher-forced check beside an engine without a prefix run on
+     system + prompt; generated tokens/s of both.
 Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
@@ -251,12 +287,16 @@ import torch.nn.functional as F
 
 from taper_tpu_torch import losses, optim
 from taper_tpu_torch.data import (
-    CIFAR10Dataset, MNISTDataset, pack_documents, packing_efficiency)
+    BPETokenizer, CIFAR10Dataset, MNISTDataset, pack_documents,
+    packing_efficiency)
+from taper_tpu_torch.data import native as bpe_native
 from taper_tpu_torch.examples import (
-    ptq_quantize, train_cifar10_resnet, train_mnist, train_tinylm, train_xor)
+    ptq_quantize, train_bytelm, train_cifar10_resnet, train_mnist,
+    train_tinylm, train_xor)
 from taper_tpu_torch.models import (
     TinyGPT, mnist_cnn, mnist_mlp, resnet8, xor_mlp)
-from taper_tpu_torch.models.transformer import FUSED_CHUNK, NAIVE_LOSS_MAX
+from taper_tpu_torch.models.transformer import (
+    FUSED_CHUNK, NAIVE_LOSS_MAX, _mask_after_eos)
 from taper_tpu_torch.nn import transformer as NT
 from taper_tpu_torch.nn.transformer import moe_capacity
 from taper_tpu_torch.ops import _build, backend
@@ -1296,10 +1336,12 @@ def gemm_rows(dev, shapes, dtype, phase, tol, gen):
     return rows
 
 
-def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
+def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms,
+                  backward=True):
     """The flash kernels at one attention shape (causal, MHA) against the
     plain versions: the forward arms ``fwd_arms`` (of ``"exact"``,
-    ``"bound"``, ``"bound_off"``) then K6 and K7, in each layout."""
+    ``"bound"``, ``"bound_off"``) then, with ``backward``, K6 and K7, in
+    each layout."""
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     f32 = dtype == torch.float32
     scale = d ** -0.5
@@ -1309,7 +1351,9 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
     rows_bytes = 4 * b * h * s              # one [B*H, S] f32 row vector
     plain_fwd = A.attention_lse_reference
     ref_o, ref_lse = plain_fwd(q, k, v, causal=True, scale=scale)
-    ref = A.flash_bwd_reference(q, k, v, ref_o, ref_lse, do, True, scale)
+    if backward:
+        ref = A.flash_bwd_reference(q, k, v, ref_o, ref_lse, do, True,
+                                    scale)
 
     def sdpa(q4, k4, v4):
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
@@ -1358,6 +1402,8 @@ def lm_flash_rows(dev, b, h, s, d, dtype, phase, gen, layouts, fwd_arms):
                 k8_alone(rows[name][-1], fsets, scale, heads, arm == "bound",
                          phase)
         del fsets
+        if not backward:
+            continue
         bsets = cold_sets(*args, lay(ref_o), ref_lse, lay(do))
         plain_bwd = lambda q_, k_, v_, o_, l_, do_, to4=to4: \
             A.flash_bwd_reference(*(to4(t) for t in (q_, k_, v_, o_)), l_,
@@ -3014,6 +3060,52 @@ def decode_profile(step, n=2):
     return prof
 
 
+def host_profile(step, n=5, top=10):
+    """Where the host's time goes in ``step()``, by Python function, from
+    cProfile over ``n`` calls (its hook on every call inflates small
+    functions): the wall per call without the profiler and with it, in
+    ms; the ``top`` functions by own time and, of the port's own, by time
+    including callees, each ``(where, ms a call, calls a call)``; and own
+    time summed by file."""
+    import cProfile
+    import pstats
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_prof = (time.perf_counter() - t0) / n * 1e3
+    stats = pstats.Stats(prof).stats
+    # a Python function by its file's last two parts, a C one ("~") by
+    # its own name
+    rows = [("/".join(f.split("/")[-2:]) + f":{ln}({fn})" if f != "~"
+             else fn, f if f != "~" else fn, nc / n, tt / n * 1e3,
+             ct / n * 1e3) for (f, ln, fn), (_, nc, tt, ct, _) in
+            stats.items()]
+    own = sorted(rows, key=lambda r: -r[3])[:top]
+    port = sorted((r for r in rows if "taper_tpu_torch" in r[1]),
+                  key=lambda r: -r[4])[:top]
+    by_file = {}
+    for r in rows:
+        key = "/".join(r[1].split("/")[-2:])
+        by_file[key] = by_file.get(key, 0.0) + r[3]
+    return dict(
+        wall_ms=wall, wall_prof_ms=wall_prof,
+        own=[(w, round(t, 3), c) for w, _, c, t, _ in own],
+        port_cum=[(w, round(t, 3), c) for w, _, c, _, t in port],
+        by_file={k: round(v, 3) for k, v in sorted(
+            by_file.items(), key=lambda kv: -kv[1])[:top]})
+
+
 def engine_logits(model, dev, prompt, paged, quant):
     """Prefill of one padded prompt and one decode step through the
     contiguous cache or paged pools of ``model`` on ``dev``: ``(prefill
@@ -4569,6 +4661,753 @@ def phase32_optimizers(dev, smi):
     return totals, out
 
 
+# -- the generation slice (phases 33-35) ---------------------------------------
+
+# Phase 33: benchmarks/bench_serving.py:121-135's bench_multiturn model
+# (0.28B parameters at random init from SEED), its context of 1,024 and its
+# chunk of 32 new tokens on 8 rows (max_seq 1,088 = 1,024 + 2 x 32)
+GEN = dict(vocab_size=4096, dim=2048, depth=6, num_heads=16, num_kv_heads=4,
+           max_seq=1088, rope=True)
+GEN_RUN = dict(batch=8, prompt=1024, max_new=64, chunk=32, beam_batch=2,
+               beams=4, beam_new=32, reps=5, eos_at=10)
+# a layer's six K1 products (K_in, N_out): q, k, v, o, the MLP's two
+GEN_PRODUCTS = ((2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+                (2048, 8192), (8192, 2048))
+GEN_PER_STEP = dict(linear=6 * GEN["depth"])
+# The teacher-forced check of a greedy token: a full forward over the
+# output (bf16 trunk, flash prefill) gives each position's logits; the
+# token chosen there must lie within GREEDY_TAU of its row's maximum.  The
+# decode path and the forward round differently in bf16 (phase 4: 3e-3
+# relative L2 against f32 at unit-scale logits), so a near-tie may resolve
+# either way; tokens 4,096 Gaussian logits of std ~0.9 apart lie ~0.2 below
+# the maximum at the second place and ~3 at a random one.  An int8 cache
+# adds its rows' rounding (one part in 254 of a row's largest entry).
+GREEDY_TAU = {"bf16": 0.05, "int8": 0.1}
+# Phase 34: bench_serving.py:446-488's bench_speculative pair, f32 with
+# RoPE, max_seq 272 = 64 + 192 + 16, trained as there: Adam(1e-3), 1,200
+# steps of 32 random 128-byte windows of the repository's markdown; the
+# bench generates 192 tokens, phase 34 128 (phases 33-35 within about two
+# minutes: a speculative round is host bound at ~40 ms, PERF.md)
+SPEC = dict(vocab_size=256, max_seq=272, rope=True, steps=1200, batch=32,
+            seq=128, lr=1e-3, gamma=4, prompt=64, max_new=128,
+            batches=(1, 4, 8), bpe_vocab=512, max_loss=3.0)
+SPEC_TARGET = dict(dim=512, depth=6, num_heads=8)
+SPEC_DRAFT = dict(dim=128, depth=2, num_heads=4)     # heads of 32
+# greedy speculative decoding against the target's own greedy generate,
+# both f32: the verify chunk's products (M = B * 5) and a decode step's (M
+# = B) sum in other orders, last-bit apart; where the two outputs first
+# part, the target's two logits must be that close.  The same tau holds
+# every greedy token of both against a teacher-forced forward of the
+# target on the CPU (plain PyTorch): f32 logits of unit scale that differ
+# only by summation order agree to ~1e-5 (the f32 K1 rows' errors)
+SPEC_TAU = 1e-3
+# the sampled continuation (temperature 0.8) against the CPU forward's
+# tempered distributions: its summed NLL at most this many standard
+# deviations above the summed entropy (a draw from the right distribution
+# has z ~ N(0, 1); a wrong cache or position gives tokens the model finds
+# unlikely, tens of sigma above)
+SAMPLE_Z = 4.0
+
+
+def bytelm_per_step(depth):
+    """Launches per training step of a byte LM: six K1 products a layer
+    (forward, dX, dW), the f32 flash forward and backward, one Adam."""
+    return dict(linear=6 * depth, gemm_nn=6 * depth, gemm_tn=6 * depth,
+                flash_fwd=depth, flash_dq=depth, flash_dkv=depth, adam=1)
+
+
+def gen_model(dev):
+    """Phase 33's model: random weights from SEED, projections cast to
+    bf16, a bf16 trunk."""
+    model = TinyGPT(**GEN)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    model.eval()
+    model = model.to(dev).cast_projections(torch.bfloat16)
+    model.compute_dtype = torch.bfloat16
+    return model
+
+
+def step_routes(m, products, layers, dtype=torch.bfloat16):
+    """K1 calls of one pass over ``m`` rows by route, as ``plan`` predicts
+    them: each layer's ``products`` (K_in, N_out) in mode nt."""
+    want = {}
+    for k_in, n_out in products:
+        route, splits = plan(m, n_out, k_in, dtype, "nt", True)
+        key = route_key(route, "nt", splits)
+        want[key] = want.get(key, 0) + layers
+    return want
+
+
+def add_routes(*tallies):
+    out = {}
+    for t, times in tallies:
+        for k, c in t.items():
+            out[k] = out.get(k, 0) + c * times
+    return out
+
+
+def greedy_gaps(model, tokens, starts, n):
+    """Each of the ``n`` tokens from its row's start (``[B]`` ints): the
+    row maximum of ``model``'s forward over the tokens, less the chosen
+    token's logit, one position before (``[B, n]``)."""
+    with torch.no_grad():
+        lg = model(tokens[:, :-1])
+    out = []
+    for r, st in enumerate(starts):
+        row = lg[r, st - 1:st - 1 + n].float()
+        pick = row.gather(1, tokens[r, st:st + n, None])[:, 0]
+        out.append(row.max(-1).values - pick)
+    return torch.stack(out)
+
+
+def counted(fn):
+    """``fn()`` timed from a synced device, with its launches and routes."""
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, backend.launch_counts(),
+            backend.route_counts())
+
+
+def gen_kernel_rows(dev, gen):
+    """K1 at phase 33's three row counts (a decode step, a chunk, the
+    prefill) and K8 at its prefill shape, against their plain versions."""
+    bf = torch.bfloat16
+    b, p, c = GEN_RUN["batch"], GEN_RUN["prompt"], GEN_RUN["chunk"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(bf).to(dev)
+
+    rows = []
+    for m in (b, b * c, b * p):
+        for k, n in sorted(set(GEN_PRODUCTS)):
+            x, w, bias = randn(m, k), randn(n, k, scale=k ** -0.5), \
+                randn(n, scale=0.1)
+            rows.append(check_kernel(
+                "linear", f"bf16 M={m} K={k} N={n} (+bias)", linear,
+                linear_reference, cold_sets(x, w, bias), phase=33,
+                library_fn=F.linear,
+                work=gemm_work(m, n, k, "bf16", bias=True)))
+            del x, w, bias
+    h, hkv, d = GEN["num_heads"], GEN["num_kv_heads"], GEN["dim"] // \
+        GEN["num_heads"]
+    q = randn(b, h, p, d)
+    k, v = randn(b, hkv, p, d), randn(b, hkv, p, d)
+    k8 = check_kernel(
+        "flash_fwd_bound", f"bf16 B={b} H={h} Hkv={hkv} S={p} D={d} causal",
+        lambda q, k, v: A.attention(q, k, v, causal=True),
+        lambda q, k, v: A.attention_reference(q, k, v, causal=True),
+        cold_sets(q, k, v),
+        library_fn=lambda q, k, v: F.scaled_dot_product_attention(
+            q, k.repeat_interleave(h // hkv, 1),
+            v.repeat_interleave(h // hkv, 1), is_causal=True),
+        work=attn_work(b, h, hkv, p, d, "bf16", 2,
+                       2 * nbytes(q) + 2 * nbytes(k) + 4 * b * h * p),
+        flash_route=A.plan_fwd(bf, "causal"), phase=33)
+    return dict(linear=rows, flash_fwd_bound=[k8])
+
+
+def phase33_generation(dev, smi):
+    """Generation at full width on bench_multiturn's model: greedy
+    ``generate`` (one-shot and token-at-a-time prefill, int8 cache, ragged
+    prompts, eos), the multi-turn hand-off through ``generate_continued``,
+    ``decode_chunk`` against re-prefilling, and ``beam_search``."""
+    gen = torch.Generator().manual_seed(SEED + 33)
+    rows = gen_kernel_rows(dev, gen)
+    model = gen_model(dev)
+    n_params = sum(t.numel() for t in model.parameters())
+    b, p, n, c = (GEN_RUN[k] for k in ("batch", "prompt", "max_new",
+                                       "chunk"))
+    depth, v = GEN["depth"], GEN["vocab_size"]
+    prompt = torch.randint(0, v, (b, p), generator=gen).to(dev)
+    new = torch.randint(0, v, (b, c), generator=gen).to(dev)
+    decode_r = step_routes(b, GEN_PRODUCTS, depth)
+    prefill_r = step_routes(b * p, GEN_PRODUCTS, depth)
+    totals = {}
+
+    def tally(counts):
+        for k_, c_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + c_
+
+    def held(label, out, starts, kind="bf16"):
+        gaps = greedy_gaps(model, out, starts, n)
+        top = float((gaps == 0).float().mean())
+        print(f"phase 33: {label}: teacher-forced check of {gaps.numel()} "
+              f"tokens: worst gap below the row maximum {float(gaps.max()):.4f}"
+              f" (tau {GREEDY_TAU[kind]}), {top:.4f} of them the forward's "
+              f"own argmax")
+        assert torch.isfinite(gaps).all() and gaps.max() <= GREEDY_TAU[kind]
+        return top
+
+    model.generate(prompt, 2)                 # first calls' set-up
+    out, wall, counts, routes = counted(lambda: model.generate(prompt, n))
+    tally(counts)
+    # the prefill alone, for the decode rate
+    with torch.no_grad():
+        caches = model.init_cache(b)
+        _, pre_s, _, _ = counted(lambda: model.prefill(prompt, caches))
+    dec_ms = (wall - pre_s) / (n - 1) * 1e3
+    want = {"linear": GEN_PER_STEP["linear"] * n, "flash_fwd_bound": depth}
+    launched = {k_: c_ for k_, c_ in counts.items() if c_}
+    planned = add_routes((prefill_r, 1), (decode_r, n - 1),
+                         ({"wgmma flash_fwd_bound": depth}, 1))
+    print(f"phase 33: TinyGPT vocab {v}, dim {GEN['dim']}, depth {depth}, "
+          f"{GEN['num_heads']} heads on {GEN['num_kv_heads']} KV heads, "
+          f"bf16, {n_params / 1e6:.1f}M params: generate {b} x {p} + {n} "
+          f"greedy in {wall:.3f} s ({b * n / wall:.1f} tokens/s with the "
+          f"prefill; prefill {pre_s * 1e3:.1f} ms, then {dec_ms:.2f} ms a "
+          f"decode step, {b / dec_ms * 1e3:.1f} tokens/s); launches "
+          f"{launched}; K1/flash calls by route {routes} (planned "
+          f"{planned}); on {smi}")
+    assert launched == want, (launched, want)
+    assert routes == planned, (routes, planned)
+    assert out.shape == (b, p + n) and torch.equal(out[:, :p], prompt)
+    held("one-shot prefill", out, [p] * b)
+
+    # one decode step's K1 calls, by route, and where its time goes
+    at_p = torch.full((), p, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        _, _, step_counts, step_r = counted(
+            lambda: model.decode_step(out[:, p], at_p, caches))
+        prof = decode_profile(lambda: model.decode_step(out[:, p], at_p,
+                                                        caches), 2)
+    print(f"phase 33: a decode step profiled: {prof['wall_ms']:.2f} ms of "
+          f"wall (under the profiler), {prof['busy_ms']:.3f} ms of device "
+          f"busy ({prof['busy_share']:.3f}), {prof['device_ops']:.0f} device "
+          f"ops; by family {prof['ms']}; the largest glue {prof['glue_top']}")
+    with torch.no_grad():
+        host = host_profile(lambda: model.decode_step(out[:, p], at_p,
+                                                      caches))
+    print(f"phase 33: a decode step's host time: {host['wall_ms']:.2f} ms "
+          f"a step, {host['wall_prof_ms']:.2f} ms under cProfile; own time "
+          f"by file (ms a step) {host['by_file']}; the largest own times "
+          f"(where, ms, calls a step) {host['own']}; the port's functions "
+          f"by time with callees {host['port_cum']}")
+    print(f"phase 33: one decode step at M={b}: launches "
+          f"{ {k_: c_ for k_, c_ in step_counts.items() if c_} }, K1 by "
+          f"route {step_r} (plan: {decode_r})")
+    assert step_r == decode_r and step_counts["linear"] == \
+        GEN_PER_STEP["linear"], step_r
+    del caches
+
+    seq, wall_s, counts, _ = counted(lambda: model.generate(
+        prompt, n, one_shot_prefill=False))
+    tally(counts)
+    agree = float((seq == out).float().mean())
+    print(f"phase 33: one_shot_prefill=False: {p + n - 1} decode steps in "
+          f"{wall_s:.2f} s ({wall_s / (p + n - 1) * 1e3:.2f} ms a step), "
+          f"{agree:.4f} of the tokens as the one-shot path's")
+    assert counts["flash_fwd_bound"] == 0
+    held("token-at-a-time prefill", seq, [p] * b)
+
+    q8, wall_q, counts, _ = counted(lambda: model.generate(
+        prompt, n, quantized_cache=True))
+    tally(counts)
+    print(f"phase 33: int8 cache: {b * n / wall_q:.1f} tokens/s with the "
+          f"prefill, {float((q8 == out).float().mean()):.4f} of the tokens "
+          f"as the bf16 cache's")
+    held("int8 cache", q8, [p] * b, "int8")
+
+    lens = torch.randint(p // 2, p + 1, (b,), generator=gen)
+    rag, wall_r, counts, _ = counted(lambda: model.generate(
+        prompt, n, prompt_lens=lens))
+    tally(counts)
+    print(f"phase 33: ragged prompts of {lens.tolist()} tokens: "
+          f"{b * n / wall_r:.1f} tokens/s")
+    held("ragged prompts", rag, lens.tolist())
+
+    eos = int(out[0, p + GEN_RUN["eos_at"]])
+    ended, wall_e, counts, _ = counted(lambda: model.generate(
+        prompt, n, eos_token=eos, pad_token=0))
+    tally(counts)
+    rows_same = int((ended == _mask_after_eos(out, p, eos, 0)).all(1).sum())
+    hit = (ended[:, p:] == eos).any(1)
+    print(f"phase 33: eos {eos} (row 0's token {GEN_RUN['eos_at']}): "
+          f"{int(hit.sum())} of {b} rows ended, "
+          f"{counts['linear'] // GEN_PER_STEP['linear']} model passes, {rows_same} of {b} rows the greedy run's masked "
+          f"output")
+    for r in range(b):                     # pad after each row's first eos
+        g = ended[r, p:]
+        at = (g == eos).nonzero()
+        if len(at):
+            assert (g[int(at[0]) + 1:] == 0).all(), r
+            g = g[:int(at[0]) + 1]
+        gaps = greedy_gaps(model, ended[r:r + 1, :p + len(g)], [p], len(g))
+        assert gaps.max() <= GREEDY_TAU["bf16"], (r, float(gaps.max()))
+
+    # multi-turn: turn 1 fills [0, P), turn 2 brings a chunk of 32
+    (t1, caches), wall_1, counts, _ = counted(lambda: model.generate(
+        prompt, 1, return_cache=True))
+    tally(counts)
+    t2, wall_2, counts, routes = counted(lambda: model.generate_continued(
+        new, c, caches, past_len=p))
+    tally(counts)
+    chunk_r = step_routes(b * c, GEN_PRODUCTS, depth)
+    print(f"phase 33: multi-turn: turn 1 (prefill {p}) {wall_1 * 1e3:.1f} "
+          f"ms, turn 2 (a chunk of {c} at {p}, then {c} tokens) "
+          f"{wall_2 * 1e3:.1f} ms; turn 2's K1 by route {routes}")
+    assert routes == add_routes((chunk_r, 1), (decode_r, c - 1)), routes
+    full = torch.cat([prompt, t2], 1)
+    gaps = greedy_gaps(model, full, [p + c] * b, c)
+    print(f"phase 33: turn 2's {gaps.numel()} tokens: worst gap "
+          f"{float(gaps.max()):.4f} (tau {GREEDY_TAU['bf16']})")
+    assert gaps.max() <= GREEDY_TAU["bf16"]
+    del caches
+
+    # decode_chunk against re-prefilling P + 32 (bench_multiturn's race)
+    with torch.no_grad():
+        cache0 = model.init_cache(b)
+        model.prefill(prompt, cache0)
+        chunk_lg = model.decode_chunk(new, p, cache0)
+        fresh = model.init_cache(b)
+        ref = model.prefill(torch.cat([prompt, new], 1), fresh)[:, p:]
+        rel = rel_l2(chunk_lg.float(), ref.float())
+        print(f"phase 33: decode_chunk logits over [{p}, {p + c}) against "
+              f"prefill of all {p + c}: rel L2 {rel:.3e} (tol "
+              f"{MODEL_REL_TOL:.0e}), argmax agreement "
+              f"{float((chunk_lg.argmax(-1) == ref.argmax(-1)).float().mean()):.4f}")
+        assert rel <= MODEL_REL_TOL
+        times = {}
+        for name, fn in (("cache reuse", lambda: model.decode_chunk(
+                new, p, cache0)), ("re-prefill", lambda: model.prefill(
+                torch.cat([prompt, new], 1), fresh))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GEN_RUN["reps"]):
+                fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) / GEN_RUN["reps"]
+    print(f"phase 33: turn 2 new tokens/s ({b} x {c}): cache reuse "
+          f"(decode_chunk) {b * c / times['cache reuse']:.1f} "
+          f"({times['cache reuse'] * 1e3:.2f} ms), re-prefill "
+          f"{b * c / times['re-prefill']:.1f} "
+          f"({times['re-prefill'] * 1e3:.2f} ms): "
+          f"{times['re-prefill'] / times['cache reuse']:.2f}x; on {smi}")
+    del cache0, fresh, chunk_lg, ref
+
+    # beam search: beams 4 over 2 prompts (a [8] decode batch)
+    bb, w, bn = (GEN_RUN[k] for k in ("beam_batch", "beams", "beam_new"))
+    (beams, scores), wall_b, counts, routes = counted(
+        lambda: model.beam_search(prompt[:bb], bn, beams=w,
+                                  return_all=True))
+    tally(counts)
+    planned = add_routes((step_routes(bb * p, GEN_PRODUCTS, depth), 1),
+                         (step_routes(bb * w, GEN_PRODUCTS, depth), bn - 1),
+                         ({"wgmma flash_fwd_bound": depth}, 1))
+    greedy = out[:bb, :p + bn]
+    with torch.no_grad():
+        def logp(tokens):
+            lg = torch.log_softmax(model(tokens[:, :-1]).float(), -1)
+            return lg[:, p - 1:].gather(2, tokens[:, p:, None])[..., 0].sum(1)
+        best, base = logp(beams[:, 0]), logp(greedy)
+    print(f"phase 33: beam_search beams {w} on {bb} x {p} + {bn}: "
+          f"{wall_b:.3f} s ({bb * bn / wall_b:.1f} tokens/s); scores "
+          f"{scores.tolist()}; best beam's log p by the forward "
+          f"{best.tolist()} against the greedy continuation's "
+          f"{base.tolist()}; K1 by route {routes} (planned {planned})")
+    assert routes == planned, (routes, planned)
+    assert (scores[:, 1:] <= scores[:, :-1] + 1e-6).all()
+    # scores are per-token means (length_penalty 1); the forward's log p
+    # agrees within the bf16 trunk's rounding, and beam search finds at
+    # least the greedy continuation's likelihood
+    assert (best / bn - scores[:, 0]).abs().max() <= GREEDY_TAU["bf16"]
+    assert (best >= base - bn * GREEDY_TAU["bf16"]).all()
+    del model
+    torch.cuda.empty_cache()
+    return totals, dict(rows=rows, tokens_s=b * n / wall,
+                        decode_step_ms=dec_ms,
+                        chunk_speedup=times["re-prefill"]
+                        / times["cache reuse"])
+
+
+def spec_models(dev):
+    """bench_speculative's target and draft byte LMs (f32, RoPE) on the
+    card, weights from SEED."""
+    out = []
+    for i, cfg in enumerate((SPEC_TARGET, SPEC_DRAFT)):
+        model = TinyGPT(vocab_size=SPEC["vocab_size"], max_seq=SPEC["max_seq"],
+                        rope=SPEC["rope"], **cfg)
+        model.reset_parameters(torch.Generator().manual_seed(SEED + i))
+        out.append(model.to(dev))
+    return out
+
+
+def bytelm_kernel_rows(dev, gen):
+    """The byte LMs' training kernels against their plain versions at their
+    shapes (f32): K1 in modes nt, nn, tn at each layer's products over
+    32 x 128 tokens, K5, K6 and K7 at each model's attention shape."""
+    t = SPEC["batch"] * SPEC["seq"]
+    rows = {}
+    for cfg in (SPEC_TARGET, SPEC_DRAFT):
+        e = cfg["dim"]
+        for k_, r in gemm_rows(dev, ((t, e, e), (t, e, 4 * e), (t, 4 * e, e)),
+                               torch.float32, 34, LINEAR_F32_TOL,
+                               gen).items():
+            rows.setdefault(k_, []).extend(r)
+        for k_, r in lm_flash_rows(dev, SPEC["batch"], cfg["num_heads"],
+                                   SPEC["seq"], e // cfg["num_heads"],
+                                   torch.float32, 34, gen, ("bhsd",),
+                                   ("exact",)).items():
+            rows.setdefault(k_, []).extend(r)
+    return rows
+
+
+def bytelm_gen_rows(dev, gen):
+    """The kernels of phase 34's generation at their shapes (f32), against
+    their plain versions, for each B of ``SPEC["batches"]``: K1 at each
+    layer's three products at a decode step (M = B, both models), the
+    target's verify chunk (M = (gamma + 1) B) and the prefill (M = P B,
+    both models), and K5 at the prefill's ``[B, H, P, D]``.  The logits'
+    head is a plain matmul (JAX's einsum), no K1."""
+    p, v = SPEC["prompt"], SPEC["gamma"] + 1
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    for cfg, chunk in ((SPEC_TARGET, True), (SPEC_DRAFT, False)):
+        e, h = cfg["dim"], cfg["num_heads"]
+        ms = sorted({m for b in SPEC["batches"]
+                     for m in (b, p * b) + ((v * b,) if chunk else ())})
+        for m in ms:
+            for k_in, n_out in ((e, e), (e, 4 * e), (4 * e, e)):
+                x, w = randn(m, k_in), randn(n_out, k_in, scale=k_in ** -0.5)
+                bias = randn(n_out, scale=0.1)
+                rows.setdefault("linear", []).append(check_kernel(
+                    "linear", f"f32 [{m},{k_in}].[{n_out},{k_in}]^T + b "
+                    f"(generation)", linear, linear_reference,
+                    cold_sets(x, w, bias), phase=34, tol=LINEAR_F32_TOL,
+                    library_fn=F.linear,
+                    work=gemm_work(m, n_out, k_in, "f32", True)))
+        for b in SPEC["batches"]:
+            for k_, r in lm_flash_rows(dev, b, h, p, e // h, torch.float32,
+                                       34, gen, ("bhsd",), ("exact",),
+                                       backward=False).items():
+                rows.setdefault(k_, []).extend(r)
+    return rows
+
+
+def tempered_z(model, ids, start, temperature):
+    """A sampled continuation ``ids[start:]`` against ``model``'s forward
+    over ``ids``: its NLL under the tempered distributions less their
+    entropy, summed and over the sum's standard deviation, with the mean
+    NLL and entropy per token."""
+    with torch.no_grad():
+        lg = model(torch.tensor([ids[:-1]]))[0, start - 1:].float()
+    logp = torch.log_softmax(lg / temperature, -1)
+    pr = logp.exp()
+    nll = -logp.gather(1, torch.tensor(ids[start:])[:, None])[:, 0]
+    ent = -(pr * logp).sum(-1)
+    var = (pr * logp ** 2).sum(-1) - ent ** 2
+    return (float((nll.sum() - ent.sum()) / var.sum().sqrt()),
+            float(nll.mean()), float(ent.mean()))
+
+
+def spec_first_split(target, out, ref):
+    """Where a greedy speculative row first parts from the target's own
+    greedy row: the two tokens' logits in the target's forward over the
+    common prefix, as ``(row, position, |logit difference|)``."""
+    parts = []
+    for r in range(out.shape[0]):
+        diff = (out[r] != ref[r]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        with torch.no_grad():
+            lg = target(out[r:r + 1, :t])[0, -1].float()
+        parts.append((r, t, float((lg[out[r, t]] - lg[ref[r, t]]).abs())))
+    return parts
+
+
+def phase34_bytelm_speculative(dev, smi):
+    """The BPE tokenizer on the repository's markdown (native and Python
+    merges equal, encode then decode gives the bytes back), the byte LMs
+    of bench_speculative trained through train_bytelm's code, then
+    speculative decoding against the target's own greedy generation."""
+    corpus = train_bytelm.load_corpus()
+    raw = bytes(corpus.astype(np.uint8))
+    t0 = time.perf_counter()
+    lib = bpe_native.load()            # make -C native on first use
+    print(f"phase 34: native/libtaperdata.so loaded ({lib is not None}) in "
+          f"{time.perf_counter() - t0:.2f} s (its build included, if the "
+          f"checkout had none)")
+    t0 = time.perf_counter()
+    tok = BPETokenizer.train(raw, SPEC["bpe_vocab"])
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok_py = BPETokenizer.train(raw, SPEC["bpe_vocab"], use_native=False)
+    t_py = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = tok.encode(raw)
+    e_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_py = tok_py.encode(raw, use_native=False)
+    e_py = time.perf_counter() - t0
+    print(f"phase 34: BPE to vocab {SPEC['bpe_vocab']} on {len(raw):,} bytes "
+          f"of markdown: native library {bpe_native.available()}; train "
+          f"native {t_native:.3f} s, Python {t_py:.3f} s; encode native "
+          f"{e_native:.3f} s, Python {e_py:.3f} s; {len(raw) / len(ids):.2f} "
+          f"bytes/token; merges equal {tok.merges == tok_py.merges}, ids "
+          f"equal {ids == ids_py}")
+    assert bpe_native.available(), "native/libtaperdata.so did not build"
+    assert tok.merges == tok_py.merges and ids == ids_py
+    assert tok.vocab_size == SPEC["bpe_vocab"]
+    assert tok.decode_bytes(ids) == raw and tok.decode(ids) == raw.decode(
+        "utf-8", errors="replace")
+
+    gen = torch.Generator().manual_seed(SEED + 34)
+    rows = bytelm_kernel_rows(dev, gen)
+    for k_, r in bytelm_gen_rows(dev, gen).items():
+        rows.setdefault(k_, []).extend(r)
+    target, draft = spec_models(dev)
+    corpus_t = torch.from_numpy(corpus).long().to(dev)
+    totals, losses = {}, {}
+    for name, model in (("target", target), ("draft", draft)):
+        (losses[name], _), wall, counts, routes = counted(
+            lambda: train_bytelm.train(
+                model, corpus_t, SPEC["steps"], batch=SPEC["batch"],
+                seq=SPEC["seq"], lr=SPEC["lr"], schedule=False,
+                generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+        for k_, c_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + c_
+        per = per_step(counts, SPEC["steps"])
+        print(f"phase 34: {name} byte LM (dim {model.dim}, depth "
+              f"{model.depth}, f32, {sum(t.numel() for t in model.parameters()) / 1e6:.2f}M"
+              f" params) through train_bytelm.train: {SPEC['steps']} Adam "
+              f"steps of {SPEC['batch']} x {SPEC['seq']} in {wall:.1f} s "
+              f"({wall / SPEC['steps'] * 1e3:.2f} ms/step), final loss "
+              f"{losses[name]:.4f} nats/byte (gate < {SPEC['max_loss']}); "
+              f"launches per step {per}; flash calls per step "
+              f"{per_step(flash_only(routes), SPEC['steps'])}")
+        assert per == bytelm_per_step(model.depth), per
+        assert per_step(flash_only(routes), SPEC["steps"]) == flash_routes(
+            model.depth, torch.float32, "causal")
+        assert math.isfinite(losses[name]) and losses[name] < SPEC["max_loss"]
+    params = list(target.parameters())
+    rows["adam"] = [opt_row("adam", f"target byte LM Adam({SPEC['lr']})",
+                            params, [t.grad for t in params],
+                            dict(lr=SPEC["lr"], wd=0.0, decoupled=False),
+                            34)]
+    # the trained target on the CPU, plain PyTorch: the reference that
+    # holds every token phase 34 generates on the card
+    plain_target = copy.deepcopy(target).cpu()
+    plen = len(train_bytelm.PROMPT)
+    ids = train_bytelm.sample_ids(target, None, 118)
+    z, nll, ent = tempered_z(plain_target, ids, plen, 0.8)
+    print(f"phase 34: the target's sampled continuation (train_bytelm."
+          f"sample_ids, temperature 0.8): "
+          f"{bytes(ids).decode('utf-8', errors='replace')!r}; against the "
+          f"CPU forward's tempered distributions: NLL {nll:.4f} nats/byte, "
+          f"entropy {ent:.4f}, z {z:.2f} (gate <= {SAMPLE_Z})")
+    assert len(ids) == plen + 118 and ids[:plen] == list(
+        train_bytelm.PROMPT)
+    assert math.isfinite(z) and z <= SAMPLE_Z, z
+
+    start = int(len(corpus) * 0.92)
+    stats = {}
+    for b in SPEC["batches"]:
+        pr = torch.from_numpy(np.stack(
+            [corpus[start + i * 97:start + i * 97 + SPEC["prompt"]]
+             for i in range(b)])).long().to(dev)
+        ref, wall_p, counts, _ = counted(lambda: target.generate(
+            pr, SPEC["max_new"]))
+        for k_, c_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + c_
+
+        def plain_gap(out):
+            """The worst greedy token of ``out`` by the CPU forward."""
+            return float(greedy_gaps(plain_target, out.cpu(),
+                                     [SPEC["prompt"]] * b,
+                                     SPEC["max_new"]).max())
+
+        worst = plain_gap(ref)
+        line = [f"plain greedy {b * SPEC['max_new'] / wall_p:.1f} tokens/s"
+                f" (worst gap by the CPU forward {worst:.2e})"]
+        assert worst <= SPEC_TAU, worst
+        for per_row in (True, False):
+            (out, st), wall_s, counts, _ = counted(
+                lambda: target.speculative_generate(
+                    draft, pr, SPEC["max_new"], gamma=SPEC["gamma"],
+                    return_stats=True, per_row=per_row))
+            for k_, c_ in counts.items():
+                totals[k_] = totals.get(k_, 0) + c_
+            parts = spec_first_split(target, out, ref)
+            mode = "per row" if per_row else "lockstep"
+            stats[(b, mode)] = dict(tokens_s=b * SPEC["max_new"] / wall_s,
+                                    per_round=st["tokens_per_round"],
+                                    rounds=st["rounds"])
+            line.append(
+                f"{mode} {b * SPEC['max_new'] / wall_s:.1f} tokens/s, "
+                f"{st['tokens_per_round']:.2f} tokens a round over "
+                f"{st['rounds']} rounds, accepted-draft histogram "
+                f"{st['accept_hist'].tolist()}, rows parting from plain "
+                f"(row, position, logit gap) {parts}")
+            assert all(gap <= SPEC_TAU for _, _, gap in parts), parts
+            assert out.shape == ref.shape
+            worst = plain_gap(out)
+            line[-1] += f", worst gap by the CPU forward {worst:.2e}"
+            assert worst <= SPEC_TAU, worst
+        print(f"phase 34: B={b}, gamma {SPEC['gamma']}, P {SPEC['prompt']} + "
+              f"{SPEC['max_new']}: " + "; ".join(line) + f"; on {smi}")
+    del target, draft, corpus_t, plain_target
+    torch.cuda.empty_cache()
+    return totals, dict(rows=rows, losses=losses, spec=stats)
+
+
+SYSTEM_PROMPT = 256          # two blocks of 128: the shared prefix
+
+
+def phase35_system_prompt(dev, smi):
+    """The paged engine's shared system prompt on phase 5's model and
+    request mix: admission logits through prefill_paged_continued against
+    prefill_paged of system + prompt, the prefix blocks allocated once,
+    K16 over tables that alias them, and the engine's greedy tokens held
+    by the teacher-forced check beside an engine without a prefix run on
+    system + prompt."""
+    model = serving_model(dev)
+    gen = torch.Generator().manual_seed(SEED + 35)
+    v, bs = MODEL["vocab_size"], ENGINE["block_size"]
+    e, heads = MODEL["dim"], MODEL["num_heads"]
+    d = e // heads
+    serve_products = ((e, e),) * 4 + ((e, 4 * e), (4 * e, e))
+    n_pre = SYSTEM_PROMPT // bs
+    system = torch.randint(0, v, (SYSTEM_PROMPT,), generator=gen).tolist()
+    reqs = requests()
+
+    # K16 over tables aliasing the prefix blocks, at the serving shape
+    slots, mb = ENGINE["slots"], MODEL["max_seq"] // bs
+    per_slot = -(-(ENGINE["prompt_pad"] + max(MAX_NEW)) // bs)
+    n_blocks = n_pre + slots * per_slot + 1
+    tables = torch.zeros(slots, mb, dtype=torch.int32)
+    tables[:, :n_pre] = torch.arange(1, n_pre + 1)
+    tables[:, n_pre:n_pre + per_slot] = (torch.randperm(
+        slots * per_slot, generator=gen) + n_pre + 1).reshape(slots,
+                                                              per_slot)
+    lengths = torch.tensor([SYSTEM_PROMPT + len(pr) + m // 2
+                            for pr, m, _ in reqs[:slots]], dtype=torch.int32)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(bf).to(dev)
+
+    sets = [(randn(slots, heads, 1, d), randn(n_blocks, heads, bs, d),
+             randn(n_blocks, heads, bs, d), tables.to(dev), lengths.to(dev))
+            for _ in range(4)]
+    # operations over every row's positions; bytes over the positions the
+    # tables reference, the aliased prefix once
+    tokens = int(lengths.sum())
+    unique = tokens - (slots - 1) * SYSTEM_PROMPT
+    row = check_kernel(
+        "paged_decode", f"bf16 B={slots} kvh={heads} G=1 D={d} bs={bs}, "
+        f"{n_pre} shared prefix blocks, lengths "
+        f"{int(lengths.min())}..{int(lengths.max())}",
+        lambda *a: paged_decode_attention(*a, scale=d ** -0.5),
+        lambda *a: paged_decode_reference(*a, scale=d ** -0.5), sets,
+        phase=35, **K16_TOL[bf],
+        work=(4 * tokens * heads * d,
+              2 * unique * heads * d * 2 + 2 * nbytes(sets[0][0])
+              + nbytes(tables, lengths), "bf16"))
+    del sets
+
+    # admission: the chunk at offset 256 against a prefill of it all
+    pad = ENGINE["prompt_pad"]
+    pr = reqs[0][0]
+    padded = torch.zeros(1, pad, dtype=torch.int64)
+    padded[0, :len(pr)] = torch.tensor(pr)
+    table = torch.arange(1, mb + 1, dtype=torch.int32)[None].to(dev)
+    with torch.no_grad():
+        pools = model.init_paged_cache(mb + 1, bs)
+        model.prefill_paged(torch.tensor([system], device=dev), pools,
+                            table[:, :n_pre])
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        lg = model.prefill_paged_continued(padded.to(dev), pools, table,
+                                           SYSTEM_PROMPT)
+        torch.cuda.synchronize()
+        adm = {k_: c_ for k_, c_ in backend.launch_counts().items() if c_}
+        adm_r = backend.route_counts()
+        whole = torch.cat([torch.tensor([system]), padded], 1).to(dev)
+        fresh = model.init_paged_cache(mb + 1, bs)
+        ref = model.prefill_paged(whole, fresh, table)[:, SYSTEM_PROMPT:]
+        rel = rel_l2(lg[0, :len(pr)].float(), ref[0, :len(pr)].float())
+        rows_rel = max(rel_l2(pools[i][name][1:1 + mb].float(),
+                              fresh[i][name][1:1 + mb].float())
+                       for i in range(MODEL["depth"]) for name in ("k", "v"))
+    print(f"phase 35: admission of a {len(pr)}-token request (padded to "
+          f"{pad}) at offset {SYSTEM_PROMPT}: logits against prefill_paged "
+          f"of system + prompt rel L2 {rel:.3e} (tol {MODEL_REL_TOL:.0e}); "
+          f"the pools' K/V rows rel L2 {rows_rel:.3e}; launches {adm}, K1 "
+          f"by route {adm_r} (plan: "
+          f"{step_routes(pad, serve_products, MODEL['depth'])})")
+    assert rel <= MODEL_REL_TOL and rows_rel <= MODEL_REL_TOL
+    assert adm_r == step_routes(pad, serve_products, MODEL["depth"]), adm_r
+    del pools, fresh
+
+    def serve(eng, prefix):
+        ids = [eng.submit((prefix or []) + p_, m, **s)
+               for p_, m, s in reqs]
+        res, wall, counts, routes = counted(eng.run)
+        for rid, (_, m, _) in zip(ids, reqs):
+            assert len(res[rid]) == m, (rid, len(res[rid]), m)
+        return [res[i] for i in ids], wall, counts, routes
+
+    eng = ServingEngine(model, pool_blocks=pool_blocks() + n_pre,
+                        system_prompt=system, seed=SEED, **ENGINE)
+    free0 = eng.stats()["pool_blocks_free"]
+    assert eng.stats()["pool_blocks_total"] == pool_blocks() - 1 == free0
+    assert len(eng._prefix_blocks) == n_pre
+    outs, wall, counts, routes = serve(eng, None)
+    st = eng.stats()
+    steps = st["decode_blocks"] * ENGINE["decode_block"]
+    splits, _ = paged_plan(slots, heads, 1, d, bs, mb, bf)
+    k16_route = f"{'split' if splits > 1 else 'whole'} paged_decode"
+    gen_tokens = sum(len(o) for o in outs)
+    print(f"phase 35: engine with a {SYSTEM_PROMPT}-token system prompt: "
+          f"{len(reqs)} requests ({st['completed']} completed, "
+          f"{st['decode_blocks']} decode blocks) in {wall:.2f} s, "
+          f"{gen_tokens / wall:.1f} generated tokens/s; prefix blocks "
+          f"{eng._prefix_blocks} allocated once, pool free "
+          f"{free0} -> {st['pool_blocks_free']}; launches "
+          f"{ {k_: c_ for k_, c_ in counts.items() if c_} }; K16 by route "
+          f"{ {k_: c_ for k_, c_ in routes.items() if 'paged' in k_} }; "
+          f"on {smi}")
+    assert st["completed"] == len(reqs) and st["pool_blocks_free"] == free0
+    assert counts["paged_decode"] == MODEL["depth"] * steps, counts
+    assert routes.get(k16_route) == counts["paged_decode"], routes
+    assert counts["flash_fwd_bound"] == 0 and counts["flash_fwd"] == 0
+
+    plain = ServingEngine(model, pool_blocks=ENGINE["slots"] * -(-(
+        SYSTEM_PROMPT + ENGINE["prompt_pad"] + max(MAX_NEW)) // bs) + 1,
+        seed=SEED, **dict(ENGINE, prompt_pad=SYSTEM_PROMPT
+                          + ENGINE["prompt_pad"]))
+    outs_p, wall_p, counts_p, _ = serve(plain, system)
+    same = sum(a == b_ for a, b_ in zip(outs, outs_p))
+    worst = 0.0
+    for (pr_, m, s), o, o_p in zip(reqs, outs, outs_p):
+        if s:                                  # sampled requests
+            continue
+        for toks in (o, o_p):
+            full = torch.tensor([system + pr_ + toks], device=dev)
+            gaps = greedy_gaps(model, full, [SYSTEM_PROMPT + len(pr_)],
+                               len(toks))
+            worst = max(worst, float(gaps.max()))
+    print(f"phase 35: the engine without a prefix on system + prompt "
+          f"(prompt_pad {SYSTEM_PROMPT + ENGINE['prompt_pad']}): "
+          f"{sum(len(o) for o in outs_p) / wall_p:.1f} generated tokens/s "
+          f"against {gen_tokens / wall:.1f} with the prefix; {same} of "
+          f"{len(reqs)} requests' tokens identical; teacher-forced check of "
+          f"both engines' greedy tokens: worst gap {worst:.4f} (tau "
+          f"{GREEDY_TAU['bf16']}); on {smi}")
+    assert worst <= GREEDY_TAU["bf16"]
+    del eng, plain, model
+    torch.cuda.empty_cache()
+    return counts, dict(paged_decode=row, tokens_s=gen_tokens / wall,
+                        tokens_s_plain=sum(len(o) for o in outs_p) / wall_p)
+
+
 def kernel_report(paths, standalone, top=None, routes=None):
     """One entry per kernel: its launches and numbers on each path that
     launched it or measured it (``by_path``); the top-level numbers come
@@ -4694,6 +5533,14 @@ def main():
     packed_counts, _ = phase25_packed_training(dev, smi)
     window_counts, _ = phase26_window_training(dev, smi)
     wdecode_counts, _ = phase27_window_decode(dev, smi)
+    t0 = time.perf_counter()
+    gen_counts, gen_stats = phase33_generation(dev, smi)
+    t1 = time.perf_counter()
+    spec_counts, spec_stats = phase34_bytelm_speculative(dev, smi)
+    t2 = time.perf_counter()
+    prefix_counts, prefix_stats = phase35_system_prompt(dev, smi)
+    print(f"phases 33-35: {t1 - t0:.1f}, {t2 - t1:.1f} and "
+          f"{time.perf_counter() - t2:.1f} s")
 
     # train_lm: the 170M run's kernels at its shapes (K8's headline: the
     # bound arm in [B, S, H*D], the layout and arm its training takes),
@@ -4734,7 +5581,18 @@ def main():
     # optimizers; then K10 at the 170M shape, K5/K6/K7 and K11 windowed at
     # the windowed model's, K5/K6/K7 with segment ids at bench_packing's
     # packed batch
-    paths = {"train_lm_long": (long_counts, dict(adam=long_stats["adam"])),
+    # the generation slice's paths: bench_multiturn's model (K1 at a
+    # decode step's, a chunk's and the prefill's rows, K8 at its prefill),
+    # the byte LMs' training and speculative decoding (f32 K1, K5, K6,
+    # K7, K17a), the engine's shared system prompt (K16 over aliased
+    # tables)
+    paths = {"serve_prefix": (prefix_counts, dict(
+                 paged_decode=prefix_stats["paged_decode"])),
+             "bytelm_spec": (spec_counts, {k: headline(r) for k, r in
+                                           spec_stats["rows"].items()}),
+             "generate": (gen_counts, {k: headline(r) for k, r in
+                                       gen_stats["rows"].items()}),
+             "train_lm_long": (long_counts, dict(adam=long_stats["adam"])),
              "train_moe": (moe_counts, {k: headline(r) for k, r in
                                         moe_stats["rows"].items()}),
              "train_opts": (opts_counts, {}),
@@ -4797,7 +5655,9 @@ def main():
         top=dict(dict.fromkeys(K1_MODES, "train_lm"),
                  flash_fwd_bound="train_lm", flash_dq="train_lm",
                  flash_dkv="train_lm", conv_fwd="train_cnn",
-                 conv_dw="train_cnn", adam="train_lm"), routes=off_path)
+                 conv_dw="train_cnn", adam="train_lm",
+                 flash_fwd="train_window", paged_decode="bench_decode"),
+        routes=off_path)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

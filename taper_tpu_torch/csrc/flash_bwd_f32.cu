@@ -624,14 +624,14 @@ struct Tile {
   static constexpr bool MASKED = MASKED_;
 };
 
-// Calls f(Tile<...>{}) with 64-row tiles at D 64 (32-row ones at D 128,
+// Calls f(Tile<...>{}) with 64-row tiles at D 32 and 64 (32-row ones at D 128,
 // where 64 would not let two blocks share an SM) where they give every SM
 // a block, else 32-row tiles with two thread groups (twice the blocks,
 // each with twice the threads on its sweep).  `units` is B * H for K6 and
 // K11, B * Hkv for K7.
 template <int D, typename F>
 int by_tile(long long units, int S, const Mask& m, F&& f) {
-  constexpr int RT = D == 64 ? 4 : 2;
+  constexpr int RT = D == 128 ? 2 : 4;
   const bool wide = units * ((S + 16 * RT - 1) / (16 * RT)) >= sm_count();
   if (masked(m))
     return wide ? f(Tile<RT, 1, true>{}) : f(Tile<2, 2, true>{});
@@ -669,6 +669,9 @@ int flash_dq_f32(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, void* dq, float* delta,
                  const Mask& m, int B, int H, int Hkv, int S, int D,
                  float scale, int layout, cudaStream_t stream) {
+  if (D == 32)
+    return dq_f32<32>(q, k, v, o, dout, lse, dq, delta, m, B, H, Hkv, S,
+                      scale, layout, stream);
   if (D == 64)
     return dq_f32<64>(q, k, v, o, dout, lse, dq, delta, m, B, H, Hkv, S,
                       scale, layout, stream);
@@ -684,6 +687,9 @@ int flash_dkv_f32(const void* q, const void* k, const void* v,
                   void* dk, void* dv, const Mask& m, int B, int H, int Hkv,
                   int S, int D, float scale, int layout,
                   cudaStream_t stream) {
+  if (D == 32)
+    return dkv_f32<32, false>(q, k, v, dout, lse, delta, dk, dv, m, B, H,
+                              Hkv, S, scale, layout, stream);
   if (D == 64)
     return dkv_f32<64, false>(q, k, v, dout, lse, delta, dk, dv, m, B, H,
                               Hkv, S, scale, layout, stream);
@@ -700,6 +706,9 @@ int flash_dkv_t_f32(const void* q, const void* k, const void* v,
                     float* dk_part, float* dv_part, const Mask& m, int B,
                     int H, int Hkv, int S, int D, float scale, int layout,
                     cudaStream_t stream) {
+  if (D == 32)
+    return dkv_f32<32, true>(q, k, v, dout, lse, delta, dk_part, dv_part, m,
+                             B, H, Hkv, S, scale, layout, stream);
   if (D == 64)
     return dkv_f32<64, true>(q, k, v, dout, lse, delta, dk_part, dv_part, m,
                              B, H, Hkv, S, scale, layout, stream);

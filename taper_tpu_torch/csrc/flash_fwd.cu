@@ -406,6 +406,8 @@ extern "C" int taper_flash_fwd(const void* q, const void* k, const void* v,
     return flash_fwd_sm90(q, k, v, o, l, m, B, H, Hkv, S, D, scale, layout,
                           s);
   if (dtype == kFloat32) {
+    if (D == 32)
+      return fwd_f32<32>(q, k, v, o, l, B, H, Hkv, S, scale, m, layout, s);
     if (D == 64)
       return fwd_f32<64>(q, k, v, o, l, B, H, Hkv, S, scale, m, layout, s);
     if (D == 128)

@@ -27,9 +27,19 @@ The caches are filled and updated in place (``prefill``,
 package returns new caches.  Paged caches refuse a window model, as JAX
 asserts; the contiguous engine serves one through the full cache.
 
-Not ported yet: generation (``generate``,
-``generate_continued``, ``decode_chunk``, ``prefill_paged_continued``,
-beam search, speculative decoding).
+Generation (JAX ``models/transformer.py:415-1125``): ``generate`` (one-shot
+or token-at-a-time prefill, ragged ``prompt_lens``, eos and padding,
+int8 and ring caches, ``return_cache``), ``decode_chunk`` (C tokens per
+row in one pass, at a scalar or per-row start), ``generate_continued``
+(multi-turn over a filled cache), ``prefill_paged_continued`` (a chunk at
+an offset over paged pools whose tables alias shared prefix blocks: the
+engine's system prompt), ``beam_search`` and ``speculative_generate``.
+JAX's ``lax.scan``/``while_loop`` decode loops are Python loops over
+``decode_step`` here: an eos early exit looks at the device every step
+(one host sync), speculative decoding once a round.  Sampling draws from a caller's ``torch.Generator`` (``generator=``
+where JAX takes ``key=``; a generator seeded 0 when none is given, as
+JAX's default key is 0), so sampled tokens differ from JAX's while
+their distributions agree; greedy tokens agree up to numerics.
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -87,6 +99,73 @@ def _sample(logits, generator=None, *, temperature=0.0, top_k=None,
     probs = torch.softmax(_filter_logits(logits, temperature, top_k, top_p),
                           dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _mask_after_eos(tokens, starts, eos, pad):
+    """Replace every token strictly after each row's first ``eos`` in its
+    generated region (positions >= ``starts``, a ``[B]`` tensor or a
+    scalar) with ``pad``."""
+    b, s = tokens.shape
+    idx = torch.arange(s, device=tokens.device)[None, :]
+    starts = torch.as_tensor(starts, device=tokens.device).long()
+    starts = starts.reshape(-1, 1).expand(b, 1)
+    hit = ((tokens == eos) & (idx >= starts)).long()
+    after = (torch.cumsum(hit, dim=1) - hit) > 0
+    return torch.where(after & (idx >= starts),
+                       torch.full_like(tokens, pad), tokens)
+
+
+def _residual_sample(generator, p_at, q_at):
+    """A sample from ``norm(max(p - q, 0))`` per row, or from ``p`` where
+    that residual is all zero (``p == q``: the draft is then accepted
+    with probability 1, so the fallback is never biased).  JAX draws
+    ``categorical(log(max(r, 1e-38)))``, which gives a zero entry a
+    weight of ~1e-38 where ``multinomial`` gives it none."""
+    r = torch.clamp(p_at - q_at, min=0.0)
+    rsum = r.sum(-1, keepdim=True)
+    r = torch.where(rsum > 0, r / torch.where(rsum > 0, rsum,
+                                              torch.ones_like(rsum)), p_at)
+    return torch.multinomial(r, 1, generator=generator)[:, 0]
+
+
+def _spec_accept(generator, drafts, q, p):
+    """One round of speculative sampling verification, rows in lockstep
+    (JAX ``_spec_accept``): draft token x (drawn from ``q [B, γ, V]``) is
+    accepted with probability ``min(1, p(x)/q(x))`` against the target's
+    ``p [B, γ+1, V]``; every row advances by the batch's minimum
+    acceptance count; a row that accepted further keeps its draft there,
+    the others take a residual sample (a bonus sample from ``p[γ]`` when
+    everything was accepted).  Returns ``(n_acc 0-d, nxt [B])``."""
+    b, g, _ = q.shape
+    qx = q.gather(2, drafts[..., None])[..., 0]                  # [B, γ]
+    px = p[:, :g].gather(2, drafts[..., None])[..., 0]
+    u = torch.rand((b, g), generator=generator, device=q.device)
+    acc = u * qx < px           # u < p/q without the division (q > 0 a.s.)
+    n_acc_row = torch.cumprod(acc.long(), dim=1).sum(1)          # [B]
+    n_acc = n_acc_row.min()
+    p_at = p.index_select(1, n_acc.reshape(1))[:, 0]             # [B, V]
+    q_at = q.index_select(1, n_acc.clamp(max=g - 1).reshape(1))[:, 0]
+    q_at = torch.where(n_acc >= g, torch.zeros_like(q_at), q_at)
+    res = _residual_sample(generator, p_at, q_at)
+    kept = drafts.index_select(1, n_acc.clamp(max=g - 1).reshape(1))[:, 0]
+    return n_acc, torch.where(n_acc_row > n_acc, kept, res)
+
+
+def _spec_accept_rows(generator, drafts, q, p):
+    """Per-row speculative sampling verification (JAX
+    ``_spec_accept_rows``): each row keeps its own accepted count and
+    takes the residual sample at it (a bonus sample from ``p[γ]`` on full
+    acceptance).  Returns ``(n_acc [B], nxt [B])``."""
+    b, g, _ = q.shape
+    qx = q.gather(2, drafts[..., None])[..., 0]
+    px = p[:, :g].gather(2, drafts[..., None])[..., 0]
+    u = torch.rand((b, g), generator=generator, device=q.device)
+    n_acc = torch.cumprod((u * qx < px).long(), dim=1).sum(1)    # [B]
+    p_at = p.gather(1, n_acc[:, None, None].expand(b, 1, p.shape[2]))[:, 0]
+    q_at = q.gather(1, n_acc.clamp(max=g - 1)[:, None, None].expand(
+        b, 1, q.shape[2]))[:, 0]
+    q_at = torch.where((n_acc >= g)[:, None], torch.zeros_like(q_at), q_at)
+    return n_acc, _residual_sample(generator, p_at, q_at)
 
 
 class TinyGPT(nn.Module):
@@ -348,3 +427,529 @@ class TinyGPT(nn.Module):
         for blk, pool in zip(self.blocks, pools):
             x = blk.decode_paged(x, pool, tables, pos)
         return self._logits(self.ln_f(x).float())[:, 0]
+
+    def prefill_paged_continued(self, toks, pools, tables, past_len: int):
+        """Chunk-prefill ``toks [B, C]`` at offset ``past_len`` against
+        paged pools whose ``tables [B, mb]`` already hold the first
+        ``past_len`` positions: a shared system prompt, whose blocks many
+        tables may alias (its K/V stored once).  The new rows land in each
+        row's own blocks, in place; the caller owns the blocks from
+        ``past_len // bs`` on (with ``past_len % bs == 0`` the shared
+        blocks are never written; the engine makes sure of it).  Returns
+        logits ``[B, C, vocab]``.
+
+        As in JAX: each table's blocks are gathered into a transient
+        contiguous cache as long as the model's ``max_seq`` (one
+        admission-sized buffer), :meth:`decode_chunk` runs over it, and
+        the blocks it touched are scattered back."""
+        self.blocks[0].attn._refuse_paged()
+        toks = self._tokens(toks)
+        tables = torch.as_tensor(tables, device=toks.device)
+        b, c = toks.shape
+        past_len = int(past_len)
+        bs = pools[0]["k"].shape[2]
+        quantized = "k_scale" in pools[0]
+        nb_used = -(-(past_len + c) // bs)
+        j0 = past_len // bs
+        ids = tables[:, :nb_used].long()
+
+        def gathered(arr):           # pool -> [B, kvh, max(L, max_seq)(, D)]
+            g = arr[ids].movedim(2, 1)         # [B, kvh, nb, bs(, D)]
+            flat = g.reshape((b, arr.shape[1], nb_used * bs)
+                             + tuple(arr.shape[3:]))
+            out = arr.new_zeros((b, arr.shape[1],
+                                 max(nb_used * bs, self.max_seq))
+                                + tuple(arr.shape[3:]))
+            out[:, :, :nb_used * bs] = flat
+            return out
+
+        tmp = [{name: gathered(x) for name, x in pool.items()}
+               for pool in pools]
+        # a 0-d device start: an int would cost a blocking copy a layer
+        logits = self.decode_chunk(toks, torch.full(
+            (), past_len, dtype=torch.long, device=toks.device), tmp)
+        lo, hi = j0 * bs, nb_used * bs
+        for pool, cch in zip(pools, tmp):
+            for i in range(b):                 # engine admissions: 1 row
+                row = tables[i, j0:nb_used]
+                paged_write_prefill(pool["k"], pool["v"],
+                                    cch["k"][i, :, lo:hi],
+                                    cch["v"][i, :, lo:hi], row)
+                if quantized:
+                    for name in ("k_scale", "v_scale"):
+                        paged_write_prefill_scale(
+                            pool[name], cch[name][i, :, lo:hi], row)
+        return logits
+
+    def decode_chunk(self, toks, pos, caches):
+        """Multi-token cache-backed step: ``toks [B, C]`` at positions
+        ``[pos, pos + C)`` (``pos`` a scalar, or ``[B]`` per-row starts:
+        per-row speculative verification) against the contiguous caches,
+        which take the chunk's K/V in place.  Returns logits ``[B, C,
+        vocab]``: the verifier of speculative decoding and the turn
+        prefill of multi-turn generation, one pass where C decode steps
+        would be C."""
+        toks = self._tokens(toks)
+        span = torch.arange(toks.shape[1], device=toks.device)
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            positions = pos.long()[:, None] + span
+        else:
+            positions = span + (pos.long() if torch.is_tensor(pos)
+                                else int(pos))
+        x = self._embed(toks, positions if self.rope else
+                        positions.clamp(max=self.max_seq - 1))
+        for blk, cache in zip(self.blocks, caches):
+            x = blk.chunk(x, cache, pos)
+        return self._logits(self.ln_f(x).float())
+
+    # -- generation ---------------------------------------------------------
+
+    def _tokens(self, x):
+        """Token ids as int64 on the model's device."""
+        return torch.as_tensor(x, device=self._device(None)).long()
+
+    def _positions(self, n: int):
+        """Positions ``[0, n)`` on the model's device: the decode loops
+        pass ``at[pos]``, a 0-d device tensor, where a Python int would
+        cost a blocking host-to-device copy in every layer's cache write
+        (the rows and the RoPE table take either)."""
+        return torch.arange(n, device=self._device(None))
+
+    def _generator(self, generator):
+        """The caller's generator, or one seeded 0 on the model's device
+        (JAX's default key is ``PRNGKey(0)``)."""
+        if generator is not None:
+            return generator
+        return torch.Generator(device=self._device(None)).manual_seed(0)
+
+    def _fits(self, total: int, seq=None):
+        limit = self.max_seq if seq is None else seq
+        if total > limit:
+            raise ValueError(f"{total} positions exceed max_seq {limit}")
+
+    @staticmethod
+    def _all_done(done) -> bool:
+        """Whether every row has emitted eos (one host sync); ``done``
+        None: no eos."""
+        return done is not None and bool(done.all())
+
+    @torch.no_grad()
+    def generate(self, prompt, max_new: int, temperature: float = 0.0,
+                 generator=None, one_shot_prefill: bool = True,
+                 prompt_lens=None, top_k=None, top_p=None,
+                 quantized_cache: bool = False, eos_token=None,
+                 pad_token=None, return_cache: bool = False,
+                 ring_cache: bool = False):
+        """Autoregressive generation over a contiguous KV cache (JAX
+        ``TinyGPT.generate``): ``prompt [B, P]`` -> tokens ``[B, P +
+        max_new]`` (int64, on the model's device); greedy at ``temperature
+        == 0``, else drawn from ``generator`` through ``top_k``/``top_p``.
+
+        :meth:`prefill` fills the P cache entries in one pass, then a
+        Python loop of :meth:`decode_step` takes the ``max_new`` tokens;
+        ``one_shot_prefill=False`` feeds the prompt token by token (the
+        equality oracle).  ``prompt_lens [B]``: a ragged batch, each row
+        right-padded to P, its tokens at ``[L_r, L_r + max_new)`` (one-shot
+        only).  ``eos_token``: the loop stops once every row has emitted
+        it, and every token after a row's first eos becomes ``pad_token``
+        (default: the eos token).  ``return_cache=True``: ``(tokens,
+        caches)``, the cache filled through ``P + max_new - 1`` for
+        :meth:`generate_continued` (``max_new=0``: the prefill-only
+        call); it refuses ``eos_token`` and ragged prompts.
+        ``quantized_cache``: int8 K/V; ``ring_cache``: W-slot rings for a
+        window model.  JAX's assertions raise ``ValueError`` here."""
+        prompt = self._tokens(prompt)
+        b, plen = prompt.shape
+        if return_cache and eos_token is not None:
+            raise ValueError(
+                "return_cache with eos_token is not supported: early exit "
+                "leaves the cache partially filled (and post-eos rows "
+                "disagree with the pad-masked tokens); bound the turn with "
+                "max_new instead")
+        if max_new <= 0:
+            if return_cache:
+                caches = self.init_cache(b, quantized=quantized_cache,
+                                         ring=ring_cache)
+                self.prefill(prompt, caches)
+                return prompt, caches
+            return prompt
+        if prompt_lens is not None:
+            if not one_shot_prefill:
+                raise ValueError(
+                    "ragged generation (prompt_lens=...) always uses "
+                    "one-shot prefill; for a sequential oracle run each row "
+                    "separately with one_shot_prefill=False")
+            if return_cache:
+                raise ValueError("return_cache with ragged prompts is not "
+                                 "supported (per-row cache lengths)")
+            if ring_cache:
+                raise ValueError(
+                    "ring_cache with ragged prompts is not supported: the "
+                    "shared padded prefill writes pad rows into ring slots "
+                    "a shorter row's mask cannot exclude")
+            return self._generate_ragged(prompt, max_new, temperature,
+                                         generator, prompt_lens, top_k,
+                                         top_p, quantized_cache, eos_token,
+                                         pad_token)
+        total = plen + max_new
+        self._fits(total)
+        gen = self._generator(generator)
+        sample = functools.partial(_sample, generator=gen,
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p)
+        tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
+        caches = self.init_cache(b, quantized=quantized_cache,
+                                 ring=ring_cache)
+        done = (None if eos_token is None else
+                torch.zeros(b, dtype=torch.bool, device=prompt.device))
+        at = self._positions(total)
+        start = 0
+        if one_shot_prefill:
+            nxt = sample(self.prefill(prompt, caches)[:, -1])
+            tokens[:, plen] = nxt
+            if done is not None:
+                done |= nxt == eos_token
+            start = plen                   # decode consumes positions P..
+        for pos in range(start, total - 1):
+            if pos >= plen and self._all_done(done):
+                break
+            logits = self.decode_step(tokens[:, pos], at[pos], caches)
+            if pos + 1 < plen:             # prompt positions keep theirs
+                continue
+            nxt = sample(logits)
+            tokens[:, pos + 1] = nxt
+            if done is not None:
+                done |= nxt == eos_token
+        if eos_token is not None:          # return_cache refused above
+            return _mask_after_eos(tokens, plen, eos_token,
+                                   eos_token if pad_token is None
+                                   else pad_token)
+        return (tokens, caches) if return_cache else tokens
+
+    def _generate_ragged(self, prompt, max_new, temperature, generator,
+                         prompt_lens, top_k, top_p, quantized_cache,
+                         eos_token, pad_token):
+        """Ragged-batch generation (see :meth:`generate`): one shared
+        prefill, then per-row positions through the decode loop."""
+        b, plen = prompt.shape
+        self._fits(plen + max_new)
+        lens_host = np.asarray(prompt_lens.cpu() if torch.is_tensor(
+            prompt_lens) else prompt_lens)
+        if lens_host.min() < 1 or lens_host.max() > plen:
+            raise ValueError(f"prompt_lens must be in [1, {plen}], got "
+                             f"[{lens_host.min()}, {lens_host.max()}]")
+        lens = torch.as_tensor(lens_host, device=prompt.device).long()
+        gen = self._generator(generator)
+        sample = functools.partial(_sample, generator=gen,
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p)
+        rows = torch.arange(b, device=prompt.device)
+        tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
+        caches = self.init_cache(b, quantized=quantized_cache)
+        logits = self.prefill(prompt, caches)
+        nxt = sample(logits[rows, lens - 1])
+        tokens[rows, lens] = nxt
+        done = None if eos_token is None else nxt == eos_token
+        for t in range(max_new - 1):
+            if self._all_done(done):
+                break
+            pos = lens + t
+            nxt = sample(self.decode_step(tokens[rows, pos], pos, caches))
+            tokens[rows, pos + 1] = nxt
+            if done is not None:
+                done |= nxt == eos_token
+        if eos_token is None:
+            return tokens
+        return _mask_after_eos(tokens, lens, eos_token,
+                               eos_token if pad_token is None else pad_token)
+
+    @torch.no_grad()
+    def generate_continued(self, prompt, max_new: int, caches,
+                           past_len: int, temperature: float = 0.0,
+                           generator=None, top_k=None, top_p=None,
+                           eos_token=None, pad_token=None,
+                           return_cache: bool = False):
+        """Continue generation from a filled KV cache (multi-turn serving,
+        JAX ``generate_continued``): ``caches`` hold positions ``[0,
+        past_len)``; ``prompt [B, C]`` are the new tokens (chaining from
+        :meth:`generate`, prepend its last sampled token, whose K/V was
+        never written).  The chunk is prefilled by one
+        :meth:`decode_chunk` at offset ``past_len``, then ``max_new``
+        tokens decode as in :meth:`generate`.  Returns the new segment
+        ``[B, C + max_new]`` (``return_cache=True``: with the caches,
+        filled through ``past_len + C + max_new - 1``; refused with
+        ``eos_token``)."""
+        if return_cache and eos_token is not None:
+            raise ValueError("return_cache with eos_token is not "
+                             "supported: early exit leaves the cache "
+                             "partially filled")
+        prompt = self._tokens(prompt)
+        b, clen = prompt.shape
+        past_len = int(past_len)
+        if clen < 1 or max_new < 1:
+            raise ValueError(f"need a chunk of at least 1 token ({clen}) "
+                             f"and max_new >= 1 ({max_new})")
+        self._fits(past_len + clen + max_new)
+        gen = self._generator(generator)
+        sample = functools.partial(_sample, generator=gen,
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p)
+        tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
+        at = self._positions(past_len + clen + max_new)
+        nxt = sample(self.decode_chunk(prompt, at[past_len], caches)[:, -1])
+        tokens[:, clen] = nxt
+        done = None if eos_token is None else nxt == eos_token
+        for j in range(clen, clen + max_new - 1):
+            if self._all_done(done):
+                break
+            nxt = sample(self.decode_step(tokens[:, j], at[past_len + j],
+                                          caches))
+            tokens[:, j + 1] = nxt
+            if done is not None:
+                done |= nxt == eos_token
+        if eos_token is not None:
+            tokens = _mask_after_eos(tokens, clen, eos_token,
+                                     eos_token if pad_token is None
+                                     else pad_token)
+        return (tokens, caches) if return_cache else tokens
+
+    @torch.no_grad()
+    def beam_search(self, prompt, max_new: int, beams: int = 4,
+                    eos_token=None, pad_token=None,
+                    length_penalty: float = 1.0,
+                    quantized_cache: bool = False, return_all=False):
+        """Beam search over a KV cache (JAX ``beam_search``): ``beams``
+        hypotheses per prompt decode together as a ``[B * W]`` batch; each
+        step keeps the top W of the W * V joint candidates (score + log
+        p) and reorders the cache rows by each survivor's parent beam, in
+        place (an ``index_select`` along the batch copied back).  A beam
+        that emits ``eos_token`` freezes: its one candidate is itself,
+        extended by pad at an unchanged score.  The final ranking divides
+        each score by ``len(generated) ** length_penalty``.  Returns the
+        best sequence per prompt ``[B, P + max_new]``
+        (``return_all=True``: ``(tokens [B, W, P + max_new], scores [B,
+        W])``, best first)."""
+        prompt = self._tokens(prompt)
+        b, plen = prompt.shape
+        total = plen + max_new
+        w, v = beams, self.vocab_size
+        self._fits(total)
+        if not 1 <= w <= v or max_new < 1:
+            raise ValueError(f"need 1 <= beams ({w}) <= vocab ({v}) and "
+                             f"max_new >= 1 ({max_new})")
+        pad = eos_token if pad_token is None else pad_token
+        dev = prompt.device
+        caches = self.init_cache(b, quantized=quantized_cache)
+        logp0 = torch.log_softmax(self.prefill(prompt, caches)[:, -1]
+                                  .float(), dim=-1)
+        scores, tok0 = torch.topk(logp0, w, dim=-1)              # [B, W]
+        caches = [{name: x.repeat_interleave(w, 0) for name, x in c.items()}
+                  for c in caches]
+        tokens = torch.cat([prompt[:, None, :].expand(b, w, plen),
+                            prompt.new_zeros(b, w, max_new)], dim=2)
+        tokens[:, :, plen] = tok0
+        finished = (tok0 == eos_token if eos_token is not None else
+                    torch.zeros(b, w, dtype=torch.bool, device=dev))
+        if eos_token is not None:
+            frozen = torch.full((v,), float("-inf"), device=dev)
+            frozen[pad] = 0.0
+        base = (torch.arange(b, device=dev) * w)[:, None]
+        at = self._positions(total)
+        for pos in range(plen, total - 1):
+            logits = self.decode_step(tokens[:, :, pos].reshape(b * w),
+                                      at[pos], caches)
+            logp = torch.log_softmax(logits.float(), -1).reshape(b, w, v)
+            if eos_token is not None:
+                logp = torch.where(finished[..., None], frozen, logp)
+            cand = (scores[..., None] + logp).reshape(b, w * v)
+            scores, idx = torch.topk(cand, w, dim=-1)            # [B, W]
+            parent, tok = idx // v, idx % v
+            tokens = tokens.gather(1, parent[..., None].expand(b, w, total))
+            tokens[:, :, pos + 1] = tok
+            flat = (base + parent).reshape(-1)
+            for c in caches:
+                for x in c.values():
+                    x.copy_(x.index_select(0, flat))
+            if eos_token is not None:
+                finished = finished.gather(1, parent) | (tok == eos_token)
+        if eos_token is not None:
+            hit = tokens[:, :, plen:] == eos_token
+            first = torch.argmax(hit.long(), dim=2)              # [B, W]
+            lens = torch.where(hit.any(2), first + 1,
+                               torch.full_like(first, max_new))
+            tokens = _mask_after_eos(tokens.reshape(b * w, total), plen,
+                                     eos_token, pad).reshape(b, w, total)
+        else:
+            lens = torch.full((b, w), max_new, device=dev)
+        norm = scores / lens.float() ** length_penalty
+        order = torch.argsort(-norm, dim=1, stable=True)
+        tokens = tokens.gather(1, order[..., None].expand(b, w, total))
+        norm = norm.gather(1, order)
+        if return_all:
+            return tokens, norm
+        return tokens[:, 0]
+
+    @torch.no_grad()
+    def speculative_generate(self, draft_model, prompt, max_new: int,
+                             gamma: int = 4, temperature: float = 0.0,
+                             generator=None, top_k=None, top_p=None,
+                             quantized_cache: bool = False, eos_token=None,
+                             pad_token=None, return_stats: bool = False,
+                             per_row: bool = True):
+        """Speculative (draft-verify) decoding (JAX
+        ``speculative_generate``): ``draft_model`` proposes ``gamma``
+        tokens by decode steps, this model scores them in one
+        :meth:`decode_chunk`, and a verified prefix plus one target token
+        is kept.  Greedy (``temperature == 0``): the longest run agreeing
+        with the target's argmax, so the output is the target's own greedy
+        decode (up to the rounding of a chunk against single steps).
+        Sampled: the rejection-sampling scheme of :func:`_spec_accept`,
+        whose tokens are distributed as the target's filtered sampling
+        distribution.  ``per_row=True``: each row commits its own
+        accepted length (positions are ``[B]`` through the draft steps,
+        the verify chunk and the cache writes); finished rows freeze.
+        ``per_row=False``: rows advance in lockstep at the batch's
+        minimum.  One host sync a round decides whether to go on.
+
+        Returns ``[B, P + max_new]`` tokens (``return_stats=True``: also
+        ``{"rounds", "tokens_per_round", "accept_hist", "row_tokens"}``).
+        The statistics count the tokens each row committed after the
+        first, up to ``P + max_new``: JAX's (``models/transformer.py:1054``)
+        count the final round's tokens past that too, over-counting by
+        up to γ; the port does not repeat that."""
+        prompt = self._tokens(prompt)
+        b, plen = prompt.shape
+        total = plen + max_new
+        self._fits(total + gamma)
+        draft_model._fits(total + gamma)
+        if self.vocab_size != draft_model.vocab_size:
+            raise ValueError(f"vocab sizes differ: target {self.vocab_size}"
+                             f", draft {draft_model.vocab_size}")
+        if max_new <= 0:
+            return (prompt, {"rounds": 0}) if return_stats else prompt
+        dev = prompt.device
+        sampled = temperature > 0
+        gen = self._generator(generator)
+
+        def dist(logits):
+            """The filtered sampling distribution (f32), both models'."""
+            return torch.softmax(_filter_logits(logits.float(), temperature,
+                                                top_k, top_p), dim=-1)
+
+        # a frozen row's draft steps write up to 2 gamma past P + max_new
+        # (JAX's scatter drops those writes; a longer buffer keeps them)
+        buf = total + 2 * gamma
+        tokens = torch.cat([prompt, prompt.new_zeros(b, buf - plen)], dim=1)
+        caches_t = self.init_cache(b, quantized=quantized_cache)
+        caches_d = draft_model.init_cache(b, quantized=quantized_cache)
+        first = _sample(self.prefill(prompt, caches_t)[:, -1], gen,
+                        temperature=temperature, top_k=top_k, top_p=top_p)
+        draft_model.prefill(prompt, caches_d)
+        tokens[:, plen] = first
+        rows = torch.arange(b, device=dev)
+        at = self._positions(buf)
+        span = torch.arange(gamma + 1, device=dev)
+        hist = torch.zeros(gamma + 1, dtype=torch.long, device=dev)
+        idx = torch.arange(buf, device=dev)[None, :]
+
+        def eos_rows(cur):
+            """[B] bool: an eos among each row's committed tokens."""
+            if eos_token is None:
+                return torch.zeros(b, dtype=torch.bool, device=dev)
+            cur = torch.as_tensor(cur, device=dev).reshape(-1, 1)
+            gen_region = (idx >= plen) & (idx < cur)
+            return ((tokens == eos_token) & gen_region).any(1)
+
+        def draft_round(cur):
+            """gamma draft tokens after ``cur - 1`` (scalar or [B]); the
+            draft's distributions ``[B, γ, V]`` when sampling."""
+            qs = []
+            for j in range(gamma):
+                p = cur - 1 + j
+                tok_p = tokens[rows, p] if per_row else tokens[:, p]
+                logits = draft_model.decode_step(
+                    tok_p, p if per_row else at[p], caches_d)
+                if sampled:
+                    q = dist(logits)
+                    qs.append(q)
+                    nxt = torch.multinomial(q, 1, generator=gen)[:, 0]
+                else:
+                    nxt = torch.argmax(logits, dim=-1)
+                if per_row:
+                    tokens[rows, p + 1] = nxt
+                else:
+                    tokens[:, p + 1] = nxt
+            return torch.stack(qs, 1) if sampled else None
+
+        rounds = 0
+        cur0 = plen + 1                    # tokens[:, :cur] are final
+        if per_row:
+            cur = torch.full((b,), cur0, dtype=torch.long, device=dev)
+            while True:
+                done = (cur >= total) | eos_rows(cur)
+                if bool(done.all()):       # one host sync a round
+                    break
+                q = draft_round(cur)
+                chunk = tokens.gather(1, (cur - 1)[:, None] + span)
+                logits = self.decode_chunk(chunk, cur - 1, caches_t)
+                drafts = chunk[:, 1:]
+                if sampled:
+                    n_acc, nxt = _spec_accept_rows(gen, drafts, q,
+                                                   dist(logits))
+                else:
+                    tgt = torch.argmax(logits, dim=-1)
+                    n_acc = torch.cumprod((tgt[:, :gamma] == drafts).long(),
+                                          dim=1).sum(1)
+                    nxt = tgt.gather(1, n_acc[:, None])[:, 0]
+                n_acc = torch.where(done, torch.zeros_like(n_acc), n_acc)
+                hist += (F.one_hot(n_acc, gamma + 1)
+                         * (~done)[:, None].long()).sum(0)
+                at = cur + n_acc
+                tokens[rows, at] = torch.where(done, tokens[rows, at], nxt)
+                # full acceptance leaves the draft cache without position
+                # cur + gamma - 1 (the next round drafts from cur + gamma):
+                # backfill it; every other row rewrites cur + n_acc, which
+                # the next round's first draft step writes the same
+                pb = cur + torch.where(n_acc == gamma,
+                                       torch.full_like(n_acc, gamma - 1),
+                                       n_acc)
+                draft_model.decode_step(tokens[rows, pb], pb, caches_d)
+                cur = torch.where(done, cur, cur + n_acc + 1)
+                rounds += 1
+            row_tokens = (cur.clamp(max=total) - cur0).cpu()
+            adv = float(row_tokens.float().mean())
+        else:
+            cur = cur0
+            while cur < total and not bool(eos_rows(cur).all()):
+                q = draft_round(cur)
+                chunk = tokens[:, cur - 1:cur + gamma]
+                logits = self.decode_chunk(chunk, at[cur - 1], caches_t)
+                drafts = chunk[:, 1:]
+                if sampled:
+                    n_acc, nxt = _spec_accept(gen, drafts, q, dist(logits))
+                    n_acc = int(n_acc)     # one host sync a round
+                else:
+                    tgt = torch.argmax(logits, dim=-1)
+                    n_acc = int(torch.cumprod(
+                        (tgt[:, :gamma] == drafts).long(), dim=1).sum(1)
+                        .min())
+                    nxt = tgt[:, n_acc]
+                tokens[:, cur + n_acc] = nxt
+                if n_acc == gamma:         # the draft cache's hole
+                    draft_model.decode_step(tokens[:, cur + gamma - 1],
+                                            at[cur + gamma - 1], caches_d)
+                cur += n_acc + 1
+                hist[n_acc] += 1
+                rounds += 1
+            row_tokens = None
+            adv = float(min(cur, total) - cur0)
+        out = tokens[:, :total]
+        if eos_token is not None:
+            out = _mask_after_eos(out, plen, eos_token,
+                                  eos_token if pad_token is None
+                                  else pad_token)
+        if return_stats:
+            return out, {"rounds": rounds,
+                         "tokens_per_round": adv / max(rounds, 1),
+                         "accept_hist": hist.cpu(), "row_tokens": row_tokens}
+        return out

@@ -37,8 +37,16 @@ the block's key in two).  ``n_experts > 0`` swaps the FFN for
 functions :func:`moe_capacity`, :func:`moe_sparse_routing` and
 :func:`moe_sparse_dispatch`.
 
-Not ported yet: LoRA, bias-free projections and chunked decode
-(``q_offsets``, per-row chunks); their arguments raise
+Chunked decode (``MultiHeadAttention.chunk``, ``TransformerBlock.chunk``;
+JAX's ``mha_apply_chunk``/``block_apply_chunk``) scores C tokens at
+positions ``[pos, pos + C)`` against the contiguous cache in one pass:
+``pos`` is a scalar, or ``[B]`` per-row starts (per-row speculative
+verification), and each query row attends up to its own position through
+``_decode_attention(q_offsets=)``.  It is what ``TinyGPT.decode_chunk``,
+``generate_continued``, ``speculative_generate`` and the engine's shared
+system prompt run.
+
+Not ported yet: LoRA and bias-free projections; their arguments raise
 ``NotImplementedError``.
 """
 
@@ -225,25 +233,35 @@ def kv_quantize(x):
 def _decode_attention(q, k_cache, v_cache, pos, scale, window=None,
                       k_scale=None, v_scale=None, q_offsets=None,
                       ring=False):
-    """Single-position attention against a contiguous KV cache: ``q``
-    ``[B, H, Q, D]``, caches ``[B, H, Smax, D]``; entries past ``pos`` (a
-    scalar, or ``[B]`` per-row positions) are masked out.  Scores and the
-    softmax are f32.  int8 caches (``k_scale``/``v_scale`` ``[B, H,
-    Smax]``): the rows enter the dots in f32, the k scale multiplies the
-    scores after the dot and the v scale the softmax weights before
-    theirs.  f32/bf16 caches: the weights are cast to the cache dtype
-    before ``P.V``, as JAX does.  ``window``: entries at or before ``pos -
-    window`` are masked too.  ``ring``: the cache is a W-slot ring (W its
-    length) whose slot ``s`` holds absolute position ``pos - ((pos - s)
-    mod W)``; only slots never written (a negative position) are masked,
-    the window holds by construction.  Plain PyTorch on every device: JAX
-    runs this as XLA, with no Pallas kernel."""
-    not_ported("_decode_attention", q_offsets=q_offsets is not None)
+    """Single- or few-position attention against a contiguous KV cache:
+    ``q`` ``[B, H, Q, D]``, caches ``[B, H, Smax, D]``; entries past
+    ``pos`` (a scalar, or ``[B]`` per-row positions) are masked out.
+    ``q_offsets`` ``[Q]`` (chunked decode): query row r sits at absolute
+    position ``pos + q_offsets[r]`` and attends the cache up to there;
+    omitted, every row sits at ``pos``.  Scores and the softmax are f32.
+    int8 caches (``k_scale``/``v_scale`` ``[B, H, Smax]``): the rows enter
+    the dots in f32, the k scale multiplies the scores after the dot and
+    the v scale the softmax weights before theirs.  f32/bf16 caches: the
+    weights are cast to the cache dtype before ``P.V``, as JAX does.
+    ``window``: entries at or before ``pos - window`` are masked too.
+    ``ring``: the cache is a W-slot ring (W its length) whose slot ``s``
+    holds absolute position ``pos - ((pos - s) mod W)``; only slots never
+    written (a negative position) are masked, the window holds by
+    construction.  Plain PyTorch on every device: JAX runs this as XLA,
+    with no Pallas kernel."""
     s = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
     if k_scale is not None:
         s = s * k_scale[:, :, None, :]
     idx = torch.arange(k_cache.shape[2], device=q.device)
-    qpos = pos.long()[:, None, None, None] if _is_rows(pos) else pos
+    # each query row's absolute position: [B, Q, 1] for per-row starts,
+    # [Q, 1] (or the scalar itself, every row at pos) for a shared one
+    base = pos.long() if torch.is_tensor(pos) else int(pos)
+    if q_offsets is None:
+        qpos = base[:, None, None] if _is_rows(pos) else base
+    else:
+        off = torch.as_tensor(q_offsets, device=q.device).long()
+        qpos = (base[:, None] + off if _is_rows(pos) else base + off)
+        qpos = qpos[..., None]
     if ring:
         # torch.remainder is a floor modulo, as numpy's and JAX's %
         mask = qpos - torch.remainder(qpos - idx, k_cache.shape[2]) >= 0
@@ -251,6 +269,8 @@ def _decode_attention(q, k_cache, v_cache, pos, scale, window=None,
         mask = idx <= qpos
         if window is not None:
             mask = mask & (idx > qpos - window)
+    if _is_rows(pos):
+        mask = mask[:, None]                   # [B, 1, Q, S]
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     if v_scale is not None:
@@ -262,17 +282,20 @@ def _decode_attention(q, k_cache, v_cache, pos, scale, window=None,
 def _cache_write(cache, k, v, pos, ring=False):
     """Write new K/V rows ``[B, kvh, C, D]`` into a contiguous cache, in
     place: at ``[pos, pos + C)`` for a scalar ``pos`` (prefill, lockstep
-    decode), or row b's single row at ``pos[b]`` for ``[B]`` positions
-    (ragged decode, C = 1).  Quantizes the rows when the cache holds
-    scales.  A position past the cache is clamped, as XLA's
+    decode), or row b's C rows at ``[pos[b], pos[b] + C)`` for ``[B]``
+    starts (ragged decode at C = 1, per-row speculative verification at C
+    = γ + 1).  Quantizes the rows when the cache holds scales.  A start
+    past the cache is clamped to ``Smax - C``, as XLA's
     ``dynamic_update_slice`` clamps it: a frozen serving row that keeps
-    stepping past ``max_seq`` rewrites its last entry, whose tokens the
+    stepping past ``max_seq`` rewrites its last entries, whose tokens the
     engine discards.  One indexed write stands for JAX's three write
-    strategies, which are XLA speed choices with one result.
+    strategies, which are XLA speed choices with one result for every
+    start the callers give (``pos[b] + C <= Smax``).
 
     ``ring=True``: the cache is a W-slot ring (W its length); position
     ``p`` lands in slot ``p % W``, and of a C-row write longer than W only
-    the last W rows are kept (only they would survive anyway)."""
+    the last W rows are kept (only they would survive anyway).  Per-row
+    starts write one row each there (chunked decode refuses rings)."""
     quantized = "k_scale" in cache
     new = {"k": k, "v": v}
     if quantized:
@@ -280,6 +303,9 @@ def _cache_write(cache, k, v, pos, ring=False):
         new["v"], new["v_scale"] = kv_quantize(v)
     smax, c = cache["k"].shape[2], k.shape[2]
     if ring and _is_rows(pos):
+        if c != 1:
+            raise ValueError("per-row chunks into a ring cache: chunked "
+                             "decode does not support ring caches")
         pos = torch.remainder(pos, smax)       # then the per-row write
     elif ring:
         if c > smax:
@@ -291,18 +317,19 @@ def _cache_write(cache, k, v, pos, ring=False):
         for name, x in new.items():
             cache[name].index_copy_(2, slots, x.to(cache[name].dtype))
         return cache
+    span = torch.arange(c, device=k.device)
     if _is_rows(pos):
-        not_ported("_cache_write", per_row_chunks=c != 1)
-        rows = torch.arange(k.shape[0], device=k.device)
-        at = pos.long().clamp(0, smax - 1)
+        rows = torch.arange(k.shape[0], device=k.device)[:, None]
+        at = pos.long().clamp(0, smax - c)[:, None] + span       # [B, C]
         for name, x in new.items():
-            cache[name][rows, :, at] = x[:, :, 0].to(cache[name].dtype)
+            # [B, C] index pairs around the head dim: the selection is
+            # [B, C, kvh(, D)], the rows' C axis moved ahead of the heads
+            cache[name][rows, :, at] = x.movedim(2, 1).to(cache[name].dtype)
         return cache
     # the clamped start of dynamic_update_slice, kept on the device
     start = torch.as_tensor(pos, device=k.device).long().clamp(0, smax - c)
-    at = start + torch.arange(c, device=k.device)
     for name, x in new.items():
-        cache[name].index_copy_(2, at, x.to(cache[name].dtype))
+        cache[name].index_copy_(2, start + span, x.to(cache[name].dtype))
     return cache
 
 
@@ -486,6 +513,39 @@ class MultiHeadAttention(nn.Module):
                               v_scale=cache.get("v_scale"), ring=ring)
         return self._out_step(o, x_t)
 
+    def chunk(self, x_c, cache, pos):
+        """Chunked decode (``mha_apply_chunk``): ``x_c [B, C, E]`` at
+        positions ``[pos, pos + C)`` (``pos`` a scalar, or ``[B]`` per-row
+        starts), each query attending the cache through its own position.
+        Writes cache entries ``[pos, pos + C)`` in place first; GQA folds
+        each KV head's query group into the query dim (row ``g * C + c``
+        at offset ``c``).  Returns ``y [B, C, E]``.  A ring cache raises,
+        as JAX asserts."""
+        if self._ring(cache):
+            raise ValueError("chunked decode does not support ring "
+                             "(windowed) caches")
+        b, c, e = x_c.shape
+        span = torch.arange(c, device=x_c.device)
+        if _is_rows(pos):
+            # a frozen row's chunk may run past the table; its results are
+            # discarded, so any in-range angle will do
+            roff = (pos.long()[:, None] + span).clamp(max=self.max_seq - 1)
+        else:
+            # a tensor start: apply_rope clamps it into the table, as
+            # dynamic_slice does
+            roff = torch.as_tensor(pos, device=x_c.device).long()
+        q, k, v = self._qkv_heads(x_c, roff)
+        _cache_write(cache, k, v, pos)
+        g, d = self.kv_groups, self.head_dim
+        qg = q.reshape(b, self.num_kv_heads, g * c, d)
+        o = _decode_attention(qg, cache["k"], cache["v"], pos, d ** -0.5,
+                              self.window, k_scale=cache.get("k_scale"),
+                              v_scale=cache.get("v_scale"),
+                              q_offsets=span.repeat(g))
+        o2 = o.reshape(b, self.num_kv_heads, g, c, d).permute(
+            0, 3, 1, 2, 4).reshape(b * c, e).to(x_c.dtype)
+        return _proj(o2, self.wo, self.bo).reshape(b, c, e)
+
     def init_paged_pool(self, n_blocks: int, block_size: int,
                         dtype=torch.float32, device=None,
                         quantized: bool = False):
@@ -648,6 +708,12 @@ class TransformerBlock(nn.Module):
         cache, updated in place."""
         x_t = x_t + self.attn.decode(self.ln1(x_t), cache, pos)
         return x_t + self.mlp(self.ln2(x_t))
+
+    def chunk(self, x_c, cache, pos):
+        """``block_apply_chunk``: C tokens per row at ``[pos, pos + C)``
+        against a contiguous cache, updated in place."""
+        x_c = x_c + self.attn.chunk(self.ln1(x_c), cache, pos)
+        return x_c + self.mlp(self.ln2(x_c))
 
     def decode_paged(self, x_t, pool, tables, pos):
         """``block_apply_decode_paged``: one token per row; updates

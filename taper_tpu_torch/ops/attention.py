@@ -28,7 +28,8 @@ plain versions (:func:`attention_lse_reference` forward,
 :func:`flash_bwd_reference` backward); CUDA tensors run the kernels of
 ``csrc/flash_sm90.cu``, ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd_f32.cu`` and ``csrc/flash_bwd.cu`` at every shape they
-take (f32 or bf16, D of 64 or 128, any S), or raise.  The forward picks its
+take (f32 or bf16, D of 64 or 128, and 32 in f32 but for K10, any S), or
+raise.  The forward picks its
 kernel as JAX does (``attention.py:1155``, :func:`uses_bound`): the
 bound-max K8 for bf16 causal inputs with no window and no segments, its
 exact arm chosen on the device by :func:`bound_predicate`; the exact K5
@@ -71,6 +72,11 @@ from taper_tpu_torch.ops import _build
 from taper_tpu_torch.ops import backend
 
 HEAD_DIMS = (64, 128)
+# the f32 FMA kernels (K5 of flash_fwd.cu; K6, K7 and K11 of
+# flash_bwd_f32.cu) also take 32: the draft byte LM of
+# benchmarks/bench_serving.py:446 and examples/train_bytelm.py's default
+# model have 4 heads of 32
+F32_HEAD_DIMS = (32, 64, 128)
 LOG2E = math.log2(math.e)
 MASKS = ("none", "causal", "window", "segments")
 # max|q| * scale * log2(e) * max|k| at most this keeps the bound arm's
@@ -281,9 +287,15 @@ def plan_bwd(dtype) -> str:
 
 # -- the kernels (CUDA tensors only) ---------------------------------------
 
-def _check_kernel(name, d, *tensors):
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS}, "
+def _fma_dims(dtype):
+    """The head dims of a kernel with an f32 FMA form (K5, K6, K7,
+    K11) on tensors of ``dtype``."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+
+
+def _check_kernel(name, d, *tensors, dims=HEAD_DIMS):
+    if d not in dims:
+        raise ValueError(f"{name}: kernel takes head_dim in {dims}, "
                          f"got {d}")
     if len({t.dtype for t in tensors}) != 1:
         raise ValueError(f"{name}: q, k, v (and o, do) must share one dtype")
@@ -315,7 +327,7 @@ def flash_fwd_exact(q, k, v, *, causal, scale, heads=None, window=None,
     optional window or int32 segment ids, through the route
     :func:`plan_fwd` gives: returns ``(o, lse)``."""
     b, h, hkv, s, d = _dims(q, k, v, heads)
-    _check_kernel("flash forward", d, q, k, v)
+    _check_kernel("flash forward", d, q, k, v, dims=_fma_dims(q.dtype))
     seg, win = _mask_args("flash forward", q, k, heads, window, segment_ids)
     route = plan_fwd(q.dtype, mask_kind(causal, window, segment_ids))
     o = torch.empty_like(q)
@@ -375,7 +387,7 @@ def flash_fwd_bound(q, k, v, *, scale, heads=None, force_bound=None):
 
 
 def _bwd_args(name, q, k, v, heads, causal, scale, window, segment_ids,
-              *more, rows=()):
+              *more, rows=(), dims=HEAD_DIMS):
     """Checks a backward kernel's inputs; returns ``(seg pointer, dims
     and flags for the C entry point)``."""
     b, h, hkv, s, d = _dims(q, k, v, heads)
@@ -383,7 +395,7 @@ def _bwd_args(name, q, k, v, heads, causal, scale, window, segment_ids,
         if t.shape != q.shape:
             raise ValueError(f"{name}: o and do must have q's shape "
                              f"{tuple(q.shape)}, got {tuple(t.shape)}")
-    _check_kernel(name, d, q, k, v, *more)
+    _check_kernel(name, d, q, k, v, *more, dims=dims)
     backend.check_kernel_args(name, *rows, dtypes=(torch.float32,))
     seg, win = _mask_args(name, q, k, heads, window, segment_ids)
     return seg, (b, h, hkv, s, d, float(scale), int(bool(causal)), win,
@@ -396,7 +408,8 @@ def flash_dq(q, k, v, o, lse, do, *, causal, scale, heads=None,
     through the route :func:`plan_bwd` gives: returns ``(dq, delta)``,
     ``delta`` ``[B*H, S]`` f32 for K7/K11."""
     seg, args = _bwd_args("flash backward dQ", q, k, v, heads, causal,
-                          scale, window, segment_ids, o, do, rows=(lse,))
+                          scale, window, segment_ids, o, do, rows=(lse,),
+                          dims=_fma_dims(q.dtype))
     route = plan_bwd(q.dtype)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
@@ -415,7 +428,8 @@ def flash_dkv(q, k, v, lse, delta, do, *, causal, scale, heads=None,
     """K7 on CUDA tensors in either layout, after K6 (its ``delta``),
     through the route :func:`plan_bwd` gives: returns ``(dk, dv)``."""
     seg, args = _bwd_args("flash backward dK/dV", q, k, v, heads, causal,
-                          scale, window, segment_ids, do, rows=(lse, delta))
+                          scale, window, segment_ids, do, rows=(lse, delta),
+                          dims=_fma_dims(q.dtype))
     route = plan_bwd(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _build.library().taper_flash_dkv(
@@ -435,7 +449,8 @@ def flash_dkv_t(q, k, v, lse, delta, do, *, causal, scale, heads=None,
     partials ``(dk, dv)``, f32 ``[B, H, S, D]`` (:func:`group_sum` reduces
     them).  No segment ids, as in JAX."""
     _, args = _bwd_args("flash backward dK/dV (per head)", q, k, v, heads,
-                        causal, scale, window, None, do, rows=(lse, delta))
+                        causal, scale, window, None, do, rows=(lse, delta),
+                        dims=_fma_dims(q.dtype))
     route = plan_bwd(q.dtype)
     b, h, _, s, d = args[:5]
     dk, dv = (torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)

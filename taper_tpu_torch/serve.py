@@ -44,9 +44,18 @@ Greedy rows get exactly the tokens of the JAX engine up to numerics;
 sampled rows draw from an explicit ``torch.Generator`` (their numbers
 differ from JAX's key stream).
 
-Not ported yet: ``system_prompt`` prefix sharing, LoRA adapter banks
-(``lora``, ``lora_bank``, ``submit(adapter=)``) and
-:func:`offline_serve`.  ``paged_impl`` picks a JAX backend: ``None`` and
+A ``system_prompt`` (paged mode; a token list whose length is a
+multiple of ``block_size``) is prefilled once, when the engine is built,
+into prefix blocks allocated once, which every admitted row's table
+aliases read-only: its K/V is stored once whatever the slot count, and
+admission chunk-prefills only the request's own tokens at offset
+``len(system_prompt)`` (``TinyGPT.prefill_paged_continued``).  The new
+ranges start on a block boundary, so nothing writes the shared blocks.
+JAX asserts the alignment and the paged mode; the port raises
+``ValueError``.
+
+Not ported yet: LoRA adapter banks (``lora``, ``lora_bank``,
+``submit(adapter=)``) and :func:`offline_serve`.  ``paged_impl`` picks a JAX backend: ``None`` and
 ``"pallas"`` mean the kernel; ``"xla"`` (the gather oracle) is what a CPU
 engine runs, and raises on the card.
 """
@@ -137,8 +146,11 @@ class ServingEngine:
                  system_prompt: Optional[Sequence[int]] = None,
                  paged_impl: Optional[str] = None,
                  lora=None, lora_bank=None, device=None):
-        not_ported("ServingEngine", system_prompt=system_prompt is not None,
-                   lora=lora is not None, lora_bank=lora_bank is not None)
+        not_ported("ServingEngine", lora=lora is not None,
+                   lora_bank=lora_bank is not None)
+        if system_prompt is not None and pool_blocks is None:
+            raise ValueError("system_prompt sharing requires the paged "
+                             "cache (pool_blocks=...)")
         if paged_impl not in (None, "pallas", "xla"):
             raise ValueError(f"paged_impl {paged_impl!r}: None, 'pallas' or "
                              f"'xla'")
@@ -179,8 +191,19 @@ class ServingEngine:
         # the caches are updated in place (JAX donates them to its
         # programs)
         self._paged = pool_blocks is not None
+        self._prefix_len = 0 if system_prompt is None else len(system_prompt)
+        self._prefix_blocks: List[int] = []
         if self._paged:
             bs = block_size
+            if self._prefix_len % bs:
+                raise ValueError(
+                    f"system_prompt length ({self._prefix_len}) must be a "
+                    f"multiple of block_size ({bs}) so shared prefix "
+                    f"blocks are never written by per-request prefills")
+            if self._prefix_len + prompt_pad > model.max_seq:
+                raise ValueError(
+                    f"system_prompt ({self._prefix_len}) + prompt_pad "
+                    f"({prompt_pad}) exceeds max_seq {model.max_seq}")
             self._block_size = bs
             self._max_blocks = -(-model.max_seq // bs)
             self._alloc = BlockAllocator(pool_blocks)
@@ -196,6 +219,17 @@ class ServingEngine:
             # touch a live request's blocks
             self._trash = self._alloc.alloc(1)[0]
             self._tables[:] = self._trash
+            if self._prefix_len:
+                # the shared prefix: its blocks are allocated for the
+                # engine's lifetime and prefilled once
+                self._prefix_blocks = self._alloc.alloc(
+                    self._prefix_len // bs)
+                sp = torch.tensor([list(map(int, system_prompt))],
+                                  dtype=torch.int64, device=self.device)
+                row = torch.tensor([self._prefix_blocks], dtype=torch.int32,
+                                   device=self.device)
+                with torch.no_grad():
+                    model.prefill_paged(sp, self._caches, row)
         else:
             self._caches = model.init_cache(slots, quantized=quantized_cache,
                                             device=self.device)
@@ -216,7 +250,8 @@ class ServingEngine:
         out["active_slots"] = sum(r is not None for r in self._slot_req)
         out["slots"] = self.slots
         if self._paged:
-            out["pool_blocks_total"] = self._alloc.n_blocks - 1
+            out["pool_blocks_total"] = (self._alloc.n_blocks - 1
+                                        - len(self._prefix_blocks))
             out["pool_blocks_free"] = self._alloc.available
         return out
 
@@ -233,18 +268,18 @@ class ServingEngine:
         if not 1 <= len(prompt) <= self.prompt_pad:
             raise ValueError(f"prompt length {len(prompt)} is outside "
                              f"[1, {self.prompt_pad}]")
-        if self.prompt_pad + max_new > self.model.max_seq:
-            raise ValueError(f"prompt_pad + max_new = "
-                             f"{self.prompt_pad + max_new} exceeds max_seq "
-                             f"{self.model.max_seq}")
+        reach = self._prefix_len + self.prompt_pad + max_new
+        if reach > self.model.max_seq:
+            raise ValueError(f"system_prompt + prompt_pad + max_new = "
+                             f"{reach} exceeds max_seq {self.model.max_seq}")
         if self._paged:
             need = self._paged_need(len(prompt), int(max_new))[2]
-            usable = self._alloc.n_blocks - 1
+            usable = self._alloc.n_blocks - 1 - len(self._prefix_blocks)
             if need > usable:
                 raise ValueError(
                     f"request needs {need} blocks but the pool only has "
-                    f"{usable} usable (one is the trash block): it could "
-                    f"never be admitted")
+                    f"{usable} usable (trash and shared prefix blocks "
+                    f"reserved): it could never be admitted")
         rid = self._next_id
         self._next_id += 1
         dt, dk, dp = self._default_sampling
@@ -258,12 +293,14 @@ class ServingEngine:
         return [i for i, r in enumerate(self._slot_req) if r is None]
 
     def _paged_need(self, prompt_len: int, max_new: int):
-        """(scatter, keep, alloc) block counts for one admission: the
-        prefill scatters ``ceil(prompt_pad / bs)`` blocks, the request only
-        ever reads what covers ``len + max_new``."""
-        bs = self._block_size
-        scatter = -(-self.prompt_pad // bs)
-        keep = -(-(prompt_len + max_new) // bs)
+        """(scatter, keep, alloc) counts of new blocks for one admission,
+        beyond any shared prefix blocks: the prefill scatters the blocks
+        that cover ``prefix + prompt_pad``, the request only ever reads
+        what covers ``prefix + len + max_new``."""
+        bs, pref = self._block_size, self._prefix_len
+        nbp = pref // bs
+        scatter = -(-(pref + self.prompt_pad) // bs) - nbp
+        keep = -(-(pref + prompt_len + max_new) // bs) - nbp
         return scatter, keep, max(scatter, keep)
 
     def _sampling(self, rows):
@@ -293,16 +330,22 @@ class ServingEngine:
         padded[0, :len(prompt)] = prompt
         padded = torch.from_numpy(padded).to(self.device)
         if self._paged:
+            nbp = self._prefix_len // self._block_size
             ids = self._alloc.alloc(need)
             row = np.full((self._max_blocks,), self._trash, np.int32)
-            row[:need] = ids
+            row[:nbp] = self._prefix_blocks        # shared, read-only
+            row[nbp:nbp + need] = ids
             self._tables[slot] = row
-            logits = self.model.prefill_paged(
-                padded, self._caches,
-                torch.from_numpy(row[None]).to(self.device))
+            table = torch.from_numpy(row[None]).to(self.device)
+            if self._prefix_len:
+                logits = self.model.prefill_paged_continued(
+                    padded, self._caches, table, self._prefix_len)
+            else:
+                logits = self.model.prefill_paged(padded, self._caches,
+                                                  table)
             if need > keep:   # prompt-pad scatter overshoot: return it now
                 self._alloc.free(ids[keep:])
-                self._tables[slot, keep:] = self._trash
+                self._tables[slot, nbp + keep:] = self._trash
             self._slot_blocks[slot] = ids[:keep]
         else:
             # the slot's row of every layer's cache, as a one-row view:
@@ -313,7 +356,7 @@ class ServingEngine:
         tok = self._sample(logits[0, len(prompt) - 1][None],
                            self._sampling(slice(slot, slot + 1)))
         self._last_tok[slot] = tok[0]
-        self._pos[slot] = len(prompt)
+        self._pos[slot] = self._prefix_len + len(prompt)
         self._active[slot] = True
         self._slot_req[slot] = (rid, max_new)
         self._stats["admitted"] += 1

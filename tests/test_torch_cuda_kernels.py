@@ -2790,3 +2790,222 @@ def test_k1_bf16_projection_grads_on_card_match_the_cast(dev):
     for new, old in zip(*res):
         assert new.dtype == old.dtype == torch.bfloat16
         assert torch.equal(new, old)
+
+
+# -- the generation slice: the f32 flash kernels at head_dim 32, K16 over
+# tables that alias shared prefix blocks, K1 at the generation shapes, and
+# generation itself on the card against the CPU
+
+# (b, h, hkv, s): the draft byte LM's training (32 x 128, 4 heads of 32)
+# and prefill (64 positions) shapes, a ragged length with GQA, one row
+_D32_SHAPES = [(32, 4, 4, 128), (1, 4, 4, 64), (2, 4, 2, 70), (1, 2, 1, 1)]
+
+
+# (causal, window, segments); documents only where a row holds a few
+_D32_CASES = [(shape, mask) for shape in _D32_SHAPES
+              for mask in ((True, None, None), (False, None, None),
+                           (True, 33, None), (True, None, "docs"))
+              if mask[2] is None or shape[3] >= 4]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("shape,mask", _D32_CASES)
+def test_f32_flash_kernels_at_head_dim_32(dev, shape, mask, layout):
+    """K5 (forward and lse), K6 and K7 in f32 at D 32 against the plain
+    versions (1e-4), on the routes the plans give."""
+    b, h, hkv, s = shape
+    d = 32
+    q, k, v, o, lse, do, kw = _masked_case(dev, b, h, hkv, s, d,
+                                           torch.float32, layout, mask)
+    backend.reset_launch_counts()
+    o2, lse2 = A.flash_fwd_exact(q, k, v, **{
+        n: kw[n] for n in ("causal", "scale", "heads", "window",
+                           "segment_ids")})
+    grads = A.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert backend.route_counts() == {"exact flash_fwd": 1,
+                                      "f32 flash_dq": 1, "f32 flash_dkv": 1}
+    torch.testing.assert_close(_bhsd(o2, layout, d),
+                               _bhsd(o, layout, d), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse2, lse, rtol=1e-4, atol=1e-4)
+    refs = _masked_refs(q, k, v, o, lse, do, kw, layout, d)
+    _hold_grads([_bhsd(g, layout, d) for g in grads[:3]], refs[:3],
+                torch.float32)
+
+
+@pytest.mark.parametrize("mask", [(False, None, None), (True, 33, None)])
+def test_f32_flash_dkv_t_at_head_dim_32(dev, mask):
+    q, k, v, o, lse, do, kw = _masked_case(dev, 2, 4, 2, 70, 32,
+                                           torch.float32, "bhsd", mask)
+    _, delta = A.flash_dq(q, k, v, o, lse, do, **kw)
+    parts = A.flash_dkv_t(q, k, v, lse, delta, do, **{
+        n: kw[n] for n in ("causal", "scale", "heads", "window")})
+    refs = _masked_refs(q, k, v, o, lse, do, kw, "bhsd", 32,
+                        per_query_head=True)
+    _hold_grads(parts, refs[1:3], torch.float32, ("dk", "dv"))
+
+
+def test_head_dim_32_stays_f32_only(dev):
+    """bf16 (K8, the wgmma kernels) and K10 take D 64 and 128 only."""
+    q, k, v, o, lse, do, kw = _masked_case(dev, 1, 2, 2, 64, 32,
+                                           torch.float32, "bhsd",
+                                           (True, None, None))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim"):
+        attention(qb, kb, vb, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_fwd_exact(qb, kb, vb, causal=False, scale=32 ** -0.5)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_bwd_fused(q, k, v, o, lse, do, **kw)
+
+
+def _aliased_tables(gen, b, mb, n_prefix, n_blocks):
+    """Tables whose first ``n_prefix`` entries are the same shared blocks
+    (a system prompt's) and the rest each row's own, from a permutation
+    of the other blocks."""
+    shared = torch.arange(1, n_prefix + 1)
+    own = torch.randperm(n_blocks - n_prefix - 1, generator=gen)[
+        :b * (mb - n_prefix)] + n_prefix + 1
+    tables = torch.cat([shared.expand(b, n_prefix),
+                        own.reshape(b, mb - n_prefix)], 1)
+    return tables.to(torch.int32)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("b,kvh,g,d,bs,mb,n_prefix", [
+    (16, 8, 1, 128, 128, 6, 2),       # the serving model, a 256 prefix
+    (8, 4, 4, 128, 128, 9, 8),        # the multi-turn model's groups
+    (3, 2, 2, 64, 16, 5, 3)])
+def test_k16_over_tables_aliasing_shared_prefix_blocks(dev, pool, b, kvh, g,
+                                                       d, bs, mb, n_prefix):
+    """K16 where every row's table aliases the same prefix blocks (the
+    engine's system prompt): against its plain version, bf16 and int8
+    pools, rows at lengths inside the prefix, at its end and past it."""
+    gen = torch.Generator().manual_seed(b * mb + n_prefix)
+    n_blocks = n_prefix + b * (mb - n_prefix) + 1
+    q = _randn(gen, b, kvh, g, d, dtype=torch.bfloat16).to(dev)
+    tables = _aliased_tables(gen, b, mb, n_prefix, n_blocks).to(dev)
+    top = mb * bs
+    lengths = torch.tensor([[1, n_prefix * bs, n_prefix * bs + 1, top][i % 4]
+                            if i < 4 else
+                            int(torch.randint(1, top + 1, (1,),
+                                              generator=gen))
+                            for i in range(b)], dtype=torch.int32,
+                           device=dev)
+    sc = dict(scale=d ** -0.5)
+    if pool == "int8":
+        kq, ks, vq, vs = _int8_pools(gen, n_blocks, kvh, bs, d, dev)
+        args = (q, kq, vq, tables, lengths)
+        sc.update(k_scales=ks, v_scales=vs)
+    else:
+        kp, vp = (_randn(gen, n_blocks, kvh, bs, d,
+                         dtype=torch.bfloat16).to(dev) for _ in range(2))
+        args = (q, kp, vp, tables, lengths)
+    backend.reset_launch_counts()
+    o = PA.paged_decode_attention(*args, **sc)
+    torch.cuda.synchronize()
+    name = "paged_decode_int8" if pool == "int8" else "paged_decode"
+    assert backend.launch_counts()[name] == 1
+    assert _k16_err(o, PA.paged_decode_reference(*args, **sc)) <= 1
+
+
+# the multi-turn model's products (dim 2048, 16 heads on 4 KV heads of 128,
+# MLP 8,192) at a chunk of 32 tokens on 8 rows (M 256) and at a beam
+# search's or generation's decode step of 8 rows (M 8)
+_GEN_PRODUCTS = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+
+
+@pytest.mark.parametrize("m", [256, 8])
+@pytest.mark.parametrize("k,n", _GEN_PRODUCTS)
+def test_k1_at_the_generation_shapes(dev, m, k, n):
+    """K1 (bf16 out, as the bf16 trunk's projections) against its plain
+    version, on the route ``plan`` gives (decode at M 8, wgmma at 256)."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = _randn(gen, m, k, dtype=torch.bfloat16).to(dev)
+    w = _randn(gen, n, k, dtype=torch.bfloat16, scale=k ** -0.5).to(dev)
+    b = _randn(gen, n, dtype=torch.bfloat16, scale=0.1).to(dev)
+    route, splits = G.plan_for(x, w, "nt")
+    assert route == ("decode" if m <= 16 else "wgmma")
+    backend.reset_launch_counts()
+    y = G.linear(x, w, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    key = f"{route} nt" + (" split" if splits > 1 else "")
+    assert backend.route_counts() == {key: 1}
+    _close(y, G.linear_reference(x, w, b), torch.bfloat16, 2e-4)
+
+
+def _gen_pair(dev):
+    from taper_tpu_torch.models import TinyGPT
+    cfg = dict(vocab_size=64, dim=128, depth=2, num_heads=2, max_seq=96,
+               rope=True)
+    cpu = TinyGPT(**cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(3))
+    card = TinyGPT(**cfg)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.to(dev)
+
+
+# a greedy token's logit against its row's maximum in the CPU's forward:
+# the card's f32 logits differ from the CPU's in the last bits (other
+# summation orders), so a near-tie may resolve either way; a wrong token
+# lies far below
+_GREEDY_TAU = 1e-3
+
+
+def _greedy_gaps(cpu, tokens, starts, n):
+    """Each of the ``n`` tokens from its row's start (a [B] list): the CPU
+    forward's row maximum less the token's logit, one position before."""
+    with torch.no_grad():
+        lg = cpu(tokens[:, :-1].cpu())
+    gaps = []
+    for r, st in enumerate(starts):
+        row = lg[r, st - 1:st - 1 + n]
+        pick = row.gather(1, tokens[r, st:st + n].cpu()[:, None])[:, 0]
+        gaps.append(row.max(-1).values - pick)
+    return torch.cat(gaps)
+
+
+def test_generation_on_card_matches_cpu(dev):
+    """f32 TinyGPT (2 heads of 64) on the card: greedy, int8-cache and
+    ragged generation, beam search and speculative decoding (a draft of 4
+    heads of 32, per row and in lockstep) choose tokens within
+    _GREEDY_TAU of the CPU forward's row maximum, and agree with the CPU's
+    own generation on most tokens; ``decode_chunk`` at per-row starts
+    within 1e-4 of the CPU's logits."""
+    from taper_tpu_torch.models import TinyGPT
+    cpu, card = _gen_pair(dev)
+    prompt = torch.randint(0, 64, (3, 20),
+                           generator=torch.Generator().manual_seed(4))
+    lens = torch.tensor([20, 11, 5])
+    for kw, starts in ((dict(), [20] * 3), (dict(quantized_cache=True),
+                                            [20] * 3),
+                       (dict(prompt_lens=lens), lens.tolist())):
+        out = card.generate(prompt.to(dev), 24, **kw)
+        ref = cpu.generate(prompt, 24, **kw)
+        if "quantized_cache" not in kw:
+            assert _greedy_gaps(cpu, out, starts, 24).max() <= _GREEDY_TAU, \
+                kw
+        assert (out.cpu() == ref).float().mean() >= 0.9, kw
+    d32 = TinyGPT(64, 128, 1, 4, max_seq=96, rope=True).to(dev)
+    for per_row in (True, False):
+        out = card.speculative_generate(d32, prompt.to(dev), 24, gamma=4,
+                                        per_row=per_row)
+        assert _greedy_gaps(cpu, out, [20] * 3, 24).max() <= _GREEDY_TAU
+    outs, scores = card.beam_search(prompt.to(dev), 12, beams=3,
+                                    return_all=True)
+    ref, ref_scores = cpu.beam_search(prompt, 12, beams=3, return_all=True)
+    assert (scores[:, 1:] <= scores[:, :-1] + 1e-6).all()
+    torch.testing.assert_close(scores[:, 0].cpu(), ref_scores[:, 0],
+                               rtol=1e-3, atol=1e-3)
+    pos = torch.tensor([20, 11, 5])
+    chunk = torch.randint(0, 64, (3, 5),
+                          generator=torch.Generator().manual_seed(5))
+    logits = []
+    for m in (cpu, card):
+        d = m.tok.w.device
+        caches = m.init_cache(3)
+        with torch.no_grad():
+            m.prefill(prompt.to(d), caches)
+            logits.append(m.decode_chunk(chunk.to(d), pos.to(d),
+                                         caches).cpu())
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)

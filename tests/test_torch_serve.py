@@ -143,8 +143,11 @@ def test_engine_validates_requests_and_unported_modes():
     with pytest.raises(NotImplementedError, match="lora"):
         ServingEngine(model, lora=object(), lora_bank=object(),
                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(model, pool_blocks=4, system_prompt=[1] * 8)
+    # system_prompt is ported: a prefix off the block grid is refused
+    # (JAX asserts; tests/test_torch_serve_prefix.py holds the rest)
+    with pytest.raises(ValueError, match="multiple of block_size"):
+        ServingEngine(model, pool_blocks=4, system_prompt=[1] * 5,
+                      device="cpu", **ENGINE)
     with pytest.raises(NotImplementedError):
         offline_serve(model, None, None, None)
 
