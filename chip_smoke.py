@@ -251,7 +251,24 @@ non-zero):
      system + prompt; the engine's prefix blocks allocated once (the free
      count), K16 calls by route, and every greedy request's tokens held
      by the teacher-forced check beside an engine without a prefix run on
-     system + prompt; generated tokens/s of both.
+     system + prompt; generated tokens/s of both;
+ 36. the decode loops replayed as CUDA graphs (utils/graphs.py), each
+     against chip_smoke's own eager loop on the card (decode_step,
+     decode_chunk and argmax; a beam loop; per-row and lockstep
+     speculative loops with host-side control) and against the same step
+     functions called directly: on phase 33's model generate, ragged
+     generate, generate_continued and beam_search; on phase 34's byte LMs
+     speculative decoding per row and in lockstep at B 1, 4 and 8, and
+     sampled generate and speculative decoding (a seed twice, another
+     seed, the CPU forward's z, a generator carried through calls); phase
+     5's paged bf16 and phase 21's contiguous int8 engines over the
+     32-request mix (the eager engine's tokens, and the teacher-forced
+     check); offline_serve over the same model and requests against the
+     engine and standalone generate.  Greedy tokens bit-equal, launches
+     and K1/K16 routes a step equal, the traced port kernels of the
+     replayed and the eager steps equal name by name, wall, device span
+     and busy ms a step (a block, a round) each way, and the bytes the
+     graphs hold (freed with their model).
 Every K1 row (phases 3, 6, 9, 12, 14) names the route and K split that
 ``ops.gemm.plan`` gives its operands (``via wgmma x2``) and checks that
 the call took them (``backend.route_counts()``); phases 11 and 14 hold a
@@ -271,15 +288,20 @@ from the 170M model's (e, 4e) projection; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
+import contextlib
 import copy
+import gc
 import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -315,8 +337,9 @@ from taper_tpu_torch.quantization import (
     QuantizationConfig, QuantizationType, quantize, quantize_params,
     quantized_bytes)
 from taper_tpu_torch.quantization.ptq import replace_leaf
-from taper_tpu_torch.serve import ServingEngine
+from taper_tpu_torch.serve import ServingEngine, offline_serve
 from taper_tpu_torch.train import Trainer
+from taper_tpu_torch.utils import graphs
 
 # the module itself: ops/__init__.py re-exports its function "attention"
 # under the same name
@@ -1727,28 +1750,52 @@ CONV_FAMILIES = K1_FAMILIES + (("K3a conv fwd/dX", "conv_fwd"),
                  OPT_FAMILY)
 
 
-def profile_steps(step, n, families=LM_FAMILIES):
+def release():
+    """Free the card's memory of what was deleted: a model keeps its
+    decode programs (utils/graphs.py), whose steps refer back to it, so
+    the cycle goes at a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the profiler keeps only device activity inside its window, whose ends
+# are taken on the host's clock: a margin on each side keeps a kernel at
+# the window's edge in it
+PROFILE_MARGIN_S = 0.01
+
+
+def profile_steps(step, n, families=LM_FAMILIES, host=True):
     """Device time of ``n`` steps by kernel family, from a torch.profiler
     trace: the union of the device intervals (busy) against the host
-    clock (wall), and each family's summed kernel time."""
+    clock (wall), each family's summed kernel time, and the kernels
+    launched by name (``kernels``, a count over the ``n`` steps; without
+    the CUDA runtime's copy kernels, ``memcpy*``/``memset*``, which run a
+    CUDA graph's copy nodes where an eager copy is a memcpy).
+    ``host=False`` traces the device alone."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if host else [])
+                 + [ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     spans, by_family, glue = [], {}, {}
+    kernels = collections.Counter()
     for ev in events:
         if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
+        if ev["cat"] == "kernel" and not ev["name"].startswith(
+                ("memcpy", "memset")):
+            kernels[ev["name"]] += 1
         spans.append((ev["ts"], ev["ts"] + ev["dur"]))
         fam = next((f for f, key in families if key in ev["name"]), None)
         if fam is None:
@@ -1764,7 +1811,7 @@ def profile_steps(step, n, families=LM_FAMILIES):
     return dict(wall_ms=wall / n * 1e3, busy_ms=busy / n / 1e3,
                 device_ops=len(spans) / n,
                 ms={k: v / n / 1e3 for k, v in by_family.items()},
-                glue_top={k: v / n / 1e3 for k, v in top})
+                glue_top={k: v / n / 1e3 for k, v in top}, kernels=kernels)
 
 
 def per_step(counts, steps):
@@ -3169,6 +3216,7 @@ def serve_mode(model, reqs, paged, quant):
         eng.submit(p, max(MAX_NEW), **s)
     eng.step()
     with torch.no_grad():
+        eng._decode_block()           # its capture, outside the profile
         prof = decode_profile(eng._decode_block, 1)
     del eng
     torch.cuda.empty_cache()
@@ -4164,7 +4212,7 @@ def phase27_window_decode(dev, smi):
         counts_all[k_] = counts_all.get(k_, 0) + c
     out["engine"] = dict(wall_s=wall, tokens_s=gen_tokens / wall)
     del eng, model
-    torch.cuda.empty_cache()
+    release()
     return counts_all, out
 
 
@@ -5016,7 +5064,7 @@ def phase33_generation(dev, smi):
     assert (best / bn - scores[:, 0]).abs().max() <= GREEDY_TAU["bf16"]
     assert (best >= base - bn * GREEDY_TAU["bf16"]).all()
     del model
-    torch.cuda.empty_cache()
+    release()
     return totals, dict(rows=rows, tokens_s=b * n / wall,
                         decode_step_ms=dec_ms,
                         chunk_speedup=times["re-prefill"]
@@ -5252,9 +5300,11 @@ def phase34_bytelm_speculative(dev, smi):
             assert worst <= SPEC_TAU, worst
         print(f"phase 34: B={b}, gamma {SPEC['gamma']}, P {SPEC['prompt']} + "
               f"{SPEC['max_new']}: " + "; ".join(line) + f"; on {smi}")
-    del target, draft, corpus_t, plain_target
+    del corpus_t
     torch.cuda.empty_cache()
-    return totals, dict(rows=rows, losses=losses, spec=stats)
+    # the trained pair (and the CPU copy) go on to phase 36
+    return totals, dict(rows=rows, losses=losses, spec=stats,
+                        models=(target, draft, plain_target, corpus))
 
 
 SYSTEM_PROMPT = 256          # two blocks of 128: the shared prefix
@@ -5403,9 +5453,743 @@ def phase35_system_prompt(dev, smi):
           f"{GREEDY_TAU['bf16']}); on {smi}")
     assert worst <= GREEDY_TAU["bf16"]
     del eng, plain, model
-    torch.cuda.empty_cache()
+    release()
     return counts, dict(paged_decode=row, tokens_s=gen_tokens / wall,
                         tokens_s_plain=sum(len(o) for o in outs_p) / wall_p)
+
+
+# Phase 36: the decode loops replayed as CUDA graphs (utils/graphs.py).
+# Each path's greedy tokens must be bit-equal to chip_smoke's own eager
+# loop on the same card (decode_step/decode_chunk and argmax, the beam
+# loop and both speculative loops written below with host-side control),
+# the engines' tokens must pass the teacher-forced check; a replayed step
+# must count the launches and K1 routes of the same step called eagerly
+# (the step functions called directly), and launch the same port kernels,
+# name by name, in a device trace (race).  GRAPH_STEPS decode steps
+# (engine: blocks) are timed each way, from the same state, and profiled
+# for device busy time.
+GRAPH_STEPS = 32
+GRAPH_BLOCKS = 3
+# steps (blocks) a profile takes for the busy time: a trace of eager
+# steps is large to export and read, and the busy time a step is steady
+PROFILED = 4
+SPEC_SAMPLED_TEMP = 0.8
+
+
+def port_kernels(names):
+    """The port's kernels among traced kernel names (every kernel of
+    taper_tpu_torch/csrc lives in namespace taper)."""
+    return {k: c for k, c in names.items() if "taper::" in k}
+
+
+def eager_steps():
+    """The decode loops with every captured step called directly: the
+    eager form of the same loops (the oracle of the graphs)."""
+    return mock.patch.object(graphs.Step, "__call__",
+                             lambda self: self.fn())
+
+
+def graph_bytes(owner):
+    """Bytes of ``owner``'s cached programs' graph pools and static
+    buffers."""
+    progs = graphs.programs(owner)
+    return (sum(p.pool_bytes() for p in progs),
+            sum(p.nbytes() for p in progs))
+
+
+def eager_greedy(model, prompt, n, lens=None):
+    """chip_smoke's own eager loop: prefill, then decode_step and argmax
+    one step at a time at 0-d (or, ``lens``, per-row ``[B]``) device
+    positions; the ``[B, n]`` new tokens."""
+    b, p = prompt.shape
+    with torch.no_grad():
+        caches = model.init_cache(b)
+        logits = model.prefill(prompt, caches)
+        if lens is None:
+            pos = torch.full((), p, dtype=torch.long, device=prompt.device)
+            tok = logits[:, -1].argmax(-1)
+        else:
+            pos = lens.clone()
+            tok = logits[torch.arange(b, device=prompt.device),
+                         lens - 1].argmax(-1)
+        out = [tok]
+        for _ in range(n - 1):
+            tok = model.decode_step(tok, pos, caches).argmax(-1)
+            out.append(tok)
+            pos = pos + 1
+    return torch.stack(out, 1)
+
+
+@torch.no_grad()
+def eager_beam(model, prompt, n, w):
+    """chip_smoke's own beam loop (no eos, length penalty 1): prefill,
+    then at each step decode_step over the B * W rows, log_softmax, the
+    top W of the W * V candidates, and the caches' rows gathered by
+    parent beam; ``(tokens [B, W, P + n], scores / n)`` best first, as
+    ``beam_search(return_all=True)`` returns them."""
+    b, p = prompt.shape
+    v, dev = model.vocab_size, prompt.device
+    caches = model.init_cache(b)
+    logp = torch.log_softmax(model.prefill(prompt, caches)[:, -1].float(),
+                             -1)
+    scores, tok = torch.topk(logp, w, dim=-1)
+    caches = [{k: x.repeat_interleave(w, 0) for k, x in c.items()}
+              for c in caches]
+    new = tok[..., None]                                  # [B, W, steps]
+    base = (torch.arange(b, device=dev) * w)[:, None]
+    for j in range(n - 1):
+        pos = torch.full((), p + j, dtype=torch.long, device=dev)
+        logits = model.decode_step(tok.reshape(b * w), pos, caches)
+        logp = torch.log_softmax(logits.float(), -1).reshape(b, w, v)
+        scores, idx = torch.topk((scores[..., None] + logp).reshape(b, -1),
+                                 w, dim=-1)
+        parent, tok = idx // v, idx % v
+        new = torch.cat([new.gather(1, parent[..., None].expand(
+            -1, -1, new.shape[2])), tok[..., None]], 2)
+        flat = (base + parent).reshape(-1)
+        caches = [{k: x.index_select(0, flat) for k, x in c.items()}
+                  for c in caches]
+    norm = scores / torch.full_like(scores, n)
+    order = torch.argsort(-norm, dim=1, stable=True)
+    tokens = torch.cat([prompt[:, None].expand(b, w, p), new], 2)
+    return (tokens.gather(1, order[..., None].expand(b, w, p + n)),
+            norm.gather(1, order))
+
+
+@torch.no_grad()
+def eager_spec(target, draft, prompt, n, gamma, per_row):
+    """chip_smoke's own greedy speculative loop, its control on the host:
+    each round ``gamma`` draft decode_steps from ``cur - 1``, one target
+    decode_chunk over the host slice ``tokens[cur - 1:cur + gamma]``, the
+    run of drafts agreeing with the target's argmax (each row's, or the
+    batch's least in lockstep), the target's token after it, and, only
+    after a full acceptance, the draft's step over the last draft token,
+    which its cache lacks.  ``(tokens [B, P + n], rounds, acceptance
+    histogram)``."""
+    b, p = prompt.shape
+    dev, total = prompt.device, p + n
+    tokens = torch.zeros(b, total + 2 * gamma, dtype=torch.long, device=dev)
+    tokens[:, :p] = prompt
+    ct, cd = target.init_cache(b), draft.init_cache(b)
+    tokens[:, p] = target.prefill(prompt, ct)[:, -1].argmax(-1)
+    draft.prefill(prompt, cd)
+    cur = np.full(b, p + 1)                  # tokens[r, :cur[r]] are final
+    hist = np.zeros(gamma + 1, np.int64)
+    rows = torch.arange(b, device=dev)
+
+    def at(x):
+        """Positions on the card: [B] per row, 0-d in lockstep."""
+        return torch.tensor(x if per_row else x[0], dtype=torch.long,
+                            device=dev)
+    rounds = 0
+    while (cur < total).any():
+        done = cur >= total
+        for j in range(gamma):
+            pos = at(cur - 1 + j)
+            if per_row:
+                nxt = draft.decode_step(tokens[rows, pos], pos, cd).argmax(-1)
+                tokens[rows, pos + 1] = nxt
+            else:
+                c = int(cur[0]) - 1 + j
+                tokens[:, c + 1] = draft.decode_step(tokens[:, c], pos,
+                                                     cd).argmax(-1)
+        chunk = torch.stack([tokens[r, c - 1:c + gamma]
+                             for r, c in enumerate(cur)])
+        tgt = target.decode_chunk(chunk, at(cur - 1), ct).argmax(-1).cpu()
+        agree = (tgt[:, :gamma] == chunk[:, 1:].cpu()).numpy()
+        n_acc = np.cumprod(agree, axis=1).sum(1)
+        if not per_row:
+            n_acc[:] = n_acc.min()
+        n_acc[done] = 0
+        live = np.flatnonzero(~done)
+        for r in live:
+            tokens[r, cur[r] + n_acc[r]] = tgt[r, n_acc[r]]
+        np.add.at(hist, n_acc[live] if per_row else n_acc[:1], 1)
+        full = n_acc == gamma
+        if full.any():
+            # rows short of a full acceptance rewrite cur + n_acc, as the
+            # next round's first draft step does (one batched step)
+            pb = cur + np.where(full, gamma - 1, n_acc)
+            pos = at(pb)
+            draft.decode_step(tokens[rows, pos] if per_row
+                              else tokens[:, int(pb[0])], pos, cd)
+        cur = np.where(done, cur, cur + n_acc + 1)
+        rounds += 1
+    return tokens[:, :total], rounds, torch.from_numpy(hist)
+
+
+def timed_calls(fn, n, reset=None, profiled=PROFILED):
+    """Wall ms a call of ``fn`` over ``n`` calls from a synced device
+    (host clock), the device span a call between CUDA events around them,
+    and the device busy ms a call from a profile of up to ``profiled``
+    more calls; ``reset()`` before each run."""
+    for run in (0, 1):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        if run:
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+        for _ in range(n if run else 1):
+            fn()
+        if run:
+            e1.record()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    span = e0.elapsed_time(e1) / n
+    if reset is not None:
+        reset()
+    prof = profile_steps(fn, min(n, profiled), DECODE_FAMILIES)
+    return dict(wall_ms=wall, span_ms=span, busy_ms=prof["busy_ms"],
+                device_ops=prof["device_ops"], kernels=prof["kernels"])
+
+
+# K1's and K16's launches in a trace: one main kernel a wrapper call (K1's
+# split-K reduce and K16's merge are second launches of the same call)
+TRACE_LAUNCHES = (("linear", ("gemm_wgmma", "gemm_realign", "gemm_decode",
+                              "gemm_f32_kernel"), ()),
+                  ("paged_decode", ("paged_decode",), ("merge",)))
+
+
+def traced_launches(kernels):
+    """The wrapper launches of K1 (``linear``) and K16 (``paged_decode``,
+    both pools) that the traced kernels by name stand for."""
+    out = {}
+    for name, keys, skip in TRACE_LAUNCHES:
+        out[name] = sum(c for k, c in port_kernels(kernels).items()
+                        if any(key in k for key in keys)
+                        and not any(x in k for x in skip))
+    return out
+
+
+class KeptGraph(torch.cuda.CUDAGraph):
+    """A CUDA graph that keeps its node list (the ``cudaGraph_t``,
+    ``keep_graph=True``) past the capture, in debug mode, so that
+    ``debug_dump`` prints it (PyTorch 2.11 prints only in debug mode, and
+    in debug mode alone drops the node list at the capture's end); it is
+    instantiated at its first replay, which a Step makes in the call
+    that captures it."""
+
+    def __new__(cls, keep_graph=True):
+        return super().__new__(cls, True)
+
+    def __init__(self, keep_graph=True):
+        super().__init__(True)
+        self.enable_debug_mode()
+
+
+def kept_graphs():
+    """The port's steps captured inside keep their node lists for
+    :func:`graph_launches` (``graphs.Step`` builds ``torch.cuda.CUDAGraph``
+    at its capture)."""
+    return mock.patch.object(torch.cuda, "CUDAGraph", KeptGraph)
+
+
+# a node's statement in the DOT print of a CUDA graph (an edge's second
+# node is preceded by "->")
+DOT_NODE = re.compile(r'"graph_[^"\n]*node[^"\n]*"\s*\[')
+
+
+def graph_launches(step):
+    """The K1 and K16 launches (as :func:`traced_launches` counts them) of
+    one replay of ``step``'s graph, from the graph itself: the driver's
+    DOT print of its nodes (``CUDAGraph.debug_dump``, through
+    ``cudaGraphDebugDotPrint``), where each kernel node, which a replay
+    launches once, stands once with its kernel's name.  A count that
+    needs no profiler, which loses records.  The step must have been
+    captured under :func:`kept_graphs`.  Returns
+    the counts and the graph's node count."""
+    assert isinstance(step.graph, KeptGraph), "captured outside kept_graphs"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        step.graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    starts = [m for m in DOT_NODE.finditer(text)
+              if "->" not in text[max(0, m.start() - 4):m.start()]]
+    ends = [m.start() for m in starts[1:]] + [len(text)]
+    nodes = [text[m.end():e] for m, e in zip(starts, ends)]
+    out = {name: sum(1 for n in nodes if any(key in n for key in keys)
+                     and not any(x in n for x in skip))
+           for name, keys, skip in TRACE_LAUNCHES}
+    return out, len(nodes)
+
+
+def launch_families(counts):
+    """Launch counts of the wrappers as :func:`traced_launches` groups
+    them (K16's two pools one family)."""
+    return {"linear": counts.get("linear", 0),
+            "paged_decode": (counts.get("paged_decode", 0)
+                             + counts.get("paged_decode_int8", 0))}
+
+
+def audit_graphs(label, steps):
+    """Each captured step's graph holds the K1 and K16 kernel nodes its
+    capture counted (what every replay adds), and launches nothing else
+    the wrappers count; each graph is audited once.  Returns the steps
+    audited here."""
+    done = []
+    for step in steps:
+        if step.graph is None or getattr(step.graph, "audited", False):
+            continue
+        delta = step._delta[0]
+        assert set(delta) <= {"linear", "paged_decode",
+                              "paged_decode_int8"}, (label, delta)
+        nodes, total = graph_launches(step)
+        step.graph.audited = True
+        assert nodes == launch_families(delta), (label, nodes, delta, total)
+        done.append((nodes, total))
+    return done
+
+
+def race(label, graph_fn, eager_fn, steps, rows, n, reset=None,
+         unit="step", profiled=PROFILED):
+    """One call of each counted (launches and routes equal), then both
+    timed; the graphs of ``steps`` (the captured steps ``graph_fn``
+    replays) must hold the K1 and K16 kernel nodes their replays count,
+    and a trace of the replays the eager calls' port kernels by name
+    (whether every device kernel matched in number too is printed);
+    prints and returns the numbers."""
+    got = {}
+    for name, fn in (("graph", graph_fn), ("eager", eager_fn)):
+        if reset is not None:
+            reset()
+        _, _, counts, routes = counted(fn)
+        got[name] = ({k: c for k, c in counts.items() if c}, routes)
+    assert got["graph"] == got["eager"], (label, got)
+    t = {name: timed_calls(fn, n, reset, profiled) for name, fn in
+         (("graph", graph_fn), ("eager", eager_fn))}
+    traced = {name: t[name].pop("kernels") for name in t}
+    calls = min(n, profiled)
+    # the replays' launches from the graph's own node list, against the
+    # counts they added; the trace's count printed beside them (the
+    # profiler loses records: 767 of 768 kernels of an eager engine block,
+    # 142 of 144 K1 launches of four replays, every time in one run); the
+    # replays' port kernels the eager steps' by name
+    per_call = got["graph"][0]
+    audited = audit_graphs(label, steps)
+    assert audited and any(s_._delta[0] == per_call for s_ in steps), label
+    want = {k: c * calls for k, c in launch_families(per_call).items()}
+    seen = traced_launches(traced["graph"])
+    assert set(port_kernels(traced["graph"])) == set(
+        port_kernels(traced["eager"])), (label, traced)
+    assert set(per_call) <= {"linear", "paged_decode",
+                             "paged_decode_int8"}, per_call
+    ours = port_kernels(traced["graph"])
+    same = traced["graph"] == traced["eager"]
+    for v in t.values():
+        v["tokens_s"] = rows / v["wall_ms"] * 1e3
+    print(f"phase 36: {label}: a {unit} replayed {t['graph']['wall_ms']:.3f} "
+          f"ms of wall ({t['graph']['span_ms']:.3f} ms device span, "
+          f"{t['graph']['busy_ms']:.3f} ms busy, "
+          f"{t['graph']['tokens_s']:.1f} tokens/s) against eager "
+          f"{t['eager']['wall_ms']:.3f} ms ({t['eager']['span_ms']:.3f} span,"
+          f" {t['eager']['busy_ms']:.3f} busy, "
+          f"{t['eager']['tokens_s']:.1f} tokens/s): "
+          f"{t['eager']['wall_ms'] / t['graph']['wall_ms']:.2f}x; launches "
+          f"a {unit} {got['graph'][0]}, K1/K16 routes {got['graph'][1]}, "
+          f"equal; the graph's kernel nodes (of {audited[0][1]} nodes) "
+          f"{audited[0][0]} a replay, as counted; a trace of {calls} "
+          f"replayed saw {seen} of {want} ({sum(ours.values())} port "
+          f"kernels of {len(ours)} names, the eager calls' names), "
+          f"{sum(traced['graph'].values())} device kernels in all; every "
+          f"count equal to the eager trace's: {same} (a trace can miss a "
+          f"record)")
+    return dict(t, launches=got["graph"][0])
+
+
+@torch.no_grad()
+def phase36_gen_paths(dev, smi):
+    """generate, ragged generate, generate_continued and beam_search on
+    phase 33's model: graph tokens against the eager loops, a step raced."""
+    gen = torch.Generator().manual_seed(SEED + 36)
+    model = gen_model(dev)
+    b, p, n, c = (GEN_RUN[k] for k in ("batch", "prompt", "max_new",
+                                       "chunk"))
+    v = GEN["vocab_size"]
+    prompt = torch.randint(0, v, (b, p), generator=gen).to(dev)
+    new = torch.randint(0, v, (b, c), generator=gen).to(dev)
+    lens = torch.randint(p // 2, p + 1, (b,), generator=gen).to(dev)
+    rows = torch.arange(b, device=dev)
+    out, stats = {}, {}
+    totals = {}
+
+    def tally(counts):
+        for k_, c_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + c_
+
+    model.generate(prompt, n)              # the capture, program cached
+    tokens, wall, counts, _ = counted(lambda: model.generate(prompt, n))
+    tally(counts)
+    ref = eager_greedy(model, prompt, n)
+    assert torch.equal(tokens[:, p:], ref), "generate: graph != eager"
+    prog = graphs.programs(model)[-1]
+    stats["generate"] = race(
+        f"generate, {sum(t.numel() for t in model.parameters()) / 1e6:.1f}"
+        f"M bf16, B {b}, P {p} + {n} (the call {wall:.3f} s, "
+        f"{b * n / wall:.1f} tokens/s with its prefill; tokens bit-equal "
+        f"to the eager decode_step/argmax loop)", prog.step, prog.step.fn,
+        [prog.step], b, GRAPH_STEPS, reset=lambda: prog.pos.fill_(p))
+    out["generate"] = tokens
+
+    tokens, wall, counts, _ = counted(lambda: model.generate(
+        prompt, n, prompt_lens=lens))
+    tally(counts)
+    ref = eager_greedy(model, prompt, n, lens)
+    got = torch.stack([tokens[rows, lens + j] for j in range(n)], 1)
+    assert torch.equal(got, ref), "ragged generate: graph != eager"
+    prog = graphs.programs(model)[-1]
+    stats["ragged"] = race(
+        f"ragged generate, prompts of {lens.tolist()} (tokens bit-equal to "
+        f"the eager loop at per-row positions)", prog.step, prog.step.fn,
+        [prog.step], b, GRAPH_STEPS, reset=lambda: prog.pos.copy_(lens))
+
+    _, caches = model.generate(prompt, 1, return_cache=True)
+    mirror = [{k_: x.clone() for k_, x in cc.items()} for cc in caches]
+    t2, wall, counts, _ = counted(lambda: model.generate_continued(
+        new, c, caches, past_len=p))
+    tally(counts)
+    with torch.no_grad():
+        tok = model.decode_chunk(new, torch.full((), p, dtype=torch.long,
+                                                 device=dev),
+                                 mirror)[:, -1].argmax(-1)
+        ref = [tok]
+        for j in range(c - 1):
+            tok = model.decode_step(tok, torch.full(
+                (), p + c + j, dtype=torch.long, device=dev),
+                mirror).argmax(-1)
+            ref.append(tok)
+    assert torch.equal(t2[:, c:], torch.stack(ref, 1)), \
+        "generate_continued: graph != eager"
+    again = [{k_: x.clone() for k_, x in cc.items()} for cc in mirror]
+    with eager_steps():
+        _, wall_e, counts_e, _ = counted(lambda: model.generate_continued(
+            new, c, again, past_len=p))
+    assert counts_e == counts
+    print(f"phase 36: generate_continued, a chunk of {c} at {p} then {c} "
+          f"tokens over the caller's cache (a step captured for the call): "
+          f"tokens bit-equal to the eager decode_chunk/decode_step/argmax "
+          f"loop; the call {wall * 1e3:.1f} ms (capture included) against "
+          f"{wall_e * 1e3:.1f} ms eager, launches equal")
+    stats["continued"] = dict(graph_ms=wall * 1e3, eager_ms=wall_e * 1e3)
+    del caches, mirror, again
+
+    bb, w, bn = (GEN_RUN[k] for k in ("beam_batch", "beams", "beam_new"))
+    beam = lambda: model.beam_search(prompt[:bb], bn, beams=w,  # noqa: E731
+                                     return_all=True)
+    got, _, counts, _ = counted(beam)
+    tally(counts)
+    ref = eager_beam(model, prompt[:bb], bn, w)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+        "beam_search: graph != chip_smoke's eager beam loop"
+    with eager_steps():
+        ref, _, counts_e, _ = counted(beam)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert counts_e == counts
+    prog = graphs.programs(model)[-1]
+    stats["beam"] = race(
+        f"beam_search, beams {w} on {bb} prompts (tokens and scores "
+        f"bit-equal to the eager decode_step/topk beam loop)", prog.step,
+        prog.step.fn, [prog.step], bb * w, GRAPH_STEPS - 1,
+        reset=lambda: prog.pos.fill_(p))
+    pool, held = graph_bytes(model)
+    print(f"phase 36: phase 33's paths hold "
+          f"{len(graphs.programs(model))} programs on the model: graph "
+          f"pools {pool / 2 ** 20:.1f} MiB, static buffers and caches "
+          f"{held / 2 ** 20:.1f} MiB; on {smi}")
+    stats["bytes"] = dict(pool=pool, held=held)
+    before = torch.cuda.memory_allocated()
+    del model, prog
+    release()
+    freed = before - torch.cuda.memory_allocated()
+    print(f"phase 36: deleting the model freed {freed / 2 ** 20:.1f} MiB "
+          f"(its programs went with it)")
+    assert freed >= held, (freed, held)
+    return totals, stats
+
+
+@torch.no_grad()
+def phase36_spec_paths(dev, smi, target, draft, plain_target, corpus):
+    """Speculative decoding on phase 34's trained byte LMs (f32): each
+    mode's rounds replayed against its eager rounds at B 1, 4 and 8;
+    sampled runs from seeded generators against the CPU forward."""
+    # phase 34's programs go: every graph here is captured anew, inside
+    # kept_graphs
+    graphs.clear(target)
+    graphs.clear(draft)
+    start = int(len(corpus) * 0.92)
+    stats, totals = {}, {}
+    for b in SPEC["batches"]:
+        pr = torch.from_numpy(np.stack(
+            [corpus[start + i * 97:start + i * 97 + SPEC["prompt"]]
+             for i in range(b)])).long().to(dev)
+        for per_row in (True, False):
+            mode = "per row" if per_row else "lockstep"
+            run = lambda: target.speculative_generate(  # noqa: E731
+                draft, pr, SPEC["max_new"], gamma=SPEC["gamma"],
+                return_stats=True, per_row=per_row)
+            run()                          # the capture
+            (out, st), wall_g, counts, routes = counted(run)
+            prof_g = profile_steps(run, 1, DECODE_FAMILIES)
+            for k_, c_ in counts.items():
+                totals[k_] = totals.get(k_, 0) + c_
+            mine, rounds, hist = eager_spec(target, draft, pr,
+                                            SPEC["max_new"], SPEC["gamma"],
+                                            per_row)
+            assert torch.equal(out, mine) and st["rounds"] == rounds \
+                and torch.equal(st["accept_hist"].cpu(), hist), (b, mode)
+            with eager_steps():
+                (ref, st_e), wall_e, counts_e, routes_e = counted(run)
+                # the eager rounds' busy time at B 1 (a round's kernels
+                # are the graph's; a trace of eager rounds is slow to read)
+                prof_e = (profile_steps(run, 1, DECODE_FAMILIES) if b == 1
+                          else None)
+            assert torch.equal(out, ref) and st["rounds"] == st_e["rounds"] \
+                and torch.equal(st["accept_hist"], st_e["accept_hist"]), \
+                (b, mode)
+            assert counts == counts_e and routes == routes_e, (b, mode)
+            # the round graphs hold the K1 launches they count
+            audited = audit_graphs(f"speculative {mode}, B {b}", [
+                st_ for pg in graphs.programs(target) for st_ in pg.steps()])
+            assert audited, (b, mode)
+            if prof_e is not None:
+                # the same port kernels, by name, in both traces
+                assert set(port_kernels(prof_g["kernels"])) == set(
+                    port_kernels(prof_e["kernels"])), (b, mode)
+            else:
+                prof_e = dict(busy_ms=math.nan)
+            t_g = dict(wall_ms=wall_g * 1e3, busy_ms=prof_g["busy_ms"])
+            t_e = dict(wall_ms=wall_e * 1e3, busy_ms=prof_e["busy_ms"])
+            r = st["rounds"]
+            stats[(b, mode)] = dict(
+                rounds=r, graph_round_ms=t_g["wall_ms"] / r,
+                eager_round_ms=t_e["wall_ms"] / r,
+                graph_busy_round_ms=t_g["busy_ms"] / r,
+                eager_busy_round_ms=t_e["busy_ms"] / r,
+                graph_tokens_s=b * SPEC["max_new"] / t_g["wall_ms"] * 1e3,
+                eager_tokens_s=b * SPEC["max_new"] / t_e["wall_ms"] * 1e3)
+            s = stats[(b, mode)]
+            print(f"phase 36: speculative {mode}, B {b}, gamma "
+                  f"{SPEC['gamma']}, {SPEC['prompt']} + {SPEC['max_new']}: "
+                  f"tokens, rounds and acceptance bit-equal to chip_smoke's "
+                  f"eager loop (host-side control, decode_step/decode_chunk"
+                  f"/argmax) and to its eager rounds, launches and routes "
+                  f"equal"
+                  + f", the round graphs' K1 nodes as counted "
+                  f"({[n_ for n_, _ in audited]})"
+                  + (", traced port kernels equal by name" if b == 1
+                     else "")
+                  + f"; {r} rounds, a round "
+                  f"{s['graph_round_ms']:.3f} ms of wall "
+                  f"({s['graph_busy_round_ms']:.3f} busy) replayed against "
+                  f"{s['eager_round_ms']:.3f} ("
+                  + ("busy not profiled" if math.isnan(
+                      s['eager_busy_round_ms'])
+                     else f"{s['eager_busy_round_ms']:.3f} busy")
+                  + f") eager, the prefills included: "
+                  f"{s['graph_tokens_s']:.1f} against "
+                  f"{s['eager_tokens_s']:.1f} tokens/s; on {smi}")
+    # sampled: the target's generate and per-row speculative decoding,
+    # each drawn twice from one seed and once from another
+    plen = len(train_bytelm.PROMPT)
+    pr = torch.tensor([list(train_bytelm.PROMPT)] * 4, device=dev)
+    n = 118
+    for label, fn in (
+            ("generate", lambda g: target.generate(
+                pr, n, temperature=SPEC_SAMPLED_TEMP, generator=g)),
+            ("speculative per row", lambda g: target.speculative_generate(
+                draft, pr, n, gamma=SPEC["gamma"],
+                temperature=SPEC_SAMPLED_TEMP, generator=g))):
+        a, b2, c2 = (fn(torch.Generator(dev).manual_seed(s))
+                     for s in (SEED + 1, SEED + 1, SEED + 2))
+        assert torch.equal(a, b2) and not torch.equal(a, c2), label
+        zs = [tempered_z(plain_target, row.tolist(), plen,
+                         SPEC_SAMPLED_TEMP)[0] for row in a.cpu()]
+        print(f"phase 36: sampled {label} (4 rows, temperature "
+              f"{SPEC_SAMPLED_TEMP}, graphs): one seed twice gives the same "
+              f"tokens, another seed others; against the CPU forward's "
+              f"tempered distributions z {[round(z, 2) for z in zs]} (gate "
+              f"<= {SAMPLE_Z})")
+        assert all(math.isfinite(z) and z <= SAMPLE_Z for z in zs), zs
+    # two replays of one captured sampling step from the same state draw
+    # different tokens: the registered generator advances
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    target.generate(pr, 4, temperature=SPEC_SAMPLED_TEMP, generator=g)
+    prog = graphs.programs(target)[-1]
+    draws = []
+    for _ in range(2):
+        prog.pos.fill_(plen)
+        prog.step()
+        draws.append(prog.tokens[:, plen + 1].clone())
+    assert prog.step.graph is not None and not torch.equal(*draws), draws
+    print(f"phase 36: two replays of the sampled step from one state drew "
+          f"{draws[0].tolist()} and {draws[1].tolist()}")
+    # a fresh generator every call: one program, its state carried in
+    # and out (the caller's generator advanced as an eager loop would)
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    first = target.generate(pr, 8, temperature=SPEC_SAMPLED_TEMP,
+                            generator=g)
+    progs = graphs.programs(target)
+    second = target.generate(pr, 8, temperature=SPEC_SAMPLED_TEMP,
+                             generator=g)
+    again = target.generate(pr, 8, temperature=SPEC_SAMPLED_TEMP,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + 4))
+    assert torch.equal(first, again) and not torch.equal(first, second)
+    assert graphs.programs(target) == progs
+    print("phase 36: a sampled generate from a fresh generator each call "
+          "takes one program; one generator over two calls draws on, and "
+          "its seed again gives the first call's tokens")
+    graphs.clear(target)
+    return totals, stats
+
+
+def teacher_forced(model, reqs, outs, tau):
+    """Every greedy request's tokens against a forward over its prompt and
+    tokens: each within ``tau`` of its position's maximum logit; the
+    sampled requests' tokens in the vocabulary.  The worst gap."""
+    worst = 0.0
+    dev = next(model.parameters()).device
+    for (p, m, s), out in zip(reqs, outs):
+        assert len(out) == m and all(0 <= t < model.vocab_size for t in out)
+        if s.get("temperature"):
+            continue
+        seq = torch.tensor([p + out], device=dev)
+        worst = max(worst, float(greedy_gaps(model, seq, [len(p)], m).max()))
+    assert worst <= tau, (worst, tau)
+    return worst
+
+
+@torch.no_grad()
+def engine_race(model, reqs, label, kw, smi, tau):
+    """The 32-request mix through one engine, with graphs and eager (the
+    same seed), tokens equal, the greedy ones passing the teacher-forced
+    check at ``tau``; then a block of 16 admitted rows raced."""
+    outs, counts = [], []
+    for eager in (False, True):
+        eng = ServingEngine(model, **kw)
+        ids = [eng.submit(p, m, **s) for p, m, s in reqs]
+        with (eager_steps() if eager else contextlib.nullcontext()):
+            out, wall, cnt, routes = counted(eng.run)
+        outs.append([out[i] for i in ids])
+        counts.append((cnt, routes, wall, eng.stats()))
+    assert outs[0] == outs[1], f"{label}: graph != eager"
+    assert counts[0][:2] == counts[1][:2], label
+    worst = teacher_forced(model, reqs, outs[0], tau)
+    (cnt, _, wall, st), (_, _, wall_e, _) = counts
+    tokens = sum(m for _, m, _ in reqs)
+    eng = ServingEngine(model, **kw)
+    for p, m, s in reqs[:ENGINE["slots"]]:
+        eng.submit(p, max(MAX_NEW), **s)
+    eng.step()                           # admissions and the warm-up block
+    eng._decode_block()                  # the capture
+
+    def eager_block():
+        with eager_steps():
+            eng._decode_block()
+    r = race(f"{label} engine, {ENGINE['slots']} rows (the 32-request mix: "
+             f"every request's tokens equal to the eager engine's, each "
+             f"greedy token within {worst:.4f} of its position's maximum in "
+             f"a teacher-forced forward (tau {tau}); "
+             f"{tokens / wall:.1f} generated tokens/s against "
+             f"{tokens / wall_e:.1f} eager, admissions and host work "
+             f"included)", eng._decode_block, eager_block,
+             list(eng._blocks.values()),
+             ENGINE["slots"] * ENGINE["decode_block"], GRAPH_BLOCKS,
+             unit=f"block of {ENGINE['decode_block']} steps", profiled=1)
+    pools = sum(s.pool_bytes for s in eng._blocks.values())
+    held = graphs.tensor_bytes(eng._caches)
+    print(f"phase 36: {label} engine holds its block graphs' pools "
+          f"{pools / 2 ** 20:.1f} MiB beside its cache {held / 2 ** 20:.1f} "
+          f"MiB; on {smi}")
+    return cnt, dict(r, tokens_s=tokens / wall, eager_tokens_s=tokens / wall_e,
+                     pool=pools, cache=held)
+
+
+@torch.no_grad()
+def phase36_serve_paths(dev, smi, reqs):
+    """Phase 5's paged bf16 engine and phase 21's contiguous int8 engine
+    with their blocks replayed, and offline_serve over the same model and
+    requests against standalone generate."""
+    model = serving_model(dev)
+    totals, stats = {}, {}
+    for label, kw, tau in (
+            ("paged bf16", dict(ENGINE, pool_blocks=pool_blocks(), seed=SEED),
+             GREEDY_TAU["bf16"]),
+            ("contiguous int8", dict(ENGINE, quantized_cache=True, seed=SEED),
+             GREEDY_TAU["int8"])):
+        cnt, stats[label] = engine_race(model, reqs, label, kw, smi, tau)
+        for k_, c_ in cnt.items():
+            totals[k_] = totals.get(k_, 0) + c_
+        torch.cuda.empty_cache()
+    pad = ENGINE["prompt_pad"]
+    prompts = torch.zeros(len(reqs), pad, dtype=torch.long)
+    for i, (p, _, _) in enumerate(reqs):
+        prompts[i, :len(p)] = torch.tensor(p)
+    lens = [len(p) for p, _, _ in reqs]
+    budgets = [m for _, m, _ in reqs]
+    kw = dict(slots=ENGINE["slots"])
+    offline_serve(model, prompts, lens, budgets, **kw)    # the capture
+    (out, n_tok), wall, cnt, _ = counted(lambda: offline_serve(
+        model, prompts, lens, budgets, **kw))
+    for k_, c_ in cnt.items():
+        totals[k_] = totals.get(k_, 0) + c_
+    assert n_tok.tolist() == budgets
+    # offline_serve is an engine kept on the model; a contiguous bf16
+    # engine built here serves the same requests greedily with the same
+    # prefill (one padded row) and decode batch (the slots): the same
+    # tokens, bit for bit
+    (kept,) = graphs.programs(model)
+    eng = ServingEngine(model, **dict(ENGINE, seed=SEED))
+    ids = [eng.submit(p, m) for p, m, _ in reqs]
+    by_engine = eng.run()
+    del eng
+    assert all(out[i, :m].tolist() == by_engine[rid] for i, (rid, m) in
+               enumerate(zip(ids, budgets))), "offline_serve != the engine"
+    # standalone generate prefills the unpadded prompt (M = its length,
+    # not the padded 512) and decodes one row (M 1, not the slots): K1's
+    # tiles and splits, so its roundings, follow M, and a bf16 near-tie
+    # may resolve the other way.  Where a request parts, the two tokens'
+    # logits in a forward over the common prefix must be that close, and
+    # every token of every request passes the teacher-forced check
+    parted, worst = [], 0.0
+    for i, (p, m, _) in enumerate(reqs):
+        ref = model.generate(torch.tensor([p], device=dev), m)[0, len(p):]
+        got = out[i, :m].to(dev)
+        seq = torch.cat([torch.tensor(p, device=dev), got])[None]
+        worst = max(worst, float(greedy_gaps(model, seq, [len(p)], m).max()))
+        if not torch.equal(got, ref):
+            t = int((got != ref).nonzero()[0])
+            lg = model(seq[:, :len(p) + t])[0, -1].float()
+            parted.append((i, t, float((lg[got[t]] - lg[ref[t]]).abs())))
+        assert not out[i, m:].any()
+    assert worst <= GREEDY_TAU["bf16"], worst
+    assert all(gap <= GREEDY_TAU["bf16"] for _, _, gap in parted), parted
+    with eager_steps():
+        _, wall_e, cnt_e, _ = counted(lambda: offline_serve(
+            model, prompts, lens, budgets, **kw))
+    assert cnt_e == cnt
+    tokens = sum(budgets)
+    print(f"phase 36: offline_serve of the {len(reqs)} requests "
+          f"({kw['slots']} "
+          f"slots, contiguous bf16 cache, blocks of "
+          f"{kept.decode_block}): {tokens / wall:.1f} generated "
+          f"tokens/s ({wall:.3f} s) against {tokens / wall_e:.1f} eager "
+          f"(launches equal); every request's tokens bit-equal to the "
+          f"contiguous bf16 engine's; against standalone generate "
+          f"{len(reqs) - len(parted)} of {len(reqs)} requests equal, the "
+          f"others parting at a near-tie (request, position, logit gap) "
+          f"{parted}; every token within {worst:.4f} of its row's maximum "
+          f"in the teacher-forced forward (tau {GREEDY_TAU['bf16']}); "
+          f"launches { {k_: c_ for k_, c_ in cnt.items() if c_} }; on {smi}")
+    stats["offline_serve"] = dict(tokens_s=tokens / wall,
+                                  eager_tokens_s=tokens / wall_e,
+                                  parted=parted)
+    del model, kept
+    release()
+    return totals, stats
 
 
 def kernel_report(paths, standalone, top=None, routes=None):
@@ -5526,7 +6310,7 @@ def main():
     torch.cuda.empty_cache()
     bench_counts, _, _ = phase22_bench_decode(card, dev, smi)
     del card
-    torch.cuda.empty_cache()
+    release()
     phase23_checkpoints(dev, smi)
 
     masked_rows = phase24_masked_kernels(dev)
@@ -5539,8 +6323,21 @@ def main():
     spec_counts, spec_stats = phase34_bytelm_speculative(dev, smi)
     t2 = time.perf_counter()
     prefix_counts, prefix_stats = phase35_system_prompt(dev, smi)
-    print(f"phases 33-35: {t1 - t0:.1f}, {t2 - t1:.1f} and "
-          f"{time.perf_counter() - t2:.1f} s")
+    t3 = time.perf_counter()
+    graph_counts = {}
+    for part in (lambda: phase36_gen_paths(dev, smi),
+                 lambda: phase36_spec_paths(dev, smi,
+                                            *spec_stats.pop("models")),
+                 lambda: phase36_serve_paths(dev, smi, reqs)):
+        t_part = time.perf_counter()
+        with kept_graphs():
+            counts, _ = part()
+        print(f"phase 36: that part took {time.perf_counter() - t_part:.1f} "
+              f"s")
+        for k_, c_ in counts.items():
+            graph_counts[k_] = graph_counts.get(k_, 0) + c_
+    print(f"phases 33-36: {t1 - t0:.1f}, {t2 - t1:.1f}, {t3 - t2:.1f} and "
+          f"{time.perf_counter() - t3:.1f} s")
 
     # train_lm: the 170M run's kernels at its shapes (K8's headline: the
     # bound arm in [B, S, H*D], the layout and arm its training takes),
@@ -5586,7 +6383,9 @@ def main():
     # the byte LMs' training and speculative decoding (f32 K1, K5, K6,
     # K7, K17a), the engine's shared system prompt (K16 over aliased
     # tables)
-    paths = {"serve_prefix": (prefix_counts, dict(
+    paths = {"graphs": (dict.fromkeys(backend.KERNELS, 0) | graph_counts,
+                        {}),
+             "serve_prefix": (prefix_counts, dict(
                  paged_decode=prefix_stats["paged_decode"])),
              "bytelm_spec": (spec_counts, {k: headline(r) for k, r in
                                            spec_stats["rows"].items()}),

@@ -18,8 +18,23 @@ reference's XOR and MNIST-MLP examples (``models.resnet8``,
 ``data.CIFAR10Dataset``, ``data.DataLoader``, ``Trainer.fit``;
 ``examples/``), PTQ-quantized serving (``quantization``), and
 checkpoints (``utils.checkpoint``, ``utils.safetensors_io``, the
-Trainer's ``save_checkpoint``/``restore``/``resume``).  Importing this package imports no JAX,
+Trainer's ``save_checkpoint``/``restore``/``resume``), generation
+(``TinyGPT.generate``, ``beam_search``, ``speculative_generate``) and
+``offline_serve``, whose decode loops replay captured CUDA graphs
+(``utils.graphs``).  Importing this package imports no JAX,
 builds nothing and does not initialise CUDA.
 """
 
 __version__ = "0.1.0"
+
+# the serving entry points, exported as the JAX package exports them
+# (``taper_tpu/__init__.py``), and loaded on first use
+_SERVE = ("ServingEngine", "offline_serve")
+__all__ = list(_SERVE)
+
+
+def __getattr__(name):
+    if name in _SERVE:
+        from taper_tpu_torch import serve
+        return getattr(serve, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -34,23 +34,31 @@ row in one pass, at a scalar or per-row start), ``generate_continued``
 (multi-turn over a filled cache), ``prefill_paged_continued`` (a chunk at
 an offset over paged pools whose tables alias shared prefix blocks: the
 engine's system prompt), ``beam_search`` and ``speculative_generate``.
-JAX's ``lax.scan``/``while_loop`` decode loops are Python loops over
-``decode_step`` here: an eos early exit looks at the device every step
-(one host sync), speculative decoding once a round.  Sampling draws from a caller's ``torch.Generator`` (``generator=``
+JAX's ``lax.scan``/``while_loop`` decode loops are Python loops here whose
+body (a decode step, a beam step, a speculative round) is captured once as
+a CUDA graph and replayed (``utils/graphs.py``; on the CPU the same body
+runs eagerly); each loop's program (the graph and the static buffers it
+reads) is kept on the model, keyed by its static configuration, as
+``jax.jit`` caches a compiled loop.  An eos early exit looks at the device once every
+``EOS_BLOCK`` steps (one host sync), speculative decoding once a round.
+The prefills, and the token-at-a-time oracle (``one_shot_prefill=False``),
+stay eager.  Sampling draws from a caller's ``torch.Generator`` (``generator=``
 where JAX takes ``key=``; a generator seeded 0 when none is given, as
-JAX's default key is 0), so sampled tokens differ from JAX's while
+JAX's default key is 0; a cached program draws from its own generator,
+which takes the caller's state before the loop and gives it back after),
+so sampled tokens differ from JAX's while
 their distributions agree; greedy tokens agree up to numerics.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -62,6 +70,7 @@ from taper_tpu_torch.nn.transformer import (
 from taper_tpu_torch.ops.paged_attention import (
     paged_write_prefill, paged_write_prefill_scale)
 from taper_tpu_torch.quantization.qtensor import dense
+from taper_tpu_torch.utils import graphs
 
 # TinyGPT.loss takes the naive branch (full [B, S, vocab] logits) up to
 # this many logits and the fused vocab-chunked loss beyond, as JAX does
@@ -69,6 +78,10 @@ from taper_tpu_torch.quantization.qtensor import dense
 # and is kept as JAX's rule, not as a speed fact of the card
 NAIVE_LOSS_MAX = 2 ** 28
 FUSED_CHUNK = 4096              # the fused loss's vocab chunk by default
+# the decode loops look at eos once every EOS_BLOCK steps (one host sync
+# each); the tokens past a row's first eos are masked, so the steps run
+# after every row has ended change no output
+EOS_BLOCK = 8
 
 
 def _filter_logits(logits, temperature, top_k=None, top_p=None):
@@ -509,10 +522,10 @@ class TinyGPT(nn.Module):
         return torch.as_tensor(x, device=self._device(None)).long()
 
     def _positions(self, n: int):
-        """Positions ``[0, n)`` on the model's device: the decode loops
-        pass ``at[pos]``, a 0-d device tensor, where a Python int would
-        cost a blocking host-to-device copy in every layer's cache write
-        (the rows and the RoPE table take either)."""
+        """Positions ``[0, n)`` on the model's device: the token-at-a-time
+        loop passes ``at[pos]``, a 0-d device tensor, where a Python int
+        would cost a blocking host-to-device copy in every layer's cache
+        write (the rows and the RoPE table take either)."""
         return torch.arange(n, device=self._device(None))
 
     def _generator(self, generator):
@@ -527,11 +540,41 @@ class TinyGPT(nn.Module):
         if total > limit:
             raise ValueError(f"{total} positions exceed max_seq {limit}")
 
+    def state_key(self) -> tuple:
+        """Where and how the weights lie: a captured decode graph reads
+        them at these addresses, so a decode program is keyed by them (a
+        cast, a move or a PTQ pass makes new storages and so a new
+        program)."""
+        return (self.compute_dtype,) + tuple(
+            (t.data_ptr(), t.dtype, tuple(t.shape))
+            for t in itertools.chain(self.parameters(), self.buffers()))
+
+    def _program(self, kind, key, build, keep=True):
+        """The decode program of ``kind`` for this model's weights and the
+        static configuration ``key`` (``utils.graphs.program``: kept on
+        the model, so it goes with it)."""
+        return graphs.program(self, (kind, self.state_key()) + tuple(key),
+                              build, keep)
+
     @staticmethod
-    def _all_done(done) -> bool:
-        """Whether every row has emitted eos (one host sync); ``done``
-        None: no eos."""
-        return done is not None and bool(done.all())
+    def _run(step, n: int, done) -> None:
+        """``n`` decode steps, ending early once every row has emitted
+        eos: ``done`` (a ``[B]`` bool buffer, or None: no eos) is read
+        before the first step and then once every ``EOS_BLOCK`` steps (one
+        host sync each)."""
+        for i in range(n):
+            if done is not None and i % EOS_BLOCK == 0 and bool(done.all()):
+                return
+            step()
+
+    def _sampler(self, temperature, top_k, top_p):
+        """``(generator, sample)``: a program's own generator (it takes a
+        caller's state before each loop, ``graphs.draw_from``) and
+        :func:`_sample` bound to it and the filter."""
+        gen = torch.Generator(device=self._device(None))
+        return gen, functools.partial(_sample, generator=gen,
+                                      temperature=temperature, top_k=top_k,
+                                      top_p=top_p)
 
     @torch.no_grad()
     def generate(self, prompt, max_new: int, temperature: float = 0.0,
@@ -545,16 +588,18 @@ class TinyGPT(nn.Module):
         max_new]`` (int64, on the model's device); greedy at ``temperature
         == 0``, else drawn from ``generator`` through ``top_k``/``top_p``.
 
-        :meth:`prefill` fills the P cache entries in one pass, then a
-        Python loop of :meth:`decode_step` takes the ``max_new`` tokens;
-        ``one_shot_prefill=False`` feeds the prompt token by token (the
-        equality oracle).  ``prompt_lens [B]``: a ragged batch, each row
-        right-padded to P, its tokens at ``[L_r, L_r + max_new)`` (one-shot
-        only).  ``eos_token``: the loop stops once every row has emitted
-        it, and every token after a row's first eos becomes ``pad_token``
-        (default: the eos token).  ``return_cache=True``: ``(tokens,
-        caches)``, the cache filled through ``P + max_new - 1`` for
-        :meth:`generate_continued` (``max_new=0``: the prefill-only
+        :meth:`prefill` fills the P cache entries in one pass, then the
+        ``max_new - 1`` decode steps replay one captured step
+        (``utils.graphs``; eager on the CPU); ``one_shot_prefill=False``
+        feeds the prompt token by token through an eager loop of
+        :meth:`decode_step` (the equality oracle).  ``prompt_lens [B]``: a
+        ragged batch, each row right-padded to P, its tokens at ``[L_r,
+        L_r + max_new)`` (one-shot only).  ``eos_token``: the loop stops
+        once every row has emitted it (looked at every ``EOS_BLOCK``
+        steps), and every token after a row's first eos becomes
+        ``pad_token`` (default: the eos token).  ``return_cache=True``:
+        ``(tokens, caches)``, the cache filled through ``P + max_new - 1``
+        for :meth:`generate_continued` (``max_new=0``: the prefill-only
         call); it refuses ``eos_token`` and ragged prompts.
         ``quantized_cache``: int8 K/V; ``ring_cache``: W-slot rings for a
         window model.  JAX's assertions raise ``ValueError`` here."""
@@ -593,25 +638,78 @@ class TinyGPT(nn.Module):
                                          pad_token)
         total = plen + max_new
         self._fits(total)
-        gen = self._generator(generator)
-        sample = functools.partial(_sample, generator=gen,
-                                   temperature=temperature, top_k=top_k,
-                                   top_p=top_p)
+        if not one_shot_prefill:
+            return self._generate_sequential(
+                prompt, max_new, generator, quantized_cache, eos_token,
+                pad_token, return_cache, ring_cache,
+                dict(temperature=temperature, top_k=top_k, top_p=top_p))
+        dev = prompt.device
+
+        def build():
+            tokens = prompt.new_zeros(b, total)
+            caches = self.init_cache(b, quantized=quantized_cache,
+                                     ring=ring_cache)
+            pos = torch.zeros((), dtype=torch.long, device=dev)
+            done = (None if eos_token is None else
+                    torch.zeros(b, dtype=torch.bool, device=dev))
+            gen, sample = self._sampler(temperature, top_k, top_p)
+
+            def step():
+                # decode the token at pos, write the one after it
+                tok = tokens.index_select(1, pos.reshape(1))[:, 0]
+                nxt = sample(self.decode_step(tok, pos, caches))
+                tokens.index_copy_(1, (pos + 1).reshape(1), nxt[:, None])
+                if done is not None:
+                    done.logical_or_(nxt == eos_token)
+                pos.add_(1)
+
+            return graphs.Program(
+                tokens=tokens, caches=caches, pos=pos, done=done, gen=gen,
+                sample=sample, step=graphs.Step(
+                    step, dev, [gen] if temperature > 0 else []))
+
+        # a returned cache is the caller's: that program is not kept
+        prog = self._program(
+            "generate", (b, plen, max_new, float(temperature), top_k, top_p,
+                         quantized_cache, ring_cache, eos_token, dev), build,
+            keep=not return_cache)
+        graphs.draw_from(prog.gen, generator)
+        prog.tokens[:, :plen] = prompt
+        prog.tokens[:, plen:] = 0
+        nxt = prog.sample(self.prefill(prompt, prog.caches)[:, -1])
+        prog.tokens[:, plen] = nxt
+        if prog.done is not None:
+            prog.done.copy_(nxt == eos_token)
+        prog.pos.fill_(plen)               # decode consumes positions P..
+        self._run(prog.step, max_new - 1, prog.done)
+        graphs.give_back(prog.gen, generator)
+        if return_cache:                   # eos refused above
+            return prog.tokens, prog.caches
+        if eos_token is not None:
+            return _mask_after_eos(prog.tokens, plen, eos_token,
+                                   eos_token if pad_token is None
+                                   else pad_token)
+        return prog.tokens.clone()
+
+    def _generate_sequential(self, prompt, max_new, generator,
+                             quantized_cache, eos_token, pad_token,
+                             return_cache, ring_cache, sampling):
+        """Token-at-a-time generation (``one_shot_prefill=False``): the
+        prompt and the new tokens go through one eager loop of
+        :meth:`decode_step`, eos looked at every step.  The equality
+        oracle of the one-shot path; never captured."""
+        b, plen = prompt.shape
+        total = plen + max_new
+        sample = functools.partial(_sample, generator=self._generator(
+            generator), **sampling)
         tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
         caches = self.init_cache(b, quantized=quantized_cache,
                                  ring=ring_cache)
         done = (None if eos_token is None else
                 torch.zeros(b, dtype=torch.bool, device=prompt.device))
         at = self._positions(total)
-        start = 0
-        if one_shot_prefill:
-            nxt = sample(self.prefill(prompt, caches)[:, -1])
-            tokens[:, plen] = nxt
-            if done is not None:
-                done |= nxt == eos_token
-            start = plen                   # decode consumes positions P..
-        for pos in range(start, total - 1):
-            if pos >= plen and self._all_done(done):
+        for pos in range(total - 1):
+            if pos >= plen and done is not None and bool(done.all()):
                 break
             logits = self.decode_step(tokens[:, pos], at[pos], caches)
             if pos + 1 < plen:             # prompt positions keep theirs
@@ -620,7 +718,7 @@ class TinyGPT(nn.Module):
             tokens[:, pos + 1] = nxt
             if done is not None:
                 done |= nxt == eos_token
-        if eos_token is not None:          # return_cache refused above
+        if eos_token is not None:          # return_cache refused
             return _mask_after_eos(tokens, plen, eos_token,
                                    eos_token if pad_token is None
                                    else pad_token)
@@ -630,7 +728,7 @@ class TinyGPT(nn.Module):
                          prompt_lens, top_k, top_p, quantized_cache,
                          eos_token, pad_token):
         """Ragged-batch generation (see :meth:`generate`): one shared
-        prefill, then per-row positions through the decode loop."""
+        prefill, then per-row positions through the captured step."""
         b, plen = prompt.shape
         self._fits(plen + max_new)
         lens_host = np.asarray(prompt_lens.cpu() if torch.is_tensor(
@@ -638,29 +736,48 @@ class TinyGPT(nn.Module):
         if lens_host.min() < 1 or lens_host.max() > plen:
             raise ValueError(f"prompt_lens must be in [1, {plen}], got "
                              f"[{lens_host.min()}, {lens_host.max()}]")
-        lens = torch.as_tensor(lens_host, device=prompt.device).long()
-        gen = self._generator(generator)
-        sample = functools.partial(_sample, generator=gen,
-                                   temperature=temperature, top_k=top_k,
-                                   top_p=top_p)
-        rows = torch.arange(b, device=prompt.device)
-        tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
-        caches = self.init_cache(b, quantized=quantized_cache)
-        logits = self.prefill(prompt, caches)
-        nxt = sample(logits[rows, lens - 1])
-        tokens[rows, lens] = nxt
-        done = None if eos_token is None else nxt == eos_token
-        for t in range(max_new - 1):
-            if self._all_done(done):
-                break
-            pos = lens + t
-            nxt = sample(self.decode_step(tokens[rows, pos], pos, caches))
-            tokens[rows, pos + 1] = nxt
-            if done is not None:
-                done |= nxt == eos_token
+        dev = prompt.device
+        lens = torch.as_tensor(lens_host, device=dev).long()
+        rows = torch.arange(b, device=dev)
+
+        def build():
+            tokens = prompt.new_zeros(b, plen + max_new)
+            caches = self.init_cache(b, quantized=quantized_cache)
+            pos = torch.zeros(b, dtype=torch.long, device=dev)
+            done = (None if eos_token is None else
+                    torch.zeros(b, dtype=torch.bool, device=dev))
+            gen, sample = self._sampler(temperature, top_k, top_p)
+
+            def step():
+                nxt = sample(self.decode_step(tokens[rows, pos], pos,
+                                              caches))
+                tokens[rows, pos + 1] = nxt
+                if done is not None:
+                    done.logical_or_(nxt == eos_token)
+                pos.add_(1)
+
+            return graphs.Program(
+                tokens=tokens, caches=caches, pos=pos, done=done, gen=gen,
+                sample=sample, step=graphs.Step(
+                    step, dev, [gen] if temperature > 0 else []))
+
+        prog = self._program(
+            "ragged", (b, plen, max_new, float(temperature), top_k, top_p,
+                       quantized_cache, eos_token, dev), build)
+        graphs.draw_from(prog.gen, generator)
+        prog.tokens[:, :plen] = prompt
+        prog.tokens[:, plen:] = 0
+        logits = self.prefill(prompt, prog.caches)
+        nxt = prog.sample(logits[rows, lens - 1])
+        prog.tokens[rows, lens] = nxt
+        if prog.done is not None:
+            prog.done.copy_(nxt == eos_token)
+        prog.pos.copy_(lens)
+        self._run(prog.step, max_new - 1, prog.done)
+        graphs.give_back(prog.gen, generator)
         if eos_token is None:
-            return tokens
-        return _mask_after_eos(tokens, lens, eos_token,
+            return prog.tokens.clone()
+        return _mask_after_eos(prog.tokens, lens, eos_token,
                                eos_token if pad_token is None else pad_token)
 
     @torch.no_grad()
@@ -675,9 +792,10 @@ class TinyGPT(nn.Module):
         :meth:`generate`, prepend its last sampled token, whose K/V was
         never written).  The chunk is prefilled by one
         :meth:`decode_chunk` at offset ``past_len``, then ``max_new``
-        tokens decode as in :meth:`generate`.  Returns the new segment
-        ``[B, C + max_new]`` (``return_cache=True``: with the caches,
-        filled through ``past_len + C + max_new - 1``; refused with
+        tokens decode as in :meth:`generate`, through a step captured over
+        the caller's caches for this call.  Returns the new segment ``[B,
+        C + max_new]`` (``return_cache=True``: with the caches, filled
+        through ``past_len + C + max_new - 1``; refused with
         ``eos_token``)."""
         if return_cache and eos_token is not None:
             raise ValueError("return_cache with eos_token is not "
@@ -690,23 +808,33 @@ class TinyGPT(nn.Module):
             raise ValueError(f"need a chunk of at least 1 token ({clen}) "
                              f"and max_new >= 1 ({max_new})")
         self._fits(past_len + clen + max_new)
+        dev = prompt.device
+        tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
+        j = torch.full((), clen, dtype=torch.long, device=dev)
+        done = (None if eos_token is None else
+                torch.zeros(b, dtype=torch.bool, device=dev))
         gen = self._generator(generator)
         sample = functools.partial(_sample, generator=gen,
                                    temperature=temperature, top_k=top_k,
                                    top_p=top_p)
-        tokens = torch.cat([prompt, prompt.new_zeros(b, max_new)], dim=1)
-        at = self._positions(past_len + clen + max_new)
-        nxt = sample(self.decode_chunk(prompt, at[past_len], caches)[:, -1])
-        tokens[:, clen] = nxt
-        done = None if eos_token is None else nxt == eos_token
-        for j in range(clen, clen + max_new - 1):
-            if self._all_done(done):
-                break
-            nxt = sample(self.decode_step(tokens[:, j], at[past_len + j],
-                                          caches))
-            tokens[:, j + 1] = nxt
+
+        def step():
+            # decode tokens[:, j] at position past_len + j
+            tok = tokens.index_select(1, j.reshape(1))[:, 0]
+            nxt = sample(self.decode_step(tok, j + past_len, caches))
+            tokens.index_copy_(1, (j + 1).reshape(1), nxt[:, None])
             if done is not None:
-                done |= nxt == eos_token
+                done.logical_or_(nxt == eos_token)
+            j.add_(1)
+
+        # the caches are the caller's: the step is captured for this call
+        captured = graphs.Step(step, dev, [gen] if temperature > 0 else [])
+        start = torch.full((), past_len, dtype=torch.long, device=dev)
+        nxt = sample(self.decode_chunk(prompt, start, caches)[:, -1])
+        tokens[:, clen] = nxt
+        if done is not None:
+            done.copy_(nxt == eos_token)
+        self._run(captured, max_new - 1, done)
         if eos_token is not None:
             tokens = _mask_after_eos(tokens, clen, eos_token,
                                      eos_token if pad_token is None
@@ -725,8 +853,9 @@ class TinyGPT(nn.Module):
         place (an ``index_select`` along the batch copied back).  A beam
         that emits ``eos_token`` freezes: its one candidate is itself,
         extended by pad at an unchanged score.  The final ranking divides
-        each score by ``len(generated) ** length_penalty``.  Returns the
-        best sequence per prompt ``[B, P + max_new]``
+        each score by ``len(generated) ** length_penalty``.  The steps
+        replay one captured step (``utils.graphs``; eager on the CPU).
+        Returns the best sequence per prompt ``[B, P + max_new]``
         (``return_all=True``: ``(tokens [B, W, P + max_new], scores [B,
         W])``, best first)."""
         prompt = self._tokens(prompt)
@@ -739,39 +868,65 @@ class TinyGPT(nn.Module):
                              f"max_new >= 1 ({max_new})")
         pad = eos_token if pad_token is None else pad_token
         dev = prompt.device
-        caches = self.init_cache(b, quantized=quantized_cache)
-        logp0 = torch.log_softmax(self.prefill(prompt, caches)[:, -1]
+
+        def build():
+            caches1 = self.init_cache(b, quantized=quantized_cache)
+            caches = self.init_cache(b * w, quantized=quantized_cache)
+            tokens = prompt.new_zeros(b, w, total)
+            scores = torch.zeros(b, w, device=dev)
+            finished = torch.zeros(b, w, dtype=torch.bool, device=dev)
+            pos = torch.zeros((), dtype=torch.long, device=dev)
+            frozen = None
+            if eos_token is not None:
+                frozen = torch.full((v,), float("-inf"), device=dev)
+                frozen[pad] = 0.0
+            base = (torch.arange(b, device=dev) * w)[:, None]
+
+            def step():
+                tok = tokens.index_select(2, pos.reshape(1))
+                logits = self.decode_step(tok.reshape(b * w), pos, caches)
+                logp = torch.log_softmax(logits.float(), -1).reshape(b, w, v)
+                if frozen is not None:
+                    logp = torch.where(finished[..., None], frozen, logp)
+                cand = (scores[..., None] + logp).reshape(b, w * v)
+                best, idx = torch.topk(cand, w, dim=-1)          # [B, W]
+                parent, tok = idx // v, idx % v
+                tokens.copy_(tokens.gather(
+                    1, parent[..., None].expand(b, w, total)))
+                tokens.index_copy_(2, (pos + 1).reshape(1), tok[..., None])
+                flat = (base + parent).reshape(-1)
+                for c in caches:
+                    for x in c.values():
+                        x.copy_(x.index_select(0, flat))
+                if frozen is not None:
+                    finished.copy_(finished.gather(1, parent)
+                                   | (tok == eos_token))
+                scores.copy_(best)
+                pos.add_(1)
+
+            return graphs.Program(caches1=caches1, caches=caches,
+                                  tokens=tokens, scores=scores,
+                                  finished=finished, pos=pos,
+                                  step=graphs.Step(step, dev))
+
+        prog = self._program("beam", (b, plen, max_new, w, eos_token, pad,
+                                      quantized_cache, dev), build)
+        logp0 = torch.log_softmax(self.prefill(prompt, prog.caches1)[:, -1]
                                   .float(), dim=-1)
         scores, tok0 = torch.topk(logp0, w, dim=-1)              # [B, W]
-        caches = [{name: x.repeat_interleave(w, 0) for name, x in c.items()}
-                  for c in caches]
-        tokens = torch.cat([prompt[:, None, :].expand(b, w, plen),
-                            prompt.new_zeros(b, w, max_new)], dim=2)
-        tokens[:, :, plen] = tok0
-        finished = (tok0 == eos_token if eos_token is not None else
-                    torch.zeros(b, w, dtype=torch.bool, device=dev))
-        if eos_token is not None:
-            frozen = torch.full((v,), float("-inf"), device=dev)
-            frozen[pad] = 0.0
-        base = (torch.arange(b, device=dev) * w)[:, None]
-        at = self._positions(total)
-        for pos in range(plen, total - 1):
-            logits = self.decode_step(tokens[:, :, pos].reshape(b * w),
-                                      at[pos], caches)
-            logp = torch.log_softmax(logits.float(), -1).reshape(b, w, v)
-            if eos_token is not None:
-                logp = torch.where(finished[..., None], frozen, logp)
-            cand = (scores[..., None] + logp).reshape(b, w * v)
-            scores, idx = torch.topk(cand, w, dim=-1)            # [B, W]
-            parent, tok = idx // v, idx % v
-            tokens = tokens.gather(1, parent[..., None].expand(b, w, total))
-            tokens[:, :, pos + 1] = tok
-            flat = (base + parent).reshape(-1)
-            for c in caches:
-                for x in c.values():
-                    x.copy_(x.index_select(0, flat))
-            if eos_token is not None:
-                finished = finished.gather(1, parent) | (tok == eos_token)
+        for c1, c in zip(prog.caches1, prog.caches):
+            for name, x in c.items():
+                x.copy_(c1[name].repeat_interleave(w, 0))
+        prog.scores.copy_(scores)
+        prog.tokens.zero_()
+        prog.tokens[:, :, :plen] = prompt[:, None, :]
+        prog.tokens[:, :, plen] = tok0
+        prog.finished.copy_(tok0 == eos_token if eos_token is not None
+                            else torch.zeros_like(prog.finished))
+        prog.pos.fill_(plen)
+        for _ in range(max_new - 1):
+            prog.step()
+        tokens, scores = prog.tokens, prog.scores
         if eos_token is not None:
             hit = tokens[:, :, plen:] == eos_token
             first = torch.argmax(hit.long(), dim=2)              # [B, W]
@@ -809,7 +964,10 @@ class TinyGPT(nn.Module):
         accepted length (positions are ``[B]`` through the draft steps,
         the verify chunk and the cache writes); finished rows freeze.
         ``per_row=False``: rows advance in lockstep at the batch's
-        minimum.  One host sync a round decides whether to go on.
+        minimum.  A round (the draft steps, the verify chunk, acceptance
+        and the draft's backfill step) replays one captured round
+        (``utils.graphs``; eager on the CPU), and one host sync a round
+        decides whether to go on.
 
         Returns ``[B, P + max_new]`` tokens (``return_stats=True``: also
         ``{"rounds", "tokens_per_round", "accept_hist", "row_tokens"}``).
@@ -829,67 +987,64 @@ class TinyGPT(nn.Module):
             return (prompt, {"rounds": 0}) if return_stats else prompt
         dev = prompt.device
         sampled = temperature > 0
-        gen = self._generator(generator)
-
-        def dist(logits):
-            """The filtered sampling distribution (f32), both models'."""
-            return torch.softmax(_filter_logits(logits.float(), temperature,
-                                                top_k, top_p), dim=-1)
-
         # a frozen row's draft steps write up to 2 gamma past P + max_new
         # (JAX's scatter drops those writes; a longer buffer keeps them)
         buf = total + 2 * gamma
-        tokens = torch.cat([prompt, prompt.new_zeros(b, buf - plen)], dim=1)
-        caches_t = self.init_cache(b, quantized=quantized_cache)
-        caches_d = draft_model.init_cache(b, quantized=quantized_cache)
-        first = _sample(self.prefill(prompt, caches_t)[:, -1], gen,
-                        temperature=temperature, top_k=top_k, top_p=top_p)
-        draft_model.prefill(prompt, caches_d)
-        tokens[:, plen] = first
-        rows = torch.arange(b, device=dev)
-        at = self._positions(buf)
-        span = torch.arange(gamma + 1, device=dev)
-        hist = torch.zeros(gamma + 1, dtype=torch.long, device=dev)
-        idx = torch.arange(buf, device=dev)[None, :]
-
-        def eos_rows(cur):
-            """[B] bool: an eos among each row's committed tokens."""
-            if eos_token is None:
-                return torch.zeros(b, dtype=torch.bool, device=dev)
-            cur = torch.as_tensor(cur, device=dev).reshape(-1, 1)
-            gen_region = (idx >= plen) & (idx < cur)
-            return ((tokens == eos_token) & gen_region).any(1)
-
-        def draft_round(cur):
-            """gamma draft tokens after ``cur - 1`` (scalar or [B]); the
-            draft's distributions ``[B, γ, V]`` when sampling."""
-            qs = []
-            for j in range(gamma):
-                p = cur - 1 + j
-                tok_p = tokens[rows, p] if per_row else tokens[:, p]
-                logits = draft_model.decode_step(
-                    tok_p, p if per_row else at[p], caches_d)
-                if sampled:
-                    q = dist(logits)
-                    qs.append(q)
-                    nxt = torch.multinomial(q, 1, generator=gen)[:, 0]
-                else:
-                    nxt = torch.argmax(logits, dim=-1)
-                if per_row:
-                    tokens[rows, p + 1] = nxt
-                else:
-                    tokens[:, p + 1] = nxt
-            return torch.stack(qs, 1) if sampled else None
-
-        rounds = 0
         cur0 = plen + 1                    # tokens[:, :cur] are final
-        if per_row:
-            cur = torch.full((b,), cur0, dtype=torch.long, device=dev)
-            while True:
-                done = (cur >= total) | eos_rows(cur)
-                if bool(done.all()):       # one host sync a round
-                    break
-                q = draft_round(cur)
+
+        def build():
+            tokens = prompt.new_zeros(b, buf)
+            caches_t = self.init_cache(b, quantized=quantized_cache)
+            caches_d = draft_model.init_cache(b, quantized=quantized_cache)
+            gen = torch.Generator(device=dev)
+            hist = torch.zeros(gamma + 1, dtype=torch.long, device=dev)
+            cur = torch.zeros(b if per_row else (), dtype=torch.long,
+                              device=dev)
+            # per row: [B] rows done; lockstep: 0-d, the loop is over
+            flag = torch.zeros(b if per_row else (), dtype=torch.bool,
+                               device=dev)
+            rows = torch.arange(b, device=dev)
+            span = torch.arange(gamma + 1, device=dev)
+            idx = torch.arange(buf, device=dev)[None, :]
+
+            def dist(logits):
+                """The filtered sampling distribution (f32), both
+                models'."""
+                return torch.softmax(_filter_logits(
+                    logits.float(), temperature, top_k, top_p), dim=-1)
+
+            def eos_rows():
+                """[B] bool: an eos among each row's committed tokens."""
+                if eos_token is None:
+                    return torch.zeros(b, dtype=torch.bool, device=dev)
+                gen_region = (idx >= plen) & (idx < cur.reshape(-1, 1))
+                return ((tokens == eos_token) & gen_region).any(1)
+
+            def draft_round():
+                """gamma draft tokens after ``cur - 1``; the draft's
+                distributions ``[B, γ, V]`` when sampling."""
+                qs = []
+                for j in range(gamma):
+                    p = cur - 1 + j
+                    tok_p = (tokens[rows, p] if per_row else
+                             tokens.index_select(1, p.reshape(1))[:, 0])
+                    logits = draft_model.decode_step(tok_p, p, caches_d)
+                    if sampled:
+                        q = dist(logits)
+                        qs.append(q)
+                        nxt = torch.multinomial(q, 1, generator=gen)[:, 0]
+                    else:
+                        nxt = torch.argmax(logits, dim=-1)
+                    if per_row:
+                        tokens[rows, p + 1] = nxt
+                    else:
+                        tokens.index_copy_(1, (p + 1).reshape(1),
+                                           nxt[:, None])
+                return torch.stack(qs, 1) if sampled else None
+
+            def round_rows():
+                done = flag.clone()
+                q = draft_round()
                 chunk = tokens.gather(1, (cur - 1)[:, None] + span)
                 logits = self.decode_chunk(chunk, cur - 1, caches_t)
                 drafts = chunk[:, 1:]
@@ -902,48 +1057,83 @@ class TinyGPT(nn.Module):
                                           dim=1).sum(1)
                     nxt = tgt.gather(1, n_acc[:, None])[:, 0]
                 n_acc = torch.where(done, torch.zeros_like(n_acc), n_acc)
-                hist += (F.one_hot(n_acc, gamma + 1)
-                         * (~done)[:, None].long()).sum(0)
+                hist.scatter_add_(0, n_acc, (~done).long())
                 at = cur + n_acc
                 tokens[rows, at] = torch.where(done, tokens[rows, at], nxt)
                 # full acceptance leaves the draft cache without position
-                # cur + gamma - 1 (the next round drafts from cur + gamma):
-                # backfill it; every other row rewrites cur + n_acc, which
-                # the next round's first draft step writes the same
+                # cur + gamma - 1 (the next round drafts from cur +
+                # gamma): backfill it; every other row rewrites cur +
+                # n_acc, which the next round's first draft step writes
+                # the same
                 pb = cur + torch.where(n_acc == gamma,
                                        torch.full_like(n_acc, gamma - 1),
                                        n_acc)
                 draft_model.decode_step(tokens[rows, pb], pb, caches_d)
-                cur = torch.where(done, cur, cur + n_acc + 1)
-                rounds += 1
-            row_tokens = (cur.clamp(max=total) - cur0).cpu()
-            adv = float(row_tokens.float().mean())
-        else:
-            cur = cur0
-            while cur < total and not bool(eos_rows(cur).all()):
-                q = draft_round(cur)
-                chunk = tokens[:, cur - 1:cur + gamma]
-                logits = self.decode_chunk(chunk, at[cur - 1], caches_t)
+                cur.copy_(torch.where(done, cur, cur + n_acc + 1))
+                flag.copy_((cur >= total) | eos_rows())
+
+            def round_lockstep():
+                q = draft_round()
+                chunk = tokens.gather(1, (cur - 1 + span).expand(b, -1))
+                logits = self.decode_chunk(chunk, cur - 1, caches_t)
                 drafts = chunk[:, 1:]
                 if sampled:
                     n_acc, nxt = _spec_accept(gen, drafts, q, dist(logits))
-                    n_acc = int(n_acc)     # one host sync a round
                 else:
                     tgt = torch.argmax(logits, dim=-1)
-                    n_acc = int(torch.cumprod(
-                        (tgt[:, :gamma] == drafts).long(), dim=1).sum(1)
-                        .min())
-                    nxt = tgt[:, n_acc]
-                tokens[:, cur + n_acc] = nxt
-                if n_acc == gamma:         # the draft cache's hole
-                    draft_model.decode_step(tokens[:, cur + gamma - 1],
-                                            at[cur + gamma - 1], caches_d)
-                cur += n_acc + 1
-                hist[n_acc] += 1
-                rounds += 1
+                    n_acc = torch.cumprod((tgt[:, :gamma] == drafts).long(),
+                                          dim=1).sum(1).min()
+                    nxt = tgt.index_select(1, n_acc.reshape(1))[:, 0]
+                tokens.index_copy_(1, (cur + n_acc).reshape(1), nxt[:, None])
+                # the draft cache's hole after full acceptance; below it
+                # the step rewrites cur + n_acc as the next round's first
+                # draft step does (a graph takes both branches' work)
+                pb = cur + torch.where(n_acc == gamma,
+                                       torch.full_like(n_acc, gamma - 1),
+                                       n_acc)
+                draft_model.decode_step(
+                    tokens.index_select(1, pb.reshape(1))[:, 0], pb,
+                    caches_d)
+                hist.index_add_(0, n_acc.reshape(1),
+                                torch.ones(1, dtype=torch.long, device=dev))
+                cur.add_(n_acc + 1)
+                flag.copy_((cur >= total) | eos_rows().all())
+
+            round_ = round_rows if per_row else round_lockstep
+            return graphs.Program(
+                tokens=tokens, caches_t=caches_t, caches_d=caches_d,
+                gen=gen, hist=hist, cur=cur, flag=flag, eos_rows=eos_rows,
+                step=graphs.Step(round_, dev, [gen] if sampled else []))
+
+        prog = self._program(
+            "speculative", (draft_model, draft_model.state_key(), b, plen,
+                            max_new, gamma, float(temperature), top_k, top_p,
+                            quantized_cache, eos_token, per_row, dev), build)
+        graphs.draw_from(prog.gen, generator)
+        prog.tokens.zero_()
+        prog.tokens[:, :plen] = prompt
+        first = _sample(self.prefill(prompt, prog.caches_t)[:, -1], prog.gen,
+                        temperature=temperature, top_k=top_k, top_p=top_p)
+        draft_model.prefill(prompt, prog.caches_d)
+        prog.tokens[:, plen] = first
+        prog.hist.zero_()
+        prog.cur.fill_(cur0)
+        if per_row:
+            prog.flag.copy_((prog.cur >= total) | prog.eos_rows())
+        else:
+            prog.flag.copy_((prog.cur >= total) | prog.eos_rows().all())
+        rounds = 0
+        while not bool(prog.flag.all()):   # one host sync a round
+            prog.step()
+            rounds += 1
+        graphs.give_back(prog.gen, generator)
+        if per_row:
+            row_tokens = (prog.cur.clamp(max=total) - cur0).cpu()
+            adv = float(row_tokens.float().mean())
+        else:
             row_tokens = None
-            adv = float(min(cur, total) - cur0)
-        out = tokens[:, :total]
+            adv = float(min(int(prog.cur), total) - cur0)
+        out = prog.tokens[:, :total].clone()
         if eos_token is not None:
             out = _mask_after_eos(out, plen, eos_token,
                                   eos_token if pad_token is None
@@ -951,5 +1141,6 @@ class TinyGPT(nn.Module):
         if return_stats:
             return out, {"rounds": rounds,
                          "tokens_per_round": adv / max(rounds, 1),
-                         "accept_hist": hist.cpu(), "row_tokens": row_tokens}
+                         "accept_hist": prog.hist.cpu(),
+                         "row_tokens": row_tokens}
         return out

@@ -224,7 +224,9 @@ def kv_quantize(x):
     division on every device)."""
     xf = x.float()
     amax = xf.abs().amax(-1)
-    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    # a fill on the device, not a host copy: decode steps run under
+    # CUDA-graph capture, which refuses host-to-device copies
+    inv = torch.full((), 1.0 / 127.0, dtype=torch.float32, device=x.device)
     scale = torch.clamp(amax, min=1e-8) * inv
     q = torch.round(xf / scale[..., None])
     return q.to(torch.int8), scale

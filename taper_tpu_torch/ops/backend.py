@@ -78,6 +78,35 @@ def route_counts() -> dict:
     return dict(_routes)
 
 
+def count_snapshot() -> tuple:
+    """The launch and route counts as they stand, for
+    :func:`counts_since` (a captured CUDA graph records what its capture
+    added, ``utils/graphs.py``)."""
+    return dict(_launches), dict(_routes)
+
+
+def counts_since(snapshot) -> tuple:
+    """What the launch and route counts gained since ``snapshot``, as
+    ``(launches, routes)`` of the names that moved."""
+    launches, routes = snapshot
+    return ({k: c - launches[k] for k, c in _launches.items()
+             if c != launches[k]},
+            {k: c - routes.get(k, 0) for k, c in _routes.items()
+             if c != routes.get(k, 0)})
+
+
+def add_counts(delta, times: int = 1) -> None:
+    """Add ``times`` the ``(launches, routes)`` of :func:`counts_since` to
+    the counts (negative ``times`` takes them off)."""
+    launches, routes = delta
+    for k, c in launches.items():
+        _launches[k] += c * times
+    for k, c in routes.items():
+        _routes[k] = _routes.get(k, 0) + c * times
+        if not _routes[k]:
+            del _routes[k]
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0

@@ -17,9 +17,12 @@ slots:
   position, through the GEMM kernel and, in paged mode, the
   paged-attention kernel (contiguous decode attention is plain PyTorch,
   as the JAX package leaves it to XLA).  The JAX engine runs the block as
-  one ``lax.scan``; here it is a Python loop over eagerly launched
-  kernels, with one host sync per block (the ``[K, B]`` token tile) and
-  one per admission (the first token).
+  one ``lax.scan``; here the block is captured once as a CUDA graph over
+  the engine's static buffers (``utils/graphs.py``: one graph for greedy
+  blocks, one for blocks with a sampled row) and replayed, eager on the
+  CPU; the host's tables and sampling settings are copied into those
+  buffers before each replay.  The host syncs once per block (the ``[K,
+  B]`` token tile) and once per admission (the first token).
 * **retirement**: after each block the host scans the token tile for eos
   and the per-request budget, frees the request's blocks (paged) and
   re-admits from the queue.  A row that finishes inside a block keeps
@@ -54,8 +57,12 @@ ranges start on a block boundary, so nothing writes the shared blocks.
 JAX asserts the alignment and the paged mode; the port raises
 ``ValueError``.
 
+:func:`offline_serve` serves a workload known up front through an
+engine with a contiguous cache, syncing once per decode block where
+JAX's ``lax.while_loop`` never syncs.
+
 Not ported yet: LoRA adapter banks (``lora``, ``lora_bank``,
-``submit(adapter=)``) and :func:`offline_serve`.  ``paged_impl`` picks a JAX backend: ``None`` and
+``submit(adapter=)``).  ``paged_impl`` picks a JAX backend: ``None`` and
 ``"pallas"`` mean the kernel; ``"xla"`` (the gather oracle) is what a CPU
 engine runs, and raises on the card.
 """
@@ -63,12 +70,13 @@ engine runs, and raises on the card.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from taper_tpu_torch.utils import not_ported
+from taper_tpu_torch.utils import graphs, not_ported
 
 
 def _sample_per_row(logits, generator, temps, top_ks, top_ps):
@@ -95,11 +103,96 @@ def _sample_per_row(logits, generator, temps, top_ks, top_ps):
     return torch.where(temps > 0, sampled, greedy)
 
 
-def offline_serve(*args, **kwargs):
-    """The JAX package's on-device scheduler (one ``lax.while_loop``) is
-    not ported yet."""
-    raise NotImplementedError("offline_serve is not ported yet; use "
-                              "ServingEngine")
+def _serving_device(device, owner: str) -> torch.device:
+    """The card unless ``device`` says otherwise; without a card, raise
+    and say how to serve on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{owner}: no CUDA device; serving runs on the card unless "
+                f"asked otherwise, so pass device=\"cpu\" to serve on the "
+                f"CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _host_ints(x, name: str) -> np.ndarray:
+    x = np.asarray(x.cpu() if torch.is_tensor(x) else x)
+    if x.size and x.dtype.kind not in "iu":
+        raise ValueError(f"{name} must hold integers, got {x.dtype}")
+    return x.astype(np.int64)
+
+
+def offline_serve(model, prompts, lens, max_new, *, slots: int = 8,
+                  eos_token: Optional[int] = None, temperature: float = 0.0,
+                  top_k=None, top_p=None, quantized_cache: bool = False,
+                  max_out: Optional[int] = None, generator=None,
+                  device=None):
+    """Continuous batching of a workload known up front (JAX
+    ``offline_serve``, ``taper_tpu/serve.py:68``): ``prompts [N, P]``
+    right-padded, ``lens [N]`` their true lengths, ``max_new [N]``
+    per-request budgets (capped at ``max_out``, by default the largest).
+    Returns ``(tokens [N, max_out], n_tokens [N])``, int64 host tensors:
+    each request's generated tokens (its eos included when one ended it),
+    zeros past ``n_tokens``.
+
+    The requests go through a :class:`ServingEngine` with a contiguous
+    cache (int8 with ``quantized_cache``) of ``slots`` rows, prompts
+    padded to P, and its captured decode block; the engine is kept on the
+    model for the next call with the same settings, as JAX caches its
+    program.  Greedy rows are standalone ``generate``'s tokens (JAX's
+    contract, ``serve.py:92-93``) bit for bit in f32 on the CPU; on the
+    card a row's prefill at the padded length and its decode among
+    ``slots`` rows take other K1 tiles and splits, so other roundings,
+    than a standalone call, and a bf16 near-tie may resolve the other way.
+    Sampled rows draw from ``generator`` (seed 0 when none is given, where
+    JAX takes ``key=``), one stream for the whole run.
+
+    A deliberate difference: JAX runs the whole scheduler in one
+    ``lax.while_loop`` and never syncs; the engine syncs once per decode
+    block, and a slot freed inside a block waits for the block's end.
+    Rows never see each other, so no row's tokens change.  Runs on
+    ``device``: the card unless asked for ``device="cpu"``."""
+    device = _serving_device(device, "offline_serve")
+    prompts = _host_ints(prompts, "prompts")
+    if prompts.ndim != 2:
+        raise ValueError(f"prompts must be [N, P], got {prompts.shape}")
+    n, p_pad = prompts.shape
+    lens = _host_ints(lens, "lens").reshape(-1)
+    budgets = _host_ints(max_new, "max_new").reshape(-1)
+    if len(lens) != n or len(budgets) != n:
+        raise ValueError(f"lens ({len(lens)}) and max_new ({len(budgets)}) "
+                         f"need one entry per prompt ({n})")
+    if n and (lens.min() < 1 or lens.max() > p_pad):
+        raise ValueError(f"lens must be in [1, {p_pad}]")
+    m_out = int(max_out if max_out is not None else
+                (budgets.max() if n else 0))
+    if p_pad + m_out > model.max_seq:
+        raise ValueError(f"padded prompt {p_pad} + max_out {m_out} exceeds "
+                         f"max_seq {model.max_seq}")
+    budgets = np.clip(budgets, 0, m_out)
+    out = np.zeros((n, m_out), np.int64)
+    n_tok = np.zeros(n, np.int64)
+    if n == 0 or m_out == 0:
+        return torch.from_numpy(out), torch.from_numpy(n_tok)
+    model = model.to(device)
+    eng = graphs.program(
+        model, ("offline_serve", model.state_key(), slots, p_pad,
+                quantized_cache, eos_token, float(temperature), top_k, top_p,
+                device),
+        lambda: ServingEngine(model, slots=slots, prompt_pad=p_pad,
+                              eos_token=eos_token, temperature=temperature,
+                              top_k=top_k, top_p=top_p,
+                              quantized_cache=quantized_cache, device=device))
+    graphs.draw_from(eng._gen, generator)
+    ids = [eng.submit(prompts[i, :lens[i]], budgets[i]) for i in range(n)]
+    done = eng.run()
+    graphs.give_back(eng._gen, generator)
+    for i, rid in enumerate(ids):
+        toks = done[rid][:budgets[i]]        # an admission emits one token
+        out[i, :len(toks)] = toks
+        n_tok[i] = len(toks)
+    return torch.from_numpy(out), torch.from_numpy(n_tok)
 
 
 class BlockAllocator:
@@ -135,8 +228,9 @@ class ServingEngine:
     ``{request_id: generated tokens}`` (with the eos token when one ended
     the row).  The engine runs on ``device`` and moves the model there:
     the card by default (without one the constructor raises unless
-    ``device="cpu"`` asks for the CPU, as the Trainer does); ``seed``
-    seeds the sampling generator."""
+    ``device="cpu"`` asks for the CPU, as the Trainer does).  Sampling
+    draws from ``generator`` (a ``torch.Generator`` on that device), or
+    from one seeded ``seed``."""
 
     def __init__(self, model, *, slots: int = 8, prompt_pad: int = 64,
                  decode_block: int = 16, eos_token: Optional[int] = None,
@@ -145,7 +239,7 @@ class ServingEngine:
                  seed: int = 0, quantized_cache: bool = False,
                  system_prompt: Optional[Sequence[int]] = None,
                  paged_impl: Optional[str] = None,
-                 lora=None, lora_bank=None, device=None):
+                 lora=None, lora_bank=None, device=None, generator=None):
         not_ported("ServingEngine", lora=lora is not None,
                    lora_bank=lora_bank is not None)
         if system_prompt is not None and pool_blocks is None:
@@ -154,14 +248,7 @@ class ServingEngine:
         if paged_impl not in (None, "pallas", "xla"):
             raise ValueError(f"paged_impl {paged_impl!r}: None, 'pallas' or "
                              f"'xla'")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "ServingEngine: no CUDA device; the engine serves on the "
-                    "card unless asked otherwise, so pass device=\"cpu\" "
-                    "to serve on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = _serving_device(device, "ServingEngine")
         # the gather oracle is the CPU's paged attention; on the card the
         # kernel is the only one
         not_ported("ServingEngine", paged_impl=paged_impl == "xla"
@@ -171,7 +258,8 @@ class ServingEngine:
         self.prompt_pad = prompt_pad
         self.decode_block = decode_block
         self.eos_token = eos_token
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen = (generator if generator is not None else
+                     torch.Generator(device=self.device).manual_seed(seed))
         self._queue = collections.deque()
         self._next_id = 0
         self._outputs: Dict[int, List[int]] = {}
@@ -233,11 +321,23 @@ class ServingEngine:
         else:
             self._caches = model.init_cache(slots, quantized=quantized_cache,
                                             device=self.device)
+        # the decode block's static buffers, updated in place: the block
+        # is captured over them once (a graph for greedy blocks, one for
+        # blocks with a sampled row) and replayed
         self._last_tok = torch.zeros(slots, dtype=torch.int64,
                                      device=self.device)
         self._pos = torch.zeros(slots, dtype=torch.int32, device=self.device)
         self._active = torch.zeros(slots, dtype=torch.bool,
                                    device=self.device)
+        self._tile = torch.zeros(decode_block, slots, dtype=torch.int64,
+                                 device=self.device)
+        self._tables_dev = (torch.from_numpy(self._tables).to(self.device)
+                            if self._paged else None)
+        self._sampling_dev = (
+            torch.zeros(slots, dtype=torch.float32, device=self.device),
+            torch.zeros(slots, dtype=torch.int64, device=self.device),
+            torch.zeros(slots, dtype=torch.float32, device=self.device))
+        self._blocks: Dict[bool, graphs.Step] = {}
         self._emitted = [0] * slots     # host mirror of tokens emitted
         self._stats = {"admitted": 0, "completed": 0, "decode_blocks": 0,
                        "tokens_emitted": 0, "admission_deferrals": 0}
@@ -383,28 +483,44 @@ class ServingEngine:
                 self._slot_blocks[slot] = []
                 self._tables[slot, :] = self._trash
 
+    @torch.no_grad()
     def _decode_block(self):
         """``decode_block`` steps for all slots; frozen rows hold their
-        token and position.  Returns the ``[K, B]`` token tile (host)."""
-        # host state goes to the device once per block, not per step
+        token and position.  Returns the ``[K, B]`` token tile (host).
+        The block replays a captured graph (eager on the CPU); the host
+        state it reads goes to its static buffers once per block."""
+        sampled = bool((self._temps > 0).any())
         if self._paged:
-            tables = torch.from_numpy(self._tables).to(self.device)
-            decode = lambda tok, pos: self.model.decode_step_paged(  # noqa
-                tok, pos, self._caches, tables)
-        else:
-            decode = lambda tok, pos: self.model.decode_step(  # noqa
-                tok, pos, self._caches)
-        sampling = self._sampling(slice(None))
+            self._tables_dev.copy_(torch.from_numpy(self._tables))
+        if sampled:
+            for buf, host in zip(self._sampling_dev, (
+                    self._temps, self._topks, self._topps)):
+                buf.copy_(torch.from_numpy(host))
+        if sampled not in self._blocks:
+            self._blocks[sampled] = graphs.Step(
+                functools.partial(self._block_body, sampled), self.device,
+                [self._gen] if sampled else [])
+        self._blocks[sampled]()
+        return self._tile.cpu().numpy()
+
+    def _block_body(self, sampled: bool):
+        """The decode block over the engine's static buffers (what the
+        graph captures)."""
+        sampling = self._sampling_dev if sampled else None
         active = self._active
         tok, pos = self._last_tok, self._pos
-        tile = []
-        for _ in range(self.decode_block):
-            nxt = self._sample(decode(tok, pos), sampling)
+        for k in range(self.decode_block):
+            if self._paged:
+                logits = self.model.decode_step_paged(
+                    tok, pos, self._caches, self._tables_dev)
+            else:
+                logits = self.model.decode_step(tok, pos, self._caches)
+            nxt = self._sample(logits, sampling)
             tok = torch.where(active, nxt, tok)
             pos = torch.where(active, pos + 1, pos)
-            tile.append(tok)
-        self._last_tok, self._pos = tok, pos
-        return torch.stack(tile).cpu().numpy()
+            self._tile[k].copy_(tok)
+        self._last_tok.copy_(tok)
+        self._pos.copy_(pos)
 
     @torch.no_grad()
     def step(self) -> bool:

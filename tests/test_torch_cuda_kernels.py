@@ -46,9 +46,13 @@ Tolerances, by the operands' dtype:
     would not see a late tile gone wrong; a planted fault shows it does.
 """
 
+import functools
 import importlib
 import math
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -76,6 +80,75 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _plant(tmp_path, monkeypatch, name, line, fault, what):
+    """Rebuilds the kernels from a copy of csrc with ``line`` of ``name``
+    replaced by ``fault``."""
+    _plant_lines(tmp_path, monkeypatch, name, [(line, fault)], what)
+
+
+def _plant_lines(tmp_path, monkeypatch, name, lines, what):
+    """Rebuilds the kernels from a copy of csrc with each ``(line,
+    fault)`` of ``lines`` in ``name`` replaced.  A planted-fault test runs
+    in a child process of its own (:func:`_in_child`), which gets no
+    ``monkeypatch``: the faulty library is the only one it loads."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    src = (csrc / name).read_text()
+    for line, fault in lines:
+        assert src.count(line) == 1, what
+        src = src.replace(line, fault)
+    (csrc / name).write_text(src)
+    if monkeypatch is None:
+        _build.CSRC, _build.BUILD_DIR, _build._lib = (
+            csrc, tmp_path / "build", None)
+    else:
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(_build, "_lib", None)
+
+
+# a planted-fault test's child process: its rebuild and its check
+PLANTED_TIMEOUT = 900
+
+
+def _in_child(test):
+    """Run a planted-fault test in a child process of ``sys.executable``,
+    with a time limit of its own.  Each rebuild loads a whole kernel
+    library with ``ctypes`` and nothing unloads one, so a run of every
+    planted fault in one process piles libraries up in the CUDA context
+    (the card suite stalled that way); a child loads one and exits.  The
+    child's output is printed here; its failure, or its time limit, fails
+    the test with that output."""
+
+    @functools.wraps(test)
+    def run(dev, tmp_path, monkeypatch, **params):
+        code = (
+            "import importlib.util, sys, torch\n"
+            "from pathlib import Path\n"
+            f"spec = importlib.util.spec_from_file_location("
+            f"'card_tests', {__file__!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            f"mod.{test.__name__}.__wrapped__(dev=torch.device('cuda'), "
+            f"tmp_path=Path({str(tmp_path)!r}), monkeypatch=None, "
+            f"**{params!r})\n")
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", code], capture_output=True,
+                text=True, timeout=PLANTED_TIMEOUT,
+                cwd=Path(__file__).resolve().parents[1])
+        except subprocess.TimeoutExpired as e:
+            pytest.fail(f"{test.__name__}: the child ran past "
+                        f"{PLANTED_TIMEOUT} s; its output:\n"
+                        f"{e.stdout or ''}{e.stderr or ''}")
+        print(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            pytest.fail(f"{test.__name__}: the child exited with "
+                        f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+
+    return run
 
 
 def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
@@ -315,6 +388,7 @@ _K16_FAULTS = [
 @pytest.mark.parametrize("what,line,fault", _K16_FAULTS,
                          ids=[f[0] for f in _K16_FAULTS])
 @pytest.mark.parametrize("pdt", [torch.bfloat16, torch.int8])
+@_in_child
 def test_k16_check_catches_a_planted_fault(dev, tmp_path, monkeypatch, pdt,
                                            what, line, fault):
     """K16's bf16 check fails a merge built with a split dropped or
@@ -646,29 +720,9 @@ _FAULTS = [
 ]
 
 
-def _plant(tmp_path, monkeypatch, name, line, fault, what):
-    """Rebuilds the kernels from a copy of csrc with ``line`` of ``name``
-    replaced by ``fault``."""
-    _plant_lines(tmp_path, monkeypatch, name, [(line, fault)], what)
-
-
-def _plant_lines(tmp_path, monkeypatch, name, lines, what):
-    """Rebuilds the kernels from a copy of csrc with each ``(line,
-    fault)`` of ``lines`` in ``name`` replaced."""
-    csrc = tmp_path / "csrc"
-    shutil.copytree(_build.CSRC, csrc)
-    src = (csrc / name).read_text()
-    for line, fault in lines:
-        assert src.count(line) == 1, what
-        src = src.replace(line, fault)
-    (csrc / name).write_text(src)
-    monkeypatch.setattr(_build, "CSRC", csrc)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_build, "_lib", None)
-
-
 @pytest.mark.parametrize("what,name,line,fault", _FAULTS,
                          ids=[f[0] for f in _FAULTS])
+@_in_child
 def test_flash_bwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
                                                  what, name, line, fault):
     """The bf16 backward's per-tile check fails a K6, K7 or K10 built with
@@ -731,6 +785,7 @@ _F32_DKV_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault,case", _F32_DKV_FAULTS,
                          ids=[f[0] for f in _F32_DKV_FAULTS])
+@_in_child
 def test_flash_dkv_f32_check_catches_a_planted_fault(dev, tmp_path,
                                                      monkeypatch, what,
                                                      line, fault, case):
@@ -769,6 +824,7 @@ _F32_DQ_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault,case", _F32_DQ_FAULTS,
                          ids=[f[0] for f in _F32_DQ_FAULTS])
+@_in_child
 def test_flash_dq_f32_check_catches_a_planted_fault(dev, tmp_path,
                                                     monkeypatch, what, line,
                                                     fault, case):
@@ -810,6 +866,7 @@ _K1_F32_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault,shapes", _K1_F32_FAULTS,
                          ids=[f[0] for f in _K1_F32_FAULTS])
+@_in_child
 def test_k1_f32_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
                                               what, line, fault, shapes):
     """chip_smoke.py's check of K1 in f32 (1e-4 (1 + |ref|)) fails a
@@ -843,6 +900,7 @@ _K5_F32_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault", _K5_F32_FAULTS,
                          ids=[f[0] for f in _K5_F32_FAULTS])
+@_in_child
 def test_flash_fwd_f32_check_catches_a_planted_fault(dev, tmp_path,
                                                      monkeypatch, what,
                                                      line, fault):
@@ -1008,6 +1066,7 @@ _FWD_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault", _FWD_FAULTS,
                          ids=[f[0] for f in _FWD_FAULTS])
+@_in_child
 def test_flash_fwd_check_catches_a_planted_fault(dev, tmp_path, monkeypatch,
                                                  what, line, fault):
     """K8's check (2e-2 per entry, lse 1e-3) fails a kernel built with a
@@ -2243,6 +2302,7 @@ _Q_FAULTS = [
 
 @pytest.mark.parametrize("what,name,lines,bits,shape", _Q_FAULTS,
                          ids=[f[0] for f in _Q_FAULTS])
+@_in_child
 def test_k13_and_mma_check_catches_a_planted_fault(dev, tmp_path,
                                                    monkeypatch, what, name,
                                                    lines, bits, shape):
@@ -2357,6 +2417,7 @@ _K15_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault", _K15_FAULTS,
                          ids=[f[0] for f in _K15_FAULTS])
+@_in_child
 def test_matmul_int8_scaled_exactness_catches_a_planted_fault(
         dev, tmp_path, monkeypatch, what, line, fault):
     """K15a's bit-for-bit check fails a kernel whose epilogue rounds once
@@ -2755,6 +2816,7 @@ _K1_REALIGN_FAULTS = [
 
 @pytest.mark.parametrize("what,line,fault", _K1_REALIGN_FAULTS,
                          ids=[f[0] for f in _K1_REALIGN_FAULTS])
+@_in_child
 def test_k1_realign_poisoned_tail_catches_a_planted_fault(
         dev, tmp_path, monkeypatch, what, line, fault):
     """The poisoned-tail check fails a realign kernel built with its K
@@ -3009,3 +3071,319 @@ def test_generation_on_card_matches_cpu(dev):
             logits.append(m.decode_chunk(chunk.to(d), pos.to(d),
                                          caches).cpu())
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
+
+
+# -- the decode loops replayed as CUDA graphs (utils/graphs.py) -------------
+#
+# The oracle of every graph is the loop's own eager form: the same step
+# functions called directly (``Step.__call__`` patched to call ``fn``), on
+# the same card, from the same weights.  Tokens must be equal bit for bit,
+# and the launch and route counts of a run equal.
+
+def _graph_model(dev, dtype):
+    """A small TinyGPT on the card: f32 (2 heads of 64, K1's f32 route,
+    split calls cooperative) or bf16 (2 heads of 128 on one KV head, K1's
+    decode route)."""
+    from taper_tpu_torch.models import TinyGPT
+    if dtype == torch.float32:
+        cfg = dict(vocab_size=64, dim=128, depth=2, num_heads=2, max_seq=96,
+                   rope=True)
+    else:
+        cfg = dict(vocab_size=256, dim=256, depth=2, num_heads=2,
+                   num_kv_heads=1, max_seq=96, rope=True)
+    model = TinyGPT(**cfg)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    model = model.to(dev).eval()
+    if dtype == torch.bfloat16:
+        model.cast_projections(dtype)
+        model.compute_dtype = dtype
+    return model
+
+
+def _counted(fn):
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, backend.launch_counts(), backend.route_counts()
+
+
+def _eager_and_graph(monkeypatch, fn, owner=None):
+    """``fn()`` through the eager loops, then through the graphs (a fresh
+    program cache each on ``owner``, the model that keeps them), each
+    with its launch and route counts."""
+    from taper_tpu_torch.utils import graphs
+    if owner is not None:
+        graphs.clear(owner)
+    with monkeypatch.context() as m:
+        m.setattr(graphs.Step, "__call__", lambda self: self.fn())
+        eager = _counted(fn)
+    if owner is not None:
+        graphs.clear(owner)
+    graph = _counted(fn)
+    return eager, graph
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return a == b
+
+
+_GRAPH_CASES = {
+    "generate": lambda m, p: m.generate(p, 20),
+    "int8 cache": lambda m, p: m.generate(p, 20, quantized_cache=True),
+    "ragged": lambda m, p: m.generate(
+        p, 20, prompt_lens=torch.tensor([16, 9, 4])),
+    "eos": lambda m, p: m.generate(
+        p, 20, eos_token=int(m.generate(p, 4)[0, -1]), pad_token=0),
+    "sampled": lambda m, p: m.generate(
+        p, 20, temperature=0.8, top_k=20,
+        generator=torch.Generator(p.device).manual_seed(5)),
+    "continued": lambda m, p: m.generate_continued(
+        p[:, :5], 12, m.generate(p, 3, return_cache=True)[1],
+        past_len=18),
+    "beam": lambda m, p: m.beam_search(p, 10, beams=3, return_all=True),
+    "beam eos": lambda m, p: m.beam_search(
+        p, 10, beams=3, eos_token=int(m.generate(p, 3)[0, -1]),
+        return_all=True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(_GRAPH_CASES))
+def test_graph_generation_equals_its_eager_loop(dev, monkeypatch, case,
+                                                dtype):
+    """generate (one-shot, int8 cache, ragged, eos, sampled),
+    generate_continued and beam_search replayed from captured steps give
+    their eager loops' tokens bit for bit, with the same launches and K1
+    routes (a replay counts what an eager step counts)."""
+    model = _graph_model(dev, dtype)
+    prompt = torch.randint(0, model.vocab_size, (3, 16),
+                           generator=torch.Generator().manual_seed(4)).to(dev)
+    (e_out, e_n, e_r), (g_out, g_n, g_r) = _eager_and_graph(
+        monkeypatch, lambda: _GRAPH_CASES[case](model, prompt), model)
+    assert _same(g_out, e_out), case
+    assert g_n == e_n and g_r == e_r, (g_n, e_n, g_r, e_r)
+
+
+def test_graph_ring_cache_generation_equals_its_eager_loop(dev, monkeypatch):
+    """A window model decoding through W-slot ring caches past W."""
+    from taper_tpu_torch.models import TinyGPT
+    model = TinyGPT(64, 128, 2, 2, max_seq=96, rope=True, window=12)
+    model.reset_parameters(torch.Generator().manual_seed(6))
+    model = model.to(dev).eval()
+    prompt = torch.randint(0, 64, (2, 10),
+                           generator=torch.Generator().manual_seed(7)).to(dev)
+    (e_out, e_n, _), (g_out, g_n, _) = _eager_and_graph(
+        monkeypatch, lambda: model.generate(prompt, 30, ring_cache=True),
+        model)
+    assert torch.equal(g_out, e_out) and g_n == e_n
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("per_row", [True, False],
+                         ids=["per_row", "lockstep"])
+def test_graph_speculative_round_equals_its_eager_loop(dev, monkeypatch,
+                                                      per_row, sampled):
+    """Speculative decoding (f32 target, a draft of 4 heads of 32) with
+    its round replayed: the eager rounds' tokens, statistics and counts."""
+    from taper_tpu_torch.models import TinyGPT
+    target = _graph_model(dev, torch.float32)
+    draft = TinyGPT(64, 128, 1, 4, max_seq=96, rope=True)
+    draft.reset_parameters(torch.Generator().manual_seed(8))
+    draft = draft.to(dev).eval()
+    prompt = torch.randint(0, 64, (3, 16),
+                           generator=torch.Generator().manual_seed(9)).to(dev)
+    kw = (dict(temperature=0.9, generator=torch.Generator(dev).manual_seed(2))
+          if sampled else {})
+
+    def run():
+        if sampled:
+            kw["generator"].manual_seed(2)
+        return target.speculative_generate(draft, prompt, 24, gamma=4,
+                                           per_row=per_row,
+                                           return_stats=True, **kw)
+    (e_out, e_n, e_r), (g_out, g_n, g_r) = _eager_and_graph(monkeypatch, run,
+                                                            target)
+    assert _same(g_out, e_out)
+    assert g_n == e_n and g_r == e_r, (g_n, e_n)
+
+
+@pytest.mark.parametrize("mode", ["paged bf16", "contiguous int8",
+                                  "paged sampled"])
+def test_graph_engine_block_equals_its_eager_loop(dev, monkeypatch, mode):
+    """The engine's decode block replayed (paged bf16 pools through K16,
+    a contiguous int8 cache, sampled rows beside greedy ones): the eager
+    blocks' tokens for every request, and the same counts."""
+    from taper_tpu_torch.serve import ServingEngine
+    model = _graph_model(dev, torch.bfloat16)
+    gen = torch.Generator().manual_seed(10)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (5, 16, 9, 12, 3)]
+    kw = dict(pool_blocks=16, block_size=8) if "paged" in mode else {}
+
+    def run():
+        eng = ServingEngine(model, slots=3, prompt_pad=16, decode_block=4,
+                            quantized_cache="int8" in mode, seed=1, **kw)
+        ids = [eng.submit(p, 11, temperature=(0.7 if "sampled" in mode
+                                              and i % 2 else None))
+               for i, p in enumerate(prompts)]
+        out = eng.run()
+        return [out[i] for i in ids]
+    (e_out, e_n, e_r), (g_out, g_n, g_r) = _eager_and_graph(monkeypatch, run)
+    assert g_out == e_out
+    assert g_n == e_n and g_r == e_r, (g_n, e_n)
+    assert g_n["paged_decode"] > 0 if "paged" in mode else \
+        g_n["paged_decode"] == 0
+
+
+def test_graph_replay_counts_one_eager_step(dev):
+    """One replay of a captured decode step adds to the launch and route
+    counts exactly what one eager call of its function adds."""
+    from taper_tpu_torch.utils import graphs
+    model = _graph_model(dev, torch.bfloat16)
+    prompt = torch.randint(0, 256, (4, 16),
+                           generator=torch.Generator().manual_seed(11)).to(dev)
+    model.generate(prompt, 6)
+    (prog,) = graphs.programs(model)
+    assert prog.step.graph is not None and prog.step.replays == 4
+    prog.pos.fill_(16)                    # back to the first decode step
+    _, n_eager, r_eager = _counted(prog.step.fn)
+    prog.pos.fill_(16)
+    _, n_replay, r_replay = _counted(prog.step)
+    assert n_replay == n_eager and r_replay == r_eager
+    assert n_eager["linear"] == 6 * model.depth
+
+
+def _traced_kernels(fn, path):
+    """Device kernels ``fn()`` launched, by name, from a torch.profiler
+    trace (without the CUDA runtime's copy kernels, which run a graph's copy
+    nodes where an eager copy is a memcpy)."""
+    import collections
+    import json
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            torch.no_grad():
+        time.sleep(0.01)                  # kernels at the window's edges
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return collections.Counter(
+        e["name"] for e in events if e.get("cat") == "kernel"
+        and not e["name"].startswith(("memcpy", "memset")))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["generate", "paged"])
+def test_graph_replay_launches_the_eager_steps_kernels(dev, tmp_path, paged):
+    """A replay, traced on the device, launches the kernels of the same
+    step called eagerly, name by name (the port's among them), so the
+    counts a replay adds stand for launches the trace saw."""
+    from taper_tpu_torch.serve import ServingEngine
+    from taper_tpu_torch.utils import graphs
+    model = _graph_model(dev, torch.bfloat16)
+    prompt = torch.randint(0, 256, (3, 16),
+                           generator=torch.Generator().manual_seed(13))
+    if paged:
+        eng = ServingEngine(model, slots=3, prompt_pad=16, decode_block=4,
+                            pool_blocks=16, block_size=8, seed=1)
+        for row in prompt.tolist():
+            eng.submit(row, 20)
+        eng.step()                        # admissions and the warm-up
+        eng._decode_block()               # the capture
+        (step,) = eng._blocks.values()
+        rewind = lambda: None                             # noqa: E731
+    else:
+        model.generate(prompt.to(dev), 6)
+        prog = graphs.programs(model)[-1]
+        step = prog.step
+        rewind = lambda: prog.pos.fill_(16)               # noqa: E731
+    assert step.graph is not None
+    rewind()
+    replayed = _traced_kernels(step, tmp_path / "replay.json")
+    rewind()
+    eager = _traced_kernels(step.fn, tmp_path / "eager.json")
+    assert replayed == eager
+    ours = {k: c for k, c in replayed.items() if "taper::" in k}
+    assert sum(ours.values()) >= sum(step._delta[0].values()) > 0
+
+
+def test_graph_replay_advances_its_generator(dev):
+    """A registered generator advances on every replay: four replays draw
+    four different rows, the same seed draws them again, and they are the
+    draws the eager calls make from that seed."""
+    from taper_tpu_torch.utils import graphs
+    gen = torch.Generator(dev)
+    probs = torch.softmax(torch.randn(4, 1000, device=dev), -1)
+    out = torch.zeros(4, dtype=torch.long, device=dev)
+    draw = lambda: out.copy_(torch.multinomial(probs, 1, generator=gen)[:, 0])  # noqa: E731
+    eager = []
+    gen.manual_seed(0)
+    for _ in range(5):
+        draw()
+        eager.append(out.clone())
+    step = graphs.Step(draw, dev, [gen])
+    runs = []
+    for _ in range(2):
+        gen.manual_seed(0)
+        rows = []
+        for _ in range(5):
+            step()
+            rows.append(out.clone())
+        runs.append(rows)
+    assert step.replays == 9
+    assert len({tuple(r.tolist()) for r in runs[0]}) == 5
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], eager))
+
+
+def test_graph_capture_refuses_a_host_copy(dev):
+    """A step that copies a host value to the card raises at its capture,
+    with nothing counted, rather than baking the value into the graph."""
+    from taper_tpu_torch.utils import graphs
+    buf = torch.zeros(4, device=dev)
+    value = [1.0]
+
+    def step():
+        backend.count_launch("add")
+        buf.add_(torch.tensor(value[0], device=dev))
+
+    s = graphs.Step(step, dev)
+    s()                                   # the warm-up runs eagerly
+    value[0] = 2.0
+    backend.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="capture"):
+        s()
+    assert backend.launch_counts()["add"] == 0 and s.graph is None
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), torch.ones(4))
+
+
+def test_offline_serve_on_card_equals_generate(dev):
+    """offline_serve on the card (bf16, slots < N, budgets across decode
+    blocks): each request's greedy tokens are standalone generate's on the
+    same card, zeros past each count."""
+    from taper_tpu_torch.serve import offline_serve
+    model = _graph_model(dev, torch.bfloat16)
+    gen = torch.Generator().manual_seed(12)
+    lens = [16, 5, 11, 8, 13]
+    prompts = torch.zeros(5, 16, dtype=torch.long)
+    for i, n in enumerate(lens):
+        prompts[i, :n] = torch.randint(0, 256, (n,), generator=gen)
+    budgets = [30, 3, 17, 1, 22]
+    out, n_tok = offline_serve(model, prompts, lens, budgets, slots=2)
+    assert n_tok.tolist() == budgets
+    for i, (n, m) in enumerate(zip(lens, budgets)):
+        ref = model.generate(prompts[i:i + 1, :n].to(dev), m)[0, n:]
+        assert out[i, :m].tolist() == ref.tolist(), i
+        assert not out[i, m:].any()

@@ -112,9 +112,11 @@ def test_generate_eos_early_stop_and_padding(one_shot):
 
 
 def test_generate_eos_stops_the_loop(monkeypatch):
-    """The loop ends at the first step where every row has emitted eos:
-    no decode step when the prefill's token is eos on every row, and k
-    steps when a row's first eos is its k-th decoded token."""
+    """The loop ends at the first look at ``done`` after every row has
+    emitted eos (one every ``EOS_BLOCK`` steps, the first before any
+    step): no decode step when the prefill's token is eos on every row,
+    and k steps rounded up to a whole block when a row's first eos is its
+    k-th decoded token."""
     _, _, model = _models(0, depth=1)
     prompt = torch.from_numpy(_prompt((2, 6), 12))
     first = model.generate(prompt, 1)[:, 6]
@@ -132,7 +134,8 @@ def test_generate_eos_stops_the_loop(monkeypatch):
     k = next(i for i in range(1, 20) if row[i] not in row[:i])
     calls.clear()
     out = model.generate(one, 20, eos_token=row[k], pad_token=0)
-    assert len(calls) == k
+    block = MT.EOS_BLOCK
+    assert len(calls) == min(-(-k // block) * block, 19)
     assert out[0, 6:7 + k].tolist() == row[:k + 1]
     assert (out[0, 7 + k:] == 0).all()
 

@@ -148,8 +148,11 @@ def test_engine_validates_requests_and_unported_modes():
     with pytest.raises(ValueError, match="multiple of block_size"):
         ServingEngine(model, pool_blocks=4, system_prompt=[1] * 5,
                       device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError):
-        offline_serve(model, None, None, None)
+    # offline_serve is ported (tests/test_torch_offline_serve.py): it
+    # refuses what JAX asserts, here a prompt and budget past max_seq
+    with pytest.raises(ValueError, match="exceeds max_seq"):
+        offline_serve(model, np.zeros((2, 8), np.int64), [8, 8],
+                      [model.max_seq, 1], device="cpu")
 
 
 def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
